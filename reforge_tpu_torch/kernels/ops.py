@@ -1,0 +1,117 @@
+"""Shared image math for kernels (the port of ``reforge_tpu/kernels/ops.py``).
+
+All functions take planar ``(C, H, W)`` tensors.  Border policy is
+clamp-to-edge, done with clamped index arithmetic.  ``sep_conv`` sends a
+CUDA tensor to the hand-written kernels (cuda_ops.py) and a CPU tensor to
+their plain versions.  The tap builders are numpy, copied from the
+reference so both packages produce the same tap vectors bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import cuda_ops
+
+AXIS_H = 1
+AXIS_W = 2
+
+
+def pad_edge(x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
+    """Clamp-to-edge padding of the spatial dims of (C, H, W)."""
+    if rh == 0 and rw == 0:
+        return x
+    h, w = x.shape[-2], x.shape[-1]
+    ys = torch.clamp(torch.arange(-rh, h + rh, device=x.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-rw, w + rw, device=x.device), 0, w - 1)
+    return x.index_select(-2, ys).index_select(-1, xs)
+
+
+def conv1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+    """1-D correlation along a spatial axis with clamp-to-edge borders.
+
+    The JAX package sends this to its Pallas ``conv1d_h``/``conv1d_w``
+    kernels on the TPU; those are not ported yet, so this is the plain
+    version on every device.  The main path reaches it only for convs of
+    radius 0 on one axis."""
+    return cuda_ops.correlate1d(x, weights, axis)
+
+
+def sep_conv(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
+             prefer_mxu: bool = False) -> torch.Tensor:
+    """Separable 2-D convolution: 1-D pass along H then along W.
+
+    ``prefer_mxu`` marks bf16 storage around the call (rgba16f): the f32
+    input was just upcast from bf16, so the conv reads it as bf16
+    losslessly (the ``sep_conv_fused_mxu`` entry point).  Both entry
+    points return f32; the caller rounds at the node boundary."""
+    wh = np.asarray(wh, np.float32)
+    ww = np.asarray(ww, np.float32)
+    if x.dim() == 3 and len(wh) > 1 and len(ww) > 1:
+        if x.dtype == torch.bfloat16 or prefer_mxu:
+            return cuda_ops.sep_conv_fused_mxu(x.to(torch.bfloat16), wh, ww).to(x.dtype)
+        return cuda_ops.sep_conv_fused(x, wh, ww)
+    return conv1d(conv1d(x, wh, AXIS_H), ww, AXIS_W)
+
+
+def gaussian_weights(sigma: float, radius: int | None = None) -> np.ndarray:
+    """Normalized 1-D gaussian taps; radius defaults to ceil(3*sigma)."""
+    sigma = max(float(sigma), 1e-6)
+    if radius is None:
+        radius = gaussian_radius(sigma)
+    xs = np.arange(-radius, radius + 1, dtype=np.float64)
+    w = np.exp(-0.5 * (xs / sigma) ** 2)
+    return (w / w.sum()).astype(np.float32)
+
+
+MAX_GAUSSIAN_RADIUS = 96
+
+
+def gaussian_radius(sigma: float) -> int:
+    return int(min(MAX_GAUSSIAN_RADIUS, max(1, math.ceil(3.0 * float(sigma)))))
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float, prefer_mxu: bool = False) -> torch.Tensor:
+    if float(sigma) <= 0.0:
+        return x
+    w = gaussian_weights(sigma)
+    return sep_conv(x, w, w, prefer_mxu=prefer_mxu)
+
+
+def box_weights(radius: int) -> np.ndarray:
+    n = 2 * int(radius) + 1
+    return np.full((n,), 1.0 / n, dtype=np.float32)
+
+
+LUMA_WEIGHTS = (0.2126, 0.7152, 0.0722)  # Rec.709, linear light
+
+
+def luma(x: torch.Tensor) -> torch.Tensor:
+    """(4, H, W) -> (H, W) relative luminance."""
+    lr, lg, lb = LUMA_WEIGHTS
+    return x[0] * lr + x[1] * lg + x[2] * lb
+
+
+def map_rgb(x: torch.Tensor, f) -> torch.Tensor:
+    """Apply f to the color planes, passing alpha through unchanged."""
+    return torch.cat([f(x[:3]), x[3:4]], dim=0)
+
+
+def pixel_coords(h: int, w: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, x) integer coordinate planes, each (H, W) int32."""
+    ys = torch.arange(h, dtype=torch.int32, device=device).view(h, 1).expand(h, w)
+    xs = torch.arange(w, dtype=torch.int32, device=device).view(1, w).expand(h, w)
+    return ys, xs
+
+
+def grid_coords(ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """Image (y, x) coordinate planes for ``ctx``'s frame on its device."""
+    return pixel_coords(ctx.height, ctx.width, ctx.device)
+
+
+def smoothstep(e0, e1, x):
+    t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
