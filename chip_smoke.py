@@ -4,14 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the CUDA kernels from
-``reforge_tpu_torch/csrc`` (first use), holds each kernel against its
-plain PyTorch version on the card, renders the flagship graph at
-3840x2160 in rgba32f and rgba16f through ``Engine`` on both tiers
-(one-shot per node with conv bundles, and the graph_strip tier), checks
-the outputs, and prints timings beside the card's name and power limit.
-The line before the last is a JSON object of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero without printing a result; so does a machine without CUDA.
+``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
+holds each kernel against its plain PyTorch version on the card, and
+drives two main paths at 3840x2160 through ``Engine``, each with the
+launch counters set to 0 just before it and read just after:
+
+  A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
+     per node with conv bundles, and the graph_strip tier);
+  B. the classic demo (blur sigma 8, sharpen, blend) and edges (median3,
+     sobel) in rgba32f and rgba16f: one-shot per node (the x3, mxu and
+     stencil kernels) and the mc tier (graph_strip_mc).
+
+It checks the outputs, prints fps, latency, a device-time profile and
+each kernel's time beside its plain version, its bound and a library
+call, all beside the card's name and power limit.  The line before the
+last is a JSON object of the kernels; the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+without printing a result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -26,10 +35,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 WIDTH, HEIGHT = 3840, 2160
 SEED = 0
-
+# H100 SXM published peaks (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores (an FMA counts two operations).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 def _f32_tol(plans) -> float:
     # Kernel (one FMA per tap) and plain version (a multiply then an add
@@ -49,16 +62,28 @@ def _check(name: str, err: float, tol: float) -> None:
     print(f"check {name}: max abs error {err:.3g} <= {tol:.3g}")
 
 
-def _rgba8_check(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
+def _rgba8_check(name: str, a: torch.Tensor, b: torch.Tensor, steps: int = 2) -> float:
     # A pre-quantization difference of one rounding flips a 1/255 bucket
     # where a value sits on its edge, and a flip can cascade through one
     # more quantized node downstream: at most two steps, on few pixels.
+    # Where a stencil follows a quantized conv the flip is amplified before
+    # the next store (sobel moves its magnitude by up to 2*sqrt(2) buckets
+    # per flipped tap, and ACES tonemap's slope reaches 1.3): ``steps`` 4.
     d = (a.float() - b.float()).abs()
     err = float(d.max())
     frac = float((d > 1.0 / 512.0).float().mean())
-    if err > 2.0 / 255.0 + 1e-6 or frac > 1e-3:
+    if err > steps / 255.0 + 1e-6 or frac > 1e-3:
         raise AssertionError(f"{name}: rgba8 max {err}, flipped fraction {frac}")
     print(f"check {name}: rgba8 max abs error {err:.3g}, flipped fraction {frac:.3g}")
+    return err
+
+
+def _check_fmt(name: str, fmt: str, got: torch.Tensor, want: torch.Tensor,
+               rgba8_steps: int = 2) -> float:
+    if fmt == "rgba8":
+        return _rgba8_check(name, got, want, rgba8_steps)
+    err = _max_err(got, want)
+    _check(name, err, 1e-5 if fmt == "rgba32f" else 2e-2)
     return err
 
 
@@ -76,17 +101,107 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library_sep_conv(x: torch.Tensor, plans):
+    """One replicate pad and one depthwise F.conv2d per pass and plan (the
+    library yardstick of the conv kernels; TF32 is off)."""
+    c = x.shape[0]
+    weights = [
+        (torch.from_numpy(wh).to(x.device).view(1, 1, -1, 1).repeat(c, 1, 1, 1),
+         torch.from_numpy(ww).to(x.device).view(1, 1, 1, -1).repeat(c, 1, 1, 1),
+         (len(wh) - 1) // 2, (len(ww) - 1) // 2)
+        for wh, ww in plans
+    ]
+
+    def run():
+        xf = x.float()[None]
+        outs = []
+        for kh, kw, rh, rw in weights:
+            y = F.conv2d(F.pad(xf, (0, 0, rh, rh), mode="replicate"), kh, groups=c)
+            outs.append(F.conv2d(F.pad(y, (rw, rw, 0, 0), mode="replicate"), kw, groups=c)[0])
+        return outs
+
+    return run
+
+
+def _library_stencil(x: torch.Tensor, table: np.ndarray):
+    c = x.shape[0]
+    r = table.shape[0] // 2
+    k = torch.from_numpy(table).to(x.device).view(1, 1, *table.shape).repeat(c, 1, 1, 1)
+    return lambda: F.conv2d(F.pad(x[None], (r, r, r, r), mode="replicate"), k, groups=c)[0]
+
+
+def _mc_ops_per_pixel(prog, cuda_ops) -> float:
+    """Operations per pixel (all channels) of an mc plan's stages at the
+    tile itself, halo recompute not counted: conv FMAs count two, wsum
+    terms two, each exchange of the median network two, point ops by
+    their arithmetic."""
+    point_ops = {cuda_ops.MC_COPY: 0, cuda_ops.MC_MIX: 12, cuda_ops.MC_ACES: 30,
+                 cuda_ops.MC_REINHARD: 9, cuda_ops.MC_VIGNETTE: 21, cuda_ops.MC_GRAYSCALE: 5,
+                 cuda_ops.MC_SATURATION: 14, cuda_ops.MC_THRESHOLD: 6,
+                 cuda_ops.MC_BLOOM_PRE: 14}
+    total = 0.0
+    for st in prog.stages:
+        if st.kind == cuda_ops.MC_CONV:
+            total += 4 * 2 * (len(st.taps[0]) + len(st.taps[1])) + 6
+        elif st.kind == cuda_ops.MC_STENCIL:
+            terms = sum(int(np.count_nonzero(t)) for t in st.taps)
+            if st.op.code == cuda_ops.MC_MEDIAN3:
+                total += 3 * 19 * 2
+            elif st.op.code == cuda_ops.MC_SOBEL:
+                total += 9 * 5 + 2 * terms + 4
+            else:
+                total += 3 * (2 * terms + 2)
+        else:
+            total += point_ops.get(st.op.code, 0)
+    return total
+
+
+def _profile(fn, frames: int) -> tuple[list, float]:
+    """[(kernel name, device ms per frame)] by device time, and the busy
+    share of the window (device kernel time over the synchronized wall
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    rows = []
+    for evt in prof.key_averages():
+        # device-side events only (kernels, copies): a CPU op's self device
+        # time repeats the time of the kernels it launched
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+            rows.append((evt.key, evt.self_device_time_total / 1e3 / frames))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms in rows) * frames / 1e3 / wall
+    return rows, busy
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
     from reforge_tpu_torch.benchmarks import (
-        FLAGSHIP_CONFIG, bench_program, bench_program_sequenced, build_flagship,
+        CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, MC_TEST_GRAPHS,
+        MIX_SECOND_FIRST_CONFIG, bench_program, bench_program_sequenced, build_flagship,
+        build_program,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
-    from reforge_tpu_torch.kernels import cuda_ops
-    from reforge_tpu_torch.kernels.ops import gaussian_weights
+    from reforge_tpu_torch.kernels import cuda_ops, library
+    from reforge_tpu_torch.kernels.ops import gaussian_weights, luma
 
     # ---- 1. the card ------------------------------------------------------
     smi = subprocess.run(
@@ -103,23 +218,25 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     start = time.perf_counter()
     cuda_ops.load_library()
-    print(f"build: {time.perf_counter() - start:.2f} s (nvcc, sm_90a)")
+    print(f"build: {time.perf_counter() - start:.2f} s (nvcc per source in parallel, sm_90a)")
     log = cuda_ops.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas: {line.strip()}", file=sys.stderr)
+            if "Compiling entry" in line or "registers" in line or "stack frame" in line:
+                print(f"ptxas: {line.strip()}")
 
     # ---- 3. each kernel against its plain version ----------------------------
     cuda_ops.reset_launches()
     w4, w2 = gaussian_weights(4.0), gaussian_weights(2.0)  # soften, crisp
     w1, w96 = np.array([0.25, 0.5, 0.25], np.float32), gaussian_weights(32.0)
+    w8, w66 = gaussian_weights(8.0), gaussian_weights(22.0)  # radii 24 (the demo), 66
     big = (4, HEIGHT, WIDTH)
     x4k = torch.from_numpy(rng.random(big, dtype=np.float32)).to(dev)
     x4k_bf = x4k.to(torch.bfloat16)
+    ragged = torch.from_numpy(rng.random((4, 37, 71), dtype=np.float32)).to(dev)
     errs: dict[str, float] = {}
 
-    def conv_case(name, entry, x, plans, mode, flagship):
+    def conv_case(name, entry, x, plans, mode, main_shape):
         got = entry(x, plans, mode)
         want = cuda_ops.sep_conv_plain(x, plans, mode)
         torch.cuda.synchronize()
@@ -127,19 +244,21 @@ def main() -> int:
         shape = "x".join(map(str, x.shape))
         _check(f"{name} {shape} {x.dtype} r={[(len(a) - 1) // 2 for a, _ in plans]} {mode}",
                err, _f32_tol(plans))
-        if flagship:
+        if main_shape:
             errs[name] = err
 
     entries = {
         "sep_conv_fused": lambda x, p, m: [cuda_ops.sep_conv_fused(x, *p[0], mode=m)],
         "sep_conv_fused_multi": lambda x, p, m: cuda_ops.sep_conv_fused_multi(x, p, mode=m),
         "sep_conv_fused_mxu": lambda x, p, m: [cuda_ops.sep_conv_fused_mxu(x, *p[0], mode=m)],
+        "sep_conv_fused_mxu_x3": lambda x, p, m: [cuda_ops.sep_conv_fused_mxu_x3(x, *p[0], mode=m)],
     }
     conv_case("sep_conv_fused", entries["sep_conv_fused"], x4k, [(w4, w4)], "edge", True)
     conv_case("sep_conv_fused_multi", entries["sep_conv_fused_multi"], x4k,
               [(w2, w2), (w4, w4)], "edge", True)
     conv_case("sep_conv_fused_mxu", entries["sep_conv_fused_mxu"], x4k_bf, [(w4, w4)], "edge", True)
-    ragged = torch.from_numpy(rng.random((4, 37, 71), dtype=np.float32)).to(dev)
+    conv_case("sep_conv_fused_mxu_x3", entries["sep_conv_fused_mxu_x3"], x4k, [(w8, w8)], "edge",
+              True)
     for mode in ("edge", "zero"):
         for w in (w1, w96):
             conv_case("sep_conv_fused", entries["sep_conv_fused"], ragged, [(w, w)], mode, False)
@@ -147,6 +266,28 @@ def main() -> int:
                       ragged.to(torch.bfloat16), [(w, w)], mode, False)
         conv_case("sep_conv_fused_multi", entries["sep_conv_fused_multi"], ragged,
                   [(w1, w1), (w96, w96), (w4, w2)], mode, False)
+        conv_case("sep_conv_fused_mxu_x3", entries["sep_conv_fused_mxu_x3"], ragged,
+                  [(w66, w66)], mode, False)
+
+    # stencil_apply: the tables of the main path (sharpen and emboss on four
+    # channels, sobel on the luma plane) and the median, edge and zero.
+    # Every product and sum rounds as in the plain version: expected 0.
+    luma4k = luma(x4k)[None].contiguous()
+    stencils = [("sharpen", cuda_ops.wsum(library.SHARPEN_TAPS), False),
+                ("sobel_x", cuda_ops.wsum(library.SOBEL_X_TAPS), True),
+                ("emboss", cuda_ops.wsum(library.EMBOSS_TAPS), False),
+                ("median9", cuda_ops.MEDIAN9, False)]
+    for x in (x4k, ragged):
+        for mode in ("edge", "zero"):
+            for sname, op, one_channel in stencils:
+                xin = (luma4k if x is x4k else luma(x)[None].contiguous()) if one_channel else x
+                got = cuda_ops.stencil_apply(xin, 1, 1, op, mode)
+                want = cuda_ops.stencil_apply_plain(xin, 1, 1, op, mode)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                _check(f"stencil_apply {sname} {'x'.join(map(str, xin.shape))} {mode}", err, 0.0)
+                if x is x4k and mode == "edge" and sname == "sharpen":
+                    errs["stencil_apply"] = err
 
     strips = {}
     for fmt in ("rgba32f", "rgba16f", "rgba8"):
@@ -158,131 +299,296 @@ def main() -> int:
             got = cuda_ops.graph_strip(x, 0.5, strip)
             want = cuda_ops.graph_strip_plain(x, 0.5, strip)
             torch.cuda.synchronize()
-            name = f"graph_strip {fmt} {h}x{w}"
-            if fmt == "rgba8":
-                err = _rgba8_check(name, got, want)
-            else:
-                err = _max_err(got, want)
-                _check(name, err, 1e-5 if fmt == "rgba32f" else 2e-2)
+            err = _check_fmt(f"graph_strip {fmt} {h}x{w}", fmt, got, want)
             if h == HEIGHT:
                 strips[fmt] = (prog, x)
                 if fmt == "rgba32f":
                     errs["graph_strip"] = err
+
+    graphs = {"demo": DEMO_CONFIG, "edges": EDGES_CONFIG, "chain3": CHAIN3_CONFIG}
+    mc_progs = {}
+
+    def mc_case(name, config, fmt, h, w, x):
+        prog = build_program(config, w, h, fmt, device=dev)
+        if prog._strip_plan is None or prog._strip_plan[0] != "mc":
+            raise AssertionError(f"{name} {fmt} {h}x{w}: no mc plan")
+        mc = prog._strip_plan[1]
+        xin = x.to(prog.storage_dtype)
+        got = cuda_ops.graph_strip_mc(xin, 0.5, mc)
+        want = cuda_ops.graph_strip_mc_plain(xin, 0.5, mc)
+        torch.cuda.synchronize()
+        # A stencil after a quantized conv amplifies a bucket flip (chain3,
+        # conv_stencil_point): four steps there, two elsewhere.
+        steps = 4 if name.split()[0] in ("chain3", "conv_stencil_point") else 2
+        err = _check_fmt(f"graph_strip_mc {name} {fmt} {h}x{w} tile {mc.tile()[:2]}", fmt, got,
+                         want, rgba8_steps=steps)
+        return prog, xin, err
+
+    for name, config in graphs.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            prog, xin, err = mc_case(name, config, fmt, HEIGHT, WIDTH, x4k)
+            mc_progs[(name, fmt)] = (prog, xin)
+            if name == "demo" and fmt == "rgba32f":
+                errs["graph_strip_mc"] = err
+    # Every mc test graph on a ragged frame (border blocks only) and on one
+    # with interior blocks; the mix wired second input first also against
+    # the per-node tier on the card.
+    small = dict(graphs, **MC_TEST_GRAPHS, mix_second_first=MIX_SECOND_FIRST_CONFIG)
+    mid = torch.from_numpy(rng.random((4, 288, 512), dtype=np.float32)).to(dev)
+    for name, config in small.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            mc_case(name, config, fmt, 37, 71, ragged)
+            prog, xin, _ = mc_case(name, config, fmt, 288, 512, mid)
+            if name == "mix_second_first":
+                _check_fmt(f"graph_strip_mc {name} vs per-node {fmt} 288x512", fmt,
+                           cuda_ops.graph_strip_mc(xin, 0.5, prog._strip_plan[1]),
+                           prog._forward_nostrip(xin, 0.5))
+    # A one-pixel band: the frame one pixel taller and wider than the tile.
+    band_cfg = MC_TEST_GRAPHS["coord_point_feeding_conv"]
+    th, tw, _ = build_program(band_cfg, 71, 37, device=dev)._strip_plan[1].tile()
+    band = torch.from_numpy(rng.random((4, th + 1, tw + 1), dtype=np.float32)).to(dev)
+    for fmt in ("rgba32f", "rgba16f", "rgba8"):
+        prog, xin, _ = mc_case("coord_point_feeding_conv band", band_cfg, fmt, th + 1, tw + 1, band)
+        per_node = prog._forward_nostrip(xin, 0.5)
+        _check_fmt(f"graph_strip_mc band vs per-node {fmt}", fmt,
+                   cuda_ops.graph_strip_mc(xin, 0.5, prog._strip_plan[1]), per_node)
     for name, count in cuda_ops.LAUNCHES.items():
         if count == 0:
             raise AssertionError(f"{name} never launched in the kernel checks")
 
-    # ---- 4. the main path at 3840x2160 through Engine ---------------------------
+    # ---- 4. the main paths at 3840x2160 through Engine ---------------------------
     u8 = rng.integers(0, 256, size=(HEIGHT, WIDTH, 4), dtype=np.uint8)
     # Removed when the script ends, failed or not (TemporaryDirectory's finalizer).
     tmp_dir = tempfile.TemporaryDirectory(prefix="rf_chip_smoke_")
     tmp = tmp_dir.name
-    config_path = os.path.join(tmp, "flagship.rf")
-    with open(config_path, "w") as f:
-        f.write(FLAGSHIP_CONFIG)
-    # An empty shader path: shaders/tonemap.comp and shaders/vignette.comp
-    # would otherwise replace the builtins, and GLSL is not ported yet.
+    configs = {}
+    for name, text in (("flagship", FLAGSHIP_CONFIG), ("demo", DEMO_CONFIG),
+                       ("edges", EDGES_CONFIG), ("chain3", CHAIN3_CONFIG)):
+        configs[name] = os.path.join(tmp, f"{name}.rf")
+        with open(configs[name], "w") as f:
+            f.write(text)
+    # An empty shader path: shaders/tonemap.comp, vignette.comp, sharpen.comp,
+    # sobel.comp and blend.comp would otherwise replace the builtins, and
+    # GLSL is not ported yet.
     shader_dir = os.path.join(tmp, "shaders")
     os.mkdir(shader_dir)
 
-    def info(fmt, one_shot):
-        return RenderInfo(WIDTH, HEIGHT, "cuda", config_path=config_path,
+    def info(graph, fmt, one_shot):
+        return RenderInfo(WIDTH, HEIGHT, "cuda", config_path=configs[graph],
                           shader_path=shader_dir, fmt=fmt, has_input_image=True,
                           one_shot=one_shot)
 
-    cuda_ops.reset_launches()
-    outputs = {}
-    for fmt in ("rgba32f", "rgba16f"):
-        one_shot = Engine(info(fmt, True)).render_one_shot(u8, 0.5)
-        engine = Engine(info(fmt, False))
+    def drive(graph, fmt):
+        """One-shot (per node), the strip tier (render_frame, blocking, a
+        sequence of 4) and run_per_node; returns the outputs and the
+        counter deltas of the one-shot and of the strip tier."""
+        before = dict(cuda_ops.LAUNCHES)
+        one_shot = Engine(info(graph, fmt, True)).render_one_shot(u8, 0.5)
+        mid = dict(cuda_ops.LAUNCHES)
+        engine = Engine(info(graph, fmt, False))
         engine.load_input(u8)
         frame = engine.render_frame(0.5)
         engine.render_frame_blocking(0.516)
         seq = engine.program.render_sequence(engine._file_input(), 0.5, 0.016, 4, stack=True)
-        per_node, _times = engine.program.run_per_node(engine._file_input(), 0.5)
+        after = dict(cuda_ops.LAUNCHES)
+        per_node, times = engine.program.run_per_node(engine._file_input(), 0.5)
         engine.close()
-        outputs[fmt] = (one_shot, frame, seq, per_node, engine)
-    counts = dict(cuda_ops.LAUNCHES)
-    print(f"main path launches: {json.dumps(counts)}")
-    for name, count in counts.items():
-        if count == 0:
-            raise AssertionError(f"the main path never launched {name}")
+        shot = {k: mid[k] - before[k] for k in before}
+        tier = {k: after[k] - mid[k] for k in before}
+        print(f"{graph} {fmt} per-node ms (host clock after sync): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
+        return one_shot, frame, seq, per_node, engine, shot, tier
 
-    for fmt, (one_shot, frame, seq, per_node, engine) in outputs.items():
+    def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine):
         for what, v in (("frame", frame), ("per-node", per_node)):
             if tuple(v.shape) != big or not bool(torch.isfinite(v.float()).all()):
-                raise AssertionError(f"{fmt} {what}: bad shape or non-finite values")
+                raise AssertionError(f"{graph} {fmt} {what}: bad shape or non-finite values")
         if one_shot.shape != (HEIGHT, WIDTH, 4) or one_shot.dtype != np.uint8:
-            raise AssertionError(f"{fmt} one-shot: bad image {one_shot.shape} {one_shot.dtype}")
-        _check(f"{fmt} strip tier vs per-node tier 4K", _max_err(frame, per_node),
+            raise AssertionError(f"{graph} {fmt} one-shot: bad image {one_shot.shape}")
+        _check(f"{graph} {fmt} strip tier vs per-node tier 4K", _max_err(frame, per_node),
                1e-5 if fmt == "rgba32f" else 2e-2)
-        _check(f"{fmt} render_sequence frame 0 vs render_frame", _max_err(seq[0], frame), 0.0)
+        _check(f"{graph} {fmt} render_sequence frame 0 vs render_frame", _max_err(seq[0], frame),
+               0.0)
         strip_u8 = engine.read_output(frame).astype(np.int16)
-        _check(f"{fmt} one-shot vs strip tier (u8 codes)",
+        _check(f"{graph} {fmt} one-shot vs strip tier (u8 codes)",
                float(np.abs(strip_u8 - one_shot.astype(np.int16)).max()), 1.0)
 
-    # A small render on the card against the port's CPU path.
-    small = rng.random((4, 288, 512), dtype=np.float32)
-    for fmt in ("rgba32f", "rgba16f"):
-        for plan_strips in (True, False):
-            gpu = build_flagship(512, 288, fmt, device=dev, plan_strips=plan_strips)
-            cpu = build_flagship(512, 288, fmt, device="cpu", plan_strips=plan_strips)
-            got = gpu._forward(torch.from_numpy(small).to(dev), 0.5).cpu()
-            want = cpu._forward(torch.from_numpy(small), 0.5)
-            tier = "strip" if plan_strips else "per-node"
-            _check(f"{fmt} {tier} 512x288 card vs CPU", _max_err(got, want),
-                   1e-5 if fmt == "rgba32f" else 2e-2)
+    # Path A: the flagship.
+    cuda_ops.reset_launches()
+    outputs = {fmt: drive("flagship", fmt) for fmt in ("rgba32f", "rgba16f")}
+    counts_a = dict(cuda_ops.LAUNCHES)
+    print(f"main path A (flagship) launches: {json.dumps(counts_a)}")
+    for name in ("sep_conv_fused", "sep_conv_fused_multi", "sep_conv_fused_mxu", "graph_strip"):
+        if counts_a[name] == 0:
+            raise AssertionError(f"main path A never launched {name}")
+    for fmt, out in outputs.items():
+        check_outputs("flagship", fmt, *out[:5])
+
+    # Path B: the demo and edges.
+    cuda_ops.reset_launches()
+    outputs = {(g, fmt): drive(g, fmt) for g in ("demo", "edges") for fmt in ("rgba32f", "rgba16f")}
+    counts_b = dict(cuda_ops.LAUNCHES)
+    print(f"main path B (demo, edges) launches: {json.dumps(counts_b)}")
+    for name in ("sep_conv_fused_mxu_x3", "sep_conv_fused_mxu", "stencil_apply", "graph_strip_mc"):
+        if counts_b[name] == 0:
+            raise AssertionError(f"main path B never launched {name}")
+    for (graph, fmt), out in outputs.items():
+        shot, tier = out[5], out[6]
+        needed = ["stencil_apply"]
+        if graph == "demo":
+            needed.append("sep_conv_fused_mxu_x3" if fmt == "rgba32f" else "sep_conv_fused_mxu")
+        for name in needed:
+            if shot[name] == 0:
+                raise AssertionError(f"{graph} {fmt} one-shot never launched {name}")
+        if tier["graph_strip_mc"] != 6:
+            raise AssertionError(f"{graph} {fmt}: {tier['graph_strip_mc']} graph_strip_mc launches "
+                                 "for 6 strip-tier frames")
+        check_outputs(graph, fmt, *out[:5])
+
+    # Small renders on the card against the port's CPU path, both tiers.
+    small_x = rng.random((4, 288, 512), dtype=np.float32)
+    for graph in ("flagship", "demo", "edges", "chain3"):
+        config = {"flagship": FLAGSHIP_CONFIG, **graphs}[graph]
+        for fmt in ("rgba32f", "rgba16f"):
+            for plan_strips in (True, False):
+                gpu = build_program(config, 512, 288, fmt, device=dev, plan_strips=plan_strips)
+                cpu = build_program(config, 512, 288, fmt, device="cpu", plan_strips=plan_strips)
+                got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu()
+                want = cpu._forward(torch.from_numpy(small_x), 0.5)
+                tier = gpu._strip_plan[0] if plan_strips else "per-node"
+                _check(f"{graph} {fmt} {tier} 512x288 card vs CPU", _max_err(got, want),
+                       1e-5 if fmt == "rgba32f" else 2e-2)
 
     # ---- 5. timings -----------------------------------------------------------
     for fmt in ("rgba32f", "rgba16f"):
         prog, x = strips[fmt]
-        seq = bench_program_sequenced(prog, x, frames=120, chunk=24)
-        disp = bench_program(prog, x, frames=60)
-        print(f"{fmt} strip tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
+        seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
+        disp = bench_program(prog, x, frames=48)
+        print(f"flagship {fmt} strip tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
               f"{disp['fps']:.2f} fps [{smi}]")
-        engine = Engine(info(fmt, True))
-        lat = []
-        for i in range(5):
-            start = time.perf_counter()
-            engine.render_one_shot(u8, 0.5)
-            lat.append((time.perf_counter() - start) * 1000.0)
-        print(f"{fmt} one-shot 4K latency (u8 in, u8 on host out): median "
-              f"{statistics.median(lat):.2f} ms of {len(lat)} [{smi}]")
+    for graph in graphs:
+        for fmt in ("rgba32f", "rgba16f"):
+            prog, x = mc_progs[(graph, fmt)]
+            seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
+            disp = bench_program(prog, x, frames=48)
+            pn = build_program(graphs[graph], WIDTH, HEIGHT, fmt, device=dev, plan_strips=False)
+            pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
+            print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
+                  f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
+    for graph in ("flagship", "demo"):
+        for fmt in ("rgba32f", "rgba16f"):
+            engine = Engine(info(graph, fmt, True))
+            lat = []
+            for _ in range(5):
+                start = time.perf_counter()
+                engine.render_one_shot(u8, 0.5)
+                lat.append((time.perf_counter() - start) * 1000.0)
+            print(f"{graph} {fmt} one-shot 4K latency (u8 in, u8 on the host out): median "
+                  f"{statistics.median(lat):.2f} ms of {len(lat)} [{smi}]")
 
+    # Where the device time goes: the mc tier over 24 frames and the
+    # per-node tier over 3, rgba32f.
+    for graph in graphs:
+        prog, x = mc_progs[(graph, "rgba32f")]
+        pn = build_program(graphs[graph], WIDTH, HEIGHT, "rgba32f", device=dev, plan_strips=False)
+        for tier, fn, frames in (("mc", lambda: prog._forward(x, 0.5), 24),
+                                 ("per-node", lambda: pn._forward(x, 0.5), 3)):
+            rows, busy = _profile(fn, frames)
+            top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:6])
+            print(f"profile {graph} rgba32f {tier}: device busy {busy:.1%}; ms a frame: {top} [{smi}]")
+
+    n_px = 4 * HEIGHT * WIDTH
     prog32, x32 = strips["rgba32f"]
-    prog16, x16 = strips["rgba16f"]
+    epilogue_ops = {cuda_ops.OP_COPY: 0, cuda_ops.OP_TAKE1: 0, cuda_ops.OP_UNSHARP: 3,
+                    cuda_ops.OP_MIX: 3, cuda_ops.OP_ACES: 10, cuda_ops.OP_REINHARD: 3,
+                    cuda_ops.OP_VIGNETTE: 15, cuda_ops.OP_FADE_PLANE: 1}
+    strip_ops = n_px * (2 * sum(len(a) + len(b) for a, b in prog32._strip_program.plans)
+                        + sum(epilogue_ops[op.code] for op in prog32._strip_program.ops))
+    demo_prog, demo_x = mc_progs[("demo", "rgba32f")]
+    demo_mc = demo_prog._strip_plan[1]
     timed = {
         "sep_conv_fused": (lambda: cuda_ops.sep_conv_fused(x4k, w4, w4),
-                           lambda: cuda_ops.sep_conv_plain(x4k, [(w4, w4)])),
+                           lambda: cuda_ops.sep_conv_plain(x4k, [(w4, w4)]),
+                           _library_sep_conv(x4k, [(w4, w4)]),
+                           _bound(2 * 4 * n_px, 2 * 50 * n_px)),
         "sep_conv_fused_multi": (
             lambda: cuda_ops.sep_conv_fused_multi(x4k, [(w2, w2), (w4, w4)]),
-            lambda: cuda_ops.sep_conv_plain(x4k, [(w2, w2), (w4, w4)])),
+            lambda: cuda_ops.sep_conv_plain(x4k, [(w2, w2), (w4, w4)]),
+            _library_sep_conv(x4k, [(w2, w2), (w4, w4)]),
+            _bound(3 * 4 * n_px, 2 * 76 * n_px)),
         "sep_conv_fused_mxu": (lambda: cuda_ops.sep_conv_fused_mxu(x4k_bf, w4, w4),
-                               lambda: cuda_ops.sep_conv_plain(x4k_bf, [(w4, w4)])),
+                               lambda: cuda_ops.sep_conv_plain(x4k_bf, [(w4, w4)]),
+                               _library_sep_conv(x4k_bf, [(w4, w4)]),
+                               _bound(6 * n_px, 2 * 50 * n_px)),
         "graph_strip": (lambda: cuda_ops.graph_strip(x32, 0.5, prog32._strip_program),
-                        lambda: cuda_ops.graph_strip_plain(x32, 0.5, prog32._strip_program)),
+                        lambda: cuda_ops.graph_strip_plain(x32, 0.5, prog32._strip_program),
+                        None,
+                        _bound(2 * 4 * n_px + 4 * HEIGHT * WIDTH, strip_ops)),
+        "sep_conv_fused_mxu_x3": (lambda: cuda_ops.sep_conv_fused_mxu_x3(x4k, w8, w8),
+                                  lambda: cuda_ops.sep_conv_plain(x4k, [(w8, w8)]),
+                                  _library_sep_conv(x4k, [(w8, w8)]),
+                                  _bound(2 * 4 * n_px, 2 * 98 * n_px)),
+        "stencil_apply": (
+            lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
+            lambda: cuda_ops.stencil_apply_plain(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
+            _library_stencil(x4k, library.SHARPEN_TAPS),
+            _bound(2 * 4 * n_px, 9 * n_px)),
+        "graph_strip_mc": (lambda: cuda_ops.graph_strip_mc(demo_x, 0.5, demo_mc),
+                           lambda: cuda_ops.graph_strip_mc_plain(demo_x, 0.5, demo_mc),
+                           None,
+                           _bound(2 * 4 * n_px, HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops))),
     }
     ms = {}
-    for name, (kernel, plain) in timed.items():
-        ms[name] = (_time_ms(kernel, 20), _time_ms(plain, 5))
-        print(f"{name} 4K: kernel {ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms [{smi}]")
-    k16 = _time_ms(lambda: cuda_ops.graph_strip(x16, 0.5, prog16._strip_program), 20)
-    p16 = _time_ms(lambda: cuda_ops.graph_strip_plain(x16, 0.5, prog16._strip_program), 5)
-    print(f"graph_strip rgba16f 4K: kernel {k16:.3f} ms, plain {p16:.3f} ms [{smi}]")
+    for name, (kernel, plain, lib_call, (bound_ms, bound_by)) in timed.items():
+        k_ms = _time_ms(kernel, 20)
+        p_ms = _time_ms(plain, 5)
+        l_ms = _time_ms(lib_call, 20) if lib_call is not None else None
+        ms[name] = (k_ms, p_ms, bound_ms, bound_by, l_ms)
+        lib_txt = f"{l_ms:.3f}" if l_ms is not None else "no single call"
+        print(f"{name} 4K: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library {lib_txt} [{smi}]")
+    lib_err = max(_max_err(g, w) for g, w in zip(_library_sep_conv(x4k, [(w8, w8)])(),
+                                                  cuda_ops.sep_conv_plain(x4k, [(w8, w8)])))
+    print(f"library conv (replicate pad + depthwise conv2d, TF32 off) vs plain, r=24: {lib_err:.3g}")
+    extra = {
+        "graph_strip rgba16f": (lambda: cuda_ops.graph_strip(strips["rgba16f"][1], 0.5,
+                                                             strips["rgba16f"][0]._strip_program)),
+        "stencil_apply median9 4ch": lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.MEDIAN9),
+        "stencil_apply sobel_x 1ch": lambda: cuda_ops.stencil_apply(
+            luma4k, 1, 1, cuda_ops.wsum(library.SOBEL_X_TAPS)),
+    }
+    for (graph, fmt), (prog, x) in mc_progs.items():
+        if fmt != "rgba8":
+            extra[f"graph_strip_mc {graph} {fmt}"] = (
+                lambda p=prog, v=x: cuda_ops.graph_strip_mc(v, 0.5, p._strip_plan[1]))
+    for name, fn in extra.items():
+        print(f"{name} 4K: kernel {_time_ms(fn, 20):.3f} ms [{smi}]")
 
-    source = {"graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu"}
+    sources = {
+        "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
+        "stencil_apply": "reforge_tpu_torch/csrc/stencil.cu",
+        "graph_strip_mc": "reforge_tpu_torch/csrc/graph_strip_mc.cu",
+    }
     replaces = {
         "sep_conv_fused": "reforge_tpu/kernels/pallas_ops.py:1723",
         "sep_conv_fused_multi": "reforge_tpu/kernels/pallas_ops.py:953",
         "sep_conv_fused_mxu": "reforge_tpu/kernels/pallas_ops.py:496",
         "graph_strip": "reforge_tpu/kernels/pallas_ops.py:1396",
+        "sep_conv_fused_mxu_x3": "reforge_tpu/kernels/pallas_ops.py:739",
+        "stencil_apply": "reforge_tpu/kernels/pallas_ops.py:1935",
+        "graph_strip_mc": "reforge_tpu/kernels/pallas_ops.py:2955",
     }
+    # Each kernel's launches come from the main path it belongs to.
+    launches = {name: (counts_a if name in ("sep_conv_fused", "sep_conv_fused_multi",
+                                            "sep_conv_fused_mxu", "graph_strip") else counts_b)[name]
+                for name in replaces}
     kernels = [
         {
             "name": name, "route": "cuda",
-            "source": source.get(name, "reforge_tpu_torch/csrc/sep_conv.cu"),
-            "replaces": replaces[name], "launches": counts[name],
+            "source": sources.get(name, "reforge_tpu_torch/csrc/sep_conv.cu"),
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": ms[name][2], "bound_by": ms[name][3], "library_ms": ms[name][4],
         }
         for name in replaces
     ]

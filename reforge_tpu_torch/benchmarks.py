@@ -1,10 +1,17 @@
 """Benchmark graph definitions and measurement helpers (the port of
 ``reforge_tpu/benchmarks.py``).
 
-The flagship graph: a separable gaussian and an unsharp mask of the
-input, blended, tonemapped and vignetted.  Timings end in
-``torch.cuda.synchronize()`` on a GPU: launches are asynchronous, and the
-synchronize proves every frame finished.
+Graphs:
+  * the flagship (single tier): a separable gaussian and an unsharp mask
+    of the input, blended, tonemapped and vignetted;
+  * the classic demo (examples/blur_sharpen_blend.rf), edges
+    (examples/edges.rf) and chain3 (the reference's mc benchmark graph,
+    BENCH.md:138): multi-stage graphs of the mc tier;
+  * the reference's mc test graphs and a mix wired second input first:
+    the mc tier's checks on small frames.
+
+Timings end in ``torch.cuda.synchronize()`` on a GPU: launches are
+asynchronous, and the synchronize proves every frame finished.
 """
 
 from __future__ import annotations
@@ -30,17 +37,88 @@ vig:    vignette { strength: 0.4 }
 """
 
 
-def build_flagship(width: int, height: int, fmt: str = "rgba32f", device="cpu",
-                   plan_strips: bool = True) -> GraphProgram:
-    cfg = parse(FLAGSHIP_CONFIG, expects_input=True)
+# The classic reforge demo: blur one branch, sharpen the other, blend
+# (examples/blur_sharpen_blend.rf).
+DEMO_CONFIG = """
+input -> soft -> mixdown -> output
+input -> crisp -> mixdown:input_image2
+
+soft:    gaussian { sigma: 8.0 }
+crisp:   sharpen  { amount: 0.6 }
+mixdown: blend    { factor: 0.5 }
+"""
+
+# Edge detection over a denoised image (examples/edges.rf).
+EDGES_CONFIG = """
+input -> smooth -> sobel -> output
+smooth: median3 {}
+sobel:  sobel { amount: 1.5 }
+"""
+
+# blur sigma 2 -> sobel -> tonemap (BENCH.md:138, benchmarks/mc_profile.py).
+CHAIN3_CONFIG = """
+input -> gs -> edge -> tone -> output
+gs: gaussian { sigma: 2.0 }
+edge: sobel {}
+tone: tonemap {}
+"""
+
+# The reference's mc test graphs (tests/test_graph.py:434-471): one
+# graph for each kind of stage and wiring the mc tier plans.
+MC_TEST_GRAPHS = {
+    "conv_stencil_point": (
+        "input -> soft -> edges -> tone -> output\n"
+        "soft: blur { sigma: 4.0 }\nedges: sobel { amount: 1.0 }\n"
+        "tone: tonemap { exposure: 1.1 }"
+    ),
+    "conv_of_conv": "input -> a -> b -> output\na: blur { sigma: 3.0 }\nb: blur { sigma: 2.0 }",
+    "bloom_pre_conv": (
+        "input -> glow -> output\nglow: bloom { threshold: 0.4, sigma: 3.0, intensity: 0.8 }"
+    ),
+    "point_feeding_conv_fan": (
+        "input -> th -> bl -> m -> output\ninput -> m:input_image2\n"
+        "th: threshold { value: 0.4 }\nbl: blur { sigma: 2.0 }\nm: mix { factor: 0.6 }"
+    ),
+    "median_saturation": (
+        "input -> med -> sat -> output\nmed: median3 {}\nsat: saturation { amount: 1.4 }"
+    ),
+    "sharpen_grayscale": (
+        "input -> sh -> gray -> output\nsh: sharpen { amount: 0.7 }\ngray: grayscale {}"
+    ),
+    "coord_point_feeding_conv": (
+        "input -> v -> b -> output\nv: vignette { strength: 0.5 }\nb: blur { sigma: 2.0 }"
+    ),
+    "emboss_unsharp_chain": (
+        "input -> e -> u -> output\n"
+        "e: emboss { amount: 0.9 }\nu: unsharp { sigma: 2.0, amount: 0.8 }"
+    ),
+}
+
+# A mix whose second image is wired before its first (an asymmetric
+# factor): the mc stage must still read input_image as the mix's base.
+MIX_SECOND_FIRST_CONFIG = (
+    "input -> sh -> m:input_image2\ninput -> bl -> m -> output\n"
+    "sh: sharpen { amount: 0.7 }\nbl: blur { sigma: 2.0 }\nm: mix { factor: 0.6 }"
+)
+
+
+def build_program(config: str, width: int, height: int, fmt: str = "rgba32f",
+                  device="cuda", plan_strips: bool = True) -> GraphProgram:
+    """A checked GraphProgram of ``config`` (builtins only) on ``device``."""
+    cfg = parse(config, expects_input=True)
     graph = build_graph(cfg) if cfg is not None else None
     program = (
         make_program(graph, width, height, fmt, plan_strips=plan_strips, device=device)
         if graph is not None else None
     )
     if program is None:
-        raise RuntimeError("the flagship graph failed to build")
+        raise RuntimeError("the graph failed to build")
     return program
+
+
+def build_flagship(width: int, height: int, fmt: str = "rgba32f", device="cuda",
+                   plan_strips: bool = True) -> GraphProgram:
+    return build_program(FLAGSHIP_CONFIG, width, height, fmt, device, plan_strips)
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -87,6 +165,6 @@ def bench_program_sequenced(program, file_input: torch.Tensor, frames: int = 120
     }
 
 
-def make_test_image(height: int, width: int, seed: int = 0, device="cpu") -> torch.Tensor:
+def make_test_image(height: int, width: int, seed: int = 0, device="cuda") -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.random((4, height, width), dtype=np.float32)).to(device)

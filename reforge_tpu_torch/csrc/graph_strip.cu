@@ -17,6 +17,7 @@
 // Grid: (ceil(W / TW), ceil(H / TH), C); one channel plane per block.
 
 #include "conv_tile.cuh"
+#include "pixel_ops.cuh"
 
 namespace rf {
 
@@ -32,21 +33,6 @@ enum Op : int {
   OP_VIGNETTE = 6,    // rgb: in0 * radial fade (p0 strength, p1 radius, p2 = 1.42 - radius)
   OP_FADE_PLANE = 7,  // rgb: in0 * aux[plane]
 };
-
-enum Store : int { STORE_F32 = 0, STORE_BF16 = 1, STORE_RGBA8 = 2 };
-
-__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.f), 1.f); }
-
-__device__ __forceinline__ float store_round(float v, int store) {
-  if (store == STORE_BF16) return __bfloat162float(__float2bfloat16_rn(v));
-  if (store == STORE_RGBA8) return rintf(clip01(v) * 255.f) / 255.f;
-  return v;
-}
-
-__device__ __forceinline__ float smoothstep(float e0, float span, float v) {
-  const float s = clip01((v - e0) / span);
-  return s * s * (3.f - 2.f * s);
-}
 
 __device__ float apply_op(int code, int ci, float a, float b, const float* p, float plane_v,
                           int gy, int gx, int H, int W) {

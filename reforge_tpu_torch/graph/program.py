@@ -1,21 +1,28 @@
 """GraphProgram: run a built graph on one device (the port of
-``reforge_tpu/graph/program.py``: the per-node tier and the single strip
-tier).
+``reforge_tpu/graph/program.py``: the per-node tier and the single and mc
+strip tiers).
 
 Execution modes:
-  * ``__call__`` / ``_forward`` -- the single strip tier when the graph
-    qualifies (every conv reads the input, every other node is
-    channel-local): the whole graph in one ``graph_strip`` kernel.
+  * ``__call__`` / ``_forward`` -- a strip tier when the graph qualifies,
+    tried in the reference's order:
+      - single: every conv reads the input and every other node is
+        channel-local; the whole graph in one ``graph_strip`` kernel.
+      - mc: convs of any image, small-radius stencils (sharpen, sobel,
+        emboss, median3) and channel-mixing point nodes; the whole graph
+        in one ``graph_strip_mc`` kernel.
     Otherwise layer by layer, with same-input convs of a layer bundled
-    into one ``sep_conv_fused_multi`` launch.
+    into one ``sep_conv_fused_multi`` launch; stencils run as
+    ``stencil_apply`` and heavy f32 convs as ``sep_conv_fused_mxu_x3``.
   * ``run_unfused`` / ``run_per_node`` -- node by node, the second timing
     each node.
   * ``render_sequence`` -- a Python loop of ``_forward`` over frame times.
 
 The planners keep the reference's structural gates and drop the gates
-that modelled the TPU (VMEM tile models, lane-multiple widths, transpose
-variants, ``REFORGE_STRIP_*`` knobs).  The mc and segments strip tiers
-are not ported: a graph that needs them runs per node.
+that modelled the TPU (VMEM tile models, lane-multiple widths, MXU
+eligibility, transpose variants, ``REFORGE_STRIP_*``/``REFORGE_MC_*``
+knobs).  A plan whose kernel fits no shared-memory tile is refused when
+it is planned.  The segments tier is not ported: a graph that needs it
+runs per node.
 """
 
 from __future__ import annotations
@@ -23,17 +30,25 @@ from __future__ import annotations
 import time as _time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import FILE_INPUT, FINAL_OUTPUT
 from ..kernels import cuda_ops
 from ..kernels.base import KernelContext, quantize_rgba8
+from ..kernels.ops import X3_MIN_TAPS
 from ..utils import warnln
 from .builder import BuiltGraph, PipelineNode
 
 
 class GraphTraceError(Exception):
     pass
+
+
+# Structural gates of the mc tier: conv taps (H + W) and stencil radius.
+MC_MAX_TAPS = 200
+MC_MAX_RADIUS = cuda_ops.STENCIL_MAX_RADIUS
+_MC_KINDS = {"conv": cuda_ops.MC_CONV, "stencil": cuda_ops.MC_STENCIL, "point": cuda_ops.MC_POINT}
 
 
 def _sync(device: torch.device) -> None:
@@ -57,16 +72,18 @@ class GraphProgram:
         height: int,
         fmt: str = "rgba32f",
         *,
-        device: Any = "cpu",
+        device: Any = "cuda",
         plan_strips: bool = True,
     ):
         if fmt not in self.STORAGE_DTYPES:
             raise ValueError(f"unknown storage format {fmt!r}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("GraphProgram(device='cuda') but no CUDA device is available")
         self.graph = graph
         self.width = width
         self.height = height
         self.fmt = fmt
-        self.device = torch.device(device)
         self.storage_dtype = self.STORAGE_DTYPES[fmt]
         # plan_strips=False (one-shot renders) skips strip planning.
         # Planning is lazy: see the _strip_plan property.
@@ -106,11 +123,16 @@ class GraphProgram:
 
     def _plan_strip_fusion(self):
         """``("single", conv_items, pointwise)`` when the whole graph can run
-        as one graph_strip kernel, else None (per-node execution)."""
+        as one graph_strip kernel, else ``("mc", McProgram)`` when it can
+        run as one graph_strip_mc kernel, else None (per-node
+        execution)."""
         single = self._plan_strip_single()
-        if single is None:
-            return None
-        return ("single",) + single
+        if single is not None:
+            return ("single",) + single
+        mc = self._plan_strip_mc()
+        if mc is not None:
+            return ("mc", mc)
+        return None
 
     def _conv_plan_for(self, node):
         """(wh, ww) numpy tap vectors when this node is strip-fusable as a
@@ -163,6 +185,170 @@ class GraphProgram:
         if not cuda_ops.plans_fit([p for _, p in conv_items], len(conv_items)):
             return None
         return (conv_items, pointwise)
+
+    def _plan_strip_mc(self) -> Optional[cuda_ops.McProgram]:
+        """The mc tier's stage list (the port of the reference's
+        ``_plan_strip_mc``, program.py:339-967), or None.
+
+        Node classes: separable edge convs of any image (4 to 200 taps,
+        optionally after a node-internal pre-map such as bloom's mask),
+        stencils of radius 1..16 with one input, and point nodes of halo
+        0.  Every node needs an ``mc_op`` whose kind matches its class,
+        and the plan needs at least one conv or stencil.  Each resource is
+        computed over the tile plus the extent its consumers read around
+        it (a reverse-topological lift, exact); pool slots are reused by
+        linear scan."""
+        nodes: list = []
+        n_heavy = 0
+        for layer in self.graph.layers:
+            for node in layer:
+                spec = node.spec
+                if (len(node.outputs) != 1 or spec.ssbos_in or spec.ssbos_out
+                        or spec.mc_op is None):
+                    return None
+                plan = self._conv_plan_for(node) if spec.conv_epilogue is not None else None
+                if plan is not None and len(plan[0]) + len(plan[1]) <= MC_MAX_TAPS:
+                    nodes.append(("conv", node, plan))
+                    n_heavy += 1
+                    continue
+                r = spec.halo_for(node.params)
+                if spec.mc_stencil_fn is not None and r is not None and 1 <= r <= MC_MAX_RADIUS:
+                    if spec.border_for(node.params) != "edge" or len(node.inputs) != 1:
+                        return None
+                    nodes.append(("stencil", node, r))
+                    n_heavy += 1
+                    continue
+                if r == 0 and node.inputs:
+                    nodes.append(("point", node, None))
+                    continue
+                return None
+        if n_heavy == 0:
+            return None  # point-only graphs have no halo work to share
+
+        # Extents: reverse-topological lift, exact (no alignment).
+        need_h: dict[str, int] = {}
+        need_w: dict[str, int] = {}
+        eh: dict[str, int] = {}
+        ew: dict[str, int] = {}
+        for kind, node, extra in reversed(nodes):
+            out_res = node.outputs[0][0]
+            oh, ow = need_h.get(out_res, 0), need_w.get(out_res, 0)
+            eh[out_res], ew[out_res] = oh, ow
+            if kind == "conv":
+                lift_h, lift_w = (len(extra[0]) - 1) // 2, (len(extra[1]) - 1) // 2
+            elif kind == "stencil":
+                lift_h = lift_w = extra
+            else:
+                lift_h = lift_w = 0
+            for res, _ in node.inputs:
+                need_h[res] = max(need_h.get(res, 0), oh + lift_h)
+                need_w[res] = max(need_w.get(res, 0), ow + lift_w)
+        eh[FILE_INPUT] = need_h.get(FILE_INPUT, 0)
+        ew[FILE_INPUT] = need_w.get(FILE_INPUT, 0)
+
+        # Stage specs; a conv with a pre-map splits into a point stage (f32,
+        # not a node boundary) and the conv of its output.  Inputs go in the
+        # order of the kernel's declared images (mix reads input_image as
+        # in0), whatever order the config wires them in.
+        specs: list[dict] = []
+        for kind, node, extra in nodes:
+            out_res = node.outputs[0][0]
+            by_desc = {desc: res for res, desc in node.inputs}
+            in_res = [by_desc[desc] for desc in node.spec.images_in]
+            op = node.spec.mc_op(node.params)
+            if cuda_ops.mc_kind(op.code) != _MC_KINDS[kind]:
+                return None
+            if kind == "conv" and node.spec.conv_pre is not None:
+                pre_res = f"{node.name}::__pre"
+                eh[pre_res] = eh[out_res] + (len(extra[0]) - 1) // 2
+                ew[pre_res] = ew[out_res] + (len(extra[1]) - 1) // 2
+                pre_op = node.spec.mc_op(node.params, pre=True)
+                if cuda_ops.mc_kind(pre_op.code) != cuda_ops.MC_POINT:
+                    return None
+                specs.append(dict(kind="pre", node=node, op=pre_op, out=pre_res,
+                                  ins=in_res[:1], x=None, extra=None))
+                specs.append(dict(kind="conv", node=node, op=op, out=out_res, ins=[pre_res],
+                                  x=in_res[0], extra=extra))
+            elif kind == "conv":
+                x_res = None if op.code == cuda_ops.MC_CONV_IDENTITY else in_res[0]
+                specs.append(dict(kind="conv", node=node, op=op, out=out_res, ins=in_res,
+                                  x=x_res, extra=extra))
+            else:
+                if kind == "stencil" and any(
+                    np.shape(tab) != (2 * extra + 1, 2 * extra + 1) for tab in op.tables
+                ):
+                    return None
+                specs.append(dict(kind=kind, node=node, op=op, out=out_res, ins=in_res,
+                                  x=None, extra=extra))
+
+        # Pool slots: linear scan, a slot freed after its resource's last
+        # read and reused by a later output (never by the reading stage's
+        # own output, which is assigned first).
+        last_use: dict[str, int] = {}
+        for si, ss in enumerate(specs):
+            for res in ss["ins"] + ([ss["x"]] if ss["x"] else []):
+                last_use[res] = si
+        slot_of: dict[str, int] = {FILE_INPUT: cuda_ops.MC_INPUT}
+        free: list[int] = []
+        n_slots = 0
+        for si, ss in enumerate(specs):
+            out_res = ss["out"]
+            if out_res == FINAL_OUTPUT:
+                slot_of[out_res] = cuda_ops.MC_OUTPUT
+            elif out_res not in slot_of:
+                if free:
+                    slot_of[out_res] = free.pop()
+                else:
+                    slot_of[out_res] = n_slots
+                    n_slots += 1
+            for res in dict.fromkeys(ss["ins"] + ([ss["x"]] if ss["x"] else [])):
+                if last_use.get(res) == si and slot_of.get(res, -1) >= 0:
+                    free.append(slot_of[res])
+        if slot_of.get(FINAL_OUTPUT) != cuda_ops.MC_OUTPUT:
+            return None  # the final output is not produced by a staged node
+
+        stages = [self._mc_stage(ss, slot_of, eh, ew) for ss in specs]
+        if len(stages) > cuda_ops.MC_MAX_STAGES:
+            return None
+        prog = cuda_ops.McProgram(
+            stages=stages, n_slots=n_slots, rh_in=eh[FILE_INPUT], ew_in=ew[FILE_INPUT],
+            width=self.width, height=self.height, fmt=self.fmt,
+        )
+        if prog.tile() is None:
+            return None  # no shared-memory tile holds this plan: run per node
+        return prog
+
+    def _mc_stage(self, ss: dict, slot_of: dict, eh: dict, ew: dict) -> cuda_ops.McStage:
+        """One McStage of a stage spec, with its plain form: the builtin's
+        own ``fn``, ``conv_pre``, ``conv_epilogue`` or ``mc_stencil_fn``."""
+        node, kind = ss["node"], ss["kind"]
+        spec, params = node.spec, dict(node.params)
+
+        def ref(res):
+            return (slot_of[res], eh[res], ew[res])
+
+        common = dict(op=ss["op"], ins=tuple(ref(r) for r in ss["ins"]), out=slot_of[ss["out"]],
+                      eh=eh[ss["out"]], ew=ew[ss["out"]])
+        if kind == "pre":
+            return cuda_ops.McStage(
+                kind=cuda_ops.MC_POINT, store=False,
+                plain=lambda ctx, ins: spec.conv_pre(ctx, ins[0], params), **common)
+        if kind == "conv":
+            def conv_plain(ctx, x, blur):
+                return blur if x is None else spec.conv_epilogue(ctx, x, blur, params)
+
+            return cuda_ops.McStage(
+                kind=cuda_ops.MC_CONV, x=ref(ss["x"]) if ss["x"] else None, taps=ss["extra"],
+                plain=conv_plain, **common)
+        if kind == "stencil":
+            return cuda_ops.McStage(
+                kind=cuda_ops.MC_STENCIL, r=ss["extra"], taps=ss["op"].tables,
+                plain=lambda ctx, tap: spec.mc_stencil_fn(ctx, tap, params), **common)
+        descs = spec.images_in
+        out_desc = node.outputs[0][1]
+        return cuda_ops.McStage(
+            kind=cuda_ops.MC_POINT,
+            plain=lambda ctx, ins: spec(ctx, dict(zip(descs, ins)), params)[out_desc], **common)
 
     def _build_strip_program(self) -> cuda_ops.StripProgram:
         """The single plan's op list, conv plans and coordinate planes, built
@@ -231,11 +417,13 @@ class GraphProgram:
         )
 
     def _strip_fused_forward(self, file_input, t):
-        """Run the whole graph as one graph_strip kernel, or return None when
-        the graph has no single-tier plan.  ``file_input`` is in storage
-        type."""
+        """Run the whole graph as one graph_strip or graph_strip_mc kernel,
+        or return None when the graph has no strip plan.  ``file_input``
+        is in storage type."""
         if self._strip_plan is None:
             return None
+        if self._strip_plan[0] == "mc":
+            return cuda_ops.graph_strip_mc(file_input, t, self._strip_plan[1])
         if self._strip_program is None:
             self._strip_program = self._build_strip_program()
         return cuda_ops.graph_strip(file_input, t, self._strip_program)
@@ -300,7 +488,9 @@ class GraphProgram:
         """Group same-layer separable-conv nodes by shared input resource;
         each group of two or more runs as one sep_conv_fused_multi launch
         that loads the input once.  rgba16f keeps per-node convs (the
-        reference's rule: its bf16 convs took the MXU entry point)."""
+        reference's rule: its bf16 convs took the MXU entry point), and so
+        do heavy convs (the x3 entry point) and convs with a pre-map,
+        whose conv does not read the node's input."""
         if len(layer) < 2 or self.fmt == "rgba16f":
             return [], list(layer)
         groups: dict[str, list] = {}
@@ -315,11 +505,12 @@ class GraphProgram:
                 and len(node.outputs) == 1
                 and not spec.ssbos_in
                 and not spec.ssbos_out
+                and spec.conv_pre is None
                 and spec.border_for(node.params) == "edge"
             ):
                 plan = spec.conv_weights(node.params)
-            if plan is not None and len(plan[0]) + len(plan[1]) < 4:
-                plan = None  # degenerate (identity) convs run as plain nodes
+            if plan is not None and not 4 <= len(plan[0]) + len(plan[1]) < X3_MIN_TAPS:
+                plan = None  # degenerate (identity) and heavy convs run as plain nodes
             if plan is None:
                 singles.append(node)
             else:
@@ -408,9 +599,10 @@ class GraphProgram:
 
 def make_program(
     graph: BuiltGraph, width: int, height: int, fmt: str = "rgba32f",
-    plan_strips: bool = True, device: Any = "cpu",
+    plan_strips: bool = True, device: Any = "cuda",
 ) -> Optional[GraphProgram]:
-    """Build a GraphProgram and check its wiring and shapes.
+    """Build a GraphProgram on ``device`` (the card unless the caller names
+    the CPU; raises without one) and check its wiring and shapes.
 
     The per-node path runs once on ``meta`` tensors (shapes only, no
     data, no kernel launch): the analog of the reference's

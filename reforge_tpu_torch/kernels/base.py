@@ -72,15 +72,16 @@ class KernelContext:
     """Execution context passed to every kernel.
 
     ``width``/``height`` are the image extent that coordinate math uses;
-    ``device`` is where coordinate planes are built.  The reference's
-    row/column offsets of sharded blocks wait for the sharded tiers.
+    ``device`` is where coordinate planes are built (the card unless the
+    caller names the CPU).  The reference's row/column offsets of sharded
+    blocks wait for the sharded tiers.
     """
 
     width: int
     height: int
     time: Any = 0.0  # f32 seconds since start (``_rf_time``)
     fmt: str = "rgba32f"  # "rgba8" | "rgba16f" | "rgba32f"
-    device: Any = "cpu"
+    device: Any = "cuda"
 
 
 @dataclasses.dataclass
@@ -129,6 +130,21 @@ class KernelSpec:
     # kernels/cuda_ops.py.  ``plane`` is True when the program hoisted the
     # node's coordinate plane.  Only nodes with a cw_op join a strip plan.
     cw_op: Optional[Callable[..., tuple]] = None
+    # Node-internal pointwise map feeding the separable conv (bloom's
+    # threshold mask): conv_pre(ctx, x, params) -> image, kept in f32 (not
+    # a node boundary).
+    conv_pre: Optional[Callable[..., Any]] = None
+    # Small-radius neighbourhood form for the mc tier: mc_stencil_fn(ctx,
+    # tap, params) -> (4, h, w), where tap(dy, dx) is the (4, h, w) view
+    # shifted by (dy - r, dx - r).
+    mc_stencil_fn: Optional[Callable[..., Any]] = None
+    # Device form of the node for the graph_strip_mc kernel: mc_op(params,
+    # pre=False) -> cuda_ops.McOp (opcode, float params, tap tables),
+    # opcodes from kernels/cuda_ops.py; ``pre=True`` asks for the form of
+    # conv_pre.  The opcode's kind (point, stencil or conv epilogue) must
+    # match the stage the node becomes.  Only nodes with an mc_op join an
+    # mc plan.
+    mc_op: Optional[Callable[..., Any]] = None
 
     # ---- reflection (the SPIR-V descriptor-enumeration analog) ---------
 

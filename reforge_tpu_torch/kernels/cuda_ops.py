@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the port's main path, their plain
+"""Hand-written Hopper kernels for the port's main paths, their plain
 PyTorch versions, launch counters and the build loader.
 
 Each wrapper takes its kernel's plain version when the tensor it is given
@@ -7,18 +7,24 @@ check shapes) and launches its CUDA kernel when the tensor lies on a GPU.
 There is no fallback from one to the other: a kernel that cannot launch
 raises.
 
-Kernels (sources in ``reforge_tpu_torch/csrc/``, one shared library built
-for ``sm_90a`` with nvcc at first use and bound with ctypes):
+Kernels (sources in ``reforge_tpu_torch/csrc/``, each compiled for
+``sm_90a`` by its own nvcc at first use, linked into one shared library
+and bound with ctypes):
 
-  * ``sep_conv_multi`` (sep_conv.cu) serves three entry points:
-    ``sep_conv_fused``, ``sep_conv_fused_multi`` and ``sep_conv_fused_mxu``.
+  * ``sep_conv_multi`` (sep_conv.cu) serves four entry points:
+    ``sep_conv_fused``, ``sep_conv_fused_multi``, ``sep_conv_fused_mxu``
+    and ``sep_conv_fused_mxu_x3`` (heavy f32 convs).
   * ``graph_strip`` (graph_strip.cu): the single-tier whole-graph kernel.
+  * ``stencil_apply`` (stencil.cu): a per-channel neighbourhood function
+    (weighted sum of a tap table, median of 3x3) for the per-node tier.
+  * ``graph_strip_mc`` (graph_strip_mc.cu): the mc tier's multi-stage
+    all-channel megakernel (conv, stencil and point stages).
 
-Both kernels read each input pixel of a tile once (plus its halo) and
+The conv kernels read each input pixel of a tile once (plus its halo) and
 write each output once, and spend 2R+1 multiply-adds per pass per pixel
-per conv from shared memory.  At the flagship's radii (12 and 6) the tap
-loops, not device memory, bound them (each wrapper notes its time): there
-is no tensor-core, TMA or register-blocking work in them yet.
+per conv from shared memory.  At the main path's radii the tap loops,
+not device memory, bound them (each wrapper notes its time): there is no
+tensor-core, TMA or register-blocking work in them yet.
 """
 
 from __future__ import annotations
@@ -35,16 +41,17 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .base import KernelContext, quantize_rgba8
 
 # ---- build and bind ---------------------------------------------------------
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/reforge_tpu_torch, found from this file (never the CWD).
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reforge_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -60,25 +67,47 @@ def _nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library, keyed on a hash
-    of the sources and flags, unless that library exists already.  The
-    compiler's output (ptxas register and spill counts) goes to
+    """Compile every ``csrc/*.cu`` (one nvcc per source, all started
+    together) and link them into one shared library, keyed on a hash of
+    the sources and flags, unless that library exists already.  The
+    compilers' output (ptxas register and spill counts) goes to
     ``build.log`` beside it."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    target = BUILD_DIR / f"librf_kernels_{digest.hexdigest()[:16]}.so"
+    key = digest.hexdigest()[:16]
+    target = BUILD_DIR / f"librf_kernels_{key}.so"
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    nvcc = _nvcc()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
     partial = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(log))
     os.replace(partial, target)
     return target
 
@@ -101,6 +130,16 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _I, _I, _I, _F, _I, _P,
         ]
         lib.rf_graph_strip.restype = _I
+        lib.rf_stencil_apply.argtypes = [
+            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+        ]
+        lib.rf_stencil_apply.restype = _I
+        lib.rf_graph_strip_mc.argtypes = [
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _F, _I, _P,
+        ]
+        lib.rf_graph_strip_mc.restype = _I
+        lib.rf_mc_limits.argtypes = [_I]
+        lib.rf_mc_limits.restype = _I
         lib.rf_error_string.argtypes = [_I]
         lib.rf_error_string.restype = ctypes.c_char_p
         lib.rf_max_slots.argtypes = []
@@ -124,6 +163,9 @@ LAUNCHES: dict[str, int] = {
     "sep_conv_fused_multi": 0,
     "sep_conv_fused_mxu": 0,
     "graph_strip": 0,
+    "sep_conv_fused_mxu_x3": 0,
+    "stencil_apply": 0,
+    "graph_strip_mc": 0,
 }
 
 
@@ -365,6 +407,33 @@ def sep_conv_fused_mxu(x: torch.Tensor, wh, ww, mode: str = "edge") -> torch.Ten
     return out
 
 
+def sep_conv_fused_mxu_x3(x: torch.Tensor, wh, ww, mode: str = "edge") -> torch.Tensor:
+    """One f32 separable conv of at least ``ops.X3_MIN_TAPS`` combined taps
+    (``ops.sep_conv`` routes heavy f32 convs here).
+
+    Replaces ``pallas_ops.sep_conv_fused_mxu_x3`` (pallas_ops.py:739).  The
+    TPU's MXU multiplies bf16, so that kernel split each f32 operand into
+    three bf16 terms and summed six band-matmul products per pass
+    (pallas_ops.py:574-739) to reach f32 accuracy.  Hopper's FP32 FMA
+    pipes compute the same function directly: this entry launches the
+    ``sep_conv_multi`` kernel as ``sep_conv_fused`` does, with its own
+    launch counter so heavy convs show apart from light ones.  The tile
+    shrinks with the radius (radius 66 takes a 32x128 tile in 205 KB).
+
+    Bound on the card: the tap loops, 2R+1 FMAs per pass per pixel from
+    shared memory; its time at the demo's radius 24 is in PERF.md."""
+    _check_image(x, (torch.float32,), "sep_conv_fused_mxu_x3")
+    _check_mode(mode)
+    plans = _as_plans([(wh, ww)])
+    if _radii(plans)[1] > 128:
+        raise ValueError("sep_conv_fused_mxu_x3 takes W radii up to 128, as the reference")
+    if not _on_cuda(x):
+        return sep_conv_plain(x, plans, mode)[0]
+    out = _launch_sep_conv(x, plans, mode)[0]
+    LAUNCHES["sep_conv_fused_mxu_x3"] += 1
+    return out
+
+
 # ---- kernel B: graph_strip ----------------------------------------------------------
 
 # Opcodes of the graph_strip epilogue (csrc/graph_strip.cu, enum Op).
@@ -436,8 +505,6 @@ class StripProgram:
 
 
 def _store(v: torch.Tensor, fmt: str) -> torch.Tensor:
-    from .base import quantize_rgba8
-
     if fmt == "rgba8":
         return quantize_rgba8(v)
     if fmt == "rgba16f":
@@ -504,4 +571,445 @@ def graph_strip(x: torch.Tensor, t: float, strip: StripProgram) -> torch.Tensor:
     )
     _check_launch(lib, rc, "graph_strip")
     LAUNCHES["graph_strip"] += 1
+    return out
+
+
+# ---- kernel C: stencil_apply ---------------------------------------------------------
+
+# Largest stencil radius the kernels take (the reference's mc gate).
+STENCIL_MAX_RADIUS = 16
+# Stencil kinds (csrc/stencil.cu, enum StencilKind).
+_STENCIL_KINDS = {"wsum": 0, "median9": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilOp:
+    """A neighbourhood function the stencil kernel evaluates per pixel.
+
+    ``"wsum"``: the sum of ``terms`` -- the nonzero (dy, dx, w) of a
+    ``shape`` tap table in ascending (dy, dx) -- in ``ops.conv2d``'s
+    order.  ``"median9"``: the median of the 3x3 neighbourhood by Smith's
+    19-exchange network (reforge_tpu/kernels/library.py:321-331)."""
+
+    kind: str
+    shape: tuple[int, int] = (3, 3)
+    terms: tuple[tuple[int, int, float], ...] = ()
+
+
+def wsum(taps) -> StencilOp:
+    """The weighted-sum op of an odd-sized 2-D tap table."""
+    taps = np.asarray(taps, np.float32)
+    if taps.ndim != 2 or taps.shape[0] % 2 == 0 or taps.shape[1] % 2 == 0:
+        raise ValueError(f"tap tables must be 2-D with odd sides, got {taps.shape}")
+    terms = tuple(
+        (dy, dx, float(taps[dy, dx]))
+        for dy in range(taps.shape[0])
+        for dx in range(taps.shape[1])
+        if taps[dy, dx] != 0.0
+    )
+    return StencilOp("wsum", tuple(taps.shape), terms)
+
+
+MEDIAN9 = StencilOp("median9")
+
+# Smith's median-of-9 exchange network: v[i] <- min, v[j] <- max.
+MEDIAN9_PAIRS = (
+    (1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5),
+    (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
+    (4, 2), (6, 4), (4, 2),
+)
+
+
+def _check_stencil(rh: int, rw: int, op: StencilOp) -> None:
+    if op.kind not in _STENCIL_KINDS:
+        raise ValueError(f"unknown stencil op {op.kind!r}")
+    if not (0 <= rh <= STENCIL_MAX_RADIUS and 0 <= rw <= STENCIL_MAX_RADIUS):
+        raise ValueError(f"stencil radii ({rh}, {rw}) outside 0..{STENCIL_MAX_RADIUS}")
+    if op.kind == "median9" and (rh, rw) != (1, 1):
+        raise ValueError("median9 takes radius 1")
+    if op.kind == "wsum" and tuple(op.shape) != (2 * rh + 1, 2 * rw + 1):
+        raise ValueError(f"tap table {op.shape} does not match radii ({rh}, {rw})")
+
+
+def _padded(x: torch.Tensor, rh: int, rw: int, mode: str) -> torch.Tensor:
+    """(C, H, W) padded by (rh, rw): clamped indices (edge) or zeros."""
+    if mode == "zero":
+        return F.pad(x, (rw, rw, rh, rh))
+    h, w = x.shape[-2], x.shape[-1]
+    ys = torch.clamp(torch.arange(-rh, h + rh, device=x.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-rw, w + rw, device=x.device), 0, w - 1)
+    return x.index_select(-2, ys).index_select(-1, xs)
+
+
+def ordered_wsum(tap, terms, centre) -> torch.Tensor:
+    """sum of tap(dy, dx) * w over ``terms`` in ``ops.conv2d``'s order: one
+    chain up to 16 terms, else term i into stripe i % 8 and a pairwise
+    merge of the stripes.  No terms: ``centre() * 0``."""
+    if not terms:
+        return centre() * 0.0
+    n_stripes = 8 if len(terms) > 16 else 1
+    parts: list = [None] * n_stripes
+    for i, (dy, dx, w) in enumerate(terms):
+        t = tap(dy, dx) * w
+        j = i % n_stripes
+        parts[j] = t if parts[j] is None else parts[j] + t
+    parts = [v for v in parts if v is not None]
+    while len(parts) > 1:
+        merged = [parts[k] + parts[k + 1] for k in range(0, len(parts) - 1, 2)]
+        if len(parts) % 2:
+            merged.append(parts[-1])
+        parts = merged
+    return parts[0]
+
+
+def median9_plain(v: list) -> torch.Tensor:
+    """Median of nine same-shape tensors by the exchange network."""
+    v = list(v)
+    for i, j in MEDIAN9_PAIRS:
+        v[i], v[j] = torch.minimum(v[i], v[j]), torch.maximum(v[i], v[j])
+    return v[4]
+
+
+def stencil_apply_plain(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
+                        mode: str = "edge") -> torch.Tensor:
+    """The plain version of ``stencil_apply``: shifted slices of a clamped
+    or zero-padded copy."""
+    _check_mode(mode)
+    _check_stencil(rh, rw, op)
+    h, w = x.shape[-2], x.shape[-1]
+    xp = _padded(x, rh, rw, mode)
+
+    def tap(dy, dx):
+        return xp[..., dy : dy + h, dx : dx + w]
+
+    if op.kind == "median9":
+        return median9_plain([tap(dy, dx) for dy in range(3) for dx in range(3)])
+    return ordered_wsum(tap, op.terms, lambda: tap(rh, rw))
+
+
+def _term_arrays(terms) -> tuple[np.ndarray, np.ndarray]:
+    """(weights f32, positions int32 as dy * 64 + dx) of stencil terms."""
+    w = np.array([t[2] for t in terms], np.float32)
+    idx = np.array([t[0] * 64 + t[1] for t in terms], np.int32)
+    return w, idx
+
+
+@functools.lru_cache(maxsize=64)
+def _device_terms(terms: tuple, device: torch.device):
+    w, idx = _term_arrays(terms)
+    return torch.from_numpy(w).to(device), torch.from_numpy(idx).to(device)
+
+
+def choose_stencil_tile(rh: int, rw: int, n_terms: int) -> tuple[int, int, int]:
+    """(TH, TW, shared-memory bytes) for the stencil kernel: its window
+    plus the term weights and positions.  Every radius up to 16 fits the
+    largest tile under SMEM_SOFT."""
+    for th, tw in TILES:
+        nbytes = 4 * ((th + 2 * rh) * (tw + 2 * rw) + 2 * n_terms)
+        if nbytes <= SMEM_SOFT:
+            return th, tw, nbytes
+    raise ValueError(f"no stencil tile fits radii ({rh}, {rw})")
+
+
+def stencil_apply(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
+                  mode: str = "edge") -> torch.Tensor:
+    """A per-pixel neighbourhood function of each channel of an f32
+    (C, H, W) image, in one pass.
+
+    Replaces ``pallas_ops.stencil_apply`` (pallas_ops.py:1935), which took
+    the function as a traced Python closure over tap views of a VMEM
+    strip.  Here the function is a ``StencilOp``: a block loads its tile
+    and (rh, rw) halo of one channel into shared memory with clamped or
+    zero-filled reads, and each thread evaluates the op per pixel -- the
+    ``wsum`` terms with ``__fmul_rn``/``__fadd_rn`` in ``conv2d``'s order
+    (so the laplacian's cancellation rounds as the plain version does),
+    or the median network.
+
+    Bound on the card: device memory (one read and one write per pixel;
+    the 3x3 ops do 5-19 operations per pixel).  Its times are in
+    PERF.md."""
+    _check_image(x, (torch.float32,), "stencil_apply")
+    _check_mode(mode)
+    _check_stencil(rh, rw, op)
+    if not _on_cuda(x):
+        return stencil_apply_plain(x, rh, rw, op, mode)
+    lib = load_library()
+    c, h, w = x.shape
+    terms_w, terms_idx = _device_terms(op.terms, x.device)
+    th, tw, smem = choose_stencil_tile(rh, rw, len(op.terms))
+    out = torch.empty_like(x)
+    rc = lib.rf_stencil_apply(
+        x.data_ptr(), out.data_ptr(), c, h, w, rh, rw, int(mode == "zero"), th, tw,
+        _STENCIL_KINDS[op.kind], terms_w.data_ptr(), terms_idx.data_ptr(), len(op.terms),
+        smem, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_launch(lib, rc, "stencil_apply")
+    LAUNCHES["stencil_apply"] += 1
+    return out
+
+
+# ---- kernel D: graph_strip_mc --------------------------------------------------------
+
+# Stage kinds of graph_strip_mc (csrc/graph_strip_mc.cu, enum McKind).
+MC_POINT, MC_STENCIL, MC_CONV = 0, 1, 2
+# Opcodes (csrc enum McOp).  Point ops read one or two inputs at a pixel:
+MC_COPY = 0  # in0
+MC_MIX = 1  # in0 + (in1 - in0) * p0, all channels
+MC_ACES = 2  # rgb: ACES filmic of in0 * p0
+MC_REINHARD = 3  # rgb: Reinhard of in0 * p0
+MC_VIGNETTE = 4  # rgb: in0 * radial fade (p0 strength, p1 radius, p2 1.42 - radius)
+MC_GRAYSCALE = 5  # rgb: luma(in0)
+MC_SATURATION = 6  # rgb: y + (in0 - y) * p0, y = luma(in0)
+MC_THRESHOLD = 7  # rgb: luma(in0) > p0
+MC_BLOOM_PRE = 8  # rgb: in0 * smoothstep(p0, p0 + p1, luma) (p1 the span); stays f32
+# Conv epilogues, given the blur and the stage's x source:
+MC_CONV_IDENTITY = 16  # blur
+MC_CONV_UNSHARP = 17  # rgb: x + p0 * (x - blur)
+MC_CONV_BLOOM = 18  # rgb: x + p0 * blur
+# Stencils over the 3x3 (r = 1) or (2r+1)^2 neighbourhood:
+MC_SHARPEN = 32  # rgb: x + p0 * wsum(table 0)
+MC_SOBEL = 33  # rgb: sqrt(gx^2 + gy^2) * p0, gx/gy = wsum of tables 0/1 over luma
+MC_EMBOSS = 34  # rgb: wsum(table 0)
+MC_MEDIAN3 = 35  # rgb: median9
+
+
+def mc_kind(code: int) -> int:
+    """The stage kind an opcode belongs to."""
+    return MC_POINT if code < 16 else MC_CONV if code < 32 else MC_STENCIL
+
+
+# Stage inputs and outputs that are not pool slots.
+MC_INPUT = -1  # the graph input
+MC_OUTPUT = -2  # the kernel output (the final node)
+# Kernel limits (csrc kMcMaxStages, kMcStageInts).
+MC_MAX_STAGES = 24
+MC_STAGE_INTS = 22
+# Output tiles (rows, cols) of the mc kernel, largest first; the footprint
+# preferred for two blocks per SM, and the dynamic shared memory a block
+# may take beside the kernel's static stage table (2.5 KB).
+MC_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
+MC_SMEM_SOFT = 113 * 1024
+MC_SMEM_LIMIT = SMEM_LIMIT - 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class McOp:
+    """A node's device form in the mc kernel: an opcode, up to four float
+    params and, for stencils, the 2-D tap tables its wsum terms come
+    from."""
+
+    code: int
+    params: tuple = ()
+    tables: tuple = ()
+
+
+@dataclasses.dataclass
+class McStage:
+    """One stage of an mc plan.
+
+    ``ins`` (and ``x``, a conv epilogue's source) are (slot, eh, ew): a
+    pool slot (or MC_INPUT) and the extent the resource there was
+    computed over.  The stage computes its output over the tile plus
+    (eh, ew) into slot ``out`` (or MC_OUTPUT), rounding to storage when
+    ``store``.  ``taps`` are the conv's (wh, ww) or the stencil's tap
+    tables; ``plain`` computes the stage in PyTorch over whole images
+    from the builtin's own forms: point ``plain(ctx, ins)``, stencil
+    ``plain(ctx, tap)``, conv ``plain(ctx, x, blur)``."""
+
+    kind: int
+    op: McOp
+    ins: tuple
+    out: int
+    eh: int
+    ew: int
+    plain: Callable[..., torch.Tensor]
+    x: Optional[tuple] = None
+    r: int = 0
+    taps: tuple = ()
+    store: bool = True
+
+
+@dataclasses.dataclass
+class McProgram:
+    """A multi-stage graph for graph_strip_mc, built once per program: the
+    stages in topological order, the number of pool slots, the input's
+    extent (``rh_in`` rows, ``ew_in`` columns), the frame and the storage
+    format."""
+
+    stages: list
+    n_slots: int
+    rh_in: int
+    ew_in: int
+    width: int
+    height: int
+    fmt: str
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if len(self.stages) > MC_MAX_STAGES:
+            raise ValueError(f"graph_strip_mc takes at most {MC_MAX_STAGES} stages")
+        ws, idxs, self._lists = [], [], []
+        off = 0
+        for st in self.stages:
+            if len(st.op.params) > 4:
+                raise ValueError("mc ops take at most 4 float params")
+            if st.kind == MC_CONV:
+                wh, ww = (np.asarray(v, np.float32) for v in st.taps)
+                parts = [(wh, np.zeros(len(wh), np.int32)), (ww, np.zeros(len(ww), np.int32))]
+            else:
+                parts = [_term_arrays(wsum(tab).terms) for tab in st.taps]
+            lists = []
+            for w, idx in parts:
+                lists += [off, len(w)]
+                ws.append(w)
+                idxs.append(idx)
+                off += len(w)
+            self._lists.append((lists + [0, 0, 0, 0])[:4])
+        self.taps = np.concatenate(ws) if ws else np.zeros(0, np.float32)
+        self.term_idx = np.concatenate(idxs) if idxs else np.zeros(0, np.int32)
+
+    def _layout(self, th: int, tw: int):
+        """(slot float offsets, scratch offset, taps offset, bytes) of the
+        shared-memory layout for a (th, tw) tile: the input block, the
+        pool slots (each sized for the largest resource it holds), the
+        conv H-pass buffer (two halves), the taps and their positions.
+        Rows have an odd pitch (csrc graph_strip_mc.cu ``pitch``)."""
+        def block(eh, ew):
+            return 4 * (th + 2 * eh) * ((tw + 2 * ew) | 1)
+
+        cap = [0] * self.n_slots
+        scratch = 0
+        for st in self.stages:
+            if st.out >= 0:
+                cap[st.out] = max(cap[st.out], block(st.eh, st.ew))
+            if st.kind == MC_CONV:
+                rw = (len(st.taps[1]) - 1) // 2
+                scratch = max(scratch, 2 * (th + 2 * st.eh) * ((tw + 2 * st.ew + 2 * rw) | 1))
+        off = block(self.rh_in, self.ew_in)
+        slot_off = []
+        for c in cap:
+            slot_off.append(off)
+            off += c
+        scratch_off = off
+        taps_off = scratch_off + scratch
+        return slot_off, scratch_off, taps_off, 4 * (taps_off + 2 * len(self.taps))
+
+    def tile(self) -> Optional[tuple[int, int, int]]:
+        """(TH, TW, shared-memory bytes): the largest tile under
+        MC_SMEM_SOFT, else under MC_SMEM_LIMIT, else None (the planner
+        then refuses the plan)."""
+        if "tile" not in self._cache:
+            self._cache["tile"] = None
+            for budget in (MC_SMEM_SOFT, MC_SMEM_LIMIT):
+                fits = [(th, tw) for th, tw in MC_TILES if self._layout(th, tw)[3] <= budget]
+                if fits:
+                    th, tw = fits[0]
+                    self._cache["tile"] = (th, tw, self._layout(th, tw)[3])
+                    break
+        return self._cache["tile"]
+
+    def packed(self, th: int, tw: int):
+        """(stage ints, stage floats, scratch offset, taps offset) for the
+        kernel: host arrays of MC_STAGE_INTS ints and 4 floats a stage."""
+        key = ("packed", th, tw)
+        if key not in self._cache:
+            slot_off, scratch_off, taps_off, _ = self._layout(th, tw)
+
+            def buf(ref):
+                if ref is None:
+                    return [-1, 0, 0]
+                slot, eh, ew = ref
+                return [0 if slot == MC_INPUT else slot_off[slot], eh, ew]
+
+            rows_i, rows_f = [], []
+            for st, lists in zip(self.stages, self._lists):
+                ins = list(st.ins) + [None] * (2 - len(st.ins))
+                rh = rw = st.r
+                if st.kind == MC_CONV:
+                    rh, rw = ((len(v) - 1) // 2 for v in st.taps)
+                rows_i.append(
+                    [st.kind, st.op.code, len(st.ins), *buf(ins[0]), *buf(ins[1]), *buf(st.x),
+                     -1 if st.out == MC_OUTPUT else slot_off[st.out], st.eh, st.ew, rh, rw,
+                     *lists, int(st.store)]
+                )
+                rows_f.append((list(st.op.params) + [0.0] * 4)[:4])
+            stage_i = np.ascontiguousarray(np.array(rows_i, np.int32).reshape(-1, MC_STAGE_INTS))
+            stage_f = np.ascontiguousarray(np.array(rows_f, np.float32).reshape(-1, 4))
+            self._cache[key] = (stage_i, stage_f, scratch_off, taps_off)
+        return self._cache[key]
+
+    def device_taps(self, device: torch.device):
+        key = ("taps", device)
+        if key not in self._cache:
+            self._cache[key] = (torch.from_numpy(self.taps).to(device),
+                                torch.from_numpy(self.term_idx).to(device))
+        return self._cache[key]
+
+
+def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
+    """The plain version of ``graph_strip_mc``, and the mc tier's CPU path:
+    the stage list over whole images (convs and stencils with clamped
+    taps), rounding each node's output to storage."""
+    ctx = KernelContext(width=prog.width, height=prog.height, time=t, fmt=prog.fmt,
+                        device=x.device)
+    h, w = x.shape[-2], x.shape[-1]
+    vals: dict[int, torch.Tensor] = {MC_INPUT: x.to(torch.float32)}
+    for st in prog.stages:
+        ins = [vals[slot] for slot, _eh, _ew in st.ins]
+        if st.kind == MC_CONV:
+            blur = sep_conv_plain(ins[0], [st.taps], "edge")[0]
+            v = st.plain(ctx, vals[st.x[0]] if st.x is not None else None, blur)
+        elif st.kind == MC_STENCIL:
+            xp = _padded(ins[0], st.r, st.r, "edge")
+            v = st.plain(ctx, lambda dy, dx, _xp=xp: _xp[:, dy : dy + h, dx : dx + w])
+        else:
+            v = st.plain(ctx, ins)
+        vals[st.out] = _store(v, prog.fmt) if st.store else v
+    return vals[MC_OUTPUT].to(x.dtype)
+
+
+def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
+    """A whole multi-stage graph in one kernel; returns the final output in
+    the storage type.
+
+    Replaces ``pallas_ops.graph_strip_fused_mc`` (pallas_ops.py:2955),
+    which streamed channel-full whole-width strips through VMEM with a
+    DMA double buffer, carried conv rows between strips and ran heavy
+    convs as MXU band matmuls.  Here a block owns a 2-D tile with all four
+    channels: it loads the tile plus the plan's input extent into shared
+    memory with clamped reads, then each stage computes its output over
+    the tile plus its own extent into a shared-memory pool slot.  Every
+    read of an intermediate goes through the clamped global coordinate,
+    so the tier reproduces per-node execution's edge padding of every
+    intermediate without computing outside the image.
+
+    Bound on the card: the conv tap loops over each stage's extended
+    block, and the halo recomputed by neighbouring tiles.  Its times are
+    in PERF.md."""
+    dtype = torch.bfloat16 if prog.fmt == "rgba16f" else torch.float32
+    _check_image(x, (dtype,), "graph_strip_mc")
+    if tuple(x.shape) != (4, prog.height, prog.width):
+        raise ValueError(f"graph_strip_mc: expected (4, {prog.height}, {prog.width}), "
+                         f"got {tuple(x.shape)}")
+    if not _on_cuda(x):
+        return graph_strip_mc_plain(x, t, prog)
+    lib = load_library()
+    if (lib.rf_mc_limits(0), lib.rf_mc_limits(1)) != (MC_MAX_STAGES, MC_STAGE_INTS):
+        raise RuntimeError("MC_MAX_STAGES/MC_STAGE_INTS disagree with the built kernel")
+    tile = prog.tile()
+    if tile is None:
+        raise ValueError("graph_strip_mc: no tile fits this plan (the planner refuses it)")
+    th, tw, smem = tile
+    stage_i, stage_f, scratch_off, taps_off = prog.packed(th, tw)
+    taps, term_idx = prog.device_taps(x.device)
+    out = torch.empty_like(x)
+    rc = lib.rf_graph_strip_mc(
+        int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), prog.height, prog.width,
+        th, tw, prog.rh_in, prog.ew_in, stage_i.ctypes.data, stage_f.ctypes.data,
+        len(prog.stages), scratch_off, taps_off, taps.data_ptr(), term_idx.data_ptr(),
+        len(prog.taps), STORE_MODES[prog.fmt], float(t), smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_launch(lib, rc, "graph_strip_mc")
+    LAUNCHES["graph_strip_mc"] += 1
     return out

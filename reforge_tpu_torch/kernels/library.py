@@ -1,23 +1,36 @@
-"""Builtin kernels of the main path (the port of
-``reforge_tpu/kernels/library.py``, the subset the flagship graph and the
-default config use).
+"""Builtin kernels of the main paths (the port of
+``reforge_tpu/kernels/library.py``: the builtins of the flagship, the
+demo, edges and chain3 graphs and the reference's mc test graphs).
 
 Every form of each builtin is ported: ``fn``, ``conv_weights``,
-``conv_epilogue`` and ``conv_epilogue_cw``, ``cw_fn``, ``cw_coord_plane``
-and ``cw_plane_fn``.  Each channel-local form also has a ``cw_op``, its
-device form in the graph_strip kernel's op list (cuda_ops.OP_*).  The
-other builtins of the reference library are not ported yet.
+``conv_pre``, ``conv_epilogue`` and ``conv_epilogue_cw``, ``cw_fn``,
+``cw_coord_plane``, ``cw_plane_fn`` and ``mc_stencil_fn``.  Each node
+form the kernels evaluate also has a device form: ``cw_op`` for the
+graph_strip kernel's op list, ``mc_op`` for the graph_strip_mc kernel's
+stage list (opcodes in cuda_ops.py).  The other builtins of the
+reference library are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import cuda_ops as co
 from .base import kernel, register_kernel
-from .ops import gaussian_blur, gaussian_radius, gaussian_weights, grid_coords, map_rgb, smoothstep
+from .ops import (
+    apply_stencil,
+    conv2d,
+    gaussian_blur,
+    gaussian_radius,
+    gaussian_weights,
+    grid_coords,
+    luma,
+    map_rgb,
+    smoothstep,
+)
 
 
 # ---- identity -----------------------------------------------------------
@@ -30,6 +43,34 @@ def passthrough(ctx, input_image):
 
 passthrough.cw_fn = lambda ctx, ci, ins, p: ins["input_image"]
 passthrough.cw_op = lambda p, plane: (co.OP_COPY, ())
+passthrough.mc_op = lambda p, pre=False: co.McOp(co.MC_COPY)
+
+
+# ---- colour (channel-mixing) ----------------------------------------------
+
+
+@kernel("grayscale")
+def grayscale(ctx, input_image):
+    y = luma(input_image)
+    return map_rgb(input_image, lambda rgb: y[None].expand(rgb.shape))
+
+
+@kernel("saturation")
+def saturation(ctx, input_image, *, amount=1.0):
+    y = luma(input_image)[None]
+    return map_rgb(input_image, lambda rgb: y + (rgb - y) * amount)
+
+
+@kernel("threshold")
+def threshold(ctx, input_image, *, value=0.5):
+    y = luma(input_image)
+    mask = (y > value).to(input_image.dtype)[None]
+    return map_rgb(input_image, lambda rgb: mask.expand(rgb.shape))
+
+
+grayscale.mc_op = lambda p, pre=False: co.McOp(co.MC_GRAYSCALE)
+saturation.mc_op = lambda p, pre=False: co.McOp(co.MC_SATURATION, (p["amount"],))
+threshold.mc_op = lambda p, pre=False: co.McOp(co.MC_THRESHOLD, (p["value"],))
 
 
 # ---- tonemapping --------------------------------------------------------
@@ -60,6 +101,9 @@ def _tonemap_cw(ctx, ci, ins, p):
 tonemap.cw_fn = _tonemap_cw
 tonemap.cw_op = lambda p, plane: (
     co.OP_ACES if p["aces"] else co.OP_REINHARD, (p["exposure"],)
+)
+tonemap.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_ACES if p["aces"] else co.MC_REINHARD, (p["exposure"],)
 )
 
 
@@ -117,6 +161,146 @@ unsharp.conv_epilogue_cw = lambda ctx, ci, x, b, p: torch.where(
 )
 unsharp.cw_op = lambda p, plane: (co.OP_UNSHARP, (p["amount"],))
 
+# mc device forms.  sigma <= 0 has no conv: the node is then a point stage
+# that copies its input (x + amount * (x - x) is x for finite images).
+for _spec in (gaussian, blur):
+    _spec.mc_op = lambda p, pre=False: co.McOp(
+        co.MC_CONV_IDENTITY if p["sigma"] > 0 else co.MC_COPY
+    )
+unsharp.mc_op = lambda p, pre=False: (
+    co.McOp(co.MC_CONV_UNSHARP, (p["amount"],)) if p["sigma"] > 0 else co.McOp(co.MC_COPY)
+)
+
+
+# ---- stencils ---------------------------------------------------------------
+
+# Tap tables of the reference's stencil builtins (library.py:180, 249-250,
+# 257), held bit-equal to them by tests/test_torch_stencil.py.
+SHARPEN_TAPS = np.array([[0, -1, 0], [-1, 4, -1], [0, -1, 0]], dtype=np.float32)
+SOBEL_X_TAPS = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32)
+SOBEL_Y_TAPS = np.array([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], np.float32)
+EMBOSS_TAPS = np.array([[-2, -1, 0], [-1, 1, 1], [0, 1, 2]], dtype=np.float32)
+
+
+@kernel("sharpen", halo=lambda p: 1)
+def sharpen(ctx, input_image, *, amount=1.0):
+    """Laplacian unsharp: x + amount * (x - local mean)."""
+    high = conv2d(input_image, SHARPEN_TAPS)
+    return map_rgb(input_image, lambda rgb: rgb + amount * high[:3])
+
+
+@kernel("sobel", halo=lambda p: 1)
+def sobel(ctx, input_image, *, amount=1.0):
+    """Sobel gradient magnitude of luminance."""
+    y = luma(input_image)[None]
+    gx = conv2d(y, SOBEL_X_TAPS)
+    gy = conv2d(y, SOBEL_Y_TAPS)
+    mag = torch.sqrt(gx * gx + gy * gy) * amount
+    return map_rgb(input_image, lambda rgb: mag.expand(rgb.shape))
+
+
+@kernel("emboss", halo=lambda p: 1)
+def emboss(ctx, input_image, *, amount=1.0):
+    return map_rgb(input_image, lambda rgb: conv2d(rgb, EMBOSS_TAPS * amount))
+
+
+@kernel("median3", halo=lambda p: 1)
+def median3(ctx, input_image):
+    """3x3 median by a 9-element sorting network per pixel (one
+    stencil_apply launch on the card)."""
+    med = apply_stencil(input_image, 1, 1, co.MEDIAN9)
+    return map_rgb(input_image, lambda rgb: med[:3])
+
+
+# Multi-channel stencil forms (the mc tier; tap(dy, dx) is a (4, h, w)
+# shifted view), in ops.conv2d's ascending (dy, dx) order.  The mc tables
+# scale emboss's taps as the reference's mc form does: each weight is the
+# Python product w * amount, rounded once to f32.
+def _sum_table(tap, table):
+    return co.ordered_wsum(tap, co.wsum(table).terms, lambda: tap(1, 1))
+
+
+def _sobel_mc(ctx, tap, p):
+    ys = {}
+
+    def y(dy, dx):
+        if (dy, dx) not in ys:
+            ys[(dy, dx)] = luma(tap(dy, dx))
+        return ys[(dy, dx)]
+
+    gx = _sum_table(y, SOBEL_X_TAPS)
+    gy = _sum_table(y, SOBEL_Y_TAPS)
+    mag = torch.sqrt(gx * gx + gy * gy) * p["amount"]
+    return map_rgb(tap(1, 1), lambda rgb: mag[None].expand(rgb.shape))
+
+
+def _sharpen_mc(ctx, tap, p):
+    high = _sum_table(tap, SHARPEN_TAPS)
+    return map_rgb(tap(1, 1), lambda rgb: rgb + p["amount"] * high[:3])
+
+
+def _emboss_mc_table(p):
+    a = p["amount"]
+    return np.array([[float(w) * a for w in row] for row in EMBOSS_TAPS], np.float32)
+
+
+def _emboss_mc(ctx, tap, p):
+    out = _sum_table(tap, _emboss_mc_table(p))
+    return map_rgb(tap(1, 1), lambda rgb: out[:3])
+
+
+def _median3_mc(ctx, tap, p):
+    med = co.median9_plain([tap(dy, dx) for dy in range(3) for dx in range(3)])
+    return map_rgb(tap(1, 1), lambda rgb: med[:3])
+
+
+sobel.mc_stencil_fn = _sobel_mc
+sharpen.mc_stencil_fn = _sharpen_mc
+emboss.mc_stencil_fn = _emboss_mc
+median3.mc_stencil_fn = _median3_mc
+sobel.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_SOBEL, (p["amount"],), (SOBEL_X_TAPS, SOBEL_Y_TAPS)
+)
+sharpen.mc_op = lambda p, pre=False: co.McOp(co.MC_SHARPEN, (p["amount"],), (SHARPEN_TAPS,))
+emboss.mc_op = lambda p, pre=False: co.McOp(co.MC_EMBOSS, (), (_emboss_mc_table(p),))
+median3.mc_op = lambda p, pre=False: co.McOp(co.MC_MEDIAN3)
+
+
+# ---- bloom ------------------------------------------------------------------
+
+
+@kernel("bloom", halo=lambda p: gaussian_radius(p["sigma"]))
+def bloom(ctx, input_image, *, threshold=0.7, sigma=8.0, intensity=0.6):
+    y = luma(input_image)
+    glow_mask = smoothstep(threshold, threshold + 0.2, y)[None]
+    glow = gaussian_blur(input_image[:3] * glow_mask, sigma, prefer_mxu=_mxu_ok(ctx))
+    return map_rgb(input_image, lambda rgb: rgb + intensity * glow)
+
+
+# A node-internal pre-map (the threshold mask) feeding the separable
+# gaussian, and an epilogue adding the glow back: one conv stage (after a
+# pre-map stage) of the mc tier.
+def _bloom_pre(ctx, x, p):
+    y = luma(x)
+    mask = smoothstep(p["threshold"], p["threshold"] + 0.2, y)[None]
+    return torch.cat([x[:3] * mask, x[3:4]], dim=0)
+
+
+def _bloom_mc_op(p, pre=False):
+    if pre:
+        # smoothstep(t, t + 0.2, y) divides by (t + 0.2) - t taken in double
+        # precision, as Python evaluates it in the reference.
+        return co.McOp(co.MC_BLOOM_PRE, (p["threshold"], (p["threshold"] + 0.2) - p["threshold"]))
+    return co.McOp(co.MC_CONV_BLOOM, (p["intensity"],))
+
+
+bloom.conv_weights = _gauss_plan
+bloom.conv_pre = _bloom_pre
+bloom.conv_epilogue = lambda ctx, x, blurred, p: map_rgb(
+    x, lambda rgb: rgb + p["intensity"] * blurred[:3]
+)
+bloom.mc_op = _bloom_mc_op
+
 
 # ---- multi-input ---------------------------------------------------------
 
@@ -130,6 +314,7 @@ mix.cw_fn = lambda ctx, ci, ins, p: (
     ins["input_image"] + (ins["input_image2"] - ins["input_image"]) * p["factor"]
 )
 mix.cw_op = lambda p, plane: (co.OP_MIX, (p["factor"],))
+mix.mc_op = lambda p, pre=False: co.McOp(co.MC_MIX, (p["factor"],))
 
 # "blend" is the same kernel under the reference README's name.
 register_kernel(dataclasses.replace(mix, name="blend"))
@@ -176,3 +361,6 @@ vignette.cw_fn = _vignette_cw
 vignette.cw_coord_plane = lambda ctx, p: _vignette_fade(ctx, p["strength"], p["radius"])
 vignette.cw_plane_fn = _fade_plane_cw
 vignette.cw_op = _vignette_op
+vignette.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_VIGNETTE, (p["strength"], p["radius"], 1.42 - p["radius"])
+)

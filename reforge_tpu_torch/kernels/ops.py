@@ -1,10 +1,11 @@
 """Shared image math for kernels (the port of ``reforge_tpu/kernels/ops.py``).
 
 All functions take planar ``(C, H, W)`` tensors.  Border policy is
-clamp-to-edge, done with clamped index arithmetic.  ``sep_conv`` sends a
-CUDA tensor to the hand-written kernels (cuda_ops.py) and a CPU tensor to
-their plain versions.  The tap builders are numpy, copied from the
-reference so both packages produce the same tap vectors bit for bit.
+clamp-to-edge, done with clamped index arithmetic.  ``sep_conv``,
+``apply_stencil`` and ``conv2d`` send a CUDA tensor to the hand-written
+kernels (cuda_ops.py) and a CPU tensor to their plain versions.  The
+functions that make tap vectors are numpy, copied from the reference so
+both packages produce the same taps bit for bit.
 """
 
 from __future__ import annotations
@@ -40,21 +41,54 @@ def conv1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
     return cuda_ops.correlate1d(x, weights, axis)
 
 
+# Combined (H + W) tap count from which an f32 conv takes the
+# ``sep_conv_fused_mxu_x3`` entry point, as the reference routes it
+# (reforge_tpu/kernels/ops.py:153-166).  Kept as the reference's routing
+# label, so launch counts separate heavy convs from light ones; both
+# entries run the same kernel here.
+X3_MIN_TAPS = 56
+
+
 def sep_conv(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
              prefer_mxu: bool = False) -> torch.Tensor:
     """Separable 2-D convolution: 1-D pass along H then along W.
 
     ``prefer_mxu`` marks bf16 storage around the call (rgba16f): the f32
     input was just upcast from bf16, so the conv reads it as bf16
-    losslessly (the ``sep_conv_fused_mxu`` entry point).  Both entry
-    points return f32; the caller rounds at the node boundary."""
+    losslessly (the ``sep_conv_fused_mxu`` entry point).  f32 convs of at
+    least ``X3_MIN_TAPS`` combined taps take ``sep_conv_fused_mxu_x3``.
+    Every entry point returns f32; the caller rounds at the node
+    boundary."""
     wh = np.asarray(wh, np.float32)
     ww = np.asarray(ww, np.float32)
     if x.dim() == 3 and len(wh) > 1 and len(ww) > 1:
         if x.dtype == torch.bfloat16 or prefer_mxu:
             return cuda_ops.sep_conv_fused_mxu(x.to(torch.bfloat16), wh, ww).to(x.dtype)
+        if len(wh) + len(ww) >= X3_MIN_TAPS:
+            return cuda_ops.sep_conv_fused_mxu_x3(x, wh, ww)
         return cuda_ops.sep_conv_fused(x, wh, ww)
     return conv1d(conv1d(x, wh, AXIS_H), ww, AXIS_W)
+
+
+def apply_stencil(x: torch.Tensor, rh: int, rw: int, op: "cuda_ops.StencilOp",
+                  mode: str = "edge") -> torch.Tensor:
+    """Evaluate a per-pixel neighbourhood function over a (C, H, W) f32
+    image: ``op`` is a ``cuda_ops.StencilOp`` (a weighted sum of a tap
+    table, or the median of 3x3), not a closure, because the CUDA kernel
+    evaluates it (the ``stencil_apply`` entry point)."""
+    return cuda_ops.stencil_apply(x.contiguous(), rh, rw, op, mode)
+
+
+def conv2d(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Small dense 2-D correlation (static odd-sized table, edge clamp),
+    summed in the reference's order (reforge_tpu/kernels/ops.py:213-242):
+    the nonzero taps in ascending (dy, dx), one chain up to 16 terms,
+    eight stripes merged pairwise above that."""
+    taps = np.asarray(taps, np.float32)
+    rh, rw = taps.shape[0] // 2, taps.shape[1] // 2
+    if rh == 0 and rw == 0:
+        return x * float(taps[0, 0])
+    return apply_stencil(x, rh, rw, cuda_ops.wsum(taps))
 
 
 def gaussian_weights(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -100,7 +134,7 @@ def map_rgb(x: torch.Tensor, f) -> torch.Tensor:
     return torch.cat([f(x[:3]), x[3:4]], dim=0)
 
 
-def pixel_coords(h: int, w: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def pixel_coords(h: int, w: int, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """(y, x) integer coordinate planes, each (H, W) int32."""
     ys = torch.arange(h, dtype=torch.int32, device=device).view(h, 1).expand(h, w)
     xs = torch.arange(w, dtype=torch.int32, device=device).view(1, w).expand(h, w)

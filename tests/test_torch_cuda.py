@@ -72,3 +72,56 @@ def test_graph_strip(fmt):
     # rgba16f: a one-ulp difference before a node's bf16 rounding can flip it.
     tol = 1e-5 if fmt == "rgba32f" else 2e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+def test_stencil_apply(mode):
+    from reforge_tpu_torch.kernels import library
+
+    x = _image((4, 37, 71), 7)
+    ops = [(1, cuda_ops.wsum(library.SHARPEN_TAPS)), (1, cuda_ops.wsum(library.EMBOSS_TAPS)),
+           (1, cuda_ops.MEDIAN9),
+           (2, cuda_ops.wsum(np.arange(25, dtype=np.float32).reshape(5, 5) - 7.0))]
+    for r, op in ops:
+        before = cuda_ops.LAUNCHES["stencil_apply"]
+        got = cuda_ops.stencil_apply(x, r, r, op, mode)
+        want = cuda_ops.stencil_apply_plain(x, r, r, op, mode)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES["stencil_apply"] == before + 1
+        # every product and sum rounds as in the plain version: bit-equal
+        assert torch.equal(got, want), (op.kind, r)
+
+
+@pytest.mark.parametrize("r", [24, 66])
+def test_sep_conv_fused_mxu_x3(r):
+    x = _image((4, 37, 71), r)
+    w = gaussian_weights(r / 3.0)
+    before = cuda_ops.LAUNCHES["sep_conv_fused_mxu_x3"]
+    got = cuda_ops.sep_conv_fused_mxu_x3(x, w, w, "zero" if r > 64 else "edge")
+    want = cuda_ops.sep_conv_plain(x, [(w, w)], "zero" if r > 64 else "edge")[0]
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sep_conv_fused_mxu_x3"] == before + 1
+    assert float((got - want).abs().max()) <= _tol(w)
+
+
+@pytest.mark.parametrize("hw", [(37, 71), (200, 300)])  # border blocks only; interior ones too
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize(
+    "config", ["DEMO_CONFIG", "EDGES_CONFIG", "CHAIN3_CONFIG", "MIX_SECOND_FIRST_CONFIG"])
+def test_graph_strip_mc(config, fmt, hw):
+    from reforge_tpu_torch import benchmarks
+
+    h, w = hw
+    prog = benchmarks.build_program(getattr(benchmarks, config), w, h, fmt, device="cuda")
+    assert prog._strip_plan[0] == "mc"
+    x = _image((4, h, w), 9).to(prog.storage_dtype)
+    before = cuda_ops.LAUNCHES["graph_strip_mc"]
+    got = prog._forward(x, 0.5)
+    want = cuda_ops.graph_strip_mc_plain(x, 0.5, prog._strip_plan[1])
+    per_node = prog._forward_nostrip(x, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + 1
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    # the mix wired second input first reads its base as in0 on the card too
+    assert float((got.float() - per_node.float()).abs().max()) <= tol

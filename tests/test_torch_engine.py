@@ -6,14 +6,16 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from reforge_tpu.engine import Engine as JEngine
+from reforge_tpu.io import srgb as jsrgb
 from reforge_tpu.engine import RenderInfo as JRenderInfo
 from reforge_tpu_torch import utils as tutils
-from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG
+from reforge_tpu_torch.benchmarks import CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG
 from reforge_tpu_torch.engine import Engine, RenderInfo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,6 +85,42 @@ def test_engine_tiers_agree(flagship, fmt):
     engine.close()
 
 
+MULTISTAGE = {"demo": DEMO_CONFIG, "edges": EDGES_CONFIG, "chain3": CHAIN3_CONFIG}
+
+
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("graph", sorted(MULTISTAGE))
+def test_multistage_graph_through_engine(tmp_path, graph, fmt):
+    """The demo, edges and chain3 one-shot (u8 in and out) against the
+    JAX package's per-node path between its own sRGB decode and encode,
+    within one code as for the flagship; in rgba32f also against the JAX
+    engine.  (In rgba16f the JAX engine's jitted program may keep f32
+    precision past a bf16 store, which the demo's sharpen then amplifies:
+    4 codes on a dark pixel, where the eager path and the port agree.)
+    Then the port's mc tier (render_frame) against its own one-shot
+    per-node render."""
+    cfg = tmp_path / f"{graph}.rf"
+    cfg.write_text(MULTISTAGE[graph])
+    shaders = tmp_path / "shaders"
+    shaders.mkdir()  # shaders/sharpen.comp, sobel.comp, blend.comp would replace builtins
+    paths = (str(cfg), str(shaders))
+    u8 = _u8(5)
+    jengine = JEngine(JRenderInfo(W, H, config_path=paths[0], shader_path=paths[1], fmt=fmt,
+                                  has_input_image=True, one_shot=True))
+    linear = jengine.program._forward_nostrip(jsrgb.decode_image_to_planar(jnp.asarray(u8)),
+                                              jnp.float32(0.25))
+    want = [np.asarray(jsrgb.encode_planar_to_image(linear.astype(jnp.float32)))]
+    if fmt == "rgba32f":
+        want.append(jengine.render_one_shot(u8, 0.25))
+    got = Engine(_info(paths, fmt, True)).render_one_shot(u8, 0.25)
+    for ref in want:
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    engine = Engine(_info(paths, fmt, False))
+    assert engine.program._strip_plan[0] == "mc"
+    engine.load_input(u8)
+    assert np.array_equal(engine.read_output(engine.render_frame(0.25)), got)
+
+
 def test_default_config_is_passthrough():
     engine = Engine(RenderInfo(W, H, "cpu", has_input_image=True, shader_path="/nonexistent"))
     u8 = _u8(4)
@@ -100,10 +138,13 @@ def test_cuda_engine_raises_without_a_gpu(flagship):
 def test_port_imports_and_renders_without_jax():
     code = (
         "import json, sys\n"
-        "from reforge_tpu_torch.benchmarks import build_flagship, make_test_image\n"
-        "for fmt in ('rgba32f', 'rgba16f'):\n"
-        "    for strips in (True, False):\n"
-        "        build_flagship(40, 24, fmt, plan_strips=strips)._forward(make_test_image(24, 40), 0.1)\n"
+        "from reforge_tpu_torch.benchmarks import (\n"
+        "    DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, build_program, make_test_image)\n"
+        "for config in (FLAGSHIP_CONFIG, DEMO_CONFIG, EDGES_CONFIG):\n"
+        "    for fmt in ('rgba32f', 'rgba16f'):\n"
+        "        for strips in (True, False):\n"
+        "            build_program(config, 40, 24, fmt, device='cpu', plan_strips=strips)._forward(\n"
+        "                make_test_image(24, 40, device='cpu'), 0.1)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'reforge_tpu'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -82,7 +82,8 @@ def _jax_per_node(h, w, fmt):
 
 
 def _port(h, w, fmt, plan_strips):
-    prog = make_program(graph_from_reference(_jax_graph()), w, h, fmt, plan_strips=plan_strips)
+    prog = make_program(graph_from_reference(_jax_graph()), w, h, fmt, plan_strips=plan_strips,
+                        device="cpu")
     assert prog is not None
     return prog
 
@@ -191,8 +192,29 @@ def test_make_program_rejects_bad_wiring():
     cfg = tconfig.parse("input -> mixer -> output\nmixer: mix { factor: 0.5 }", True)
     assert build_graph(cfg) is None  # input_image2 unwired
     cfg = tconfig.parse("input -> soften -> output\nsoften: gaussian { sigma: 2.0 }", True)
-    prog = make_program(build_graph(cfg), 64, 32, "rgba8")
+    prog = make_program(build_graph(cfg), 64, 32, "rgba8", device="cpu")
     assert prog is not None and prog._strip_plan is not None
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device argument the port runs on the card, and without a
+    card it raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error cannot be shown here")
+    from reforge_tpu_torch.benchmarks import build_flagship, make_test_image
+    from reforge_tpu_torch.kernels.ops import pixel_coords
+
+    graph = build_graph(tconfig.parse(FLAGSHIP_CONFIG, True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_program(graph, 64, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flagship(64, 32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_test_image(8, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pixel_coords(8, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        library.vignette.cw_coord_plane(KernelContext(width=8, height=8), {"strength": 0.5, "radius": 0.75})
 
 
 @pytest.mark.parametrize("name", ["passthrough", "tonemap", "mix", "vignette", "gaussian", "unsharp"])
@@ -203,7 +225,7 @@ def test_channel_forms_match_fn(name):
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.random((4, 24, 40), dtype=np.float32))
     x2 = torch.from_numpy(rng.random((4, 24, 40), dtype=np.float32))
-    ctx = KernelContext(width=40, height=24, time=T)
+    ctx = KernelContext(width=40, height=24, time=T, device="cpu")
     params = {k: d.default for k, d in spec.params.items()}
     ci = torch.arange(4).view(4, 1, 1)
     images = {"input_image": x, "input_image2": x2}

@@ -200,6 +200,6 @@ def test_ops_helpers_match_jax():
     np.testing.assert_array_equal(
         tops.smoothstep(0.25, 0.75, _torch(x)).numpy(),
         np.asarray(jops.smoothstep(0.25, 0.75, jnp.asarray(x))))
-    ctx = tbase.KernelContext(width=13, height=9)
+    ctx = tbase.KernelContext(width=13, height=9, device="cpu")
     for got, want in zip(tops.grid_coords(ctx), jops.pixel_coords(9, 13)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
