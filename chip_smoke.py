@@ -6,14 +6,19 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives two main paths at 3840x2160 through ``Engine``, each with the
+drives three main paths at 3840x2160 through ``Engine``, each with the
 launch counters set to 0 just before it and read just after:
 
   A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
      per node with conv bundles, and the graph_strip tier);
   B. the classic demo (blur sigma 8, sharpen, blend) and edges (median3,
      sobel) in rgba32f and rgba16f: one-shot per node (the x3, mxu and
-     stencil kernels) and the mc tier (graph_strip_mc).
+     stencil kernels) and the mc tier (graph_strip_mc);
+  C. the stylized graphs newsprint (bilateral, levels, halftone),
+     watercolor (kuwahara, bilateral, levels, noise, vignette) and oil
+     paint (kuwahara, tonemap) in rgba32f and rgba16f, per node on every
+     tier: bilateral through stencil_reduce_mc, kuwahara's four quadrant
+     convs through sep_conv_fused (never the bf16 entry).
 
 It checks the outputs, prints fps, latency, a device-time profile and
 each kernel's time beside its plain version, its bound and a library
@@ -109,6 +114,22 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _reduce_bound(n_pixels: int, n_taps: int, max_sm_mhz: float, n_sms: int) -> tuple[float, str, str]:
+    """(ms, what bounds it, the three terms) of bilateral's reduction: four
+    f32 planes read and three written; 11 f32 operations per tap and
+    pixel (a difference, a square, a scale, the exponential counted as
+    one, the spatial weight, three products, four sums) and three
+    divisions a pixel; one exponential per tap and pixel on the SFUs, 16
+    per SM per clock at the highest SM clock."""
+    t_bytes = 7 * 4 * n_pixels / HBM_BYTES_PER_S * 1e3
+    t_ops = (11 * n_taps + 3) * n_pixels / F32_OPS_PER_S * 1e3
+    t_sfu = n_taps * n_pixels / (16 * n_sms * max_sm_mhz * 1e6) * 1e3
+    terms = f"bytes {t_bytes:.4f}, f32 operations {t_ops:.4f}, exponentials {t_sfu:.4f} ms"
+    if t_bytes >= max(t_ops, t_sfu):
+        return t_bytes, "bytes", terms
+    return max(t_ops, t_sfu), "operations", terms
+
+
 def _library_sep_conv(x: torch.Tensor, plans):
     """One replicate pad and one depthwise F.conv2d per pass and plan (the
     library yardstick of the conv kernels; TF32 is off)."""
@@ -196,8 +217,8 @@ def main() -> int:
 
     from reforge_tpu_torch.benchmarks import (
         CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, MC_TEST_GRAPHS,
-        MIX_SECOND_FIRST_CONFIG, bench_program, bench_program_sequenced, build_flagship,
-        build_program,
+        MIX_SECOND_FIRST_CONFIG, STYLIZED_GRAPHS, bench_program, bench_program_sequenced,
+        build_flagship, build_program,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
     from reforge_tpu_torch.kernels import cuda_ops, library
@@ -210,6 +231,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    # The SFU term of a bound counts at the card's highest SM clock.
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    max_sm_mhz = float(clocks.split(",")[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"SM clock max, now (MHz): {clocks}; SMs {n_sms}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -289,6 +318,30 @@ def main() -> int:
                 if x is x4k and mode == "edge" and sname == "sharpen":
                     errs["stencil_apply"] = err
 
+    # stencil_reduce_mc: bilateral's reduction at newsprint's radius 4 and
+    # watercolor's radius 3 at 4K, and radius 60 (no shared-memory tile
+    # fits it; every tap through global memory) on the ragged frame, in
+    # both border modes.  Kernel and plain version call the same expf and
+    # round every product and sum alike; 1e-6 allows a few f32 ulps of
+    # [0, 1] values.
+    stack4k = torch.cat([x4k[:3], luma(x4k)[None]]).contiguous()
+    stack_ragged = torch.cat([ragged[:3], luma(ragged)[None]]).contiguous()
+    reduce_ops = {"r4": library.bilateral_op(4, 2.5, 0.12), "r3": library.bilateral_op(3, 2.5, 0.12),
+                  "r60": library.bilateral_op(60, 8.0, 0.12)}
+    if cuda_ops.choose_reduce_tile(60, 60, len(reduce_ops["r60"][1].taps)) is not None:
+        raise AssertionError("radius 60 should fit no shared-memory tile")
+    for rname, (r, op) in reduce_ops.items():
+        x = stack_ragged if rname == "r60" else stack4k
+        for mode in ("edge", "zero"):
+            got = cuda_ops.stencil_reduce_mc(x, r, r, op, mode)
+            want = cuda_ops.stencil_reduce_mc_plain(x, r, r, op, mode)
+            torch.cuda.synchronize()
+            err = _max_err(got, want)
+            _check(f"stencil_reduce_mc bilateral {'x'.join(map(str, x.shape))} r={r} "
+                   f"({len(op.taps)} taps) {mode}", err, 1e-6)
+            if rname == "r4" and mode == "edge":
+                errs["stencil_reduce_mc"] = err
+
     strips = {}
     for fmt in ("rgba32f", "rgba16f", "rgba8"):
         for h, w in ((HEIGHT, WIDTH), (37, 71)):
@@ -363,13 +416,14 @@ def main() -> int:
     tmp = tmp_dir.name
     configs = {}
     for name, text in (("flagship", FLAGSHIP_CONFIG), ("demo", DEMO_CONFIG),
-                       ("edges", EDGES_CONFIG), ("chain3", CHAIN3_CONFIG)):
+                       ("edges", EDGES_CONFIG), ("chain3", CHAIN3_CONFIG),
+                       *STYLIZED_GRAPHS.items()):
         configs[name] = os.path.join(tmp, f"{name}.rf")
         with open(configs[name], "w") as f:
             f.write(text)
     # An empty shader path: shaders/tonemap.comp, vignette.comp, sharpen.comp,
-    # sobel.comp and blend.comp would otherwise replace the builtins, and
-    # GLSL is not ported yet.
+    # sobel.comp, blend.comp and kuwahara.comp would otherwise replace the
+    # builtins, and GLSL is not ported yet.
     shader_dir = os.path.join(tmp, "shaders")
     os.mkdir(shader_dir)
 
@@ -399,18 +453,18 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
         return one_shot, frame, seq, per_node, engine, shot, tier
 
-    def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine):
+    def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine, tier="strip tier"):
         for what, v in (("frame", frame), ("per-node", per_node)):
             if tuple(v.shape) != big or not bool(torch.isfinite(v.float()).all()):
                 raise AssertionError(f"{graph} {fmt} {what}: bad shape or non-finite values")
         if one_shot.shape != (HEIGHT, WIDTH, 4) or one_shot.dtype != np.uint8:
             raise AssertionError(f"{graph} {fmt} one-shot: bad image {one_shot.shape}")
-        _check(f"{graph} {fmt} strip tier vs per-node tier 4K", _max_err(frame, per_node),
+        _check(f"{graph} {fmt} {tier} vs per-node tier 4K", _max_err(frame, per_node),
                1e-5 if fmt == "rgba32f" else 2e-2)
         _check(f"{graph} {fmt} render_sequence frame 0 vs render_frame", _max_err(seq[0], frame),
                0.0)
         strip_u8 = engine.read_output(frame).astype(np.int16)
-        _check(f"{graph} {fmt} one-shot vs strip tier (u8 codes)",
+        _check(f"{graph} {fmt} one-shot vs {tier} (u8 codes)",
                float(np.abs(strip_u8 - one_shot.astype(np.int16)).max()), 1.0)
 
     # Path A: the flagship.
@@ -445,6 +499,41 @@ def main() -> int:
                                  "for 6 strip-tier frames")
         check_outputs(graph, fmt, *out[:5])
 
+    # Path C: the stylized graphs, per node on every tier.  Launches per
+    # frame: bilateral one stencil_reduce_mc, kuwahara four sep_conv_fused
+    # (its (6, H, W) stack in f32 in either format), nothing else.
+    per_frame_c = {"newsprint": {"stencil_reduce_mc": 1},
+                   "watercolor": {"stencil_reduce_mc": 1, "sep_conv_fused": 4},
+                   "oil_paint": {"sep_conv_fused": 4}}
+    cuda_ops.reset_launches()
+    outputs, built = {}, {}
+    for graph in STYLIZED_GRAPHS:
+        for fmt in ("rgba32f", "rgba16f"):
+            outputs[(graph, fmt)] = drive(graph, fmt)
+            before = dict(cuda_ops.LAUNCHES)
+            prog = build_program(STYLIZED_GRAPHS[graph], WIDTH, HEIGHT, fmt, device=dev)
+            xin = x4k.to(prog.storage_dtype)
+            out = prog._forward(xin, 0.5)
+            torch.cuda.synchronize()
+            built[(graph, fmt)] = (prog, xin, out,
+                                   {k: cuda_ops.LAUNCHES[k] - before[k] for k in before})
+    counts_c = dict(cuda_ops.LAUNCHES)
+    print(f"main path C (newsprint, watercolor, oil paint) launches: {json.dumps(counts_c)}")
+    for (graph, fmt), out in outputs.items():
+        prog, _xin, frame, built_counts = built[(graph, fmt)]
+        if prog._strip_plan is not None:
+            raise AssertionError(f"{graph} {fmt}: a strip plan where the reference has none")
+        # one-shot: 1 frame; Engine's frame path: 6 (render_frame, blocking, 4 in a sequence);
+        # build_program's program: 1
+        for what, counts, frames in (("one-shot", out[5], 1), ("frame path", out[6], 6),
+                                     ("build_program", built_counts, 1)):
+            want = {k: frames * per_frame_c[graph].get(k, 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"{graph} {fmt} {what}: launches {counts}, expected {want}")
+        if tuple(frame.shape) != big or not bool(torch.isfinite(frame.float()).all()):
+            raise AssertionError(f"{graph} {fmt} build_program: bad shape or non-finite values")
+        check_outputs(graph, fmt, *out[:5], tier="frame path")
+
     # Small renders on the card against the port's CPU path, both tiers.
     small_x = rng.random((4, 288, 512), dtype=np.float32)
     for graph in ("flagship", "demo", "edges", "chain3"):
@@ -458,6 +547,30 @@ def main() -> int:
                 tier = gpu._strip_plan[0] if plan_strips else "per-node"
                 _check(f"{graph} {fmt} {tier} 512x288 card vs CPU", _max_err(got, want),
                        1e-5 if fmt == "rgba32f" else 2e-2)
+    # The stylized graphs, per node, in three formats.  rgba32f: exp and
+    # pow differ by an ulp or two between the card and the CPU, within
+    # 1e-5.  rgba16f and rgba8: such an ulp flips a bf16 rounding or a
+    # 1/255 bucket before a store, and halftone's dot radius amplifies a
+    # flip of its cell's luma near the dot's rim; held as a fraction: at
+    # most 1e-3 of the values may differ by more than the storage step
+    # (2e-2, or two buckets), none by more than 0.25.
+    for graph, config in STYLIZED_GRAPHS.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            gpu = build_program(config, 512, 288, fmt, device=dev)
+            cpu = build_program(config, 512, 288, fmt, device="cpu")
+            got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu().float()
+            want = cpu._forward(torch.from_numpy(small_x), 0.5).float()
+            d = (got - want).abs()
+            if fmt == "rgba32f":
+                _check(f"{graph} {fmt} per-node 512x288 card vs CPU", float(d.max()), 1e-5)
+                continue
+            step = 2e-2 if fmt == "rgba16f" else 2.0 / 255.0 + 1e-6
+            frac = float((d > step).float().mean())
+            if frac > 1e-3 or float(d.max()) > 0.25:
+                raise AssertionError(f"{graph} {fmt} 512x288 card vs CPU: max {float(d.max())}, "
+                                     f"fraction above {step:.3g} {frac}")
+            print(f"check {graph} {fmt} per-node 512x288 card vs CPU: max abs error "
+                  f"{float(d.max()):.3g}, fraction above {step:.3g} {frac:.3g}")
 
     # ---- 5. timings -----------------------------------------------------------
     for fmt in ("rgba32f", "rgba16f"):
@@ -475,7 +588,13 @@ def main() -> int:
             pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
             print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
                   f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
-    for graph in ("flagship", "demo"):
+    for (graph, fmt), (prog, x, _out, _counts) in built.items():
+        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+        disp = bench_program(prog, x, frames=24)
+        print(f"{graph} {fmt} per-node 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
+              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
+              f"({disp['fps']:.2f} fps) [{smi}]")
+    for graph in ("flagship", "demo", "newsprint"):
         for fmt in ("rgba32f", "rgba16f"):
             engine = Engine(info(graph, fmt, True))
             lat = []
@@ -496,6 +615,12 @@ def main() -> int:
             rows, busy = _profile(fn, frames)
             top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:6])
             print(f"profile {graph} rgba32f {tier}: device busy {busy:.1%}; ms a frame: {top} [{smi}]")
+    for graph in ("watercolor", "newsprint"):
+        prog, x, _out, _counts = built[(graph, "rgba32f")]
+        rows, busy = _profile(lambda: prog._forward(x, 0.5), 3)
+        top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:10])
+        print(f"profile {graph} rgba32f per-node: device busy {busy:.1%}; device ms a frame "
+              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]")
 
     n_px = 4 * HEIGHT * WIDTH
     prog32, x32 = strips["rgba32f"]
@@ -538,6 +663,13 @@ def main() -> int:
                            None,
                            _bound(2 * 4 * n_px, HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops))),
     }
+    r4, op4 = reduce_ops["r4"]
+    reduce_bound_ms, reduce_bound_by, reduce_terms = _reduce_bound(
+        HEIGHT * WIDTH, len(op4.taps), max_sm_mhz, n_sms)
+    print(f"stencil_reduce_mc bound terms at 4K r={r4} ({len(op4.taps)} taps): {reduce_terms}")
+    timed["stencil_reduce_mc"] = (lambda: cuda_ops.stencil_reduce_mc(stack4k, r4, r4, op4),
+                                  lambda: cuda_ops.stencil_reduce_mc_plain(stack4k, r4, r4, op4),
+                                  None, (reduce_bound_ms, reduce_bound_by))
     ms = {}
     for name, (kernel, plain, lib_call, (bound_ms, bound_by)) in timed.items():
         k_ms = _time_ms(kernel, 20)
@@ -556,6 +688,8 @@ def main() -> int:
         "stencil_apply median9 4ch": lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.MEDIAN9),
         "stencil_apply sobel_x 1ch": lambda: cuda_ops.stencil_apply(
             luma4k, 1, 1, cuda_ops.wsum(library.SOBEL_X_TAPS)),
+        "stencil_reduce_mc bilateral r=3 (watercolor)": lambda: cuda_ops.stencil_reduce_mc(
+            stack4k, 3, 3, reduce_ops["r3"][1]),
     }
     for (graph, fmt), (prog, x) in mc_progs.items():
         if fmt != "rgba8":
@@ -568,6 +702,7 @@ def main() -> int:
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
         "stencil_apply": "reforge_tpu_torch/csrc/stencil.cu",
         "graph_strip_mc": "reforge_tpu_torch/csrc/graph_strip_mc.cu",
+        "stencil_reduce_mc": "reforge_tpu_torch/csrc/stencil_reduce.cu",
     }
     replaces = {
         "sep_conv_fused": "reforge_tpu/kernels/pallas_ops.py:1723",
@@ -577,11 +712,13 @@ def main() -> int:
         "sep_conv_fused_mxu_x3": "reforge_tpu/kernels/pallas_ops.py:739",
         "stencil_apply": "reforge_tpu/kernels/pallas_ops.py:1935",
         "graph_strip_mc": "reforge_tpu/kernels/pallas_ops.py:2955",
+        "stencil_reduce_mc": "reforge_tpu/kernels/pallas_ops.py:2197",
     }
     # Each kernel's launches come from the main path it belongs to.
-    launches = {name: (counts_a if name in ("sep_conv_fused", "sep_conv_fused_multi",
-                                            "sep_conv_fused_mxu", "graph_strip") else counts_b)[name]
-                for name in replaces}
+    path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
+               "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
+               "stencil_reduce_mc": counts_c}
+    launches = {name: path_of.get(name, counts_b)[name] for name in replaces}
     kernels = [
         {
             "name": name, "route": "cuda",

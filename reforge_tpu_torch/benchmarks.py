@@ -7,6 +7,9 @@ Graphs:
   * the classic demo (examples/blur_sharpen_blend.rf), edges
     (examples/edges.rf) and chain3 (the reference's mc benchmark graph,
     BENCH.md:138): multi-stage graphs of the mc tier;
+  * newsprint, watercolor and oil paint (examples/*.rf): per-node graphs
+    through the bilateral kernel (stencil_reduce_mc), kuwahara's convs,
+    a gather (halftone) and counter-based noise;
   * the reference's mc test graphs and a mix wired second input first:
     the mc tier's checks on small frames.
 
@@ -62,6 +65,47 @@ gs: gaussian { sigma: 2.0 }
 edge: sobel {}
 tone: tonemap {}
 """
+
+# The stylized graphs (examples/newsprint.rf, watercolor.rf, oil_paint.rf):
+# per node on every tier (halftone and noise gather or draw per pixel,
+# bilateral and kuwahara have no strip form).
+NEWSPRINT_CONFIG = """
+// Stylized newsprint: edge-preserving smooth, punchy levels, rotated
+// halftone screen.  Shows the bilateral filter (shifted-window
+// formulation, halo-shardable) and the coordinate-driven halftone.
+input -> smooth -> grade -> dots -> output
+
+smooth: bilateral     { radius: 4, sigma_space: 2.5, sigma_range: 0.12 }
+grade:  levels        { in_black: 0.08, in_white: 0.92, gamma: 1.1 }
+dots:   halftone      { size: 6, angle: 15.0 }
+"""
+
+WATERCOLOR_CONFIG = """
+// Watercolor: kuwahara flattens regions painterly, bilateral smooths
+// while keeping edges, a touch of paper grain and soft vignette.
+input -> paint -> smooth -> grade -> paper -> vig -> output
+
+paint:  kuwahara  { radius: 4 }
+smooth: bilateral { sigma_space: 2.5, sigma_range: 0.12 }
+grade:  levels    { in_black: 0.04, in_white: 0.96, gamma: 1.08 }
+paper:  noise     { amount: 0.02 }
+vig:    vignette  { strength: 0.3, radius: 0.85 }
+"""
+
+OIL_PAINT_CONFIG = """
+// Oil-paint look: Kuwahara regional-variance smoothing (per-lane
+// dynamic array indexing in GLSL), then a gentle contrast lift.
+input -> paint -> tone -> output
+
+paint: kuwahara { radius: 4.0 }
+tone:  tonemap  { exposure: 1.1 }
+"""
+
+STYLIZED_GRAPHS = {
+    "newsprint": NEWSPRINT_CONFIG,
+    "watercolor": WATERCOLOR_CONFIG,
+    "oil_paint": OIL_PAINT_CONFIG,
+}
 
 # The reference's mc test graphs (tests/test_graph.py:434-471): one
 # graph for each kind of stage and wiring the mc tier plans.

@@ -1,25 +1,30 @@
 """Builtin kernels of the main paths (the port of
 ``reforge_tpu/kernels/library.py``: the builtins of the flagship, the
-demo, edges and chain3 graphs and the reference's mc test graphs).
+demo, edges and chain3 graphs, the reference's mc test graphs and the
+stylized graphs newsprint, watercolor and oil paint).
 
 Every form of each builtin is ported: ``fn``, ``conv_weights``,
 ``conv_pre``, ``conv_epilogue`` and ``conv_epilogue_cw``, ``cw_fn``,
 ``cw_coord_plane``, ``cw_plane_fn`` and ``mc_stencil_fn``.  Each node
 form the kernels evaluate also has a device form: ``cw_op`` for the
 graph_strip kernel's op list, ``mc_op`` for the graph_strip_mc kernel's
-stage list (opcodes in cuda_ops.py).  The other builtins of the
+stage list (opcodes in cuda_ops.py); ``levels`` has none yet (its five
+parameters do not fit a stage's four floats).  The other builtins of the
 reference library are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
 
 from . import cuda_ops as co
-from .base import kernel, register_kernel
+from . import prng
+from .base import kernel, register_kernel, true_divide
 from .ops import (
     apply_stencil,
     conv2d,
@@ -29,7 +34,10 @@ from .ops import (
     grid_coords,
     luma,
     map_rgb,
+    sample_bilinear,
+    sep_conv,
     smoothstep,
+    with_alpha,
 )
 
 
@@ -364,3 +372,137 @@ vignette.cw_op = _vignette_op
 vignette.mc_op = lambda p, pre=False: co.McOp(
     co.MC_VIGNETTE, (p["strength"], p["radius"], 1.42 - p["radius"])
 )
+
+
+# ---- colour grading ---------------------------------------------------------
+
+
+def _levels_rgb(x, p):
+    """Photoshop-style levels of colour planes ``x``: input range remap,
+    gamma, output range; ``span`` and the output range in double precision,
+    as the reference's Python floats."""
+    span = max(float(p["in_white"]) - float(p["in_black"]), 1e-6)
+    t = torch.clamp(true_divide(x - p["in_black"], span), 0.0, 1.0)
+    t = t ** (1.0 / max(float(p["gamma"]), 1e-6))
+    return p["out_black"] + t * (float(p["out_white"]) - float(p["out_black"]))
+
+
+@kernel("levels")
+def levels(ctx, input_image, *, in_black=0.0, in_white=1.0, gamma=1.0,
+           out_black=0.0, out_white=1.0):
+    """Photoshop-style levels: input range remap, gamma, output range."""
+    p = dict(in_black=in_black, in_white=in_white, gamma=gamma, out_black=out_black,
+             out_white=out_white)
+    return map_rgb(input_image, lambda rgb: _levels_rgb(rgb, p))
+
+
+levels.cw_fn = lambda ctx, ci, ins, p: torch.where(
+    ci < 3, _levels_rgb(ins["input_image"], p), ins["input_image"]
+)
+
+
+# ---- noise ------------------------------------------------------------------
+
+
+@kernel("noise", halo=lambda p: None)
+def noise(ctx, input_image, *, amount=0.1, seed=0, animate=False):
+    """Uniform grain in [-amount/2, amount/2), the reference's
+    ``jax.random.uniform`` bits (kernels/prng.py); ``animate`` folds the
+    frame clock, ``int32(f32(t) * 1000)``, into the key."""
+    fold = int(np.float32(ctx.time) * np.float32(1000.0)) if animate else None
+    grain = prng.uniform(int(seed), (1, ctx.height, ctx.width), -0.5, 0.5, fold=fold,
+                         device=ctx.device)
+    return map_rgb(input_image, lambda rgb: rgb + amount * grain)
+
+
+# ---- edge-preserving / stylized ---------------------------------------------
+
+
+@kernel("kuwahara", halo=lambda p: max(int(p["radius"]), 1))
+def kuwahara(ctx, input_image, *, radius=4):
+    """Kuwahara filter: per pixel, the mean of the least-variant of the four
+    overlapping (r+1)x(r+1) quadrant windows, from shifted box sums.
+
+    The four quadrant convs run on one (6, H, W) stack (rgba, luma,
+    luma^2), in f32 in every format: the stack's luma planes are not
+    bf16-exact, so the bf16 conv entry would round them and move the
+    quadrant choice (``ops.sep_conv``)."""
+    r = max(int(radius), 1)
+    half = np.zeros((2 * r + 1,), np.float32)
+    half[: r + 1] = 1.0 / (r + 1)
+    lead = half[::-1].copy()  # window covering [0, +r]
+    lag = half  # window covering [-r, 0]
+
+    y = luma(input_image)[None]
+    stacked = torch.cat([input_image, y, y * y], dim=0)
+    best_mean = None
+    best_var = None
+    for wy in (lag, lead):
+        for wx in (lag, lead):
+            s = sep_conv(stacked, wy, wx)
+            m, my, my2 = s[:4], s[4:5], s[5:6]
+            var = my2 - my * my
+            if best_var is None:
+                best_mean, best_var = m, var
+            else:
+                take = var < best_var
+                best_mean = torch.where(take, m, best_mean)
+                best_var = torch.where(take, var, best_var)
+    return map_rgb(input_image, lambda rgb: best_mean[:3])
+
+
+@functools.lru_cache(maxsize=64)
+def bilateral_op(radius, sigma_space, sigma_range) -> tuple[int, co.ReduceOp]:
+    """(r, the ReduceOp) of bilateral's params: the taps of the (2r+1)^2
+    window in row-major (dy, dx) order whose spatial weight, computed in
+    Python floats as the reference does, is at least 1e-4."""
+    r = max(int(radius), 1)
+    ss = max(float(sigma_space), 1e-3)
+    sr = max(float(sigma_range), 1e-3)
+    inv2ss = 1.0 / (2.0 * ss * ss)
+    inv2sr = 1.0 / (2.0 * sr * sr)
+    taps = []
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            ws = math.exp(-((dy - r) ** 2 + (dx - r) ** 2) * inv2ss)
+            if ws >= 1e-4:
+                taps.append((dy, dx, ws))
+    return r, co.ReduceOp("bilateral", tuple(taps), inv2sr)
+
+
+@kernel("bilateral", halo=lambda p: int(p["radius"]))
+def bilateral(ctx, input_image, *, radius=3, sigma_space=2.0, sigma_range=0.15):
+    """Edge-preserving bilateral filter: each tap of the window weighted by
+    its spatial gaussian and by luminance similarity to the centre, in one
+    ``stencil_reduce_mc`` launch over (r, g, b, luma) on the card."""
+    r, op = bilateral_op(radius, sigma_space, sigma_range)
+    x = input_image
+    stacked = torch.cat([x[:3], luma(x)[None]], dim=0)
+    return with_alpha(co.stencil_reduce_mc(stacked, r, r, op), x[3])
+
+
+@kernel("halftone", halo=lambda p: None)
+def halftone(ctx, input_image, *, size=8, angle=0.0):
+    """Newspaper halftone: per-cell luminance controls a round dot.  Cell
+    indices divide exactly (``true_divide``), so the card and the CPU put
+    every pixel in the same cell."""
+    cell = max(int(size), 2)
+    ys, xs = grid_coords(ctx)
+    a = math.radians(float(angle))
+    ca, sa = math.cos(a), math.sin(a)
+    # Rotated grid coordinates.
+    u = xs * ca + ys * sa
+    v = -xs * sa + ys * ca
+    cu = torch.floor(true_divide(u, cell)) * cell + cell / 2.0
+    cv = torch.floor(true_divide(v, cell)) * cell + cell / 2.0
+    # Cell centre back in image space (a gather).
+    cx = cu * ca - cv * sa
+    cy = cu * sa + cv * ca
+    sample = sample_bilinear(input_image, cy, cx)
+    y = sample[0] * 0.2126 + sample[1] * 0.7152 + sample[2] * 0.0722
+    dot_r = torch.sqrt(torch.clamp(1.0 - y, 0.0, 1.0)) * (cell * 0.7)
+    du, dv = u - cu, v - cv
+    d = torch.sqrt(du * du + dv * dv)
+    # Inside the dot (d < r - 1.5) ink is 1, easing to 0 at the rim.
+    ink = smoothstep(dot_r, dot_r - 1.5, d)
+    return with_alpha((1.0 - ink)[None].expand(3, -1, -1), input_image[3])

@@ -53,12 +53,14 @@ def sep_conv(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
              prefer_mxu: bool = False) -> torch.Tensor:
     """Separable 2-D convolution: 1-D pass along H then along W.
 
-    ``prefer_mxu`` marks bf16 storage around the call (rgba16f): the f32
-    input was just upcast from bf16, so the conv reads it as bf16
-    losslessly (the ``sep_conv_fused_mxu`` entry point).  f32 convs of at
-    least ``X3_MIN_TAPS`` combined taps take ``sep_conv_fused_mxu_x3``.
-    Every entry point returns f32; the caller rounds at the node
-    boundary."""
+    ``prefer_mxu`` sends the input through the ``sep_conv_fused_mxu``
+    entry point, which reads it as bf16.  Set it only for an input whose
+    every value is already bf16-exact (a node input upcast from rgba16f
+    storage): for anything derived from it (luma, a product, a stack of
+    such planes) the cast rounds, and kuwahara's luma and luma^2 planes
+    move its quadrant choice.  f32 convs of at least ``X3_MIN_TAPS``
+    combined taps take ``sep_conv_fused_mxu_x3``.  Every entry point
+    returns f32; the caller rounds at the node boundary."""
     wh = np.asarray(wh, np.float32)
     ww = np.asarray(ww, np.float32)
     if x.dim() == 3 and len(wh) > 1 and len(ww) > 1:
@@ -129,6 +131,11 @@ def luma(x: torch.Tensor) -> torch.Tensor:
     return x[0] * lr + x[1] * lg + x[2] * lb
 
 
+def with_alpha(rgb: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Stack (3, H, W) color with an (H, W) alpha plane into (4, H, W)."""
+    return torch.cat([rgb, alpha[None]], dim=0)
+
+
 def map_rgb(x: torch.Tensor, f) -> torch.Tensor:
     """Apply f to the color planes, passing alpha through unchanged."""
     return torch.cat([f(x[:3]), x[3:4]], dim=0)
@@ -144,6 +151,32 @@ def pixel_coords(h: int, w: int, device="cuda") -> tuple[torch.Tensor, torch.Ten
 def grid_coords(ctx) -> tuple[torch.Tensor, torch.Tensor]:
     """Image (y, x) coordinate planes for ``ctx``'s frame on its device."""
     return pixel_coords(ctx.height, ctx.width, ctx.device)
+
+
+def sample_nearest(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Gather pixels at integer coords (clamped to edge); ``ys``/``xs`` are
+    (H', W') int tensors, the result is (C, H', W')."""
+    _c, h, w = x.shape
+    ys = torch.clamp(ys, 0, h - 1).long()
+    xs = torch.clamp(xs, 0, w - 1).long()
+    return x[:, ys, xs]
+
+
+def sample_bilinear(x: torch.Tensor, yf: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample at float pixel coords (edge clamp); (C, H', W')."""
+    y0 = torch.floor(yf)
+    x0 = torch.floor(xf)
+    ty = yf - y0
+    tx = xf - x0
+    y0 = y0.to(torch.int32)
+    x0 = x0.to(torch.int32)
+    p00 = sample_nearest(x, y0, x0)
+    p01 = sample_nearest(x, y0, x0 + 1)
+    p10 = sample_nearest(x, y0 + 1, x0)
+    p11 = sample_nearest(x, y0 + 1, x0 + 1)
+    top = p00 + (p01 - p00) * tx
+    bot = p10 + (p11 - p10) * tx
+    return top + (bot - top) * ty
 
 
 def smoothstep(e0, e1, x):

@@ -125,3 +125,42 @@ def test_graph_strip_mc(config, fmt, hw):
     assert float((got.float() - want.float()).abs().max()) <= tol
     # the mix wired second input first reads its base as in0 on the card too
     assert float((got.float() - per_node.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("r,sigma_space", [(1, 2.0), (4, 2.5), (60, 8.0)])
+def test_stencil_reduce_mc(r, sigma_space, mode):
+    """Bilateral's reduction against its plain version; radius 60 fits no
+    shared-memory tile and reads its taps from global memory.  Both sides
+    call the same expf and round every product and sum alike: within a
+    few f32 ulps of [0, 1] values."""
+    from reforge_tpu_torch.kernels import library
+
+    x = _image((4, 37, 71), 11)
+    rr, op = library.bilateral_op(r, sigma_space, 0.12)
+    assert (cuda_ops.choose_reduce_tile(r, r, len(op.taps)) is None) == (r == 60)
+    before = cuda_ops.LAUNCHES["stencil_reduce_mc"]
+    got = cuda_ops.stencil_reduce_mc(x, rr, rr, op, mode)
+    want = cuda_ops.stencil_reduce_mc_plain(x, rr, rr, op, mode)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["stencil_reduce_mc"] == before + 1
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_newsprint_4k_frame_against_plain_per_node(monkeypatch):
+    """Newsprint's 4K frame through the kernel against the same graph with
+    the kernel's plain version on the card."""
+    from reforge_tpu_torch import benchmarks
+
+    prog = benchmarks.build_program(benchmarks.NEWSPRINT_CONFIG, 3840, 2160, device="cuda")
+    assert prog._strip_plan is None
+    x = _image((4, 2160, 3840), 12)
+    before = cuda_ops.LAUNCHES["stencil_reduce_mc"]
+    got = prog._forward(x, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["stencil_reduce_mc"] == before + 1
+    monkeypatch.setattr(cuda_ops, "stencil_reduce_mc", cuda_ops.stencil_reduce_mc_plain)
+    want = prog._forward(x, 0.5)
+    # halftone's dots turn a few-ulp change of a cell's luma into at most
+    # a few ulps of ink
+    assert float((got - want).abs().max()) <= 1e-5
