@@ -18,7 +18,13 @@ launch counters set to 0 just before it and read just after:
      watercolor (kuwahara, bilateral, levels, noise, vignette) and oil
      paint (kuwahara, tonemap) in rgba32f and rgba16f, per node on every
      tier: bilateral through stencil_reduce_mc, kuwahara's four quadrant
-     convs through sep_conv_fused (never the bf16 entry).
+     convs through sep_conv_fused (never the bf16 entry);
+  D. the rest of the builtin library in rgba32f and rgba16f: film look,
+     old film, pop art and psychedelic per node (plain PyTorch gathers and
+     colour math), neon edges on the mc tier, frost (a radius-160 box
+     blur) through conv1d_h and conv1d_w, and box_blur radius 120 and
+     kuwahara radius 130, whose windows fit no shared-memory tile of the
+     fused conv kernels.
 
 It checks the outputs, prints fps, latency, a device-time profile and
 each kernel's time beside its plain version, its bound and a library
@@ -159,6 +165,16 @@ def _library_stencil(x: torch.Tensor, table: np.ndarray):
     return lambda: F.conv2d(F.pad(x[None], (r, r, r, r), mode="replicate"), k, groups=c)[0]
 
 
+def _library_conv1d(x: torch.Tensor, w: np.ndarray, along_h: bool):
+    """One replicate pad and one depthwise F.conv2d along one axis (TF32
+    off): the library yardstick of the 1-D kernels."""
+    c, r = x.shape[0], (len(w) - 1) // 2
+    shape = (1, 1, -1, 1) if along_h else (1, 1, 1, -1)
+    k = torch.from_numpy(w).to(x.device).view(*shape).repeat(c, 1, 1, 1)
+    pad = (0, 0, r, r) if along_h else (r, r, 0, 0)
+    return lambda: F.conv2d(F.pad(x[None], pad, mode="replicate"), k, groups=c)[0]
+
+
 def _mc_ops_per_pixel(prog, cuda_ops) -> float:
     """Operations per pixel (all channels) of an mc plan's stages at the
     tile itself, halo recompute not counted: conv FMAs count two, wsum
@@ -183,6 +199,17 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
         else:
             total += point_ops.get(st.op.code, 0)
     return total
+
+
+def _card_state() -> str:
+    """The card's SM clock, power draw, temperature and active clock
+    throttle reasons, as nvidia-smi reads them now (or what it says)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    return (out.stdout or out.stderr).strip().replace("\n", " | ")
 
 
 def _profile(fn, frames: int) -> tuple[list, float]:
@@ -216,13 +243,13 @@ def main() -> int:
         return 2
 
     from reforge_tpu_torch.benchmarks import (
-        CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, MC_TEST_GRAPHS,
-        MIX_SECOND_FIRST_CONFIG, STYLIZED_GRAPHS, bench_program, bench_program_sequenced,
-        build_flagship, build_program,
+        CHAIN3_CONFIG, CW_CHECK_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG,
+        LIBRARY_GRAPHS, MC_CHECK_CONFIG, MC_TEST_GRAPHS, MIX_SECOND_FIRST_CONFIG, STYLIZED_GRAPHS,
+        bench_program, bench_program_sequenced, build_flagship, build_program,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
     from reforge_tpu_torch.kernels import cuda_ops, library
-    from reforge_tpu_torch.kernels.ops import gaussian_weights, luma
+    from reforge_tpu_torch.kernels.ops import box_weights, gaussian_weights, luma
 
     # ---- 1. the card ------------------------------------------------------
     smi = subprocess.run(
@@ -342,6 +369,59 @@ def main() -> int:
             if rname == "r4" and mode == "edge":
                 errs["stencil_reduce_mc"] = err
 
+    # conv1d_h / conv1d_w: frost's radius 160 and radius 400 (where the
+    # reference itself takes its 1-D kernels at 4K) on the 4K frame; on an
+    # odd 6-channel frame (kuwahara's stack) a radius past every
+    # shared-memory window (3000: the global-memory path), kuwahara's
+    # quadrant vector at radius 130 (zero taps) and radius 160; edge and
+    # zero borders.  Both sides add the nonzero taps in ascending order
+    # and round every product and sum alike: expected bit-equal (0).
+    odd6 = torch.from_numpy(rng.random((6, 33, 47), dtype=np.float32)).to(dev)
+    quadrant = np.zeros(261, np.float32)
+    quadrant[130:] = 1.0 / 131
+    conv1d_cases = [(x4k, box_weights(160), True), (x4k, box_weights(400), False),
+                    (odd6, box_weights(3000), False), (odd6, quadrant, False),
+                    (odd6, box_weights(160), False)]
+    for along_h in (True, False):
+        kname = "conv1d_h" if along_h else "conv1d_w"
+        entry = cuda_ops.conv1d_h if along_h else cuda_ops.conv1d_w
+        if cuda_ops.choose_conv1d_tile(along_h, 3000, 6001) is not None:
+            raise AssertionError("radius 3000 should fit no shared-memory window")
+        for x, w, main_shape in conv1d_cases:
+            r = (len(w) - 1) // 2
+            tile = cuda_ops.choose_conv1d_tile(along_h, r, int(np.count_nonzero(w)))
+            where = f"tile {tile[:2]}" if tile else "global path"
+            for mode in ("edge", "zero"):
+                got = entry(x, w, mode)
+                want = cuda_ops.correlate1d(x, w, -2 if along_h else -1, mode)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                _check(f"{kname} {'x'.join(map(str, x.shape))} r={r} "
+                       f"({np.count_nonzero(w)} taps) {mode} {where}", err, 0.0)
+                if main_shape and r == 160 and mode == "edge":
+                    errs[kname] = err
+            del got, want
+
+    # Device forms: every channel-local builtin's cw_op on graph_strip and
+    # every new mc point op on graph_strip_mc (the two check graphs),
+    # against per node on the card, at 4K and on a ragged frame.
+    for cname, config, kname in (("cw_check", CW_CHECK_CONFIG, "graph_strip"),
+                                 ("mc_check", MC_CHECK_CONFIG, "graph_strip_mc")):
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            for h, w in ((HEIGHT, WIDTH), (37, 71)):
+                prog = build_program(config, w, h, fmt, device=dev)
+                if prog._strip_plan[0] != ("single" if kname == "graph_strip" else "mc"):
+                    raise AssertionError(f"{cname} {fmt}: tier {prog._strip_plan[0]}")
+                xin = (x4k if h == HEIGHT else ragged).to(prog.storage_dtype)
+                before = cuda_ops.LAUNCHES[kname]
+                got = prog._forward(xin, 0.5)
+                per_node = prog._forward_nostrip(xin, 0.5)
+                torch.cuda.synchronize()
+                if cuda_ops.LAUNCHES[kname] != before + 1:
+                    raise AssertionError(f"{cname} {fmt}: {kname} not launched once")
+                _check_fmt(f"{kname} {cname} {fmt} {h}x{w} vs per node on the card", fmt, got,
+                           per_node)
+
     strips = {}
     for fmt in ("rgba32f", "rgba16f", "rgba8"):
         for h, w in ((HEIGHT, WIDTH), (37, 71)):
@@ -415,9 +495,14 @@ def main() -> int:
     tmp_dir = tempfile.TemporaryDirectory(prefix="rf_chip_smoke_")
     tmp = tmp_dir.name
     configs = {}
+    large_radius = {
+        "box_blur_120": "input -> n -> output\nn: box_blur { radius: 120 }",
+        "kuwahara_130": "input -> n -> output\nn: kuwahara { radius: 130 }",
+    }
+    graphs_d = {**LIBRARY_GRAPHS, **large_radius}
     for name, text in (("flagship", FLAGSHIP_CONFIG), ("demo", DEMO_CONFIG),
                        ("edges", EDGES_CONFIG), ("chain3", CHAIN3_CONFIG),
-                       *STYLIZED_GRAPHS.items()):
+                       *STYLIZED_GRAPHS.items(), *graphs_d.items()):
         configs[name] = os.path.join(tmp, f"{name}.rf")
         with open(configs[name], "w") as f:
             f.write(text)
@@ -534,6 +619,58 @@ def main() -> int:
             raise AssertionError(f"{graph} {fmt} build_program: bad shape or non-finite values")
         check_outputs(graph, fmt, *out[:5], tier="frame path")
 
+    # Path D: the rest of the builtin library, and the large-radius convs
+    # that raised on the card before.  Launches per frame on the frame path
+    # and build_program's program: frost and box_blur r120 one conv1d_h and
+    # one conv1d_w, kuwahara r130 four of each (its quadrant convs of the
+    # 6-channel stack), neon edges one graph_strip_mc; the rest none (plain
+    # PyTorch).  The one-shot runs neon edges per node: its two gaussian
+    # convs (sep_conv_fused, or the bf16 entry in rgba16f) and sobel's two
+    # stencil passes.
+    per_frame_d = {name: {} for name in graphs_d}
+    per_frame_d.update(neon_edges={"graph_strip_mc": 1},
+                       frost={"conv1d_h": 1, "conv1d_w": 1},
+                       box_blur_120={"conv1d_h": 1, "conv1d_w": 1},
+                       kuwahara_130={"conv1d_h": 4, "conv1d_w": 4})
+    cuda_ops.reset_launches()
+    outputs, built_d = {}, {}
+    for graph in graphs_d:
+        for fmt in ("rgba32f", "rgba16f"):
+            outputs[(graph, fmt)] = drive(graph, fmt)
+            before = dict(cuda_ops.LAUNCHES)
+            prog = build_program(graphs_d[graph], WIDTH, HEIGHT, fmt, device=dev)
+            xin = x4k.to(prog.storage_dtype)
+            out = prog._forward(xin, 0.5)
+            torch.cuda.synchronize()
+            built_d[(graph, fmt)] = (prog, xin, out,
+                                     {k: cuda_ops.LAUNCHES[k] - before[k] for k in before})
+    counts_d = dict(cuda_ops.LAUNCHES)
+    print(f"main path D (film look, old film, pop art, psychedelic, neon edges, frost, box_blur "
+          f"r120, kuwahara r130) launches: {json.dumps(counts_d)}")
+    for name in ("conv1d_h", "conv1d_w", "graph_strip_mc"):
+        if counts_d[name] == 0:
+            raise AssertionError(f"main path D never launched {name}")
+    for (graph, fmt), out in outputs.items():
+        prog, _xin, frame, built_counts = built_d[(graph, fmt)]
+        tier = prog._strip_plan[0] if prog._strip_plan else None
+        if tier != ("mc" if graph == "neon_edges" else None):
+            raise AssertionError(f"{graph} {fmt}: tier {tier}")
+        shot_want = per_frame_d[graph]
+        if graph == "neon_edges":
+            conv = "sep_conv_fused" if fmt == "rgba32f" else "sep_conv_fused_mxu"
+            shot_want = {conv: 2, "stencil_apply": 2}
+        for what, counts, want1, frames in (("one-shot", out[5], shot_want, 1),
+                                            ("frame path", out[6], per_frame_d[graph], 6),
+                                            ("build_program", built_counts, per_frame_d[graph], 1)):
+            want = {k: frames * want1.get(k, 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"{graph} {fmt} {what}: launches {counts}, expected {want}")
+        if tuple(frame.shape) != big or not bool(torch.isfinite(frame.float()).all()):
+            raise AssertionError(f"{graph} {fmt} build_program: bad shape or non-finite values")
+        check_outputs(graph, fmt, *out[:5],
+                      tier="mc tier" if graph == "neon_edges" else "frame path")
+    del outputs
+
     # Small renders on the card against the port's CPU path, both tiers.
     small_x = rng.random((4, 288, 512), dtype=np.float32)
     for graph in ("flagship", "demo", "edges", "chain3"):
@@ -572,56 +709,42 @@ def main() -> int:
             print(f"check {graph} {fmt} per-node 512x288 card vs CPU: max abs error "
                   f"{float(d.max()):.3g}, fraction above {step:.3g} {frac:.3g}")
 
+    # Path D's graphs at 512x288 on the card against the CPU path: rgba32f
+    # within 1e-5 (the mc kernel's conv FMAs, pow by an ulp); psychedelic
+    # within 1e-4: swirl's cos and sin differ by an ulp between the card
+    # and the CPU, which moves a sample by up to its distance from the
+    # centre (about 290 px) times 1.2e-7, and a random image changes by up
+    # to 1 a pixel (measured 2.8e-5).  rgba16f within one bf16 step of the
+    # value and rgba8 within one code, where such a difference flips a
+    # rounding before a store.
+    tol32_d = {"psychedelic": 1e-4}
+    for graph, config in graphs_d.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            gpu = build_program(config, 512, 288, fmt, device=dev)
+            cpu = build_program(config, 512, 288, fmt, device="cpu")
+            got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu().float()
+            want = cpu._forward(torch.from_numpy(small_x), 0.5).float()
+            d = (got - want).abs()
+            what = f"{graph} {fmt} {'mc tier' if gpu._strip_plan else 'per-node'} 512x288 card vs CPU"
+            if fmt == "rgba32f":
+                _check(what, float(d.max()), tol32_d.get(graph, 1e-5))
+                continue
+            if fmt == "rgba16f":
+                mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+                step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            else:
+                step = torch.full_like(d, 1.0 / 255.0)
+            excess = float((d - step).max())
+            if excess > 1e-6:
+                raise AssertionError(f"{what}: a difference {excess} past one storage step")
+            print(f"check {what}: max abs error {float(d.max()):.3g} (one storage step), "
+                  f"values that differ {float((d > 0).float().mean()):.3g}")
+
     # ---- 5. timings -----------------------------------------------------------
-    for fmt in ("rgba32f", "rgba16f"):
-        prog, x = strips[fmt]
-        seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
-        disp = bench_program(prog, x, frames=48)
-        print(f"flagship {fmt} strip tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
-              f"{disp['fps']:.2f} fps [{smi}]")
-    for graph in graphs:
-        for fmt in ("rgba32f", "rgba16f"):
-            prog, x = mc_progs[(graph, fmt)]
-            seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
-            disp = bench_program(prog, x, frames=48)
-            pn = build_program(graphs[graph], WIDTH, HEIGHT, fmt, device=dev, plan_strips=False)
-            pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
-            print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
-                  f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
-    for (graph, fmt), (prog, x, _out, _counts) in built.items():
-        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-        disp = bench_program(prog, x, frames=24)
-        print(f"{graph} {fmt} per-node 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
-              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
-              f"({disp['fps']:.2f} fps) [{smi}]")
-    for graph in ("flagship", "demo", "newsprint"):
-        for fmt in ("rgba32f", "rgba16f"):
-            engine = Engine(info(graph, fmt, True))
-            lat = []
-            for _ in range(5):
-                start = time.perf_counter()
-                engine.render_one_shot(u8, 0.5)
-                lat.append((time.perf_counter() - start) * 1000.0)
-            print(f"{graph} {fmt} one-shot 4K latency (u8 in, u8 on the host out): median "
-                  f"{statistics.median(lat):.2f} ms of {len(lat)} [{smi}]")
-
-    # Where the device time goes: the mc tier over 24 frames and the
-    # per-node tier over 3, rgba32f.
-    for graph in graphs:
-        prog, x = mc_progs[(graph, "rgba32f")]
-        pn = build_program(graphs[graph], WIDTH, HEIGHT, "rgba32f", device=dev, plan_strips=False)
-        for tier, fn, frames in (("mc", lambda: prog._forward(x, 0.5), 24),
-                                 ("per-node", lambda: pn._forward(x, 0.5), 3)):
-            rows, busy = _profile(fn, frames)
-            top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:6])
-            print(f"profile {graph} rgba32f {tier}: device busy {busy:.1%}; ms a frame: {top} [{smi}]")
-    for graph in ("watercolor", "newsprint"):
-        prog, x, _out, _counts = built[(graph, "rgba32f")]
-        rows, busy = _profile(lambda: prog._forward(x, 0.5), 3)
-        top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:10])
-        print(f"profile {graph} rgba32f per-node: device busy {busy:.1%}; device ms a frame "
-              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]")
-
+    # The kernel table first, while the card is cool (the frame timings
+    # below keep it busy for a minute); the card's clock, power and
+    # temperature before and after each group of timings.
+    print(f"card state before the kernel timings: {_card_state()}")
     n_px = 4 * HEIGHT * WIDTH
     prog32, x32 = strips["rgba32f"]
     epilogue_ops = {cuda_ops.OP_COPY: 0, cuda_ops.OP_TAKE1: 0, cuda_ops.OP_UNSHARP: 3,
@@ -663,6 +786,16 @@ def main() -> int:
                            None,
                            _bound(2 * 4 * n_px, HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops))),
     }
+    for r in (160, 400):
+        wr = box_weights(r)
+        for along_h in (True, False):
+            kname = "conv1d_h" if along_h else "conv1d_w"
+            entry = cuda_ops.conv1d_h if along_h else cuda_ops.conv1d_w
+            timed[kname if r == 160 else f"{kname} r={r}"] = (
+                lambda e=entry, w=wr: e(x4k, w),
+                lambda w=wr, d=-2 if along_h else -1: cuda_ops.correlate1d(x4k, w, d),
+                _library_conv1d(x4k, wr, along_h),
+                _bound(2 * 4 * n_px, 2 * len(wr) * n_px))
     r4, op4 = reduce_ops["r4"]
     reduce_bound_ms, reduce_bound_by, reduce_terms = _reduce_bound(
         HEIGHT * WIDTH, len(op4.taps), max_sm_mhz, n_sms)
@@ -697,12 +830,86 @@ def main() -> int:
                 lambda p=prog, v=x: cuda_ops.graph_strip_mc(v, 0.5, p._strip_plan[1]))
     for name, fn in extra.items():
         print(f"{name} 4K: kernel {_time_ms(fn, 20):.3f} ms [{smi}]")
+    print(f"card state after the kernel timings: {_card_state()}")
+    for fmt in ("rgba32f", "rgba16f"):
+        prog, x = strips[fmt]
+        seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
+        disp = bench_program(prog, x, frames=48)
+        print(f"flagship {fmt} strip tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
+              f"{disp['fps']:.2f} fps [{smi}]")
+    for graph in graphs:
+        for fmt in ("rgba32f", "rgba16f"):
+            prog, x = mc_progs[(graph, fmt)]
+            seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
+            disp = bench_program(prog, x, frames=48)
+            pn = build_program(graphs[graph], WIDTH, HEIGHT, fmt, device=dev, plan_strips=False)
+            pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
+            print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
+                  f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
+    for (graph, fmt), (prog, x, _out, _counts) in built.items():
+        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+        disp = bench_program(prog, x, frames=24)
+        print(f"{graph} {fmt} per-node 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
+              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
+              f"({disp['fps']:.2f} fps) [{smi}]")
+    frame_ms_d = {}
+    for (graph, fmt), (prog, x, _out, _counts) in built_d.items():
+        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+        disp = bench_program(prog, x, frames=24)
+        frame_ms_d[(graph, fmt)] = seq["ms_per_frame"]
+        tier = "mc tier" if prog._strip_plan else "per-node"
+        print(f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
+              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
+              f"({disp['fps']:.2f} fps) [{smi}]")
+    # Neon edges: the port's tier rule (mc whenever a plan fits) meets the
+    # first graph the reference runs as segments; against per node.
+    for fmt in ("rgba32f", "rgba16f"):
+        prog, x, _out, _counts = built_d[("neon_edges", fmt)]
+        pn = build_program(LIBRARY_GRAPHS["neon_edges"], WIDTH, HEIGHT, fmt, device=dev,
+                           plan_strips=False)
+        mc_ms = _time_ms(lambda: prog._forward(x, 0.5), 20)
+        pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 20)
+        print(f"neon_edges {fmt} 4K: mc tier {mc_ms:.3f} ms a frame (tile "
+              f"{prog._strip_plan[1].tile()[:2]}), per-node tier {pn_ms:.3f} ms a frame [{smi}]")
+    for graph in ("flagship", "demo", "newsprint", "frost"):
+        for fmt in ("rgba32f", "rgba16f"):
+            engine = Engine(info(graph, fmt, True))
+            lat = []
+            for _ in range(5):
+                start = time.perf_counter()
+                engine.render_one_shot(u8, 0.5)
+                lat.append((time.perf_counter() - start) * 1000.0)
+            print(f"{graph} {fmt} one-shot 4K latency (u8 in, u8 on the host out): median "
+                  f"{statistics.median(lat):.2f} ms of {len(lat)} [{smi}]")
+
+    print(f"card state after the frame timings: {_card_state()}")
+
+    # Where the device time goes: the mc tier over 24 frames and the
+    # per-node tier over 3, rgba32f.
+    for graph in graphs:
+        prog, x = mc_progs[(graph, "rgba32f")]
+        pn = build_program(graphs[graph], WIDTH, HEIGHT, "rgba32f", device=dev, plan_strips=False)
+        for tier, fn, frames in (("mc", lambda: prog._forward(x, 0.5), 24),
+                                 ("per-node", lambda: pn._forward(x, 0.5), 3)):
+            rows, busy = _profile(fn, frames)
+            top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:6])
+            print(f"profile {graph} rgba32f {tier}: device busy {busy:.1%}; ms a frame: {top} [{smi}]")
+    slowest = max(LIBRARY_GRAPHS, key=lambda g: frame_ms_d[(g, "rgba32f")])
+    for graph in ("watercolor", "newsprint", "frost", slowest):
+        prog, x, _out, _counts = (built_d if graph in graphs_d else built)[(graph, "rgba32f")]
+        rows, busy = _profile(lambda: prog._forward(x, 0.5), 3)
+        top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:10])
+        print(f"profile {graph} rgba32f per-node: device busy {busy:.1%}; device ms a frame "
+              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]")
+
 
     sources = {
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
         "stencil_apply": "reforge_tpu_torch/csrc/stencil.cu",
         "graph_strip_mc": "reforge_tpu_torch/csrc/graph_strip_mc.cu",
         "stencil_reduce_mc": "reforge_tpu_torch/csrc/stencil_reduce.cu",
+        "conv1d_h": "reforge_tpu_torch/csrc/conv1d.cu",
+        "conv1d_w": "reforge_tpu_torch/csrc/conv1d.cu",
     }
     replaces = {
         "sep_conv_fused": "reforge_tpu/kernels/pallas_ops.py:1723",
@@ -713,11 +920,13 @@ def main() -> int:
         "stencil_apply": "reforge_tpu/kernels/pallas_ops.py:1935",
         "graph_strip_mc": "reforge_tpu/kernels/pallas_ops.py:2955",
         "stencil_reduce_mc": "reforge_tpu/kernels/pallas_ops.py:2197",
+        "conv1d_h": "reforge_tpu/kernels/pallas_ops.py:65",
+        "conv1d_w": "reforge_tpu/kernels/pallas_ops.py:101",
     }
     # Each kernel's launches come from the main path it belongs to.
     path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
                "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
-               "stencil_reduce_mc": counts_c}
+               "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d}
     launches = {name: path_of.get(name, counts_b)[name] for name in replaces}
     kernels = [
         {

@@ -10,6 +10,12 @@ Graphs:
   * newsprint, watercolor and oil paint (examples/*.rf): per-node graphs
     through the bilateral kernel (stencil_reduce_mc), kuwahara's convs,
     a gather (halftone) and counter-based noise;
+  * film look, old film, pop art, psychedelic and neon edges
+    (examples/*.rf) and frost (a 4K frosted-glass backdrop, our own): the
+    rest of the builtin library; frost's radius-160 box blur runs the 1-D
+    kernels conv1d_h and conv1d_w, neon edges the mc tier;
+  * two check graphs that put every channel-local builtin through the
+    graph_strip kernel and every new mc point op through graph_strip_mc;
   * the reference's mc test graphs and a mix wired second input first:
     the mc tier's checks on small frames.
 
@@ -106,6 +112,143 @@ STYLIZED_GRAPHS = {
     "watercolor": WATERCOLOR_CONFIG,
     "oil_paint": OIL_PAINT_CONFIG,
 }
+
+# The rest of the builtin library (examples/film_look.rf, old_film.rf,
+# pop_art.rf, psychedelic.rf, neon_edges.rf): per node on every tier but
+# neon edges, which takes the mc tier (the reference runs it as segments,
+# a tier the port does not have).
+FILM_LOOK_CONFIG = """
+// Filmic grade: tonemap, sepia-ish warmth, vignette, grain.
+input -> tone -> warm -> vig -> grain -> output
+
+tone:  tonemap     { exposure: 1.2 }
+warm:  white_balance { temperature: 0.08 }
+vig:   vignette    { strength: 0.45, radius: 0.7 }
+grain: noise       { amount: 0.03, animate: true }
+"""
+
+OLD_FILM_CONFIG = """
+// Old-film look: directional shake blur, sepia tone, vignette, grain,
+// scanline flicker.  Exercises the round-3 kernels (motion_blur, sepia).
+input -> shake -> tone -> vig -> grain -> lines -> output
+
+shake: motion_blur { length: 6.0, angle: 85.0 }
+tone:  sepia       { amount: 0.85 }
+vig:   vignette    { strength: 0.55, radius: 0.6 }
+grain: noise       { amount: 0.06, animate: true }
+lines: scanlines   { period: 3, darkness: 0.12 }
+"""
+
+POP_ART_CONFIG = """
+// Warhol-ish pop grade: hue spin + saturation push, posterized, with a
+// zoom blur halo from the center.
+input -> spin -> poster -> zoom -> output
+
+spin:   hue_saturation { hue: 40.0, saturation: 1.6 }
+poster: posterize      { levels: 5 }
+zoom:   radial_blur    { strength: 0.08, samples: 10 }
+"""
+
+PSYCHEDELIC_CONFIG = """
+// Animated demo: swirling waves with chromatic fringing, driven by _rf_time.
+input -> wavy -> swirly -> fringe -> output
+
+wavy:   wave  { amplitude: 10.0, frequency: 0.03, speed: 1.5 }
+swirly: swirl { angle: 1.2, radius: 0.6 }
+fringe: chromatic_aberration { shift: 4.0 }
+"""
+
+NEON_EDGES_CONFIG = """
+// Neon edges: strong sobel outlines only (thresholded), hue-spun and
+// bloomed over a darkened base.
+input -> dark -> mixer -> output
+input -> soft -> edge -> pick -> spin -> glow -> mixer:input_image2
+
+dark: exposure       { stops: -1.4 }
+soft: gaussian       { sigma: 1.2 }
+edge: sobel          { }
+pick: threshold      { value: 0.45 }
+spin: hue_saturation { hue: 120.0, saturation: 1.8 }
+glow: bloom          { threshold: 0.2, sigma: 2.5, intensity: 0.8 }
+mixer: screen        { }
+"""
+
+# Not an example of the reference: our own frosted-glass backdrop, a 4K box
+# blur of radius 160 (321 taps a pass) behind a UI.  No shared-memory tile
+# of the fused conv kernels holds its window, so it runs conv1d_h then
+# conv1d_w, as the reference runs box blurs of radius >= about 390 at 4K.
+FROST_CONFIG = """
+// Frosted glass: a wide box blur of the whole frame.
+input -> frost -> output
+
+frost: box_blur { radius: 160 }
+"""
+
+LIBRARY_GRAPHS = {
+    "film_look": FILM_LOOK_CONFIG,
+    "old_film": OLD_FILM_CONFIG,
+    "pop_art": POP_ART_CONFIG,
+    "psychedelic": PSYCHEDELIC_CONFIG,
+    "neon_edges": NEON_EDGES_CONFIG,
+    "frost": FROST_CONFIG,
+}
+
+# Every channel-local builtin in one single-tier plan (graph_strip): a box
+# blur of the input, then each colour op; the two-input ones read the
+# input or the blur as their second image.
+CW_CHECK_CONFIG = """
+input -> soft -> inv -> expo -> gam -> bc -> wb -> post -> dith -> lines -> lev -> plus -> mul -> scr -> ovl -> diff -> output
+input -> plus:input_image2
+soft -> mul:input_image2
+input -> scr:input_image2
+soft -> ovl:input_image2
+input -> diff:input_image2
+
+soft:  box_blur { radius: 3 }
+inv:   invert {}
+expo:  exposure { stops: 0.4 }
+gam:   gamma { value: 1.8 }
+bc:    brightness_contrast { brightness: 0.05, contrast: 1.2 }
+wb:    white_balance { temperature: 0.08, tint: -0.03 }
+post:  posterize { levels: 7 }
+dith:  dither { levels: 4 }
+lines: scanlines { period: 3, darkness: 0.2 }
+lev:   levels { in_black: 0.05, in_white: 0.95, gamma: 1.2, out_black: 0.02, out_white: 0.97 }
+plus:  add { scale: 0.3 }
+mul:   multiply {}
+scr:   screen {}
+ovl:   overlay {}
+diff:  difference {}
+"""
+
+# The same colour ops, sepia and hue_saturation as point stages of one mc
+# plan (graph_strip_mc) after a box blur conv stage.
+MC_CHECK_CONFIG = """
+input -> soft -> hue -> sep -> inv -> expo -> gam -> bc -> wb -> post -> dith -> lines -> lev -> plus -> mul -> scr -> ovl -> diff -> output
+input -> plus:input_image2
+soft -> mul:input_image2
+input -> scr:input_image2
+soft -> ovl:input_image2
+input -> diff:input_image2
+
+soft:  box_blur { radius: 3 }
+hue:   hue_saturation { hue: 40.0, saturation: 1.6, lightness: 0.02 }
+sep:   sepia { amount: 0.7 }
+inv:   invert {}
+expo:  exposure { stops: 0.4 }
+gam:   gamma { value: 1.8 }
+bc:    brightness_contrast { brightness: 0.05, contrast: 1.2 }
+wb:    white_balance { temperature: 0.08, tint: -0.03 }
+post:  posterize { levels: 7 }
+dith:  dither { levels: 4 }
+lines: scanlines { period: 3, darkness: 0.2 }
+lev:   levels { in_black: 0.05, in_white: 0.95, gamma: 1.2, out_black: 0.02, out_white: 0.97 }
+plus:  add { scale: 0.3 }
+mul:   multiply {}
+scr:   screen {}
+ovl:   overlay {}
+diff:  difference {}
+"""
 
 # The reference's mc test graphs (tests/test_graph.py:434-471): one
 # graph for each kind of stage and wiring the mc tier plans.

@@ -8,7 +8,7 @@
 //
 // The TPU kernel's epilogue was a traced Python closure.  Here it is a
 // per-graph op list built once per program (graph/program.py): each op is
-// {code, in0, in1, out, plane} ints and four float params.  Per pixel, slot
+// {code, in0, in1, out, plane} ints and kOpFloats float params.  Per pixel, slot
 // 0 holds the input, slots 1..N the conv results, and each op writes its
 // node's output slot, rounded to storage as the inter-node store would
 // (bf16 round-to-nearest-even, or the rgba8 UNORM grid).  Alpha (ci == 3)
@@ -22,6 +22,7 @@
 namespace rf {
 
 constexpr int kMaxSlots = 32;
+constexpr int kOpFloats = 8;  // cuda_ops.STRIP_OP_FLOATS
 
 enum Op : int {
   OP_COPY = 0,        // in0
@@ -32,8 +33,15 @@ enum Op : int {
   OP_REINHARD = 5,    // rgb: Reinhard of in0 * p0
   OP_VIGNETTE = 6,    // rgb: in0 * radial fade (p0 strength, p1 radius, p2 = 1.42 - radius)
   OP_FADE_PLANE = 7,  // rgb: in0 * aux[plane]
+  OP_CH0 = 8,         // OP_CH0 + k: rgb: channel op k (pixel_ops.cuh) of in0, in1
 };
 
+// kChannelOps: the op list holds channel ops.  A graph without them takes
+// the kernel compiled without them: compiled in, their code (two powf
+// among it) moves nvcc's register allocation of the whole kernel (40 to 32
+// registers), which cost the flagship's graph_strip 13% on the card
+// (PERF.md).
+template <bool kChannelOps>
 __device__ float apply_op(int code, int ci, float a, float b, const float* p, float plane_v,
                           int gy, int gx, int H, int W) {
   const bool rgb = ci < 3;
@@ -61,10 +69,12 @@ __device__ float apply_op(int code, int ci, float a, float b, const float* p, fl
     }
     case OP_FADE_PLANE: return rgb ? a * plane_v : a;
   }
+  if (kChannelOps && code >= OP_CH0 && code < OP_CH0 + CH_COUNT)
+    return rgb ? channel_op(code - OP_CH0, ci, a, b, p, gy, gx) : a;
   return __int_as_float(0x7fc00000);  // unknown opcode: NaN, caught by the checks
 }
 
-template <typename T>
+template <typename T, bool kChannelOps>
 __global__ void __launch_bounds__(kThreads)
 graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ aux,
                    int C, int H, int W, const float* __restrict__ taps,
@@ -79,7 +89,7 @@ graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __
   float* blur = tap_s + n_taps;  // n_plans planes of TH * TW
   const int c = blockIdx.z;
   const size_t plane = (size_t)H * W;
-  (void)time;  // no op of the ported builtins reads the frame time yet
+  (void)time;  // no channel-local builtin reads the frame time
 
   copy_to_shared(taps, n_taps, tap_s);
   load_window(x + c * plane, t, false, win);
@@ -107,19 +117,21 @@ graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __
     for (int j = 0; j < n_ops; ++j) {
       const int* o = op_i + 5 * j;
       const float plane_v = o[4] >= 0 ? aux[o[4] * plane + (size_t)gy * W + gx] : 0.f;
-      const float r = apply_op(o[0], c, v[o[1]], v[o[2]], op_f + 4 * j, plane_v, gy, gx, H, W);
+      const float r =
+            apply_op<kChannelOps>(o[0], c, v[o[1]], v[o[2]], op_f + kOpFloats * j, plane_v, gy,
+                                  gx, H, W);
       v[o[3]] = store_round(r, store);
     }
     out[c * plane + (size_t)gy * W + gx] = from_f32<T>(v[out_slot]);
   }
 }
 
-template <typename T>
+template <typename T, bool kChannelOps>
 static int launch(const void* x, void* out, const float* aux, int C, int H, int W,
                   const float* taps, const int* meta, int n_plans, int n_taps, int RH, int RW,
                   int TH, int TW, const int* op_i, const float* op_f, int n_ops, int out_slot,
                   int store, float time, int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_kernel<T>;
+  auto kernel = graph_strip_kernel<T, kChannelOps>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -132,20 +144,23 @@ static int launch(const void* x, void* out, const float* aux, int C, int H, int 
 
 }  // namespace rf
 
-// bf16 selects bf16 storage for input and output (else f32).  Slots
-// 0..n_plans are the input and the conv results; the caller keeps every
-// slot index below rf::kMaxSlots.
-extern "C" int rf_graph_strip(int bf16, const void* x, void* out, const float* aux, int C, int H,
-                              int W, const float* taps, const int* meta, int n_plans, int n_taps,
-                              int RH, int RW, int TH, int TW, const int* op_i, const float* op_f,
-                              int n_ops, int out_slot, int store, float time, int smem,
-                              void* stream) {
+// bf16 selects bf16 storage for input and output (else f32); channel_ops
+// says whether the op list holds channel ops.  Slots 0..n_plans are the
+// input and the conv results; the caller keeps every slot index below
+// rf::kMaxSlots.
+extern "C" int rf_graph_strip(int bf16, int channel_ops, const void* x, void* out,
+                              const float* aux, int C, int H, int W, const float* taps,
+                              const int* meta, int n_plans, int n_taps, int RH, int RW, int TH,
+                              int TW, const int* op_i, const float* op_f, int n_ops, int out_slot,
+                              int store, float time, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto launcher) {
+    return launcher(x, out, aux, C, H, W, taps, meta, n_plans, n_taps, RH, RW, TH, TW, op_i, op_f,
+                    n_ops, out_slot, store, time, smem, s);
+  };
   if (bf16)
-    return rf::launch<__nv_bfloat16>(x, out, aux, C, H, W, taps, meta, n_plans, n_taps, RH, RW,
-                                     TH, TW, op_i, op_f, n_ops, out_slot, store, time, smem, s);
-  return rf::launch<float>(x, out, aux, C, H, W, taps, meta, n_plans, n_taps, RH, RW, TH, TW,
-                           op_i, op_f, n_ops, out_slot, store, time, smem, s);
+    return channel_ops ? go(rf::launch<__nv_bfloat16, true>) : go(rf::launch<__nv_bfloat16, false>);
+  return channel_ops ? go(rf::launch<float, true>) : go(rf::launch<float, false>);
 }
 
 extern "C" int rf_max_slots() { return rf::kMaxSlots; }

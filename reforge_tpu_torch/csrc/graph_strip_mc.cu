@@ -22,7 +22,8 @@
 //                scratch halves).
 //       stencil: sharpen, sobel (luma of each tap), emboss, median9;
 //                unclamped reads in blocks whose taps all lie in the image.
-//       point:   channel-full ops of one or two inputs at a pixel.
+//       point:   channel-full ops of one or two inputs at a pixel (a 3x3
+//                colour matrix, or a fifth param, comes as tap list 0).
 //   * Border semantics.  Per-node execution edge-pads every intermediate.
 //     Every read here goes through the clamped global coordinate, and a
 //     stage computes only the pixels of its block that lie in the image:
@@ -65,13 +66,16 @@ enum McOp : int {
   MC_SATURATION = 6,   // rgb: y + (in0 - y) * p0
   MC_THRESHOLD = 7,    // rgb: luma(in0) > p0
   MC_BLOOM_PRE = 8,    // rgb: in0 * smoothstep(p0, p0 + p1, luma)
-  MC_CONV_IDENTITY = 16,
-  MC_CONV_UNSHARP = 17,  // rgb: x + p0 * (x - blur)
-  MC_CONV_BLOOM = 18,    // rgb: x + p0 * blur
-  MC_SHARPEN = 32,     // rgb: x + p0 * wsum(list 0)
-  MC_SOBEL = 33,       // rgb: sqrt(gx^2 + gy^2) * p0 over luma
-  MC_EMBOSS = 34,      // rgb: wsum(list 0)
-  MC_MEDIAN3 = 35,     // rgb: median9
+  MC_CH0 = 9,          // MC_CH0 + k: rgb: channel op k (pixel_ops.cuh); levels' p4 in list 0
+  MC_SEPIA = MC_CH0 + CH_COUNT,  // rgb: in0 + (clip01(sepia . in0) - in0) * p0
+  MC_HUE_SAT = MC_SEPIA + 1,     // rgb: hue matrix (list 0, 3x3), saturation p0, lightness p1
+  MC_CONV_IDENTITY = 32,
+  MC_CONV_UNSHARP = 33,  // rgb: x + p0 * (x - blur)
+  MC_CONV_BLOOM = 34,    // rgb: x + p0 * blur
+  MC_SHARPEN = 48,     // rgb: x + p0 * wsum(list 0)
+  MC_SOBEL = 49,       // rgb: sqrt(gx^2 + gy^2) * p0 over luma
+  MC_EMBOSS = 50,      // rgb: wsum(list 0)
+  MC_MEDIAN3 = 51,     // rgb: median9
 };
 
 // A buffer in shared memory: float offset of channel 0 (-1: none) and the
@@ -122,10 +126,72 @@ __device__ __forceinline__ float rd(const float* sm, const McBuf& b, const McGeo
   return sm[b.off + (c * rows + gy - (g.y0 - b.eh)) * cols + gx - (g.x0 - b.ew)];
 }
 
-__device__ void point_op(const McStage& st, const float* a, const float* b, const McGeo& g,
-                         int gy, int gx, float* o) {
+// A 3x3 table of list 0 (its nonzero terms at dy * 64 + dx) as a dense
+// row-major matrix.
+__device__ __forceinline__ void dense3x3(const McStage& st, const float* taps, const int* idx,
+                                         float* m) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) m[k] = 0.f;
+  for (int k = 0; k < st.n0; ++k) m[(idx[st.t0 + k] >> 6) * 3 + (idx[st.t0 + k] & 63)] = taps[st.t0 + k];
+}
+
+// rows of m (row-major 3x3) applied to a[0..2], each r m0 + g m1 + b m2.
+__device__ __forceinline__ void matrix_rgb(const float* m, const float* a, float* out) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = __fadd_rn(__fadd_rn(__fmul_rn(a[0], m[3 * i]), __fmul_rn(a[1], m[3 * i + 1])),
+                       __fmul_rn(a[2], m[3 * i + 2]));
+}
+
+// The point ops of the channel-local and colour-matrix builtins (opcodes
+// from MC_CH0): colour channels of the output from in0 (a) and in1 (b).  A
+// call, with its inputs by value: inlined into point_op they moved nvcc's
+// allocation of the whole kernel and cost the demo's mc kernel 1.5% on the
+// card (PERF.md).
+__device__ __noinline__ float3 point_op_colour(const McStage& st, float4 a4, float4 b4,
+                                               const float* taps, const int* idx, int gy, int gx) {
+  const float a[3] = {a4.x, a4.y, a4.z}, b[3] = {b4.x, b4.y, b4.z};
+  const float* p = st.p;
+  float o[3];
+  if (st.code < MC_CH0 + CH_COUNT) {
+    // levels' fifth param is the one term of list 0 (none: zero)
+    const float q[5] = {p[0], p[1], p[2], p[3], st.n0 > 0 ? taps[st.t0] : 0.f};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c] = channel_op(st.code - MC_CH0, c, a[c], b[c], q, gy, gx);
+  } else if (st.code == MC_SEPIA) {
+    // cuda_ops.SEPIA_MATRIX
+    const float m[9] = {0.393f, 0.769f, 0.189f, 0.349f, 0.686f, 0.168f, 0.272f, 0.534f, 0.131f};
+    float t[3];
+    matrix_rgb(m, a, t);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c] = __fadd_rn(a[c], __fmul_rn(__fsub_rn(clip01(t[c]), a[c]), p[0]));
+  } else if (st.code == MC_HUE_SAT) {
+    float m[9], t[3];
+    dense3x3(st, taps, idx, m);
+    matrix_rgb(m, a, t);
+    const float y = luma(t[0], t[1], t[2]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      o[c] = __fadd_rn(__fadd_rn(y, __fmul_rn(__fsub_rn(t[c], y), p[0])), p[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) o[c] = __int_as_float(0x7fc00000);  // unknown opcode: NaN
+  }
+  return make_float3(o[0], o[1], o[2]);
+}
+
+__device__ void point_op(const McStage& st, const float* a, const float* b, const float* taps,
+                         const int* idx, const McGeo& g, int gy, int gx, float* o) {
   const float* p = st.p;
   o[3] = a[3];
+  if (st.code >= MC_CH0) {
+    const float3 v = point_op_colour(st, make_float4(a[0], a[1], a[2], a[3]),
+                                     make_float4(b[0], b[1], b[2], b[3]), taps, idx, gy, gx);
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    return;
+  }
   switch (st.code) {
     case MC_COPY:
       for (int c = 0; c < 3; ++c) o[c] = a[c];
@@ -449,7 +515,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
           a[c] = rd<false>(sm, st.in0, g, c, gy, gx);
           b[c] = st.n_in > 1 ? rd<false>(sm, st.in1, g, c, gy, gx) : 0.f;
         }
-        point_op(st, a, b, g, gy, gx, o);
+        point_op(st, a, b, taps, idx, g, gy, gx, o);
       }
       for (int c = 0; c < 4; ++c) put<T>(st, sm, out, g, store, c, r, cc, gy, gx, o[c]);
     }

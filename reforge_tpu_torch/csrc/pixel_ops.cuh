@@ -65,6 +65,77 @@ __device__ __forceinline__ float wsum_ordered(Tap tap, const float* __restrict__
   return part[0];
 }
 
+// x ** e as PyTorch's pow of a tensor by a scalar computes it: its special
+// exponents (0, 1, 2, 3, 0.5) by their exact forms, others by powf.
+__device__ __forceinline__ float pow_scalar(float x, float e) {
+  if (e == 0.f) return 1.f;
+  if (e == 1.f) return x;
+  if (e == 2.f) return __fmul_rn(x, x);
+  if (e == 3.f) return __fmul_rn(__fmul_rn(x, x), x);
+  if (e == 0.5f) return __fsqrt_rn(x);
+  return powf(x, e);
+}
+
+// The 4x4 Bayer threshold (M + 0.5) / 16 in closed form (cuda_ops.bayer4).
+__device__ __forceinline__ float bayer4(int y, int x) {
+  auto m2 = [](int a, int b) { return 2 * b + a * (3 - 4 * b); };
+  const int m = 4 * m2(y & 1, x & 1) + m2((y >> 1) & 1, (x >> 1) & 1);
+  return ((float)m + 0.5f) * 0.0625f;
+}
+
+// The channel-local colour builtins, shared by graph_strip (opcode
+// OP_CH0 + op) and graph_strip_mc (MC_CH0 + op), in the order of
+// cuda_ops.CHANNEL_OPS.
+enum ChannelOp : int {
+  CH_INVERT = 0,       // 1 - a
+  CH_SCALE,            // a * p0
+  CH_GAMMA,            // max(a, 0) ** p0
+  CH_BRIGHT_CONTRAST,  // (a - 0.5) * p0 + 0.5 + p1
+  CH_GAIN,             // a * p[c]
+  CH_POSTERIZE,        // round(clip01(a) * p0) / p0
+  CH_DITHER,           // floor(clip01(a) * p0 + bayer4(y, x)) / p0
+  CH_SCANLINES,        // a * (y % p0 == 0 ? p1 : 1)
+  CH_ADD,              // a + p0 * b
+  CH_MULTIPLY,         // a * b
+  CH_SCREEN,           // 1 - (1 - a) * (1 - b)
+  CH_OVERLAY,          // a < 0.5 ? 2 a b : 1 - 2 (1 - a) (1 - b)
+  CH_DIFFERENCE,       // |a - b|
+  CH_LEVELS,           // p3 + clip01((a - p0) / p1) ** p2 * p4
+  CH_COUNT,
+};
+
+// Colour channel c of channel op `op` at image pixel (y, x), a from the
+// node's input_image and b from its input_image2.  Each operation rounds
+// on its own, in the order of the builtin's PyTorch form
+// (cuda_ops.channel_op_plain); divisions are IEEE.
+__device__ __forceinline__ float channel_op(int op, int c, float a, float b, const float* p, int y,
+                                            int x) {
+  switch (op) {
+    case CH_INVERT: return __fsub_rn(1.f, a);
+    case CH_SCALE: return __fmul_rn(a, p[0]);
+    case CH_GAMMA: return pow_scalar(fmaxf(a, 0.f), p[0]);
+    case CH_BRIGHT_CONTRAST:
+      return __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(a, 0.5f), p[0]), 0.5f), p[1]);
+    case CH_GAIN: return __fmul_rn(a, p[c]);
+    case CH_POSTERIZE: return __fdiv_rn(rintf(__fmul_rn(clip01(a), p[0])), p[0]);
+    case CH_DITHER:
+      return __fdiv_rn(floorf(__fadd_rn(__fmul_rn(clip01(a), p[0]), bayer4(y, x))), p[0]);
+    case CH_SCANLINES: return y % (int)p[0] == 0 ? __fmul_rn(a, p[1]) : a;
+    case CH_ADD: return __fadd_rn(a, __fmul_rn(p[0], b));
+    case CH_MULTIPLY: return __fmul_rn(a, b);
+    case CH_SCREEN: return __fsub_rn(1.f, __fmul_rn(__fsub_rn(1.f, a), __fsub_rn(1.f, b)));
+    case CH_OVERLAY:
+      return a < 0.5f ? __fmul_rn(__fmul_rn(2.f, a), b)
+                      : __fsub_rn(1.f, __fmul_rn(__fmul_rn(2.f, __fsub_rn(1.f, a)), __fsub_rn(1.f, b)));
+    case CH_DIFFERENCE: return fabsf(__fsub_rn(a, b));
+    case CH_LEVELS: {
+      const float t = clip01(__fdiv_rn(__fsub_rn(a, p[0]), p[1]));
+      return __fadd_rn(p[3], __fmul_rn(pow_scalar(t, p[2]), p[4]));
+    }
+  }
+  return __int_as_float(0x7fc00000);  // unknown op: NaN, caught by the checks
+}
+
 // Median of v[0..8] by Smith's 19-exchange network, as
 // reforge_tpu/kernels/library.py:321-331 writes it (v[i] <- min, v[j] <-
 // max per pair).  fminf/fmaxf drop a NaN where jnp.minimum propagates it;

@@ -347,7 +347,7 @@ class GraphProgram:
         descs = spec.images_in
         out_desc = node.outputs[0][1]
         return cuda_ops.McStage(
-            kind=cuda_ops.MC_POINT,
+            kind=cuda_ops.MC_POINT, taps=ss["op"].tables,
             plain=lambda ctx, ins: spec(ctx, dict(zip(descs, ins)), params)[out_desc], **common)
 
     def _build_strip_program(self) -> cuda_ops.StripProgram:

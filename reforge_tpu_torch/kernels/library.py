@@ -1,16 +1,17 @@
-"""Builtin kernels of the main paths (the port of
-``reforge_tpu/kernels/library.py``: the builtins of the flagship, the
-demo, edges and chain3 graphs, the reference's mc test graphs and the
-stylized graphs newsprint, watercolor and oil paint).
+"""Builtin kernels (the port of ``reforge_tpu/kernels/library.py``): every
+builtin of the reference library but ``lut1d``, which reads a storage
+buffer that only a GLSL or ``.py`` kernel can write.
 
 Every form of each builtin is ported: ``fn``, ``conv_weights``,
 ``conv_pre``, ``conv_epilogue`` and ``conv_epilogue_cw``, ``cw_fn``,
 ``cw_coord_plane``, ``cw_plane_fn`` and ``mc_stencil_fn``.  Each node
 form the kernels evaluate also has a device form: ``cw_op`` for the
 graph_strip kernel's op list, ``mc_op`` for the graph_strip_mc kernel's
-stage list (opcodes in cuda_ops.py); ``levels`` has none yet (its five
-parameters do not fit a stage's four floats).  The other builtins of the
-reference library are not ported yet.
+stage list (opcodes in cuda_ops.py; the channel-local colour builtins
+share ``cuda_ops.CHANNEL_OPS``).  Gathers (pixelate, chromatic
+aberration, swirl, wave, flip, the motion and radial blurs, halftone) and
+generators (checkerboard, solid) are plain PyTorch on the card, as the
+reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from . import prng
 from .base import kernel, register_kernel, true_divide
 from .ops import (
     apply_stencil,
+    box_weights,
     conv2d,
     gaussian_blur,
     gaussian_radius,
@@ -35,6 +37,7 @@ from .ops import (
     luma,
     map_rgb,
     sample_bilinear,
+    sample_nearest,
     sep_conv,
     smoothstep,
     with_alpha,
@@ -377,14 +380,22 @@ vignette.mc_op = lambda p, pre=False: co.McOp(
 # ---- colour grading ---------------------------------------------------------
 
 
+def _levels_consts(p) -> tuple:
+    """(in_black, span, exponent, out_black, output range): ``span``, the
+    exponent and the range in double precision, as the reference's Python
+    floats."""
+    span = max(float(p["in_white"]) - float(p["in_black"]), 1e-6)
+    expo = 1.0 / max(float(p["gamma"]), 1e-6)
+    return (p["in_black"], span, expo, p["out_black"],
+            float(p["out_white"]) - float(p["out_black"]))
+
+
 def _levels_rgb(x, p):
     """Photoshop-style levels of colour planes ``x``: input range remap,
-    gamma, output range; ``span`` and the output range in double precision,
-    as the reference's Python floats."""
-    span = max(float(p["in_white"]) - float(p["in_black"]), 1e-6)
-    t = torch.clamp(true_divide(x - p["in_black"], span), 0.0, 1.0)
-    t = t ** (1.0 / max(float(p["gamma"]), 1e-6))
-    return p["out_black"] + t * (float(p["out_white"]) - float(p["out_black"]))
+    gamma, output range."""
+    in_black, span, expo, out_black, out_range = _levels_consts(p)
+    t = torch.clamp(true_divide(x - in_black, span), 0.0, 1.0)
+    return out_black + t ** expo * out_range
 
 
 @kernel("levels")
@@ -398,6 +409,12 @@ def levels(ctx, input_image, *, in_black=0.0, in_white=1.0, gamma=1.0,
 
 levels.cw_fn = lambda ctx, ci, ins, p: torch.where(
     ci < 3, _levels_rgb(ins["input_image"], p), ins["input_image"]
+)
+levels.cw_op = lambda p, plane: (co.OP_CH0 + co.CH["levels"], _levels_consts(p))
+# An mc stage has four floats: the output range rides as a 1x1 table.
+levels.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_CH0 + co.CH["levels"], _levels_consts(p)[:4],
+    (np.array([[_levels_consts(p)[4]]], np.float32),)
 )
 
 
@@ -506,3 +523,393 @@ def halftone(ctx, input_image, *, size=8, angle=0.0):
     # Inside the dot (d < r - 1.5) ink is 1, easing to 0 at the rim.
     ink = smoothstep(dot_r, dot_r - 1.5, d)
     return with_alpha((1.0 - ink)[None].expand(3, -1, -1), input_image[3])
+
+
+# ---- colour (channel-local) ---------------------------------------------------
+#
+# Each has its fn, the reference's channel form (cw_fn) and one channel op
+# of cuda_ops.CHANNEL_OPS as its device form in both strip kernels.
+
+
+def _cw_rgb(fn):
+    """Channel form applying fn to the colour planes, alpha passed through."""
+
+    def cw(ctx, ci, ins, p):
+        x = ins["input_image"]
+        return torch.where(ci < 3, fn(x, ins, p), x)
+
+    return cw
+
+
+def _channel_forms(spec, op: str, params=lambda p: ()):
+    """The builtin's cw_op and mc_op: channel op ``op`` with ``params(p)``."""
+    spec.cw_op = lambda p, plane: (co.OP_CH0 + co.CH[op], tuple(params(p)))
+    spec.mc_op = lambda p, pre=False: co.McOp(co.MC_CH0 + co.CH[op], tuple(params(p)))
+
+
+@kernel("invert")
+def invert(ctx, input_image):
+    return map_rgb(input_image, lambda rgb: 1.0 - rgb)
+
+
+@kernel("exposure")
+def exposure(ctx, input_image, *, stops=0.0):
+    return map_rgb(input_image, lambda rgb: rgb * (2.0 ** stops))
+
+
+def _gamma_rgb(x, value):
+    return torch.clamp_min(x, 0.0) ** (1.0 / max(value, 1e-6))
+
+
+@kernel("gamma")
+def gamma(ctx, input_image, *, value=2.2):
+    return map_rgb(input_image, lambda rgb: _gamma_rgb(rgb, value))
+
+
+@kernel("brightness_contrast")
+def brightness_contrast(ctx, input_image, *, brightness=0.0, contrast=1.0):
+    return map_rgb(input_image, lambda rgb: (rgb - 0.5) * contrast + 0.5 + brightness)
+
+
+def _white_balance_gains(p) -> tuple:
+    # Python doubles, rounded to f32 where they multiply, as the reference's
+    return (1.0 + p["temperature"], 1.0 + p["tint"], 1.0 - p["temperature"], 1.0)
+
+
+@kernel("white_balance")
+def white_balance(ctx, input_image, *, temperature=0.0, tint=0.0):
+    """Simple linear-light white-balance nudge: temperature shifts R/B, tint G."""
+    gr, gg, gb, _ = _white_balance_gains(dict(temperature=temperature, tint=tint))
+    return map_rgb(input_image,
+                   lambda rgb: torch.stack([rgb[0] * gr, rgb[1] * gg, rgb[2] * gb]))
+
+
+def _white_balance_cw(ctx, ci, ins, p):
+    x = ins["input_image"]
+    gains = torch.tensor(_white_balance_gains(p), dtype=torch.float32, device=x.device)
+    return x * gains[ci]
+
+
+def _levels_minus_one(p) -> int:
+    return max(int(p["levels"]), 2) - 1
+
+
+def _posterize_rgb(x, n1: int):
+    return true_divide(torch.round(torch.clamp(x, 0.0, 1.0) * n1), n1)
+
+
+@kernel("posterize")
+def posterize(ctx, input_image, *, levels=6):
+    """Quantize color channels to N levels."""
+    n1 = _levels_minus_one(dict(levels=levels))
+    return map_rgb(input_image, lambda rgb: _posterize_rgb(rgb, n1))
+
+
+# The reference's 4x4 Bayer matrix, (M + 0.5) / 16 (library.py:655-661 there).
+BAYER4 = (np.array([[0, 8, 2, 10], [12, 4, 14, 6], [3, 11, 1, 9], [15, 7, 13, 5]],
+                   np.float32) + 0.5) / 16.0
+
+
+@kernel("dither")
+def dither(ctx, input_image, *, levels=2):
+    """Ordered dithering with a 4x4 Bayer matrix."""
+    n1 = _levels_minus_one(dict(levels=levels))
+    ys, xs = grid_coords(ctx)
+    thresh = torch.from_numpy(BAYER4).to(ctx.device)[(ys % 4).long(), (xs % 4).long()]
+    return map_rgb(input_image, lambda rgb: true_divide(
+        torch.floor(torch.clamp(rgb, 0.0, 1.0) * n1 + thresh[None]), n1))
+
+
+def _dither_cw(ctx, ci, ins, p):
+    # The closed-form Bayer matrix of the reference's channel form.
+    n1 = _levels_minus_one(p)
+    ys, xs = grid_coords(ctx)
+    x = ins["input_image"]
+    scaled = torch.clamp(x, 0.0, 1.0) * n1
+    return torch.where(ci < 3, true_divide(torch.floor(scaled + co.bayer4(ys, xs)), n1), x)
+
+
+def _scanlines_plane(ctx, p):
+    ys, _ = grid_coords(ctx)
+    period = max(int(p["period"]), 1)
+    return torch.where(ys % period == 0, 1.0 - p["darkness"], 1.0).to(torch.float32)
+
+
+@kernel("scanlines")
+def scanlines(ctx, input_image, *, period=3, darkness=0.35):
+    fade = _scanlines_plane(ctx, dict(period=period, darkness=darkness))
+    return map_rgb(input_image, lambda rgb: rgb * fade[None])
+
+
+def _scanlines_cw(ctx, ci, ins, p):
+    x = ins["input_image"]
+    return torch.where(ci < 3, x * _scanlines_plane(ctx, p), x)
+
+
+@kernel("add")
+def add(ctx, input_image, input_image2, *, scale=1.0):
+    return map_rgb(input_image, lambda rgb: rgb + scale * input_image2[:3])
+
+
+@kernel("multiply")
+def multiply(ctx, input_image, input_image2):
+    return map_rgb(input_image, lambda rgb: rgb * input_image2[:3])
+
+
+@kernel("screen")
+def screen(ctx, input_image, input_image2):
+    return map_rgb(input_image, lambda rgb: 1.0 - (1.0 - rgb) * (1.0 - input_image2[:3]))
+
+
+def _overlay(x, b):
+    return torch.where(x < 0.5, 2.0 * x * b, 1.0 - 2.0 * (1.0 - x) * (1.0 - b))
+
+
+@kernel("overlay")
+def overlay(ctx, input_image, input_image2):
+    return map_rgb(input_image, lambda rgb: _overlay(rgb, input_image2[:3]))
+
+
+@kernel("difference")
+def difference(ctx, input_image, input_image2):
+    return map_rgb(input_image, lambda rgb: torch.abs(rgb - input_image2[:3]))
+
+
+invert.cw_fn = _cw_rgb(lambda x, ins, p: 1.0 - x)
+exposure.cw_fn = _cw_rgb(lambda x, ins, p: x * (2.0 ** p["stops"]))
+gamma.cw_fn = _cw_rgb(lambda x, ins, p: _gamma_rgb(x, p["value"]))
+brightness_contrast.cw_fn = _cw_rgb(
+    lambda x, ins, p: (x - 0.5) * p["contrast"] + 0.5 + p["brightness"]
+)
+white_balance.cw_fn = _white_balance_cw
+posterize.cw_fn = _cw_rgb(lambda x, ins, p: _posterize_rgb(x, _levels_minus_one(p)))
+dither.cw_fn = _dither_cw
+scanlines.cw_fn = _scanlines_cw
+scanlines.cw_coord_plane = _scanlines_plane
+scanlines.cw_plane_fn = _fade_plane_cw
+add.cw_fn = _cw_rgb(lambda x, ins, p: x + p["scale"] * ins["input_image2"])
+multiply.cw_fn = _cw_rgb(lambda x, ins, p: x * ins["input_image2"])
+screen.cw_fn = _cw_rgb(lambda x, ins, p: 1.0 - (1.0 - x) * (1.0 - ins["input_image2"]))
+overlay.cw_fn = _cw_rgb(lambda x, ins, p: _overlay(x, ins["input_image2"]))
+difference.cw_fn = _cw_rgb(lambda x, ins, p: torch.abs(x - ins["input_image2"]))
+
+_channel_forms(invert, "invert")
+_channel_forms(exposure, "scale", lambda p: (2.0 ** p["stops"],))
+_channel_forms(gamma, "gamma", lambda p: (1.0 / max(p["value"], 1e-6),))
+_channel_forms(brightness_contrast, "brightness_contrast",
+               lambda p: (p["contrast"], p["brightness"]))
+_channel_forms(white_balance, "gain", _white_balance_gains)
+_channel_forms(posterize, "posterize", lambda p: (_levels_minus_one(p),))
+_channel_forms(dither, "dither", lambda p: (_levels_minus_one(p),))
+_channel_forms(scanlines, "scanlines",
+               lambda p: (max(int(p["period"]), 1), 1.0 - p["darkness"]))
+_channel_forms(add, "add", lambda p: (p["scale"],))
+_channel_forms(multiply, "multiply")
+_channel_forms(screen, "screen")
+_channel_forms(overlay, "overlay")
+_channel_forms(difference, "difference")
+# A program that hoists scanlines' fade plane multiplies by it.
+scanlines.cw_op = lambda p, plane: (
+    (co.OP_FADE_PLANE, ()) if plane
+    else (co.OP_CH0 + co.CH["scanlines"], (max(int(p["period"]), 1), 1.0 - p["darkness"]))
+)
+
+
+# ---- colour (channel-mixing): mc point stages ------------------------------------
+
+
+@kernel("sepia")
+def sepia(ctx, input_image, *, amount=1.0):
+    """Classic sepia tone matrix, lerped by ``amount``."""
+    rgb = input_image[:3]
+    toned = co.matrix_rgb(input_image, co.SEPIA_MATRIX)
+    return with_alpha(rgb + (torch.clamp(toned, 0.0, 1.0) - rgb) * amount, input_image[3])
+
+
+def hue_rotate_matrix(degrees: float) -> np.ndarray:
+    """Static 3x3 linear-RGB hue-rotation matrix (the CSS/SVG feColorMatrix
+    'hueRotate' formulation), built as the reference builds it."""
+    a = math.radians(float(degrees))
+    c, s = math.cos(a), math.sin(a)
+    return np.array(
+        [
+            [0.213 + c * 0.787 - s * 0.213, 0.715 - c * 0.715 - s * 0.715,
+             0.072 - c * 0.072 + s * 0.928],
+            [0.213 - c * 0.213 + s * 0.143, 0.715 + c * 0.285 + s * 0.140,
+             0.072 - c * 0.072 - s * 0.283],
+            [0.213 - c * 0.213 - s * 0.787, 0.715 - c * 0.715 + s * 0.715,
+             0.072 + c * 0.928 + s * 0.072],
+        ],
+        dtype=np.float32,
+    )
+
+
+@kernel("hue_saturation")
+def hue_saturation(ctx, input_image, *, hue=0.0, saturation=1.0, lightness=0.0):
+    """Hue rotation (degrees) + saturation scale + lightness offset.  The
+    matrix product sums r m0 + g m1 + b m2 with explicit products (never
+    a matmul, which the card would run on cuBLAS in another order)."""
+    m = hue_rotate_matrix(hue)
+
+    def f(rgb):
+        out = co.matrix_rgb(rgb, m)
+        y = (out[0] * 0.2126 + out[1] * 0.7152 + out[2] * 0.0722)[None]
+        return y + (out - y) * saturation + lightness
+
+    return map_rgb(input_image, f)
+
+
+sepia.mc_op = lambda p, pre=False: co.McOp(co.MC_SEPIA, (p["amount"],))
+# The 3x3 matrix does not fit a stage's four floats: it rides as a table.
+hue_saturation.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_HUE_SAT, (p["saturation"], p["lightness"]), (hue_rotate_matrix(p["hue"]),)
+)
+
+
+# ---- box blur ---------------------------------------------------------------------
+
+
+@kernel("box_blur", halo=lambda p: max(int(p["radius"]), 0))
+def box_blur(ctx, input_image, *, radius=4):
+    """Separable box blur.  A radius whose window fits no shared-memory
+    tile runs the 1-D kernels (``ops.sep_conv``)."""
+    r = max(int(radius), 0)
+    if r == 0:
+        return input_image
+    w = box_weights(r)
+    return sep_conv(input_image, w, w, prefer_mxu=_mxu_ok(ctx))
+
+
+def _box_plan(p):
+    if int(p["radius"]) <= 0:
+        return None
+    w = box_weights(int(p["radius"]))
+    return (w, w)
+
+
+box_blur.conv_weights = _box_plan
+box_blur.conv_epilogue = lambda ctx, x, blurred, p: blurred
+box_blur.conv_epilogue_cw = lambda ctx, ci, x, b, p: b
+box_blur.cw_op = lambda p, plane: (co.OP_TAKE1, ())
+box_blur.mc_op = lambda p, pre=False: co.McOp(
+    co.MC_CONV_IDENTITY if int(p["radius"]) > 0 else co.MC_COPY
+)
+
+
+# ---- gathers: plain PyTorch on every tier -----------------------------------------
+
+
+@kernel("pixelate", halo=lambda p: None)
+def pixelate(ctx, input_image, *, size=8):
+    size = max(int(size), 1)
+    ys, xs = grid_coords(ctx)
+    return sample_nearest(input_image, (ys // size) * size, (xs // size) * size)
+
+
+@kernel("chromatic_aberration", halo=lambda p: None)
+def chromatic_aberration(ctx, input_image, *, shift=2.0):
+    h, w = ctx.height, ctx.width
+    ys, xs = grid_coords(ctx)
+    yf = ys.to(torch.float32)
+    xf = xs.to(torch.float32)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    dy = true_divide(yf - cy, max(h, 1))
+    dx = true_divide(xf - cx, max(w, 1))
+    r = sample_bilinear(input_image[0:1], yf + dy * shift, xf + dx * shift)[0]
+    b = sample_bilinear(input_image[2:3], yf - dy * shift, xf - dx * shift)[0]
+    return torch.stack([r, input_image[1], b, input_image[3]], dim=0)
+
+
+@kernel("swirl", halo=lambda p: None)
+def swirl(ctx, input_image, *, angle=2.0, radius=0.5):
+    h, w = ctx.height, ctx.width
+    ys, xs = grid_coords(ctx)
+    yf = ys.to(torch.float32)
+    xf = xs.to(torch.float32)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    dy, dx = yf - cy, xf - cx
+    dist = torch.sqrt(dx * dx + dy * dy)
+    rad = radius * min(h, w)
+    theta = angle * torch.clamp_min(1.0 - true_divide(dist, rad), 0.0) ** 2
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    sy = cy + dy * cos_t - dx * sin_t
+    sx = cx + dy * sin_t + dx * cos_t
+    return sample_bilinear(input_image, sy, sx)
+
+
+@kernel("wave", halo=lambda p: None)
+def wave(ctx, input_image, *, amplitude=8.0, frequency=0.02, speed=1.0):
+    """Animated horizontal wave distortion driven by _rf_time.  The phase is
+    the reference's f32 product time * speed * 2 * pi, step by step."""
+    ys, xs = grid_coords(ctx)
+    yf = ys.to(torch.float32)
+    xf = xs.to(torch.float32)
+    phase = np.float32(ctx.time) * np.float32(speed) * np.float32(2.0) * np.float32(math.pi)
+    offset = amplitude * torch.sin(yf * (frequency * 2.0 * math.pi) + float(phase))
+    return sample_bilinear(input_image, yf, xf + offset)
+
+
+@kernel("flip", halo=lambda p: None)
+def flip(ctx, input_image, *, horizontal=True, vertical=False):
+    out = input_image
+    if horizontal:
+        out = torch.flip(out, dims=(2,))
+    if vertical:
+        out = torch.flip(out, dims=(1,))
+    return out
+
+
+@kernel("motion_blur", halo=lambda p: None)
+def motion_blur(ctx, input_image, *, length=12.0, angle=0.0, samples=0):
+    """Directional blur: average samples along the motion vector.
+
+    ``angle`` in degrees (0 = horizontal drag), ``length`` in pixels
+    end-to-end; ``samples`` 0 picks one per pixel of length."""
+    L = max(float(length), 0.0)
+    if L == 0.0:
+        return input_image
+    n = int(samples) if int(samples) >= 2 else max(int(L), 2)
+    th = float(angle) * np.pi / 180.0
+    dy, dx = float(np.sin(th)), float(np.cos(th))
+    ys, xs = grid_coords(ctx)
+    yf = ys.to(torch.float32)
+    xf = xs.to(torch.float32)
+    acc = None
+    for i in range(n):
+        t = (i / (n - 1) - 0.5) * L
+        s = sample_bilinear(input_image, yf + dy * t, xf + dx * t)
+        acc = s if acc is None else acc + s
+    return with_alpha(true_divide(acc[:3], n), input_image[3])
+
+
+@kernel("radial_blur", halo=lambda p: None)
+def radial_blur(ctx, input_image, *, strength=0.15, samples=12, center_x=0.5, center_y=0.5):
+    """Zoom blur: average samples along the ray toward the center."""
+    n = max(int(samples), 2)
+    ys, xs = grid_coords(ctx)
+    cy = float(center_y) * (ctx.height - 1)
+    cx = float(center_x) * (ctx.width - 1)
+    acc = None
+    for i in range(n):
+        t = 1.0 - float(strength) * (i / (n - 1))
+        s = sample_bilinear(input_image, cy + (ys - cy) * t, cx + (xs - cx) * t)
+        acc = s if acc is None else acc + s
+    return with_alpha(true_divide(acc[:3], n), input_image[3])
+
+
+# ---- generators -------------------------------------------------------------------
+
+
+@kernel("checkerboard", images_in=(), doc="Generator: checkerboard test pattern.")
+def checkerboard(ctx, *, size=32):
+    size = max(int(size), 1)
+    ys, xs = grid_coords(ctx)
+    v = (((ys // size) + (xs // size)) % 2).to(torch.float32)
+    return torch.cat([v[None].expand(3, -1, -1), torch.ones_like(v)[None]], dim=0)
+
+
+@kernel("solid", images_in=(), doc="Generator: constant color.")
+def solid(ctx, *, red=0.0, green=0.0, blue=0.0, alpha=1.0):
+    shape = (ctx.height, ctx.width)
+    return torch.stack([torch.full(shape, c, dtype=torch.float32, device=ctx.device)
+                        for c in (red, green, blue, alpha)], dim=0)

@@ -32,13 +32,14 @@ def pad_edge(x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
 
 
 def conv1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
-    """1-D correlation along a spatial axis with clamp-to-edge borders.
-
-    The JAX package sends this to its Pallas ``conv1d_h``/``conv1d_w``
-    kernels on the TPU; those are not ported yet, so this is the plain
-    version on every device.  The main path reaches it only for convs of
-    radius 0 on one axis."""
-    return cuda_ops.correlate1d(x, weights, axis)
+    """1-D correlation of an f32 (C, H, W) image along ``AXIS_H`` or
+    ``AXIS_W`` with clamp-to-edge borders: the ``conv1d_h``/``conv1d_w``
+    kernels on the card, their plain version on the CPU."""
+    if axis == AXIS_H:
+        return cuda_ops.conv1d_h(x, weights)
+    if axis == AXIS_W:
+        return cuda_ops.conv1d_w(x, weights)
+    raise ValueError(f"conv1d: axis must be AXIS_H or AXIS_W, not {axis}")
 
 
 # Combined (H + W) tap count from which an f32 conv takes the
@@ -47,29 +48,44 @@ def conv1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
 # label, so launch counts separate heavy convs from light ones; both
 # entries run the same kernel here.
 X3_MIN_TAPS = 56
+# Largest W radius of the bf16 and x3 entries (the reference's band-matmul
+# gates, ops.py:138 and pallas_ops.mxu_x3_tile_h there).
+MXU_MAX_RW = 128
 
 
 def sep_conv(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
              prefer_mxu: bool = False) -> torch.Tensor:
-    """Separable 2-D convolution: 1-D pass along H then along W.
+    """Separable 2-D convolution: 1-D pass along H then along W; returns
+    the input's dtype (f32 for every node input).
 
-    ``prefer_mxu`` sends the input through the ``sep_conv_fused_mxu``
-    entry point, which reads it as bf16.  Set it only for an input whose
-    every value is already bf16-exact (a node input upcast from rgba16f
-    storage): for anything derived from it (luma, a product, a stack of
-    such planes) the cast rounds, and kuwahara's luma and luma^2 planes
-    move its quadrant choice.  f32 convs of at least ``X3_MIN_TAPS``
-    combined taps take ``sep_conv_fused_mxu_x3``.  Every entry point
-    returns f32; the caller rounds at the node boundary."""
+    The route follows from the shapes, as the reference's does
+    (reforge_tpu/kernels/ops.py:117-170), with a shared-memory tile in
+    place of its VMEM models.  A conv whose window fits a tile of the
+    fused kernels (``cuda_ops.plans_fit``) takes:
+      * ``sep_conv_fused_mxu`` (bf16 reads) for a bf16 input or under
+        ``prefer_mxu``, up to W radius ``MXU_MAX_RW``.  Set
+        ``prefer_mxu`` only for an input whose every value is already
+        bf16-exact (a node input upcast from rgba16f storage): for anything
+        derived from it (luma, a product, a stack of such planes) the cast
+        rounds, and kuwahara's luma and luma^2 planes move its quadrant
+        choice;
+      * ``sep_conv_fused_mxu_x3`` for convs of at least ``X3_MIN_TAPS``
+        combined taps up to W radius ``MXU_MAX_RW``;
+      * ``sep_conv_fused`` otherwise.
+    Every other conv, and a conv with a radius-0 axis, runs the two 1-D
+    kernels ``conv1d_h`` then ``conv1d_w`` in f32 (the reference's route
+    where ``fused_tile_h`` finds no tile)."""
     wh = np.asarray(wh, np.float32)
     ww = np.asarray(ww, np.float32)
-    if x.dim() == 3 and len(wh) > 1 and len(ww) > 1:
-        if x.dtype == torch.bfloat16 or prefer_mxu:
+    xf = x.to(torch.float32)
+    if len(wh) > 1 and len(ww) > 1 and cuda_ops.plans_fit([(wh, ww)]):
+        narrow = (len(ww) - 1) // 2 <= MXU_MAX_RW
+        if (x.dtype == torch.bfloat16 or prefer_mxu) and narrow:
             return cuda_ops.sep_conv_fused_mxu(x.to(torch.bfloat16), wh, ww).to(x.dtype)
-        if len(wh) + len(ww) >= X3_MIN_TAPS:
-            return cuda_ops.sep_conv_fused_mxu_x3(x, wh, ww)
-        return cuda_ops.sep_conv_fused(x, wh, ww)
-    return conv1d(conv1d(x, wh, AXIS_H), ww, AXIS_W)
+        if len(wh) + len(ww) >= X3_MIN_TAPS and narrow:
+            return cuda_ops.sep_conv_fused_mxu_x3(xf, wh, ww).to(x.dtype)
+        return cuda_ops.sep_conv_fused(xf, wh, ww).to(x.dtype)
+    return conv1d(conv1d(xf, wh, AXIS_H), ww, AXIS_W).to(x.dtype)
 
 
 def apply_stencil(x: torch.Tensor, rh: int, rw: int, op: "cuda_ops.StencilOp",

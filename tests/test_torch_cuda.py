@@ -164,3 +164,96 @@ def test_newsprint_4k_frame_against_plain_per_node(monkeypatch):
     # halftone's dots turn a few-ulp change of a cell's luma into at most
     # a few ulps of ink
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("r", [0, 3, 160, 3000])  # 3000: no shared-memory window, taps from global
+@pytest.mark.parametrize("axis", ["h", "w"])
+def test_conv1d(axis, r, mode):
+    """conv1d_h / conv1d_w against correlate1d: the nonzero taps in
+    ascending order with every product and sum rounded alike, bit-equal;
+    a 6-channel odd frame (border tiles only) and one with interior
+    tiles, a box vector and one with zero taps (kuwahara's quadrant)."""
+    entry = cuda_ops.conv1d_h if axis == "h" else cuda_ops.conv1d_w
+    along_h = axis == "h"
+    box = np.full(2 * r + 1, 1.0 / (2 * r + 1), np.float32)
+    half = np.zeros(2 * r + 1, np.float32)
+    half[r:] = 1.0 / (r + 1)
+    n = len(np.flatnonzero(box))
+    assert (cuda_ops.choose_conv1d_tile(along_h, r, n) is None) == (r == 3000)
+    for shape in ((6, 33, 47), (4, 300, 520)):
+        x = _image(shape, r + len(shape))
+        for w in (box, half):
+            before = cuda_ops.LAUNCHES[f"conv1d_{axis}"]
+            got = entry(x, w, mode)
+            want = cuda_ops.correlate1d(x, w, -2 if along_h else -1, mode)
+            torch.cuda.synchronize()
+            assert cuda_ops.LAUNCHES[f"conv1d_{axis}"] == before + 1
+            assert torch.equal(got, want), (shape, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f", "rgba8"])
+@pytest.mark.parametrize("config,tier", [("CW_CHECK_CONFIG", "single"), ("MC_CHECK_CONFIG", "mc")])
+def test_channel_ops_on_strip_kernels(config, tier, fmt):
+    """Every channel-local builtin's cw_op through graph_strip, and every new
+    mc point op through graph_strip_mc, against per node on the card.  The
+    device forms round every operation as the builtins' PyTorch forms do
+    (pow by powf, as PyTorch's CUDA pow): rgba32f within 1e-5; a bf16 or
+    1/255 step where an ulp flips a rounding before a store."""
+    from reforge_tpu_torch import benchmarks
+
+    prog = benchmarks.build_program(getattr(benchmarks, config), 71, 37, fmt, device="cuda")
+    assert prog._strip_plan[0] == tier
+    kernel = "graph_strip" if tier == "single" else "graph_strip_mc"
+    for hw in ((37, 71), (200, 300)):
+        prog = benchmarks.build_program(getattr(benchmarks, config), hw[1], hw[0], fmt,
+                                        device="cuda")
+        x = _image((4, *hw), 13).to(prog.storage_dtype)
+        before = cuda_ops.LAUNCHES[kernel]
+        got = prog._forward(x, 0.5)
+        per_node = prog._forward_nostrip(x, 0.5)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES[kernel] == before + 1
+        d = (got.float() - per_node.float()).abs()
+        if fmt == "rgba32f":
+            assert float(d.max()) <= 1e-5
+        else:
+            step = 2e-2 if fmt == "rgba16f" else 2.0 / 255.0 + 1e-6
+            assert float((d > step).float().mean()) <= 1e-3, float(d.max())
+
+
+def test_scanlines_op_without_its_plane():
+    """scanlines' own opcode (a program that does not hoist its fade plane)
+    on graph_strip against its channel form."""
+    from reforge_tpu_torch.kernels import library
+    from reforge_tpu_torch.kernels.base import KernelContext
+
+    x = _image((4, 37, 71), 14)
+    p = {"period": 3, "darkness": 0.2}
+    code, params = library.scanlines.cw_op(p, False)
+    strip = cuda_ops.StripProgram(
+        plans=[(np.array([0.25, 0.5, 0.25], np.float32),) * 2],
+        ops=[cuda_ops.StripOp(code, (0, 0), 2, params, -1, None)], out_slot=2, fmt="rgba32f")
+    got = cuda_ops.graph_strip(x, 0.5, strip)
+    ctx = KernelContext(width=71, height=37, device="cuda")
+    want = library.scanlines.cw_fn(ctx, torch.arange(4, device="cuda").view(4, 1, 1),
+                                   {"input_image": x}, p)
+    assert torch.equal(got, want)
+
+
+def test_frost_4k_frame_runs_the_1d_kernels():
+    """Frost's 4K frame: one conv1d_h and one conv1d_w, equal to the same
+    graph with correlate1d on the card."""
+    from reforge_tpu_torch import benchmarks
+
+    prog = benchmarks.build_program(benchmarks.FROST_CONFIG, 3840, 2160, device="cuda")
+    assert prog._strip_plan is None
+    x = _image((4, 2160, 3840), 15)
+    before = dict(cuda_ops.LAUNCHES)
+    got = prog._forward(x, 0.5)
+    torch.cuda.synchronize()
+    assert {k: cuda_ops.LAUNCHES[k] - before[k] for k in before if
+            cuda_ops.LAUNCHES[k] != before[k]} == {"conv1d_h": 1, "conv1d_w": 1}
+    w = np.full(321, 1.0 / 321, np.float32)
+    want = cuda_ops.correlate1d(cuda_ops.correlate1d(x, w, -2), w, -1)
+    assert torch.equal(got, want)
