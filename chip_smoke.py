@@ -6,7 +6,7 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives three main paths at 3840x2160 through ``Engine``, each with the
+drives five main paths at 3840x2160 through ``Engine``, each with the
 launch counters set to 0 just before it and read just after:
 
   A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
@@ -24,7 +24,17 @@ launch counters set to 0 just before it and read just after:
      colour math), neon edges on the mc tier, frost (a radius-160 box
      blur) through conv1d_h and conv1d_w, and box_blur radius 120 and
      kuwahara radius 130, whose windows fit no shared-memory tile of the
-     fused conv kernels.
+     fused conv kernels;
+  E. GLSL shaders on images, with the shipped shaders of ``shaders/``:
+     the default config (passthrough.comp), glsl-blur (gaussian_h.comp ->
+     gaussian_v.comp) and glsl-blur-sharpen (plus sharpen.comp) on the mc
+     tier as synthesized conv and stencil stages of graph_strip_mc, the
+     reference's glsl-chain and glsl-sharpen per node (tonemap.comp is a
+     point shader), and the examples whose shaders touch only images.
+
+Paths A-D use an empty shader path, so the builtins they measure are not
+replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
+has no caller in either package: only the kernel checks launch it.
 
 It checks the outputs, prints fps, latency, a device-time profile and
 each kernel's time beside its plain version, its bound and a library
@@ -43,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -243,11 +254,13 @@ def main() -> int:
         return 2
 
     from reforge_tpu_torch.benchmarks import (
-        CHAIN3_CONFIG, CW_CHECK_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG,
-        LIBRARY_GRAPHS, MC_CHECK_CONFIG, MC_TEST_GRAPHS, MIX_SECOND_FIRST_CONFIG, STYLIZED_GRAPHS,
-        bench_program, bench_program_sequenced, build_flagship, build_program,
+        CHAIN3_CONFIG, CW_CHECK_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, GLSL_EXAMPLES,
+        GLSL_GRAPHS, LIBRARY_GRAPHS, MC_CHECK_CONFIG, MC_TEST_GRAPHS, MIX_SECOND_FIRST_CONFIG,
+        SHADER_DIR, STYLIZED_GRAPHS, bench_program, bench_program_sequenced, build_flagship,
+        build_program, example_config,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
+    from reforge_tpu_torch.glsl import affine
     from reforge_tpu_torch.kernels import cuda_ops, library
     from reforge_tpu_torch.kernels.ops import box_weights, gaussian_weights, luma
 
@@ -270,6 +283,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    # The GLSL conv-synthesis cache of this run (removed when the script
+    # ends), so the affine probe runs and its time shows.
+    synth_cache = tempfile.TemporaryDirectory(prefix="rf_chip_smoke_synth_")
 
     # ---- 2. build -----------------------------------------------------------
     start = time.perf_counter()
@@ -402,6 +418,35 @@ def main() -> int:
                     errs[kname] = err
             del got, want
 
+    # stencil_apply_mc: a dense cross-channel table at 4K (C_in 4 -> C_out
+    # 4, radius 2: 400 terms), C_out 3 at radii (2, 3) and C_out 4 at
+    # radius 1, f32 and bf16, edge and zero, on the 4K and the ragged
+    # frame; radius 24 on the ragged frame, where no shared-memory tile
+    # holds the window and the terms (every term reads global memory).
+    # Both sides add each output's products in the table's order, each
+    # rounded alone: expected bit-equal (0).
+    lin_ops = {name: cuda_ops.LinearStencilOp(rng.standard_normal(shape).astype(np.float32))
+               for name, shape in (("4->4 r2", (4, 4, 5, 5)), ("4->3 r2,3", (3, 4, 5, 7)),
+                                   ("4->4 r1", (4, 4, 3, 3)), ("4->3 r24", (3, 4, 49, 49)))}
+    if cuda_ops.choose_stencil_mc_tile(4, 24, 24, lin_ops["4->3 r24"].n_terms, 3) is not None:
+        raise AssertionError("radius 24 should fit no shared-memory tile")
+    for tname, op in lin_ops.items():
+        tile = cuda_ops.choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms, op.c_out)
+        where = f"tile {tile[:2]}" if tile else "global path"
+        for x in ((ragged,) if tname.endswith("r24") else (x4k, ragged)):
+            for dt in (torch.float32, torch.bfloat16):
+                for mode in ("edge", "zero"):
+                    xin = x.to(dt)
+                    got = cuda_ops.stencil_apply_mc(xin, op, mode)
+                    want = cuda_ops.stencil_apply_mc_plain(xin, op, mode)
+                    torch.cuda.synchronize()
+                    err = _max_err(got, want)
+                    _check(f"stencil_apply_mc {tname} ({op.n_terms} terms) "
+                           f"{'x'.join(map(str, x.shape))} {dt} {mode} {where}", err, 0.0)
+                    if x is x4k and tname == "4->4 r2" and dt == torch.float32 and mode == "edge":
+                        errs["stencil_apply_mc"] = err
+    del got, want
+
     # Device forms: every channel-local builtin's cw_op on graph_strip and
     # every new mc point op on graph_strip_mc (the two check graphs),
     # against per node on the card, at 4K and on a ragged frame.
@@ -441,8 +486,8 @@ def main() -> int:
     graphs = {"demo": DEMO_CONFIG, "edges": EDGES_CONFIG, "chain3": CHAIN3_CONFIG}
     mc_progs = {}
 
-    def mc_case(name, config, fmt, h, w, x):
-        prog = build_program(config, w, h, fmt, device=dev)
+    def mc_case(name, config, fmt, h, w, x, shader_path=None):
+        prog = build_program(config, w, h, fmt, device=dev, shader_path=shader_path)
         if prog._strip_plan is None or prog._strip_plan[0] != "mc":
             raise AssertionError(f"{name} {fmt} {h}x{w}: no mc plan")
         mc = prog._strip_plan[1]
@@ -451,8 +496,10 @@ def main() -> int:
         want = cuda_ops.graph_strip_mc_plain(xin, 0.5, mc)
         torch.cuda.synchronize()
         # A stencil after a quantized conv amplifies a bucket flip (chain3,
-        # conv_stencil_point): four steps there, two elsewhere.
-        steps = 4 if name.split()[0] in ("chain3", "conv_stencil_point") else 2
+        # conv_stencil_point): four steps there, two elsewhere;
+        # sharpen.comp at amount 0.7 by up to 1 + 8 * 0.7 = 6.6: seven.
+        steps = {"chain3": 4, "conv_stencil_point": 4, "glsl_blur_sharpen": 7}.get(
+            name.split()[0], 2)
         err = _check_fmt(f"graph_strip_mc {name} {fmt} {h}x{w} tile {mc.tile()[:2]}", fmt, got,
                          want, rgba8_steps=steps)
         return prog, xin, err
@@ -463,6 +510,28 @@ def main() -> int:
             mc_progs[(name, fmt)] = (prog, xin)
             if name == "demo" and fmt == "rgba32f":
                 errs["graph_strip_mc"] = err
+    # The GLSL graphs of path E: gaussian_h.comp -> gaussian_v.comp (one
+    # composed conv in rgba32f, two where storage rounds between them, each
+    # an identity conv and an MC_AFFINE point stage) and sharpen.comp (an
+    # emboss-form stencil stage), in three formats at 4K and on the ragged
+    # frame.
+    # The first build runs the affine probe (the synthesis cache starts
+    # empty).
+    affine.CACHE_DIR = Path(synth_cache.name)
+    affine._SYNTH_CACHE.clear()
+    start = time.perf_counter()
+    build_program(GLSL_GRAPHS["glsl_blur"], WIDTH, HEIGHT, device=dev, shader_path=SHADER_DIR)
+    print(f"E2 glsl_blur graph build at 4K, affine probe included: "
+          f"{time.perf_counter() - start:.3f} s; again (cached): ", end="")
+    start = time.perf_counter()
+    build_program(GLSL_GRAPHS["glsl_blur"], WIDTH, HEIGHT, device=dev, shader_path=SHADER_DIR)
+    print(f"{time.perf_counter() - start:.3f} s")
+    for name in ("glsl_blur", "glsl_blur_sharpen"):
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            for h, w, x in ((HEIGHT, WIDTH, x4k), (37, 71, ragged)):
+                prog, xin, _err = mc_case(name, GLSL_GRAPHS[name], fmt, h, w, x, SHADER_DIR)
+                if h == HEIGHT and fmt != "rgba8":
+                    mc_progs[(name, fmt)] = (prog, xin)
     # Every mc test graph on a ragged frame (border blocks only) and on one
     # with interior blocks; the mix wired second input first also against
     # the per-node tier on the card.
@@ -506,25 +575,33 @@ def main() -> int:
         configs[name] = os.path.join(tmp, f"{name}.rf")
         with open(configs[name], "w") as f:
             f.write(text)
-    # An empty shader path: shaders/tonemap.comp, vignette.comp, sharpen.comp,
-    # sobel.comp, blend.comp and kuwahara.comp would otherwise replace the
-    # builtins, and GLSL is not ported yet.
+    for name in GLSL_EXAMPLES:
+        configs[name] = os.path.join(tmp, f"{name}.rf")
+        with open(configs[name], "w") as f:
+            f.write(example_config(name))
+    for name, text in GLSL_GRAPHS.items():
+        configs[name] = os.path.join(tmp, f"{name}.rf")
+        with open(configs[name], "w") as f:
+            f.write(text)
+    # Paths A-D: an empty shader path, so that shaders/tonemap.comp,
+    # vignette.comp, sharpen.comp, sobel.comp, blend.comp, kuwahara.comp and
+    # the rest do not replace the builtins these paths measure.
     shader_dir = os.path.join(tmp, "shaders")
     os.mkdir(shader_dir)
 
-    def info(graph, fmt, one_shot):
+    def info(graph, fmt, one_shot, shader_path=shader_dir):
         return RenderInfo(WIDTH, HEIGHT, "cuda", config_path=configs[graph],
-                          shader_path=shader_dir, fmt=fmt, has_input_image=True,
+                          shader_path=shader_path, fmt=fmt, has_input_image=True,
                           one_shot=one_shot)
 
-    def drive(graph, fmt):
+    def drive(graph, fmt, shader_path=shader_dir):
         """One-shot (per node), the strip tier (render_frame, blocking, a
         sequence of 4) and run_per_node; returns the outputs and the
         counter deltas of the one-shot and of the strip tier."""
         before = dict(cuda_ops.LAUNCHES)
-        one_shot = Engine(info(graph, fmt, True)).render_one_shot(u8, 0.5)
+        one_shot = Engine(info(graph, fmt, True, shader_path)).render_one_shot(u8, 0.5)
         mid = dict(cuda_ops.LAUNCHES)
-        engine = Engine(info(graph, fmt, False))
+        engine = Engine(info(graph, fmt, False, shader_path))
         engine.load_input(u8)
         frame = engine.render_frame(0.5)
         engine.render_frame_blocking(0.516)
@@ -538,7 +615,12 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
         return one_shot, frame, seq, per_node, engine, shot, tier
 
-    def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine, tier="strip tier"):
+    def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine, tier="strip tier",
+                      shot_vs_per_node=False):
+        """The tier against per node, a sequence against a frame, and the
+        one-shot (per node) against the tier's frame in u8 codes, or against
+        the per-node output where the tier's bound allows more than a code
+        (``shot_vs_per_node``)."""
         for what, v in (("frame", frame), ("per-node", per_node)):
             if tuple(v.shape) != big or not bool(torch.isfinite(v.float()).all()):
                 raise AssertionError(f"{graph} {fmt} {what}: bad shape or non-finite values")
@@ -548,9 +630,9 @@ def main() -> int:
                1e-5 if fmt == "rgba32f" else 2e-2)
         _check(f"{graph} {fmt} render_sequence frame 0 vs render_frame", _max_err(seq[0], frame),
                0.0)
-        strip_u8 = engine.read_output(frame).astype(np.int16)
-        _check(f"{graph} {fmt} one-shot vs {tier} (u8 codes)",
-               float(np.abs(strip_u8 - one_shot.astype(np.int16)).max()), 1.0)
+        strip_u8 = engine.read_output(per_node if shot_vs_per_node else frame).astype(np.int16)
+        _check(f"{graph} {fmt} one-shot vs {'per-node tier' if shot_vs_per_node else tier} "
+               f"(u8 codes)", float(np.abs(strip_u8 - one_shot.astype(np.int16)).max()), 1.0)
 
     # Path A: the flagship.
     cuda_ops.reset_launches()
@@ -671,6 +753,69 @@ def main() -> int:
                       tier="mc tier" if graph == "neon_edges" else "frame path")
     del outputs
 
+    # Path E: GLSL shaders on images through Engine from the repository
+    # root, with the default shader path ("shaders").  E1 the default config
+    # (passthrough.comp, per node through the interpreter); E2 glsl_blur and
+    # E3 glsl_blur_sharpen on the mc tier (one graph_strip_mc a frame;
+    # their one-shot runs the interpreter per node and launches nothing);
+    # E4 the reference's glsl_chain and glsl_sharpen per node (tonemap.comp
+    # is a point shader: no device form, no kernel); E5 the image-only
+    # examples in rgba32f, one frame each on the tier the planner picks,
+    # and their per-node times.
+    if not os.path.isfile(os.path.join("shaders", "passthrough.comp")):
+        raise AssertionError("path E runs from the repository root (shaders/passthrough.comp)")
+    cuda_ops.reset_launches()
+    for fmt in ("rgba32f", "rgba16f"):
+        engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", fmt=fmt))
+        engine.load_input(u8)
+        frame = engine.render_frame_blocking(0.5)
+        if engine.program._strip_plan is not None:
+            raise AssertionError(f"E1 {fmt}: a strip plan for the default config")
+        _check(f"E1 default config (passthrough.comp) {fmt} 4K vs its input", _max_err(
+            frame, engine._file_input().to(engine.program.storage_dtype)), 0.0)
+        engine.close()
+    outputs = {(g, fmt): drive(g, fmt, SHADER_DIR) for g in GLSL_GRAPHS
+               for fmt in ("rgba32f", "rgba16f")}
+    e5 = {}
+    for name in GLSL_EXAMPLES:
+        engine = Engine(info(name, "rgba32f", False, SHADER_DIR))
+        engine.load_input(u8)
+        before = dict(cuda_ops.LAUNCHES)
+        start = time.perf_counter()
+        frame = engine.render_frame_blocking(0.5)
+        frame_ms = (time.perf_counter() - start) * 1e3
+        launched = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
+        _out, times = engine.program.run_per_node(engine._file_input(), 0.5)
+        engine.close()
+        if tuple(frame.shape) != big or not bool(torch.isfinite(frame.float()).all()):
+            raise AssertionError(f"E5 {name}: bad shape or non-finite values")
+        tier = engine.program._strip_plan[0] if engine.program._strip_plan else "per-node"
+        e5[name] = (tier, frame_ms, times)
+        print(f"E5 {name} rgba32f 4K: {tier}, first frame {frame_ms:.2f} ms, launches "
+              f"{json.dumps(launched)}; per-node ms (host clock after sync): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
+    counts_e = dict(cuda_ops.LAUNCHES)
+    print(f"main path E (GLSL: default config, glsl_blur, glsl_blur_sharpen, glsl_chain, "
+          f"glsl_sharpen, {len(GLSL_EXAMPLES)} examples) launches: {json.dumps(counts_e)}")
+    if counts_e["graph_strip_mc"] == 0:
+        raise AssertionError("main path E never launched graph_strip_mc")
+    for (graph, fmt), out in outputs.items():
+        prog = out[4].program
+        on_mc = graph in ("glsl_blur", "glsl_blur_sharpen")
+        tier = prog._strip_plan[0] if prog._strip_plan else None
+        if tier != ("mc" if on_mc else None):
+            raise AssertionError(f"{graph} {fmt}: tier {tier}")
+        frame_want = {"graph_strip_mc": 6} if on_mc else {}
+        for what, counts, want1 in (("one-shot", out[5], {}), ("frame path", out[6], frame_want)):
+            want = {k: want1.get(k, 0) for k in counts}
+            if counts != want:
+                raise AssertionError(f"{graph} {fmt} {what}: launches {counts}, expected {want}")
+        # rgba16f: the mc tier's bf16 roundings differ from per node's by up
+        # to 2e-2, which sRGB's slope turns into more than one u8 code.
+        check_outputs(graph, fmt, *out[:5], tier="mc tier" if on_mc else "frame path",
+                      shot_vs_per_node=on_mc and fmt == "rgba16f")
+    del outputs
+
     # Small renders on the card against the port's CPU path, both tiers.
     small_x = rng.random((4, 288, 512), dtype=np.float32)
     for graph in ("flagship", "demo", "edges", "chain3"):
@@ -740,6 +885,49 @@ def main() -> int:
             print(f"check {what}: max abs error {float(d.max()):.3g} (one storage step), "
                   f"values that differ {float((d > 0).float().mean()):.3g}")
 
+    # Path E's graphs at 512x288 on the card against the CPU path.  rgba32f
+    # within 1e-5 but where an ulp of a transcendental moves a sample:
+    # glass.comp (refraction by sin and cos) and raymarch.comp (a march of
+    # up to 64 steps) within 1e-4 (measured 3.4e-5 and 3.9e-5), and
+    # psychedelic as in path D; mandelzoom (mandelbrot.comp) as a share of
+    # values, since an escape-time edge flips a pixel's whole colour (as
+    # tests/test_scalar_ref.py notes): at most 1% of the values may differ
+    # by more than 1e-4 (measured 0.3%).  rgba16f and rgba8 (the GLSL
+    # graphs) within one storage step of the value, or seven where
+    # sharpen.comp (amount 0.7: 1 + 8 * 0.7 = 6.6) follows a conv whose
+    # FMAs on the card flip a rounding of the CPU's multiply-adds.
+    tol32_e = {"glass": 1e-4, "raymarch": 1e-4, "psychedelic": 1e-4}
+    cases_e = [(g, c, fmt) for g, c in GLSL_GRAPHS.items() for fmt in ("rgba32f", "rgba16f", "rgba8")]
+    cases_e += [(g, example_config(g), "rgba32f") for g in GLSL_EXAMPLES]
+    for graph, config, fmt in cases_e:
+        gpu = build_program(config, 512, 288, fmt, device=dev, shader_path=SHADER_DIR)
+        cpu = build_program(config, 512, 288, fmt, device="cpu", shader_path=SHADER_DIR)
+        got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu().float()
+        want = cpu._forward(torch.from_numpy(small_x), 0.5).float()
+        d = (got - want).abs()
+        what = f"{graph} {fmt} {'mc tier' if gpu._strip_plan else 'per-node'} 512x288 card vs CPU"
+        if graph == "mandelzoom":
+            share = float((d > 1e-4).float().mean())
+            if share > 1e-2:
+                raise AssertionError(f"{what}: {share} of the values differ by more than 1e-4")
+            print(f"check {what}: share of values off by more than 1e-4 {share:.3g} <= 0.01 "
+                  f"(max {float(d.max()):.3g})")
+            continue
+        if fmt == "rgba32f":
+            _check(what, float(d.max()), tol32_e.get(graph, 1e-5))
+            continue
+        if fmt == "rgba16f":
+            mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+            step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        else:
+            step = torch.full_like(d, 1.0 / 255.0)
+        steps = 7 if graph == "glsl_blur_sharpen" else 1
+        excess = float((d - steps * step).max())
+        if excess > 1e-6:
+            raise AssertionError(f"{what}: a difference {excess} past {steps} storage steps")
+        print(f"check {what}: max abs error {float(d.max()):.3g} ({steps} storage steps), "
+              f"values that differ {float((d > 0).float().mean()):.3g}")
+
     # ---- 5. timings -----------------------------------------------------------
     # The kernel table first, while the card is cool (the frame timings
     # below keep it busy for a minute); the card's clock, power and
@@ -803,6 +991,21 @@ def main() -> int:
     timed["stencil_reduce_mc"] = (lambda: cuda_ops.stencil_reduce_mc(stack4k, r4, r4, op4),
                                   lambda: cuda_ops.stencil_reduce_mc_plain(stack4k, r4, r4, op4),
                                   None, (reduce_bound_ms, reduce_bound_by))
+    # stencil_apply_mc: 4 -> 4 channels at radius 2 (400 terms).  Bound:
+    # four planes read and four written, or a multiply and an add per term
+    # and pixel.  Library: one replicate (or zero) pad and one dense
+    # F.conv2d with the (4, 4, 5, 5) table.
+    op9 = lin_ops["4->4 r2"]
+    k9 = torch.from_numpy(op9.weights).to(dev)
+    timed["stencil_apply_mc"] = (
+        lambda: cuda_ops.stencil_apply_mc(x4k, op9),
+        lambda: cuda_ops.stencil_apply_mc_plain(x4k, op9),
+        lambda: F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0],
+        _bound(2 * 4 * n_px, 2 * op9.n_terms * HEIGHT * WIDTH))
+    lib9 = F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0]
+    print(f"library stencil (replicate pad + dense conv2d, TF32 off) vs plain, 4->4 r2: "
+          f"{_max_err(lib9, cuda_ops.stencil_apply_mc_plain(x4k, op9)):.3g}")
+    del lib9
     ms = {}
     for name, (kernel, plain, lib_call, (bound_ms, bound_by)) in timed.items():
         k_ms = _time_ms(kernel, 20)
@@ -846,6 +1049,21 @@ def main() -> int:
             pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
             print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
                   f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
+    # Path E: the GLSL graphs on their tiers (E2 and E3 on the mc tier,
+    # against their per-node tier: the interpreter), E4 per node.
+    for graph, config in GLSL_GRAPHS.items():
+        for fmt in ("rgba32f", "rgba16f"):
+            prog = build_program(config, WIDTH, HEIGHT, fmt, device=dev, shader_path=SHADER_DIR)
+            x = x4k.to(prog.storage_dtype)
+            seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+            tier = "mc tier" if prog._strip_plan else "per-node"
+            line = (f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
+                    f"({seq['fps']:.2f} fps)")
+            if prog._strip_plan:
+                pn = build_program(config, WIDTH, HEIGHT, fmt, device=dev, plan_strips=False,
+                                   shader_path=SHADER_DIR)
+                line += f"; per-node tier {_time_ms(lambda: pn._forward(x, 0.5), 5):.3f} ms a frame"
+            print(f"{line} [{smi}]")
     for (graph, fmt), (prog, x, _out, _counts) in built.items():
         seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
         disp = bench_program(prog, x, frames=24)
@@ -910,6 +1128,7 @@ def main() -> int:
         "stencil_reduce_mc": "reforge_tpu_torch/csrc/stencil_reduce.cu",
         "conv1d_h": "reforge_tpu_torch/csrc/conv1d.cu",
         "conv1d_w": "reforge_tpu_torch/csrc/conv1d.cu",
+        "stencil_apply_mc": "reforge_tpu_torch/csrc/stencil_mc.cu",
     }
     replaces = {
         "sep_conv_fused": "reforge_tpu/kernels/pallas_ops.py:1723",
@@ -922,11 +1141,14 @@ def main() -> int:
         "stencil_reduce_mc": "reforge_tpu/kernels/pallas_ops.py:2197",
         "conv1d_h": "reforge_tpu/kernels/pallas_ops.py:65",
         "conv1d_w": "reforge_tpu/kernels/pallas_ops.py:101",
+        "stencil_apply_mc": "reforge_tpu/kernels/pallas_ops.py:2082",
     }
-    # Each kernel's launches come from the main path it belongs to.
+    # Each kernel's launches come from the main path it belongs to;
+    # stencil_apply_mc's from path E, where nothing calls it (0).
     path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
                "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
-               "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d}
+               "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d,
+               "stencil_apply_mc": counts_e}
     launches = {name: path_of.get(name, counts_b)[name] for name in replaces}
     kernels = [
         {
@@ -939,6 +1161,7 @@ def main() -> int:
         for name in replaces
     ]
     tmp_dir.cleanup()
+    synth_cache.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

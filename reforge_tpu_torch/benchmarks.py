@@ -17,7 +17,14 @@ Graphs:
   * two check graphs that put every channel-local builtin through the
     graph_strip kernel and every new mc point op through graph_strip_mc;
   * the reference's mc test graphs and a mix wired second input first:
-    the mc tier's checks on small frames.
+    the mc tier's checks on small frames;
+  * GLSL graphs over the shipped shaders (``shaders/``): glsl-blur
+    (gaussian_h.comp -> gaussian_v.comp, one composed conv stage on the mc
+    tier), glsl-blur-sharpen (plus sharpen.comp, a synthesized stencil
+    stage), the reference's own glsl-chain and glsl-sharpen
+    (benchmarks/glsl_graphs.py there; they end in tonemap.comp, a point
+    shader, so the port runs them per node), and the 16 examples of
+    ``examples/`` whose shaders touch only images.
 
 Timings end in ``torch.cuda.synchronize()`` on a GPU: launches are
 asynchronous, and the synchronize proves every frame finished.
@@ -26,11 +33,12 @@ asynchronous, and the synchronize proves every frame finished.
 from __future__ import annotations
 
 import time as _time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .config import parse
+from .config import parse, parse_file
 from .graph import GraphProgram, build_graph, make_program
 
 FLAGSHIP_CONFIG = """
@@ -289,10 +297,57 @@ MIX_SECOND_FIRST_CONFIG = (
 )
 
 
+# The checkout's shipped shaders and example configs.
+REPO_DIR = Path(__file__).resolve().parents[1]
+SHADER_DIR = str(REPO_DIR / "shaders")
+EXAMPLES_DIR = REPO_DIR / "examples"
+
+GLSL_BLUR_CONFIG = (
+    "input -> gh -> gv -> output\n"
+    "gh: gaussian_h { sigma: 2.0 }\n"
+    "gv: gaussian_v { sigma: 2.0 }\n"
+)
+GLSL_BLUR_SHARPEN_CONFIG = GLSL_BLUR_CONFIG.replace(
+    "gv -> output", "gv -> sh -> output") + "sh: sharpen { amount: 0.7 }\n"
+# The reference's GLSL benchmark graphs (benchmarks/glsl_graphs.py:43-58).
+GLSL_CHAIN_CONFIG = (
+    "input -> gh -> gv -> tm -> output\n"
+    "gh: gaussian_h { sigma: 2.0 }\n"
+    "gv: gaussian_v { sigma: 2.0 }\n"
+    "tm: tonemap { exposure: 1.1 }\n"
+)
+GLSL_SHARPEN_CONFIG = (
+    "input -> sh -> tm -> output\n"
+    "sh: sharpen { amount: 0.7 }\n"
+    "tm: tonemap { exposure: 1.1 }\n"
+)
+GLSL_GRAPHS = {
+    "glsl_blur": GLSL_BLUR_CONFIG,
+    "glsl_blur_sharpen": GLSL_BLUR_SHARPEN_CONFIG,
+    "glsl_chain": GLSL_CHAIN_CONFIG,
+    "glsl_sharpen": GLSL_SHARPEN_CONFIG,
+}
+# The examples that run a shader touching only images (examples/<name>.rf).
+GLSL_EXAMPLES = (
+    "bloom_glow", "film_look", "glass", "mandelzoom", "blur_sharpen_blend", "crt_tv", "edges",
+    "neon_edges", "flow_smear", "raymarch", "old_film", "watercolor", "oil_paint", "psychedelic",
+    "ink_drip", "light_trails",
+)
+
+
+def example_config(name: str) -> str:
+    """The config text of ``examples/<name>.rf``."""
+    return (EXAMPLES_DIR / f"{name}.rf").read_text()
+
+
 def build_program(config: str, width: int, height: int, fmt: str = "rgba32f",
-                  device="cuda", plan_strips: bool = True) -> GraphProgram:
-    """A checked GraphProgram of ``config`` (builtins only) on ``device``."""
-    cfg = parse(config, expects_input=True)
+                  device="cuda", plan_strips: bool = True,
+                  shader_path: str | None = None) -> GraphProgram:
+    """A checked GraphProgram of ``config`` on ``device``: builtins only,
+    or with kernel files from ``shader_path`` (SHADER_DIR: the shipped
+    shaders) taking the names they define."""
+    cfg = (parse(config, expects_input=True) if shader_path is None
+           else parse_file(config, True, shader_path))
     graph = build_graph(cfg) if cfg is not None else None
     program = (
         make_program(graph, width, height, fmt, plan_strips=plan_strips, device=device)

@@ -23,7 +23,10 @@
 //       stencil: sharpen, sobel (luma of each tap), emboss, median9;
 //                unclamped reads in blocks whose taps all lie in the image.
 //       point:   channel-full ops of one or two inputs at a pixel (a 3x3
-//                colour matrix, or a fifth param, comes as tap list 0).
+//                colour matrix, or a fifth param, comes as tap list 0), and
+//                a GLSL shader's affine mix s_c v_c + p_c x_c + b_c of the
+//                conv or stencil stage before it (v, f32) and that stage's
+//                input (x); its twelve floats come as tap list 0.
 //   * Border semantics.  Per-node execution edge-pads every intermediate.
 //     Every read here goes through the clamped global coordinate, and a
 //     stage computes only the pixels of its block that lie in the image:
@@ -69,6 +72,7 @@ enum McOp : int {
   MC_CH0 = 9,          // MC_CH0 + k: rgb: channel op k (pixel_ops.cuh); levels' p4 in list 0
   MC_SEPIA = MC_CH0 + CH_COUNT,  // rgb: in0 + (clip01(sepia . in0) - in0) * p0
   MC_HUE_SAT = MC_SEPIA + 1,     // rgb: hue matrix (list 0, 3x3), saturation p0, lightness p1
+  MC_AFFINE = MC_HUE_SAT + 1,    // all channels: s_c in0 + p_c in1 + b_c (list 0, rows c)
   MC_CONV_IDENTITY = 32,
   MC_CONV_UNSHARP = 33,  // rgb: x + p0 * (x - blur)
   MC_CONV_BLOOM = 34,    // rgb: x + p0 * blur
@@ -180,11 +184,46 @@ __device__ __noinline__ float3 point_op_colour(const McStage& st, float4 a4, flo
   return make_float3(o[0], o[1], o[2]);
 }
 
+// A synthesized GLSL stage's mix, channel by channel: s v, plus p x where
+// p != 0, plus b where b != 0 (cuda_ops.affine_mix_plain); (s, p, b) of
+// channel c are row c of list 0.  A call, compiled only into the kernel's
+// kAffine form: built into the builtins' form as well (a branch in
+// point_op), it cost the demo's mc kernel 3% on the card at the same
+// register count (PERF.md).
+__device__ __noinline__ float4 point_op_affine(const McStage& st, float4 v4, float4 x4,
+                                               const float* taps, const int* idx) {
+  float a[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) a[k] = 0.f;
+  for (int k = 0; k < st.n0; ++k) a[(idx[st.t0 + k] >> 6) * 3 + (idx[st.t0 + k] & 63)] = taps[st.t0 + k];
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w}, x[4] = {x4.x, x4.y, x4.z, x4.w};
+  float o[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    o[c] = __fmul_rn(v[c], a[3 * c]);
+    if (a[3 * c + 1] != 0.f) o[c] = __fadd_rn(o[c], __fmul_rn(x[c], a[3 * c + 1]));
+    if (a[3 * c + 2] != 0.f) o[c] = __fadd_rn(o[c], a[3 * c + 2]);
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
+template <bool kAffine>
 __device__ void point_op(const McStage& st, const float* a, const float* b, const float* taps,
                          const int* idx, const McGeo& g, int gy, int gx, float* o) {
   const float* p = st.p;
   o[3] = a[3];
   if (st.code >= MC_CH0) {
+    if constexpr (kAffine) {
+      if (st.code == MC_AFFINE) {
+        const float4 v = point_op_affine(st, make_float4(a[0], a[1], a[2], a[3]),
+                                         make_float4(b[0], b[1], b[2], b[3]), taps, idx);
+        o[0] = v.x;
+        o[1] = v.y;
+        o[2] = v.z;
+        o[3] = v.w;
+        return;
+      }
+    }
     const float3 v = point_op_colour(st, make_float4(a[0], a[1], a[2], a[3]),
                                      make_float4(b[0], b[1], b[2], b[3]), taps, idx, gy, gx);
     o[0] = v.x;
@@ -354,7 +393,9 @@ __device__ __forceinline__ void put(const McStage& st, float* sm, T* __restrict_
   }
 }
 
-template <typename T>
+// kAffine: the plan has MC_AFFINE stages (GLSL shaders); the builtins'
+// plans run the form without them.
+template <typename T, bool kAffine>
 __global__ void __launch_bounds__(kThreads)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int rh_in, int ew_in, int store, float time,
@@ -515,7 +556,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
           a[c] = rd<false>(sm, st.in0, g, c, gy, gx);
           b[c] = st.n_in > 1 ? rd<false>(sm, st.in1, g, c, gy, gx) : 0.f;
         }
-        point_op(st, a, b, taps, idx, g, gy, gx, o);
+        point_op<kAffine>(st, a, b, taps, idx, g, gy, gx, o);
       }
       for (int c = 0; c < 4; ++c) put<T>(st, sm, out, g, store, c, r, cc, gy, gx, o[c]);
     }
@@ -523,11 +564,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   }
 }
 
-template <typename T>
+template <typename T, bool kAffine>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int rh_in, int ew_in,
                   const McArgs& args, const float* taps, const int* idx, int store, float time,
                   int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T>;
+  auto kernel = graph_strip_mc_kernel<T, kAffine>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -576,12 +617,18 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
     st.store = v[21];
     for (int k = 0; k < 4; ++k) st.p[k] = stage_f[4 * s + k];
   }
+  bool affine = false;
+  for (int s = 0; s < n_stages; ++s) affine = affine || args.st[s].code == rf::MC_AFFINE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return rf::launch<__nv_bfloat16>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx, store,
-                                     time, smem, s);
-  return rf::launch<float>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx, store, time, smem,
-                           s);
+    return affine ? rf::launch<__nv_bfloat16, true>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps,
+                                                    idx, store, time, smem, s)
+                  : rf::launch<__nv_bfloat16, false>(x, out, H, W, TH, TW, rh_in, ew_in, args,
+                                                     taps, idx, store, time, smem, s);
+  return affine ? rf::launch<float, true>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx,
+                                          store, time, smem, s)
+                : rf::launch<float, false>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx,
+                                           store, time, smem, s);
 }
 
 // 0: stages per plan; 1: ints per stage (cuda_ops.MC_MAX_STAGES,

@@ -8,8 +8,9 @@ Execution modes:
       - single: every conv reads the input and every other node is
         channel-local; the whole graph in one ``graph_strip`` kernel.
       - mc: convs of any image, small-radius stencils (sharpen, sobel,
-        emboss, median3) and channel-mixing point nodes; the whole graph
-        in one ``graph_strip_mc`` kernel.
+        emboss, median3), channel-mixing point nodes and GLSL shaders whose
+        body is an affine tap-sum (glsl/affine.py); the whole graph in one
+        ``graph_strip_mc`` kernel.
     Otherwise layer by layer, with same-input convs of a layer bundled
     into one ``sep_conv_fused_multi`` launch; stencils run as
     ``stencil_apply`` and heavy f32 convs as ``sep_conv_fused_mxu_x3``.
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import FILE_INPUT, FINAL_OUTPUT
+from ..glsl.affine import ConvSynth, StencilSynth, compose, synthesize_conv
 from ..kernels import cuda_ops
 from ..kernels.base import KernelContext, quantize_rgba8
 from ..kernels.ops import X3_MIN_TAPS
@@ -193,18 +195,37 @@ class GraphProgram:
         Node classes: separable edge convs of any image (4 to 200 taps,
         optionally after a node-internal pre-map such as bloom's mask),
         stencils of radius 1..16 with one input, and point nodes of halo
-        0.  Every node needs an ``mc_op`` whose kind matches its class,
-        and the plan needs at least one conv or stencil.  Each resource is
+        0.  Every builtin node needs an ``mc_op`` whose kind matches its
+        class; a GLSL node needs a synthesized affine tap-sum
+        (``_glsl_synth``).  The plan needs at least one conv or stencil.  Each resource is
         computed over the tile plus the extent its consumers read around
         it (a reverse-topological lift, exact); pool slots are reused by
         linear scan."""
         nodes: list = []
+        synth_of: dict[str, Any] = {}  # GLSL node -> its ConvSynth / StencilSynth
         n_heavy = 0
         for layer in self.graph.layers:
             for node in layer:
                 spec = node.spec
-                if (len(node.outputs) != 1 or spec.ssbos_in or spec.ssbos_out
-                        or spec.mc_op is None):
+                if len(node.outputs) != 1 or spec.ssbos_in or spec.ssbos_out:
+                    return None
+                if spec.source_hash is not None:
+                    # A GLSL node: only an affine tap-sum (halo >= 1, one
+                    # input) has a device form here.  A point shader has
+                    # none (the reference traces the interpreter into its
+                    # kernel; a CUDA kernel takes no closure), so its graph
+                    # runs per node.
+                    got = self._glsl_synth(node)
+                    if got is None:
+                        return None
+                    synth_of[node.name] = got
+                    if isinstance(got, StencilSynth):
+                        nodes.append(("stencil", node, got.radius))
+                    else:
+                        nodes.append(("conv", node, (got.wh, got.ww)))
+                    n_heavy += 1
+                    continue
+                if spec.mc_op is None:
                     return None
                 plan = self._conv_plan_for(node) if spec.conv_epilogue is not None else None
                 if plan is not None and len(plan[0]) + len(plan[1]) <= MC_MAX_TAPS:
@@ -222,6 +243,13 @@ class GraphProgram:
                     nodes.append(("point", node, None))
                     continue
                 return None
+        if self.fmt == "rgba32f":
+            # Only in f32 storage: a composed pair skips the rounding to
+            # bf16 or to the rgba8 grid that the per-node tier makes
+            # between its two nodes, and a stencil after it amplifies the
+            # difference past the tier's bound (sharpen.comp at amount 0.7:
+            # 6.6x, 0.023 against 2e-2 in rgba16f at 4K on the card).
+            n_heavy -= self._compose_synth_chains(nodes, synth_of)
         if n_heavy == 0:
             return None  # point-only graphs have no halo work to share
 
@@ -255,6 +283,10 @@ class GraphProgram:
             out_res = node.outputs[0][0]
             by_desc = {desc: res for res, desc in node.inputs}
             in_res = [by_desc[desc] for desc in node.spec.images_in]
+            synth = synth_of.get(node.name)
+            if synth is not None:
+                specs += self._synth_specs(node, kind, extra, synth, in_res[0], out_res, eh, ew)
+                continue
             op = node.spec.mc_op(node.params)
             if cuda_ops.mc_kind(op.code) != _MC_KINDS[kind]:
                 return None
@@ -318,6 +350,102 @@ class GraphProgram:
             return None  # no shared-memory tile holds this plan: run per node
         return prog
 
+    def _glsl_synth(self, node):
+        """The affine tap-sum of a one-input GLSL node of halo >= 1 with an
+        edge border that fits the mc tier (glsl/affine.py), or None.  A
+        wide frame's conv-idiom shader that cannot join warns, as in the
+        reference (program.py:478-496 there)."""
+        spec, params = node.spec, node.params
+        halo = spec.halo_for(params) or 0
+        got = None
+        if len(node.inputs) == 1 and halo >= 1:
+            got = synthesize_conv(spec, params)
+        if isinstance(got, ConvSynth) and not 4 <= len(got.wh) + len(got.ww) <= MC_MAX_TAPS:
+            got = None
+        if isinstance(got, StencilSynth) and (got.radius > MC_MAX_RADIUS or got.scale[3] != 0.0):
+            got = None  # the stencil stage sums the colour channels only
+        if got is not None and got.border != "edge":
+            got = None  # the port has no zero-border plans
+        if got is None and self.width >= 1920 and halo >= 2:
+            warnln(
+                f"GLSL node '{node.name}' ({spec.name}) is a conv-idiom shader (radius "
+                f"{halo}) that could not join the fused megakernel at {self.width}x"
+                f"{self.height}; it will run per-node — expect reduced throughput"
+            )
+        return got
+
+    @staticmethod
+    def _compose_synth_chains(nodes: list, synth_of: dict) -> int:
+        """Fold chains of synthesized 1-D convs (gaussian_h.comp ->
+        gaussian_v.comp) into one conv stage each, in place, as the
+        reference does (program.py:531-588 there); returns the number of
+        nodes merged away."""
+        merged_away = 0
+        changed = True
+        while changed:
+            changed = False
+            cons: dict[str, int] = {}
+            for _k, nd, _e in nodes:
+                for res, _d in nd.inputs:
+                    cons[res] = cons.get(res, 0) + 1
+            for i, (kind_a, na, _plan_a) in enumerate(nodes):
+                sa = synth_of.get(na.name)
+                if kind_a != "conv" or not isinstance(sa, ConvSynth):
+                    continue
+                out_res = na.outputs[0][0]
+                if out_res == FINAL_OUTPUT or cons.get(out_res, 0) != 1:
+                    continue
+                for j, (kind_b, nb, _plan_b) in enumerate(nodes):
+                    sb = synth_of.get(nb.name)
+                    if j == i or kind_b != "conv" or not isinstance(sb, ConvSynth):
+                        continue
+                    if len(nb.inputs) != 1 or nb.inputs[0][0] != out_res:
+                        continue
+                    comp = compose(sa, sb)
+                    if comp is None or not 4 <= len(comp.wh) + len(comp.ww) <= MC_MAX_TAPS:
+                        continue
+                    merged = PipelineNode(
+                        name=f"{na.name}>{nb.name}", spec=nb.spec, inputs=list(na.inputs),
+                        outputs=list(nb.outputs), params=dict(nb.params),
+                    )
+                    synth_of[merged.name] = comp
+                    nodes[i] = ("conv", merged, (comp.wh, comp.ww))
+                    del nodes[j]
+                    merged_away += 1
+                    changed = True
+                    break
+                if changed:
+                    break
+        return merged_away
+
+    @staticmethod
+    def _synth_specs(node, kind, extra, synth, in_res, out_res, eh, ew) -> list:
+        """A synthesized GLSL node as mc stage specs: its tap-sum (an
+        identity conv, or a stencil in emboss form: the colour channels
+        summed, alpha the centre's), then, unless the mix is the identity,
+        an MC_AFFINE point stage of that sum (f32, not a node boundary) and
+        the node's input.  The mix rides in a stage of its own so that the
+        conv and stencil stages of the kernel run as they do for builtins."""
+        if kind == "conv":
+            lin = dict(kind="conv", op=cuda_ops.McOp(cuda_ops.MC_CONV_IDENTITY))
+        else:
+            table = np.asarray(synth.w, np.float32)
+            lin = dict(kind="stencil", op=cuda_ops.McOp(cuda_ops.MC_EMBOSS, tables=(table,)))
+        lin.update(node=node, ins=[in_res], x=None, extra=extra, synth=synth)
+        alpha_kept = (synth.scale[3], synth.passthrough[3], synth.offset[3]) == (0.0, 1.0, 0.0)
+        rgb_sum = all((synth.scale[c], synth.passthrough[c], synth.offset[c]) == (1.0, 0.0, 0.0)
+                      for c in range(3))
+        whole = synth.identity if kind == "conv" else rgb_sum and alpha_kept
+        if whole:  # the tap-sum stage is the whole node
+            return [dict(lin, out=out_res)]
+        sum_res = f"{node.name}::__sum"
+        eh[sum_res], ew[sum_res] = eh[out_res], ew[out_res]
+        needs_x = any(p != 0.0 for p in synth.passthrough)
+        mix = dict(kind="point", node=node, out=out_res, x=None, extra=None, synth=synth,
+                   op=cuda_ops.McOp(cuda_ops.MC_AFFINE, tables=(cuda_ops.affine_table(synth),)),
+                   ins=[sum_res] + ([in_res] if needs_x else []))
+        return [dict(lin, out=sum_res, store=False), mix]
+
     def _mc_stage(self, ss: dict, slot_of: dict, eh: dict, ew: dict) -> cuda_ops.McStage:
         """One McStage of a stage spec, with its plain form: the builtin's
         own ``fn``, ``conv_pre``, ``conv_epilogue`` or ``mc_stencil_fn``."""
@@ -329,6 +457,20 @@ class GraphProgram:
 
         common = dict(op=ss["op"], ins=tuple(ref(r) for r in ss["ins"]), out=slot_of[ss["out"]],
                       eh=eh[ss["out"]], ew=ew[ss["out"]])
+        synth = ss.get("synth")
+        if synth is not None:
+            store = ss.get("store", True)
+            if kind == "conv":
+                return cuda_ops.McStage(kind=cuda_ops.MC_CONV, taps=ss["extra"], store=store,
+                                        plain=lambda ctx, x, blur: blur, **common)
+            if kind == "stencil":
+                return cuda_ops.McStage(
+                    kind=cuda_ops.MC_STENCIL, r=ss["extra"], taps=ss["op"].tables, store=store,
+                    plain=lambda ctx, tap: cuda_ops.synth_stencil_plain(synth, tap), **common)
+            return cuda_ops.McStage(
+                kind=cuda_ops.MC_POINT, taps=ss["op"].tables,
+                plain=lambda ctx, ins: cuda_ops.affine_mix_plain(
+                    synth, ins[0], ins[1] if len(ins) > 1 else None), **common)
         if kind == "pre":
             return cuda_ops.McStage(
                 kind=cuda_ops.MC_POINT, store=False,

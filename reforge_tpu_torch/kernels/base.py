@@ -102,6 +102,9 @@ class KernelSpec:
     ssbos_out: tuple[str, ...] = ()
     ssbo_sizes: dict[str, int] = dataclasses.field(default_factory=dict)
     params: dict[str, ParamDecl] = dataclasses.field(default_factory=dict)
+    # Alternate config spellings for declared params (GLSL vector UBO
+    # members accept "tint.r" for the canonical "tint.x").
+    param_aliases: dict[str, str] = dataclasses.field(default_factory=dict)
     # Spatial support radius as a function of (static) params.
     halo: Callable[[Mapping[str, Any]], Optional[int]] = lambda params: 0
     # Border convention at the image edge ("edge" clamp or "zero").
@@ -145,6 +148,14 @@ class KernelSpec:
     # match the stage the node becomes.  Only nodes with an mc_op join an
     # mc plan.
     mc_op: Optional[Callable[..., Any]] = None
+    # File-loaded (GLSL) kernels: mc_block_ok(params) is the reference's
+    # eligibility for evaluating the shader on blocks inside its mc kernel
+    # (pointwise, no per-lane local-array gathers); the port's mc tier has
+    # no GLSL point stages, and keeps it for reflection parity.  None for
+    # builtins.
+    mc_block_ok: Optional[Callable[[Mapping[str, Any]], bool]] = None
+    # SHA-256 of a GLSL kernel's source: the conv-synthesis cache key.
+    source_hash: Optional[str] = None
 
     # ---- reflection (the SPIR-V descriptor-enumeration analog) ---------
 
@@ -163,6 +174,7 @@ class KernelSpec:
         for key, raw in config_params.items():
             if key == "_rf_time":
                 continue
+            key = self.param_aliases.get(key, key)
             decl = self.params.get(key)
             if decl is None:
                 warnln(

@@ -25,6 +25,8 @@ and bound with ctypes):
   * ``conv1d`` (conv1d.cu) serves ``conv1d_h`` and ``conv1d_w``: the 1-D
     passes of a separable conv whose window fits no shared-memory tile
     of the fused kernels (large-radius box blurs and kuwahara).
+  * ``stencil_apply_mc`` (stencil_mc.cu): a cross-channel linear stencil,
+    (C_in, H, W) to (C_out, H, W), from a tap table.
 
 The conv kernels read each input pixel of a tile once (plus its halo) and
 write each output once, and spend 2R+1 multiply-adds per pass per pixel
@@ -150,6 +152,10 @@ def load_library() -> ctypes.CDLL:
         lib.rf_stencil_reduce.restype = _I
         lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P]
         lib.rf_conv1d.restype = _I
+        lib.rf_stencil_apply_mc.argtypes = [
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
+        ]
+        lib.rf_stencil_apply_mc.restype = _I
         lib.rf_mc_limits.argtypes = [_I]
         lib.rf_mc_limits.restype = _I
         lib.rf_error_string.argtypes = [_I]
@@ -181,6 +187,7 @@ LAUNCHES: dict[str, int] = {
     "stencil_reduce_mc": 0,
     "conv1d_h": 0,
     "conv1d_w": 0,
+    "stencil_apply_mc": 0,
 }
 
 
@@ -865,6 +872,9 @@ MC_BLOOM_PRE = 8  # rgb: in0 * smoothstep(p0, p0 + p1, luma) (p1 the span); stay
 MC_CH0 = 9
 MC_SEPIA = MC_CH0 + len(CHANNEL_OPS)  # rgb: in0 + (clip01(sepia matrix . in0) - in0) * p0
 MC_HUE_SAT = MC_SEPIA + 1  # rgb: hue matrix (table 0, 3x3) then saturation p0, lightness p1
+# A GLSL shader's affine mix (glsl/affine.py), all channels: s_c in0 + p_c
+# in1 + b_c, (s_c, p_c, b_c) row c of table 0 (affine_table).
+MC_AFFINE = MC_HUE_SAT + 1
 # Conv epilogues, given the blur and the stage's x source:
 MC_CONV_IDENTITY = 32  # blur
 MC_CONV_UNSHARP = 33  # rgb: x + p0 * (x - blur)
@@ -962,6 +972,41 @@ class McStage:
     r: int = 0
     taps: tuple = ()
     store: bool = True
+
+
+def affine_table(synth) -> np.ndarray:
+    """The affine mix of a GLSL synth record (glsl/affine.py) as MC_AFFINE's
+    table: row c is (s_c, p_c, b_c), and a zero fifth row gives the table
+    odd sides."""
+    t = np.zeros((5, 3), np.float32)
+    for c in range(4):
+        t[c] = (synth.scale[c], synth.passthrough[c], synth.offset[c])
+    return t
+
+
+def affine_mix_plain(synth, v: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+    """out_c = s_c * v_c (+ p_c * x_c where p_c != 0) (+ b_c where b_c !=
+    0), each operation rounded to f32 as the mc kernel rounds it and in the
+    order of the reference's ``_affine_mix`` (program.py:701-713 there)."""
+    chans = []
+    for c in range(4):
+        o = v[c] * float(synth.scale[c])
+        if synth.passthrough[c] != 0.0 and x is not None:
+            o = o + x[c] * float(synth.passthrough[c])
+        if synth.offset[c] != 0.0:
+            o = o + float(synth.offset[c])
+        chans.append(o)
+    return torch.stack(chans)
+
+
+def synth_stencil_plain(synth, tap) -> torch.Tensor:
+    """The plain form of a synthesized 2-D tap-sum as the mc kernel runs
+    it, an MC_EMBOSS stage: the table's weighted sum of each colour channel
+    in ``ordered_wsum``'s order, and the centre's alpha."""
+    r = synth.radius
+    centre = tap(r, r)
+    acc = ordered_wsum(tap, wsum(synth.w).terms, lambda: centre)
+    return torch.cat([acc[:3], centre[3:4]])
 
 
 @dataclasses.dataclass
@@ -1366,3 +1411,124 @@ def conv1d_w(x: torch.Tensor, weights, mode: str = "edge") -> torch.Tensor:
     ``conv1d_h``: 2.19 ms at 4K radius 160, 4.87 at radius 400 (H100 80GB
     HBM3, 700 W)."""
     return _conv1d(x, weights, mode, False)
+
+
+# ---- kernel G: stencil_apply_mc ----------------------------------------------------------
+
+
+class LinearStencilOp:
+    """A cross-channel linear stencil: a (C_out, C_in, 2rh+1, 2rw+1) tap
+    table, ``out[o] = sum over c, dy, dx of w[o, c, dy, dx] * x[c, y + dy -
+    rh, x + dx - rw]``.  The device form of the closures the reference's
+    ``stencil_apply_mc`` took; ``terms`` are the nonzero (c, dy, dx, w) of
+    each output channel in ascending (c, dy, dx), the order of the sums."""
+
+    def __init__(self, weights):
+        w = np.ascontiguousarray(weights, np.float32)
+        if w.ndim != 4 or w.shape[2] % 2 == 0 or w.shape[3] % 2 == 0:
+            raise ValueError(f"expected a (C_out, C_in, odd, odd) tap table, got {w.shape}")
+        self.weights = w
+        self.c_out, self.c_in = w.shape[:2]
+        self.rh, self.rw = (w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2
+        self.terms = tuple(
+            tuple((int(c), int(dy), int(dx), float(w[o, c, dy, dx]))
+                  for c, dy, dx in zip(*np.nonzero(w[o])))
+            for o in range(self.c_out)
+        )
+        self._device: dict = {}
+
+    @property
+    def n_terms(self) -> int:
+        return sum(len(t) for t in self.terms)
+
+    def device_terms(self, device: torch.device):
+        """(weights f32, (c, dy, dx) int32 per term, C_out + 1 offsets) on
+        ``device``, built once."""
+        if device not in self._device:
+            flat = [t for ts in self.terms for t in ts]
+            w = torch.tensor([t[3] for t in flat], dtype=torch.float32)
+            pos = torch.tensor([v for t in flat for v in t[:3]], dtype=torch.int32)
+            start = torch.tensor(np.cumsum([0] + [len(t) for t in self.terms]), dtype=torch.int32)
+            self._device[device] = (w.to(device), pos.to(device), start.to(device))
+        return self._device[device]
+
+
+def stencil_apply_mc_plain(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -> torch.Tensor:
+    """The plain version of ``stencil_apply_mc``: the input padded (clamped
+    indices or zeros, as ``F.pad`` does), then for each output channel the
+    products of its terms added one after another in f32; returned in the
+    input's type."""
+    _check_mode(mode)
+    h, w = x.shape[-2], x.shape[-1]
+    xf = x.to(torch.float32)
+    xp = F.pad(xf[None], (op.rw, op.rw, op.rh, op.rh),
+               mode="replicate" if mode == "edge" else "constant")[0]
+    outs = []
+    for terms in op.terms:
+        acc = None
+        for c, dy, dx, wv in terms:
+            t = xp[c, dy : dy + h, dx : dx + w] * wv
+            acc = t if acc is None else acc + t
+        outs.append(acc if acc is not None else xf.new_zeros((h, w)))
+    return torch.stack(outs).to(x.dtype)
+
+
+def choose_stencil_mc_tile(c_in: int, rh: int, rw: int, n_terms: int,
+                           c_out: int) -> Optional[tuple[int, int, int]]:
+    """(TH, TW, shared-memory bytes) of stencil_apply_mc: the tile's window
+    of every input channel plus the term table (weight and window offset)
+    and the output channels' first terms, the largest tile under
+    SMEM_SOFT, else under SMEM_LIMIT, else None (the kernel then reads its
+    terms and taps from global memory)."""
+    for budget in (SMEM_SOFT, SMEM_LIMIT):
+        for th, tw in TILES:
+            nbytes = 4 * (c_in * (th + 2 * rh) * (tw + 2 * rw) + 2 * n_terms + c_out + 1)
+            if nbytes <= budget:
+                return th, tw, nbytes
+    return None
+
+
+# The tile of stencil_apply_mc's global-memory path.
+STENCIL_MC_GLOBAL_TILE = (16, 32)
+
+
+def stencil_apply_mc(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -> torch.Tensor:
+    """A cross-channel linear stencil of a (C_in, H, W) f32 or bf16 image;
+    returns (C_out, H, W) in the input's type, edge or zero borders.
+
+    Replaces ``pallas_ops.stencil_apply_mc`` (pallas_ops.py:2082), which ran
+    a traced closure over all channels of a double-buffered VMEM strip and
+    gave up where its strips did not fit VMEM.  Here the function is a
+    ``LinearStencilOp`` tap table: a block loads its tile and (rh, rw)
+    halo of every input channel into shared memory (clamped or zero-filled
+    reads) and each thread runs every output channel's term list as one
+    serial chain of rounded products and sums, bit-equal to the plain
+    version.  A window that fits no shared memory reads its taps through
+    the clamped global coordinate.  No module of either package calls it.
+
+    Bound on the card: device memory at small tables, the term loop (two
+    operations a term and pixel) at large ones; its times are in
+    PERF.md."""
+    _check_image(x, (torch.float32, torch.bfloat16), "stencil_apply_mc")
+    _check_mode(mode)
+    if x.shape[0] != op.c_in:
+        raise ValueError(f"stencil_apply_mc: the table takes {op.c_in} channels, got {x.shape[0]}")
+    if not _on_cuda(x):
+        return stencil_apply_mc_plain(x, op, mode)
+    lib = load_library()
+    _c, h, w = x.shape
+    weights, pos, start = op.device_terms(x.device)
+    tile = choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms, op.c_out)
+    if tile is None:
+        th, tw, smem = (*STENCIL_MC_GLOBAL_TILE, 0)
+    else:
+        th, tw, smem = tile
+    out = torch.empty((op.c_out, h, w), dtype=x.dtype, device=x.device)
+    rc = lib.rf_stencil_apply_mc(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), op.c_in, op.c_out, h, w,
+        op.rh, op.rw, int(mode == "zero"), th, tw, int(tile is not None), weights.data_ptr(),
+        pos.data_ptr(), start.data_ptr(), op.n_terms, smem, _stream(x),
+    )
+    _check_launch(lib, rc, "stencil_apply_mc")
+    LAUNCHES["stencil_apply_mc"] += 1
+    return out

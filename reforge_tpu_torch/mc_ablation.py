@@ -1,6 +1,7 @@
 """Split ``graph_strip_mc``'s time at 3840x2160 by cutting parts out.
 
     python3 -m reforge_tpu_torch.mc_ablation [--tiles 16x64,32x32]
+    python3 -m reforge_tpu_torch.mc_ablation --parent DIR/reforge_tpu_torch
 
 Each variant is a copy of this package under ``build/mc_ablation/`` whose
 ``csrc/graph_strip_mc.cu`` carries one source edit.  A cut variant's
@@ -12,10 +13,14 @@ output is wrong by design; only its time means anything:
   no_stencil  skip the stencil stages.
 
 Each copy builds its own kernels and, in a process of its own, times the
-demo (rgba32f and rgba16f), chain3 and edges with CUDA events (20
-launches after 3).  ``full`` runs first and last, so drift within the
+demo (rgba32f and rgba16f), chain3, edges and neon edges with CUDA events
+(20 launches after 3).  ``full`` runs first and last, so drift within the
 call shows.  ``--tiles`` also times the full kernel with each tile
-forced on every graph.  Needs a CUDA card and nvcc.
+forced on every graph.
+
+``--parent`` is an A/B run instead: the package of another checkout (an
+unpacked parent commit, say) against this one, parent, this, this,
+parent, each a copy with this file in it.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -37,15 +42,19 @@ EDITS = {
     "no_conv": (CONV, CONV + "      continue;\n"),
     "no_stencil": (CONV, "    if (st.kind == MC_STENCIL) continue;\n" + CONV),
 }
-GRAPHS = (("demo", "DEMO_CONFIG", "rgba32f"), ("demo", "DEMO_CONFIG", "rgba16f"),
-          ("chain3", "CHAIN3_CONFIG", "rgba32f"), ("edges", "EDGES_CONFIG", "rgba32f"))
+GRAPHS = (("demo", lambda b: b.DEMO_CONFIG, "rgba32f"),
+          ("demo", lambda b: b.DEMO_CONFIG, "rgba16f"),
+          ("chain3", lambda b: b.CHAIN3_CONFIG, "rgba32f"),
+          ("edges", lambda b: b.EDGES_CONFIG, "rgba32f"),
+          ("neon_edges", lambda b: b.LIBRARY_GRAPHS["neon_edges"], "rgba32f"))
 
 
-def _copy(variant: str) -> pathlib.Path:
+def _copy(variant: str, package: pathlib.Path = PACKAGE) -> pathlib.Path:
     root = OUT / variant
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PACKAGE, root / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
-    edit = EDITS[variant]
+    shutil.copytree(package, root / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(__file__, root / PACKAGE.name / "mc_ablation.py")
+    edit = EDITS.get(variant)
     if edit is not None:
         path = root / PACKAGE.name / KERNEL
         src = path.read_text()
@@ -70,7 +79,7 @@ def _time(label: str, tile: str) -> None:
     x = x.cuda()
     row = {}
     for name, config, fmt in GRAPHS:
-        prog = benchmarks.build_program(getattr(benchmarks, config), 3840, 2160, fmt)
+        prog = benchmarks.build_program(config(benchmarks), 3840, 2160, fmt)
         mc = prog._strip_plan[1]
         xin = x.to(prog.storage_dtype)
         for _ in range(3):
@@ -82,12 +91,19 @@ def _time(label: str, tile: str) -> None:
         end.record()
         torch.cuda.synchronize()
         row[f"{name} {fmt}"] = {"ms": start.elapsed_time(end) / 20, "tile": list(mc.tile()[:2])}
-    print(json.dumps({"variant": label, "kernel_ms": row}))
+    # ptxas's lines for the kernel's f32 form for builtins (registers, stack)
+    log = (cuda_ops.BUILD_DIR / "build.log").read_text().splitlines()
+    at = [i for i, line in enumerate(log)
+          if "graph_strip_mc_kernelIfEE" in line or "graph_strip_mc_kernelIfLb0E" in line][:1]
+    ptxas = [line.split(":", 1)[-1].strip() for i in at for line in log[i + 1:i + 5]
+             if "registers" in line or "stack frame" in line]
+    print(json.dumps({"variant": label, "kernel_ms": row, "ptxas": ptxas}))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tiles", default="", help="comma-separated tiles to force, e.g. 16x64")
+    ap.add_argument("--parent", default="", help="the package directory of another checkout: A/B")
     ap.add_argument("--time", nargs=2, metavar=("LABEL", "TILE"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
@@ -96,9 +112,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    runs = [(v, "") for v in EDITS] + [("full", t) for t in args.tiles.split(",") if t]
-    runs.append(("full", ""))
-    roots = {v: _copy(v) for v in EDITS}
+    if args.parent:
+        runs = [("parent", ""), ("full", ""), ("full", ""), ("parent", "")]
+        roots = {"parent": _copy("parent", pathlib.Path(args.parent).resolve()), "full": _copy("full")}
+    else:
+        runs = [(v, "") for v in EDITS] + [("full", t) for t in args.tiles.split(",") if t]
+        runs.append(("full", ""))
+        roots = {v: _copy(v) for v in EDITS}
     for variant, tile in runs:
         label = f"{variant} tile {tile}" if tile else variant
         proc = subprocess.run([sys.executable, "-m", f"{PACKAGE.name}.mc_ablation", "--time", label,

@@ -257,3 +257,45 @@ def test_frost_4k_frame_runs_the_1d_kernels():
     w = np.full(321, 1.0 / 321, np.float32)
     want = cuda_ops.correlate1d(cuda_ops.correlate1d(x, w, -2), w, -1)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("c_out,rh,rw", [(4, 2, 2), (3, 2, 3), (3, 24, 24)])  # r24: global path
+def test_stencil_apply_mc(c_out, rh, rw, mode, dtype):
+    """The cross-channel stencil against its plain version: each output's
+    products added in the table's order, each rounded alone: bit-equal."""
+    w = np.random.default_rng(rh).standard_normal((c_out, 4, 2 * rh + 1, 2 * rw + 1))
+    op = cuda_ops.LinearStencilOp(w.astype(np.float32))
+    x = _image((4, 37, 71), 16).to(dtype)
+    before = cuda_ops.LAUNCHES["stencil_apply_mc"]
+    got = cuda_ops.stencil_apply_mc(x, op, mode)
+    want = cuda_ops.stencil_apply_mc_plain(x, op, mode)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["stencil_apply_mc"] == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(37, 71), (200, 300)])
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("graph", ["glsl_blur", "glsl_blur_sharpen"])
+def test_glsl_graphs_on_graph_strip_mc(graph, fmt, hw):
+    """gaussian_h.comp -> gaussian_v.comp (-> sharpen.comp) on the mc tier:
+    synthesized conv and stencil stages and the MC_AFFINE mix, against the
+    plain version and the per-node tier (the interpreter) on the card."""
+    from reforge_tpu_torch import benchmarks
+
+    h, w = hw
+    prog = benchmarks.build_program(benchmarks.GLSL_GRAPHS[graph], w, h, fmt, device="cuda",
+                                    shader_path=benchmarks.SHADER_DIR)
+    assert prog._strip_plan[0] == "mc"
+    x = _image((4, h, w), 17).to(prog.storage_dtype)
+    before = cuda_ops.LAUNCHES["graph_strip_mc"]
+    got = prog._forward(x, 0.5)
+    want = cuda_ops.graph_strip_mc_plain(x, 0.5, prog._strip_plan[1])
+    per_node = prog._forward_nostrip(x, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + 1
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((got.float() - per_node.float()).abs().max()) <= tol

@@ -181,11 +181,14 @@ def test_port_parser_matches_reference_parser():
 
 
 def test_glsl_kernel_file_is_a_build_diagnostic(tmp_path):
+    """A shader the GLSL compiler refuses fails the build with the
+    compiler's diagnostic (keep-last-good), as in the reference."""
     (tmp_path / "tonemap.comp").write_text("#version 450\nvoid main() {}\n")
     cfg = tconfig.parse_file(FLAGSHIP_CONFIG, True, str(tmp_path))
     assert cfg.graph_pipelines["tone"].file_path.endswith("tonemap.comp")
     assert build_graph(cfg) is None
-    assert any("not ported" in w and "tonemap.comp" in w for w in tutils.recent_warnings())
+    assert any("Error compiling GLSL kernel" in w and "tonemap.comp" in w
+               and "never stores" in w for w in tutils.recent_warnings())
 
 
 def test_make_program_rejects_bad_wiring():
