@@ -65,6 +65,10 @@ SEED = 0
 # float32 outside the tensor cores (an FMA counts two operations).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# f32 instructions an SM issues a clock (four schedulers of 32 lanes): the
+# issue-slot rate of the conv1d and mc rows is this times the SMs and the
+# highest SM clock.
+F32_LANES_PER_SM = 128
 
 def _f32_tol(plans) -> float:
     # Kernel (one FMA per tap) and plain version (a multiply then an add
@@ -131,6 +135,31 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _issue_bound(nbytes: float, instructions: float, n_sms: int,
+                 max_sm_mhz: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the f32 instructions (a rounded multiply, a rounded add, an FMA:
+    one each) over the issue rate, F32_LANES_PER_SM a clock on each SM at
+    the highest SM clock."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = instructions / (F32_LANES_PER_SM * n_sms * max_sm_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _conv1d_instructions(w: np.ndarray, n_out: int) -> int:
+    """f32 instructions a 1-D pass with tap vector ``w`` needs for
+    ``n_out`` outputs under the rounding contract (each product rounded,
+    then each sum, in ascending tap order).  Where the nonzero taps are
+    all equal (a box), an input's rounded product is the same in every
+    output that reads it: one multiply an input and one add a tap and
+    output give the same bits.  Otherwise a multiply and an add a tap and
+    output."""
+    nz = w[w != 0]
+    if len(nz) and bool(np.all(nz == nz[0])):
+        return (len(nz) + 1) * n_out
+    return 2 * len(nz) * n_out
+
+
 def _reduce_bound(n_pixels: int, n_taps: int, max_sm_mhz: float, n_sms: int) -> tuple[float, str, str]:
     """(ms, what bounds it, the three terms) of bilateral's reduction: four
     f32 planes read and three written; 11 f32 operations per tap and
@@ -187,10 +216,10 @@ def _library_conv1d(x: torch.Tensor, w: np.ndarray, along_h: bool):
 
 
 def _mc_ops_per_pixel(prog, cuda_ops) -> float:
-    """Operations per pixel (all channels) of an mc plan's stages at the
-    tile itself, halo recompute not counted: conv FMAs count two, wsum
-    terms two, each exchange of the median network two, point ops by
-    their arithmetic."""
+    """f32 instructions per pixel (all channels) of an mc plan's stages at
+    the tile itself, halo recompute not counted: a conv FMA one, a wsum
+    term two (its rounded product and sum), each exchange of the median
+    network two (a min and a max), point ops by their arithmetic."""
     point_ops = {cuda_ops.MC_COPY: 0, cuda_ops.MC_MIX: 12, cuda_ops.MC_ACES: 30,
                  cuda_ops.MC_REINHARD: 9, cuda_ops.MC_VIGNETTE: 21, cuda_ops.MC_GRAYSCALE: 5,
                  cuda_ops.MC_SATURATION: 14, cuda_ops.MC_THRESHOLD: 6,
@@ -198,7 +227,7 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
     total = 0.0
     for st in prog.stages:
         if st.kind == cuda_ops.MC_CONV:
-            total += 4 * 2 * (len(st.taps[0]) + len(st.taps[1])) + 6
+            total += 4 * (len(st.taps[0]) + len(st.taps[1])) + 6
         elif st.kind == cuda_ops.MC_STENCIL:
             terms = sum(int(np.count_nonzero(t)) for t in st.taps)
             if st.op.code == cuda_ops.MC_MEDIAN3:
@@ -214,8 +243,11 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 
 # Forms of the register-blocked kernels ptxas must compile with no stack
 # frame and no spills: graph_strip per storage type, channel-op form and
-# plan count (1..3), sep_conv_multi per input type.
-NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2}
+# plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
+# storage type and affine form, conv1d per axis and form (shared memory
+# with and without premultiplied box taps, or global).
+NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
+                  "graph_strip_mc_kernel": 4, "conv1d_kernel": 6}
 
 
 def _check_no_stack(log: str) -> None:
@@ -448,15 +480,26 @@ def main() -> int:
     # reference itself takes its 1-D kernels at 4K) on the 4K frame; on an
     # odd 6-channel frame (kuwahara's stack) a radius past every
     # shared-memory window (3000: the global-memory path), kuwahara's
-    # quadrant vector at radius 130 (zero taps) and radius 160; edge and
-    # zero borders.  Both sides add the nonzero taps in ascending order
-    # and round every product and sum alike: expected bit-equal (0).
+    # quadrant vector at radius 130 (zero taps) and radius 160; a sparse
+    # vector (gaps between its taps: the register window reloads) on the
+    # ragged frame (border tiles only), and it and a box of radius 40 on
+    # the mid frame (interior H tiles, cp.async; every W tile there crosses
+    # the edge) and on a 64x1024 frame (interior W tiles at columns 256 and
+    # 512, 16-byte loads; every H tile crosses the edge); edge and zero
+    # borders.  Both sides add the nonzero taps in ascending order and
+    # round every product and sum alike: expected bit-equal (0).
     odd6 = torch.from_numpy(rng.random((6, 33, 47), dtype=np.float32)).to(dev)
+    wide = torch.from_numpy(
+        np.random.default_rng(SEED + 2).random((4, 64, 1024), dtype=np.float32)).to(dev)
     quadrant = np.zeros(261, np.float32)
     quadrant[130:] = 1.0 / 131
+    sparse = np.zeros(61, np.float32)
+    sparse[[0, 3, 4, 5, 17, 30, 31, 44, 60]] = np.linspace(0.05, 0.2, 9, dtype=np.float32)
     conv1d_cases = [(x4k, box_weights(160), True), (x4k, box_weights(400), False),
                     (odd6, box_weights(3000), False), (odd6, quadrant, False),
-                    (odd6, box_weights(160), False)]
+                    (odd6, box_weights(160), False), (ragged, sparse, False),
+                    (mid_conv, sparse, False), (mid_conv, box_weights(40), False),
+                    (wide, sparse, False), (wide, box_weights(40), False)]
     for along_h in (True, False):
         kname = "conv1d_h" if along_h else "conv1d_w"
         entry = cuda_ops.conv1d_h if along_h else cuda_ops.conv1d_w
@@ -634,6 +677,28 @@ def main() -> int:
         per_node = prog._forward_nostrip(xin, 0.5)
         _check_fmt(f"graph_strip_mc band vs per-node {fmt}", fmt,
                    cuda_ops.graph_strip_mc(xin, 0.5, prog._strip_plan[1]), per_node)
+    # Frames with interior and border blocks at once (333x520: ragged both
+    # ways): the demo (its blur reads per-channel windows of the input) and
+    # convs that read a pool slot near the edge, whose border blocks fill
+    # the slot's outside cells with the clamped values (conv_of_conv: a
+    # blur of a blur; emboss_unsharp_chain: unsharp of an emboss stencil;
+    # chain3: a sobel of a blur) and neon edges, against the plain version;
+    # neon edges also against the per-node tier on the card, whose convs
+    # round once a tap as the kernel's do (at 4K, path D, its threshold
+    # turns a one-rounding difference of the plain version's multiply-adds
+    # into a whole bloom disc: 795 values off by up to 0.97 against plain,
+    # the kernel equal to per node; at 333x520 all three agree).
+    mid_cases = {"demo": DEMO_CONFIG, "conv_of_conv": MC_TEST_GRAPHS["conv_of_conv"],
+                 "emboss_unsharp_chain": MC_TEST_GRAPHS["emboss_unsharp_chain"],
+                 "chain3": CHAIN3_CONFIG, "neon_edges": LIBRARY_GRAPHS["neon_edges"]}
+    for fmt in ("rgba32f", "rgba16f", "rgba8"):
+        for name, config in mid_cases.items():
+            prog, xin, _ = mc_case(f"{name} mid", config, fmt, 333, 520, mid_conv)
+            if name == "neon_edges":
+                _check_fmt(f"graph_strip_mc neon_edges {fmt} 333x520 tile "
+                           f"{prog._strip_plan[1].tile()[:2]} vs per node on the card", fmt,
+                           cuda_ops.graph_strip_mc(xin, 0.5, prog._strip_plan[1]),
+                           prog._forward_nostrip(xin, 0.5))
     for name, count in cuda_ops.LAUNCHES.items():
         if count == 0:
             raise AssertionError(f"{name} never launched in the kernel checks")
@@ -1054,18 +1119,24 @@ def main() -> int:
         "graph_strip_mc": (lambda: cuda_ops.graph_strip_mc(demo_x, 0.5, demo_mc),
                            lambda: cuda_ops.graph_strip_mc_plain(demo_x, 0.5, demo_mc),
                            None,
-                           _bound(2 * 4 * n_px, HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops))),
+                           _issue_bound(2 * 4 * n_px,
+                                        HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops),
+                                        n_sms, max_sm_mhz)),
     }
-    for r in (160, 400):
-        wr = box_weights(r)
+    # conv1d: frost's box at radius 160 (the kernel table's rows), radius
+    # 400, and a gaussian at radius 160 (taps that differ: two instructions
+    # a tap and output in the bound).
+    conv1d_timed = {"": box_weights(160), " r=400": box_weights(400),
+                    " gaussian r=160": gaussian_weights(160 / 3.0, 160)}
+    for suffix, wr in conv1d_timed.items():
         for along_h in (True, False):
             kname = "conv1d_h" if along_h else "conv1d_w"
             entry = cuda_ops.conv1d_h if along_h else cuda_ops.conv1d_w
-            timed[kname if r == 160 else f"{kname} r={r}"] = (
+            timed[kname + suffix] = (
                 lambda e=entry, w=wr: e(x4k, w),
                 lambda w=wr, d=-2 if along_h else -1: cuda_ops.correlate1d(x4k, w, d),
                 _library_conv1d(x4k, wr, along_h),
-                _bound(2 * 4 * n_px, 2 * len(wr) * n_px))
+                _issue_bound(2 * 4 * n_px, _conv1d_instructions(wr, n_px), n_sms, max_sm_mhz))
     r4, op4 = reduce_ops["r4"]
     reduce_bound_ms, reduce_bound_by, reduce_terms = _reduce_bound(
         HEIGHT * WIDTH, len(op4.taps), max_sm_mhz, n_sms)

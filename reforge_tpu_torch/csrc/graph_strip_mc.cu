@@ -6,46 +6,62 @@
 // convs as MXU band matmuls.  None of that carries over: here a block owns
 // one (TH x TW) output tile with all four channels.
 //
-//   * The input tile plus the plan's input extent (rh_in rows, ew_in
-//     columns each side) loads once into shared memory with clamped reads
-//     (cp.async for f32).
 //   * Stages run in topological order.  Each computes its output over the
 //     tile plus its own extent (eh, ew) -- what its consumers read around
 //     the tile -- into a shared-memory pool slot, or, for the final node,
-//     straight to device memory:
-//       conv:    H pass into a shared scratch buffer, then the W pass,
-//                then an epilogue (identity, unsharp, bloom add) that may
-//                read the stage's x source.  In blocks whose taps all lie
-//                in the image a thread computes kRun outputs along the
-//                pass from a sliding register window, and the H pass of
-//                one channel runs beside the W pass of the one before (two
-//                scratch halves).
-//       stencil: sharpen, sobel (luma of each tap), emboss, median9;
-//                unclamped reads in blocks whose taps all lie in the image.
-//       point:   channel-full ops of one or two inputs at a pixel (a 3x3
-//                colour matrix, or a fifth param, comes as tap list 0), and
-//                a GLSL shader's affine mix s_c v_c + p_c x_c + b_c of the
-//                conv or stencil stage before it (v, f32) and that stage's
-//                input (x); its twelve floats come as tap list 0.
-//   * Border semantics.  Per-node execution edge-pads every intermediate.
-//     Every read here goes through the clamped global coordinate, and a
-//     stage computes only the pixels of its block that lie in the image:
-//     the clamped position of any pixel a consumer reads lies in the
-//     producer's block, so no stage computes a value outside the image
-//     and vignette's coordinates are always those of a real pixel.
+//     straight to device memory.
+//   * Inputs.  A conv stage of the kernel input reads its own window of
+//     each channel from device memory (the tile plus the stage's extent
+//     plus its radii), one channel at a time: into two buffers, the next
+//     channel's copy in flight while the block convolves this one, or,
+//     where one buffer buys a larger tile, into one, each copy in flight
+//     beside the W pass of the channel before.  The
+//     four-channel input block holds only what the other stages read
+//     around the tile (the demo's sharpen: one pixel, not the blur's 24).
+//     Both load as conv_tile.cuh's windows do: rows from a multiple of 8
+//     columns, 16 bytes a thread (cp.async for f32) where the window lies
+//     in the image, else element by element through the clamped
+//     coordinate.
+//   * Borders.  Per-node execution edge-pads every intermediate.  A stage
+//     emits only the pixels of its block that lie in the image; in a block
+//     that crosses the image's edge it then fills the slot's other cells
+//     with the clamped edge values, as the input's clamped load already
+//     does.  Every consumer then reads shared memory unclamped, and the
+//     value it reads at an outside pixel is the clamped pixel's: one code
+//     path for every block.  No stage computes a value at an outside
+//     pixel, except a conv's H pass at outside columns, which equals its
+//     value at the clamped column (the same values in the same order).
+//   * conv: kRun outputs a thread along the pass from a sliding register
+//     window; phase ph runs the H pass of channel ph into scratch half
+//     ph & 1 beside the W pass of channel ph - 1 from the other half, then
+//     an epilogue (identity, unsharp, bloom add) that may read the stage's
+//     x source.  Each output is one FMA chain in ascending tap order from
+//     0.  stencil: sharpen, sobel (luma of each tap), emboss, median9;
+//     term lists of up to 9 terms ride in registers for the stage.
+//     point: channel-full ops of one or two inputs at a pixel (a 3x3 colour
+//     matrix, or a fifth param, comes as tap list 0, expanded once a block
+//     into a dense table), and a GLSL shader's affine mix s_c v_c + p_c x_c
+//     + b_c of the conv or stencil stage before it (v, f32) and that
+//     stage's input (x); its twelve floats come as tap list 0.
 //   * Storage rounding.  Each node's output rounds to storage (bf16 RNE
 //     or the rgba8 grid, pixel_ops.cuh store_round) as per-node
 //     execution stores it; a bloom pre-map (store == 0) stays f32.
 //
-// The stage list arrives by value (a __grid_constant__ parameter) and is
-// copied to shared memory.  Point and stencil arithmetic rounds each
-// operation (__fmul_rn/__fadd_rn) as the plain PyTorch version does; the
-// conv tap loops use FMAs.  fminf/fmaxf drop a NaN where torch.minimum
+// The stage list arrives by value (a __grid_constant__ parameter), read a
+// stage at a time into registers.  Point and stencil arithmetic rounds
+// each operation (__fmul_rn/__fadd_rn) as the plain PyTorch version does;
+// the conv tap loops use FMAs.  fminf/fmaxf drop a NaN where torch.minimum
 // propagates it; images are finite.
 //
+// Bound on the card: issue slots.  The demo's conv (blur sigma 8, 49 taps
+// a pass) issues 2.75 FMAs an output and tap at its 16x64 tile (the H pass
+// covers the 48 halo columns).  At 3840x2160 on an H100 80GB HBM3 at
+// 700 W the demo takes 0.900 ms (1.856 before this design; mc_ablation
+// --parent): conv FMAs 0.28, the conv's window loads, phases and stores
+// 0.33, sharpen 0.10, the input block 0.10 (mc_ablation --kernel mc;
+// PERF.md).
+//
 // Grid: (ceil(W / TW), ceil(H / TH)).
-
-#include <cuda_pipeline.h>
 
 #include <type_traits>
 
@@ -82,18 +98,22 @@ enum McOp : int {
   MC_MEDIAN3 = 51,     // rgb: median9
 };
 
-// A buffer in shared memory: float offset of channel 0 (-1: none) and the
-// extent it covers around the tile.  Its layout is (4, TH + 2eh, pitch),
-// the pitch TW + 2ew rounded up to odd so that threads on consecutive
-// rows of one column hit distinct banks (cuda_ops.McProgram._layout).
+// A stage's input: where it lies, and the extent it was computed over.
+// off >= 0: a pool slot at that float offset of dynamic shared memory,
+// layout (4, TH + 2eh, TW + 2ew rounded up to odd); kMcInputBlock: the
+// input block (float 0; its layout is conv_tile.cuh's window of extent
+// (in_eh, in_ew)); kMcGlobal: the kernel input in device memory (a conv's
+// per-channel windows); -1: none (cuda_ops.McProgram.packed).
 struct McBuf {
   int off, eh, ew;
 };
+constexpr int kMcNone = -1, kMcGlobal = -2, kMcInputBlock = -3;
 
 __device__ __forceinline__ int pitch(int cols) { return cols | 1; }
 
-// Outputs a thread computes along the pass in interior conv blocks.
-constexpr int kRun = 8;
+// Outputs a thread computes along a conv pass: a full run takes
+// conv_tile.cuh's run_conv, a run cut by the block's edge conv_run below.
+constexpr int kRun = kConvRun;
 
 // One stage; the int fields in the order of cuda_ops.McProgram.packed.
 struct McStage {
@@ -107,37 +127,41 @@ struct McStage {
   float p[4];
 };
 
+// Offsets in floats of dynamic shared memory (cuda_ops.McProgram._layout):
+// the input block at 0 (in_used: some stage reads it), the pool, n_win
+// buffers for a conv's per-channel windows (win_off, win_floats each), the
+// H-pass scratch, the taps.
 struct McArgs {
   int n_stages, scratch_off, taps_off, n_taps;
+  int in_eh, in_ew, in_used, win_off, win_floats, n_win;
   McStage st[kMcMaxStages];
 };
 
 struct McGeo {
   int H, W, TH, TW, y0, x0;
+  int in_lo, in_wp;  // the input block's first column and pitch
 };
 
-// Channel c of buffer b at image pixel (gy, gx), clamped to the image
-// (kClamp false: the caller knows the pixel lies in the image).
-template <bool kClamp = true>
-__device__ __forceinline__ float rd(const float* sm, const McBuf& b, const McGeo& g, int c, int gy,
-                                    int gx) {
-  const int cols = pitch(g.TW + 2 * b.ew);
-  const int rows = g.TH + 2 * b.eh;
-  if (kClamp) {
-    gy = min(max(gy, 0), g.H - 1);
-    gx = min(max(gx, 0), g.W - 1);
-  }
-  return sm[b.off + (c * rows + gy - (g.y0 - b.eh)) * cols + gx - (g.x0 - b.ew)];
+// Channel c of a buffer's pixel (r, cc) of a block of extent (eh, ew), the
+// block's pixel (0, 0) being image pixel (y0 - eh, x0 - ew):
+// p[c * plane + r * pitch + cc].
+struct View {
+  const float* p;
+  int pitch, plane;
+};
+
+__device__ __forceinline__ View view(const float* sm, const McBuf& b, const McGeo& g, int eh,
+                                     int ew) {
+  const bool in = b.off == kMcInputBlock;
+  const int pt = in ? g.in_wp : pitch(g.TW + 2 * b.ew);
+  const float* base = sm + (in ? g.in_lo : b.off);
+  return View{base + (b.eh - eh) * pt + (b.ew - ew), pt, (g.TH + 2 * b.eh) * pt};
 }
 
-// A 3x3 table of list 0 (its nonzero terms at dy * 64 + dx) as a dense
-// row-major matrix.
-__device__ __forceinline__ void dense3x3(const McStage& st, const float* taps, const int* idx,
-                                         float* m) {
-#pragma unroll
-  for (int k = 0; k < 9; ++k) m[k] = 0.f;
-  for (int k = 0; k < st.n0; ++k) m[(idx[st.t0 + k] >> 6) * 3 + (idx[st.t0 + k] & 63)] = taps[st.t0 + k];
-}
+// Dense tables of the point stages' list 0, a block's copy: the 3x3 colour
+// matrix at dy * 3 + dx, the affine mix's (s, p, b) of channel c at 3c ..
+// 3c + 2.
+constexpr int kDense = 12;
 
 // rows of m (row-major 3x3) applied to a[0..2], each r m0 + g m1 + b m2.
 __device__ __forceinline__ void matrix_rgb(const float* m, const float* a, float* out) {
@@ -148,30 +172,24 @@ __device__ __forceinline__ void matrix_rgb(const float* m, const float* a, float
 }
 
 // The point ops of the channel-local and colour-matrix builtins (opcodes
-// from MC_CH0): colour channels of the output from in0 (a) and in1 (b).  A
-// call, with its inputs by value: inlined into point_op they moved nvcc's
-// allocation of the whole kernel and cost the demo's mc kernel 1.5% on the
-// card (PERF.md).
-__device__ __noinline__ float3 point_op_colour(const McStage& st, float4 a4, float4 b4,
-                                               const float* taps, const int* idx, int gy, int gx) {
-  const float a[3] = {a4.x, a4.y, a4.z}, b[3] = {b4.x, b4.y, b4.z};
-  const float* p = st.p;
-  float o[3];
-  if (st.code < MC_CH0 + CH_COUNT) {
-    // levels' fifth param is the one term of list 0 (none: zero)
-    const float q[5] = {p[0], p[1], p[2], p[3], st.n0 > 0 ? taps[st.t0] : 0.f};
+// from MC_CH0): colour channels of the output from in0 (a) and in1 (b); q4:
+// levels' fifth param; m: the stage's dense table.
+__device__ __forceinline__ void point_op_colour(int code, const float* p, float q4,
+                                                const float* m, const float* a, const float* b,
+                                                int gy, int gx, float* o) {
+  if (code < MC_CH0 + CH_COUNT) {
+    const float q[5] = {p[0], p[1], p[2], p[3], q4};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) o[c] = channel_op(st.code - MC_CH0, c, a[c], b[c], q, gy, gx);
-  } else if (st.code == MC_SEPIA) {
+    for (int c = 0; c < 3; ++c) o[c] = channel_op(code - MC_CH0, c, a[c], b[c], q, gy, gx);
+  } else if (code == MC_SEPIA) {
     // cuda_ops.SEPIA_MATRIX
-    const float m[9] = {0.393f, 0.769f, 0.189f, 0.349f, 0.686f, 0.168f, 0.272f, 0.534f, 0.131f};
+    const float s[9] = {0.393f, 0.769f, 0.189f, 0.349f, 0.686f, 0.168f, 0.272f, 0.534f, 0.131f};
     float t[3];
-    matrix_rgb(m, a, t);
+    matrix_rgb(s, a, t);
 #pragma unroll
     for (int c = 0; c < 3; ++c) o[c] = __fadd_rn(a[c], __fmul_rn(__fsub_rn(clip01(t[c]), a[c]), p[0]));
-  } else if (st.code == MC_HUE_SAT) {
-    float m[9], t[3];
-    dense3x3(st, taps, idx, m);
+  } else if (code == MC_HUE_SAT) {
+    float t[3];
     matrix_rgb(m, a, t);
     const float y = luma(t[0], t[1], t[2]);
 #pragma unroll
@@ -181,54 +199,37 @@ __device__ __noinline__ float3 point_op_colour(const McStage& st, float4 a4, flo
 #pragma unroll
     for (int c = 0; c < 3; ++c) o[c] = __int_as_float(0x7fc00000);  // unknown opcode: NaN
   }
-  return make_float3(o[0], o[1], o[2]);
 }
 
 // A synthesized GLSL stage's mix, channel by channel: s v, plus p x where
 // p != 0, plus b where b != 0 (cuda_ops.affine_mix_plain); (s, p, b) of
-// channel c are row c of list 0.  A call, compiled only into the kernel's
-// kAffine form: built into the builtins' form as well (a branch in
-// point_op), it cost the demo's mc kernel 3% on the card at the same
-// register count (PERF.md).
-__device__ __noinline__ float4 point_op_affine(const McStage& st, float4 v4, float4 x4,
-                                               const float* taps, const int* idx) {
-  float a[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) a[k] = 0.f;
-  for (int k = 0; k < st.n0; ++k) a[(idx[st.t0 + k] >> 6) * 3 + (idx[st.t0 + k] & 63)] = taps[st.t0 + k];
-  const float v[4] = {v4.x, v4.y, v4.z, v4.w}, x[4] = {x4.x, x4.y, x4.z, x4.w};
-  float o[4];
+// channel c are m[3c..3c+2].  Compiled only into the kernel's kAffine form:
+// built into the builtins' form as well it cost the demo's mc kernel 3% on
+// the card at the same register count (PERF.md).
+__device__ __forceinline__ void point_op_affine(const float* m, const float* v, const float* x,
+                                                float* o) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    o[c] = __fmul_rn(v[c], a[3 * c]);
-    if (a[3 * c + 1] != 0.f) o[c] = __fadd_rn(o[c], __fmul_rn(x[c], a[3 * c + 1]));
-    if (a[3 * c + 2] != 0.f) o[c] = __fadd_rn(o[c], a[3 * c + 2]);
+    o[c] = __fmul_rn(v[c], m[3 * c]);
+    if (m[3 * c + 1] != 0.f) o[c] = __fadd_rn(o[c], __fmul_rn(x[c], m[3 * c + 1]));
+    if (m[3 * c + 2] != 0.f) o[c] = __fadd_rn(o[c], m[3 * c + 2]);
   }
-  return make_float4(o[0], o[1], o[2], o[3]);
 }
 
 template <bool kAffine>
-__device__ void point_op(const McStage& st, const float* a, const float* b, const float* taps,
-                         const int* idx, const McGeo& g, int gy, int gx, float* o) {
+__device__ __forceinline__ void point_op(const McStage& st, const float* a, const float* b,
+                                         const float* m, float q4, const McGeo& g, int gy, int gx,
+                                         float* o) {
   const float* p = st.p;
   o[3] = a[3];
   if (st.code >= MC_CH0) {
     if constexpr (kAffine) {
       if (st.code == MC_AFFINE) {
-        const float4 v = point_op_affine(st, make_float4(a[0], a[1], a[2], a[3]),
-                                         make_float4(b[0], b[1], b[2], b[3]), taps, idx);
-        o[0] = v.x;
-        o[1] = v.y;
-        o[2] = v.z;
-        o[3] = v.w;
+        point_op_affine(m, a, b, o);
         return;
       }
     }
-    const float3 v = point_op_colour(st, make_float4(a[0], a[1], a[2], a[3]),
-                                     make_float4(b[0], b[1], b[2], b[3]), taps, idx, gy, gx);
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
+    point_op_colour(st.code, p, q4, m, a, b, gy, gx, o);
     return;
   }
   switch (st.code) {
@@ -271,13 +272,13 @@ __device__ void point_op(const McStage& st, const float* a, const float* b, cons
       return;
     }
     case MC_THRESHOLD: {
-      const float m = luma(a[0], a[1], a[2]) > p[0] ? 1.f : 0.f;
-      for (int c = 0; c < 3; ++c) o[c] = m;
+      const float m1 = luma(a[0], a[1], a[2]) > p[0] ? 1.f : 0.f;
+      for (int c = 0; c < 3; ++c) o[c] = m1;
       return;
     }
     case MC_BLOOM_PRE: {
-      const float m = smoothstep(p[0], p[1], luma(a[0], a[1], a[2]));
-      for (int c = 0; c < 3; ++c) o[c] = __fmul_rn(a[c], m);
+      const float m1 = smoothstep(p[0], p[1], luma(a[0], a[1], a[2]));
+      for (int c = 0; c < 3; ++c) o[c] = __fmul_rn(a[c], m1);
       return;
     }
   }
@@ -293,22 +294,79 @@ __device__ __forceinline__ float conv_epilogue(int code, int c, float blur, floa
   return __int_as_float(0x7fc00000);
 }
 
-// kClamp false: every tap of this pixel lies in the image.
-template <bool kClamp>
-__device__ void stencil_op(const McStage& st, const float* sm, const float* taps, const int* idx,
-                           const McGeo& g, int gy, int gx, float* o) {
-  const int r = st.rh;
-  const McBuf in = st.in0;
-  // Channel c of term position pos (dy * 64 + dx) around (gy, gx).
-  auto at = [&](int c, int pos) {
-    return rd<kClamp>(sm, in, g, c, gy + (pos >> 6) - r, gx + (pos & 63) - r);
-  };
-  o[3] = rd<false>(sm, in, g, 3, gy, gx);
+// A term list of at most kTerms9 terms (a 3x3 table), read once a stage
+// into registers: each term's offset in a view of pitch `pitch` and its
+// weight.
+constexpr int kTerms9 = 9;
+struct Terms9 {
+  int off[kTerms9];
+  float w[kTerms9];
+  int n;
+};
+
+__device__ __forceinline__ Terms9 terms9(const float* taps, const int* idx, int t, int n,
+                                         int pitch) {
+  Terms9 r;
+  r.n = n;
+#pragma unroll
+  for (int k = 0; k < kTerms9; ++k) {
+    const int pos = k < n ? idx[t + k] : 0;
+    r.off[k] = (pos >> 6) * pitch + (pos & 63);
+    r.w[k] = k < n ? taps[t + k] : 0.f;
+  }
+  return r;
+}
+
+// wsum_ordered's serial chain (pixel_ops.cuh; n <= 16) over such a list:
+// at(off) reads the view at a term's offset, `centre` is the centre's.
+template <typename At>
+__device__ __forceinline__ float wsum9(At at, const Terms9& t, int centre) {
+  if (t.n == 0) return __fmul_rn(at(centre), 0.f);
+  float acc = __fmul_rn(at(t.off[0]), t.w[0]);
+#pragma unroll
+  for (int k = 1; k < kTerms9; ++k)
+    if (k < t.n) acc = __fadd_rn(acc, __fmul_rn(at(t.off[k]), t.w[k]));
+  return acc;
+}
+
+// stencil_op's sharpen, emboss and sobel where each term list has at most
+// kTerms9 terms, the lists in registers: the same products and sums in
+// the same order.
+__device__ __forceinline__ void stencil_op9(const McStage& st, const View& v, const Terms9& t0,
+                                            const Terms9& t1, int r, int cc, float* o) {
+  const float* at0 = v.p + r * v.pitch + cc;
+  const int ctr = st.rh * v.pitch + st.rh;
+  o[3] = at0[3 * v.plane + ctr];
+  if (st.code == MC_SOBEL) {
+    auto y = [&](int off) { return luma(at0[off], at0[v.plane + off], at0[2 * v.plane + off]); };
+    const float gxs = wsum9(y, t0, ctr), gys = wsum9(y, t1, ctr);
+    const float mag =
+        __fmul_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(gxs, gxs), __fmul_rn(gys, gys))), st.p[0]);
+    for (int c = 0; c < 3; ++c) o[c] = mag;
+    return;
+  }
+  for (int c = 0; c < 3; ++c) {
+    const float* ch = at0 + c * v.plane;
+    const float centre = ch[ctr];
+    const float s = wsum9([&](int off) { return ch[off]; }, t0, ctr);
+    o[c] = st.code == MC_EMBOSS ? s : __fadd_rn(centre, __fmul_rn(st.p[0], s));
+  }
+}
+
+// The stencil at block pixel (r, cc): v's pixel (0, 0) is the block's
+// (-R, -R), so term position pos (dy * 64 + dx) is v's (r + dy, cc + dx).
+__device__ __forceinline__ void stencil_op(const McStage& st, const View& v, const float* taps,
+                                           const int* idx, int r, int cc, float* o) {
+  const int R = st.rh;
+  const float* at0 = v.p + r * v.pitch + cc;
+  auto at = [&](int c, int pos) { return at0[c * v.plane + (pos >> 6) * v.pitch + (pos & 63)]; };
+  const int ctr = R * 64 + R;
+  o[3] = at(3, ctr);
   switch (st.code) {
     case MC_SHARPEN:
     case MC_EMBOSS:
       for (int c = 0; c < 3; ++c) {
-        const float centre = rd<false>(sm, in, g, c, gy, gx);
+        const float centre = at(c, ctr);
         const float s = wsum_ordered(
             [&](int k) { return k < 0 ? centre : at(c, idx[st.t0 + k]); }, taps + st.t0, st.n0);
         o[c] = st.code == MC_EMBOSS ? s : __fadd_rn(centre, __fmul_rn(st.p[0], s));
@@ -316,7 +374,6 @@ __device__ void stencil_op(const McStage& st, const float* sm, const float* taps
       return;
     case MC_SOBEL: {
       auto y = [&](int pos) { return luma(at(0, pos), at(1, pos), at(2, pos)); };
-      const int ctr = r * 64 + r;
       const float gxs = wsum_ordered([&](int k) { return y(k < 0 ? ctr : idx[st.t0 + k]); },
                                      taps + st.t0, st.n0);
       const float gys = wsum_ordered([&](int k) { return y(k < 0 ? ctr : idx[st.t1 + k]); },
@@ -330,7 +387,7 @@ __device__ void stencil_op(const McStage& st, const float* sm, const float* taps
       for (int c = 0; c < 3; ++c) {
         float m[9];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) m[k] = rd<kClamp>(sm, in, g, c, gy + k / 3 - 1, gx + k % 3 - 1);
+        for (int k = 0; k < 9; ++k) m[k] = at(c, (k / 3) * 64 + k % 3);
         o[c] = median9(m);
       }
       return;
@@ -340,12 +397,10 @@ __device__ void stencil_op(const McStage& st, const float* sm, const float* taps
 
 // Outputs j < kRun of a 1-D correlation at stride `step`: acc[j] is the
 // sum over k < n of src[(j + k) * step] * w[k], accumulated with FMAs in
-// ascending k from 0 (the order of the clamped path, so interior and
-// border blocks agree bit for bit).  A register window slides over the
-// source: each value loads once, and the kRun values and weights of the
-// next chunk of taps load before the FMAs of this one.  Reads stop at
-// `avail` values; the zeros past it reach only outputs past the run's
-// valid end.
+// ascending k from 0.  A register window slides over the source: each
+// value loads once, and the kRun values and weights of the next chunk of
+// taps load before the FMAs of this one.  Reads stop at `avail` values;
+// the zeros past it reach only outputs past the run's valid end.
 __device__ __forceinline__ void conv_run(const float* __restrict__ src, int step, int avail,
                                          const float* __restrict__ w, int n, float* acc) {
   float v[2 * kRun - 1], wc[kRun];
@@ -380,192 +435,221 @@ __device__ __forceinline__ void conv_run(const float* __restrict__ src, int step
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void put(const McStage& st, float* sm, T* __restrict__ out,
-                                    const McGeo& g, int store, int c, int r, int cc, int gy, int gx,
-                                    float v) {
-  if (st.store) v = store_round(v, store);
-  if (st.out_off < 0) {
-    out[(size_t)c * g.H * g.W + (size_t)gy * g.W + gx] = from_f32<T>(v);
-  } else {
-    const int rows = g.TH + 2 * st.eh, cols = pitch(g.TW + 2 * st.ew);
-    sm[st.out_off + (c * rows + r) * cols + cc] = v;
+// f(r, c) for each cell of a rows x cols block, item threadIdx.x + k
+// blockDim.x, lanes on consecutive cells; no division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
+  const int n = rows * cols;
+  const int dr = blockDim.x / cols, dc = blockDim.x - dr * cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
   }
 }
 
 // kAffine: the plan has MC_AFFINE stages (GLSL shaders); the builtins'
 // plans run the form without them.
 template <typename T, bool kAffine>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
-                      int rh_in, int ew_in, int store, float time,
-                      const float* __restrict__ taps_g, const int* __restrict__ idx_g,
-                      const __grid_constant__ McArgs args) {
-  extern __shared__ float sm[];
-  __shared__ McStage stages[kMcMaxStages];
-  const McGeo g{H, W, TH, TW, (int)blockIdx.y * TH, (int)blockIdx.x * TW};
+                      int vec, int store, float time, const float* __restrict__ taps_g,
+                      const int* __restrict__ idx_g, const __grid_constant__ McArgs args) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float dense[kMcMaxStages][kDense];
+  const int y0 = (int)blockIdx.y * TH, x0 = (int)blockIdx.x * TW;
+  const RunTile in_t = run_tile(H, W, args.in_eh, args.in_ew, TH, TW, y0, x0, kAlign);
+  const McGeo g{H, W, TH, TW, y0, x0, in_t.lo, in_t.wp};
   const size_t plane = (size_t)H * W;
   float* scratch = sm + args.scratch_off;
   float* taps = sm + args.taps_off;
   int* idx = reinterpret_cast<int*>(taps + args.n_taps);
+  float* win = sm + args.win_off;
   (void)time;  // no op of the ported builtins reads the frame time yet
 
-  {
-    const int* src = reinterpret_cast<const int*>(args.st);
-    int* dst = reinterpret_cast<int*>(stages);
-    const int words = args.n_stages * (int)(sizeof(McStage) / sizeof(int));
-    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
+  if (args.in_used) {
+    const int in_plane = in_t.wrows() * in_t.wp;
+    for (int c = 0; c < 4; ++c) load_window_async<T>(x + c * plane, in_t, false, vec, sm + c * in_plane);
   }
   copy_to_shared(taps_g, args.n_taps, taps);
   for (int i = threadIdx.x; i < args.n_taps; i += blockDim.x) idx[i] = idx_g[i];
-  {
-    // A warp per row of one channel, lanes along it.  f32 rows copy with
-    // cp.async, so a thread has many loads in flight and no registers
-    // wait; bf16 values load kBatch to a thread before any converts.
-    constexpr int kBatch = 4;
-    const int rows = TH + 2 * rh_in, cols = TW + 2 * ew_in, pc = pitch(cols);
-    const int lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-    for (int c = 0; c < 4; ++c) {
-#pragma unroll 2
-      for (int r = threadIdx.x >> 5; r < rows; r += n_warps) {
-        const T* src = x + c * plane + (size_t)min(max(g.y0 - rh_in + r, 0), H - 1) * W;
-        float* dst = sm + (c * rows + r) * pc;
-        for (int c0 = lane; c0 < cols; c0 += 32 * kBatch) {
-          if constexpr (std::is_same_v<T, float>) {
-#pragma unroll
-            for (int q = 0; q < kBatch; ++q) {
-              const int cc = c0 + 32 * q;
-              if (cc < cols)
-                __pipeline_memcpy_async(dst + cc, src + min(max(g.x0 - ew_in + cc, 0), W - 1),
-                                        sizeof(float));
-            }
-          } else {
-            T v[kBatch];
-#pragma unroll
-            for (int q = 0; q < kBatch; ++q) {
-              const int cc = c0 + 32 * q;
-              if (cc < cols) v[q] = src[min(max(g.x0 - ew_in + cc, 0), W - 1)];
-            }
-#pragma unroll
-            for (int q = 0; q < kBatch; ++q)
-              if (c0 + 32 * q < cols) dst[c0 + 32 * q] = to_f32(v[q]);
-          }
-        }
+  for (int i = threadIdx.x; i < args.n_stages * kDense; i += blockDim.x) {
+    const int s = i / kDense, k = i - s * kDense;
+    const McStage& st = args.st[s];
+    float v = 0.f;
+    if (st.kind == MC_POINT)
+      for (int t = 0; t < st.n0; ++t) {
+        const int pos = idx_g[st.t0 + t];
+        if ((pos >> 6) * 3 + (pos & 63) == k) v = taps_g[st.t0 + t];
       }
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
+    dense[s][k] = v;
   }
+  cp_async_wait_all();
   __syncthreads();
 
   for (int s = 0; s < args.n_stages; ++s) {
-    const McStage& st = stages[s];
+    const McStage st = args.st[s];
     const int rows = TH + 2 * st.eh, cols = TW + 2 * st.ew;
-    const int by = g.y0 - st.eh, bx = g.x0 - st.ew;  // image pixel of block (0, 0)
+    const int by = y0 - st.eh, bx = x0 - st.ew;  // image pixel of block (0, 0)
+    const int dpitch = pitch(cols), dplane = rows * dpitch;
+    // Block pixel (r, cc), in the image, channel c.
+    auto put = [&](int c, int r, int cc, float v) {
+      if (st.store) v = store_round(v, store);
+      if (st.out_off < 0)
+        out[c * plane + (size_t)(by + r) * W + bx + cc] = from_f32<T>(v);
+      else
+        sm[st.out_off + c * dplane + r * dpitch + cc] = v;
+    };
     if (st.kind == MC_CONV) {
-      const int tcols = cols + 2 * st.rw, tx = bx - st.rw, sp = pitch(tcols);
-      const int nh = 2 * st.rh + 1, nw = 2 * st.rw + 1;
+      const int rh = st.rh, rw = st.rw, nh = 2 * rh + 1, nw = 2 * rw + 1;
+      const int tcols = cols + 2 * rw, sp = pitch(tcols);
       const float* wh = taps + st.t0;
       const float* ww = taps + st.t1;
-      auto emit = [&](int c, int r, int cc, float blur) {
-        const int gy = by + r, gx = bx + cc;
-        const float xv = st.xs.off >= 0 ? rd(sm, st.xs, g, c, gy, gx) : 0.f;
-        put<T>(st, sm, out, g, store, c, r, cc, gy, gx, conv_epilogue(st.code, c, blur, xv, st.p));
-      };
-      if (tx >= 0 && tx + tcols <= W && by - st.rh >= 0 && by + rows + st.rh <= H) {
-        // Interior block: every tap lies in the image, so the passes read
-        // shared memory at a fixed stride, kRun outputs a thread.  Phase ph
-        // runs the H pass of channel ph into scratch half ph & 1 beside the
-        // W pass of channel ph - 1 from the other half.
-        const int src_rows = TH + 2 * st.in0.eh, src_pitch = pitch(TW + 2 * st.in0.ew);
-        const int n_h = (rows + kRun - 1) / kRun * tcols;
-        const int n_w = rows * ((cols + kRun - 1) / kRun);
-        for (int ph = 0; ph <= 4; ++ph) {
-          const int c_h = ph < 4 ? ph : -1, c_w = ph - 1;
-          const int items = (c_h >= 0 ? n_h : 0) + (c_w >= 0 ? n_w : 0);
-          for (int i = threadIdx.x; i < items; i += blockDim.x) {
-            float acc[kRun];
-            if (c_h >= 0 && i < n_h) {
-              // kRun rows of one column (lanes on consecutive columns)
-              const int cc = i % tcols, r0 = i / tcols * kRun, nv = min(kRun, rows - r0);
-              // source pixel (by - rh + r0, tx + cc) in the source block
-              const float* src = sm + st.in0.off +
-                                 (c_h * src_rows + by - st.rh + r0 - (g.y0 - st.in0.eh)) * src_pitch +
-                                 tx + cc - (g.x0 - st.in0.ew);
-              conv_run(src, src_pitch, nv + nh - 1, wh, nh, acc);
-              float* dst = scratch + (c_h & 1) * rows * sp + r0 * sp + cc;
-#pragma unroll
-              for (int j = 0; j < kRun; ++j)
-                if (j < nv) dst[j * sp] = acc[j];
-            } else {
-              // kRun columns of one row (lanes on consecutive rows)
-              const int k = i - (c_h >= 0 ? n_h : 0);
-              const int r = k % rows, c0 = k / rows * kRun, nv = min(kRun, cols - c0);
-              conv_run(scratch + (c_w & 1) * rows * sp + r * sp + c0, 1, nv + nw - 1, ww, nw, acc);
-#pragma unroll
-              for (int j = 0; j < kRun; ++j)
-                if (j < nv) emit(c_w, r, c0 + j, acc[j]);
-            }
-          }
-          __syncthreads();
-        }
-        continue;
-      }
-      // Border block: every tap read goes through the clamped coordinate.
-      for (int c = 0; c < 4; ++c) {
-        for (int i = threadIdx.x; i < rows * tcols; i += blockDim.x) {
-          const int r = i / tcols, cc = i - r * tcols;
-          const int gy = by + r, gx = tx + cc;
-          if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-          float acc = 0.f;
-          for (int k = 0; k < nh; ++k)
-            acc = fmaf(rd(sm, st.in0, g, c, gy + k - st.rh, gx), wh[k], acc);
-          scratch[r * sp + cc] = acc;
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-          const int r = i / cols, cc = i - r * cols;
-          const int gy = by + r, gx = bx + cc;
-          if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-          const float* row = scratch + r * sp;
-          float acc = 0.f;
-          for (int k = 0; k < nw; ++k)
-            acc = fmaf(row[min(max(gx + k - st.rw, 0), W - 1) - tx], ww[k], acc);
-          emit(c, r, cc, acc);
-        }
-        __syncthreads();
-      }
-      continue;
-    }
-    // A stencil block whose taps all lie in the image reads them unclamped.
-    const bool taps_in = by - st.rh >= 0 && by + rows + st.rh <= H && bx - st.rh >= 0 &&
-                         bx + cols + st.rh <= W;
-    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-      const int r = i / cols, cc = i - r * cols;
-      const int gy = by + r, gx = bx + cc;
-      if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
-      float o[4];
-      if (st.kind == MC_STENCIL) {
-        if (taps_in)
-          stencil_op<false>(st, sm, taps, idx, g, gy, gx, o);
+      // The H pass's source from block pixel (-rh, -rw): channel c of a
+      // pool slot or of the input block, or, for the kernel input, its
+      // window in buffer c & 1.
+      const bool windowed = st.in0.off == kMcGlobal;
+      const RunTile wt = run_tile(H, W, st.eh + rh, st.ew + rw, TH, TW, y0, x0, kAlign);
+      const View src = windowed ? View{win + wt.lo, wt.wp, args.win_floats}
+                                : view(sm, st.in0, g, st.eh + rh, st.ew + rw);
+      const bool has_x = st.xs.off != kMcNone;
+      const View xv = has_x ? view(sm, st.xs, g, st.eh, st.ew) : View{nullptr, 0, 0};
+      // Two window buffers: channel c + 1's copy is in flight while the
+      // block convolves channel c.  One: each channel's copy waits for the
+      // H pass of the one before, beside the W pass of that one.
+      const bool two = args.n_win == 2;
+      if (windowed && two) load_window_async<T>(x, wt, false, vec, win);
+      const int n_h = (rows + kRun - 1) / kRun * tcols;
+      const int n_w = rows * ((cols + kRun - 1) / kRun);
+      // kRun rows of one column of channel c's H pass (lanes on
+      // consecutive columns) into scratch half c & 1.
+      auto h_item = [&](int c, int i) {
+        float acc[kRun];
+        const int rr = i / tcols, cc = i - rr * tcols, r0 = rr * kRun, nv = min(kRun, rows - r0);
+        const int sc = windowed ? (two ? c & 1 : 0) : c;
+        const float* s0 = src.p + sc * src.plane + r0 * src.pitch + cc;
+        if (nv == kRun)
+          run_conv(s0, src.pitch, nh, wh, acc);
         else
-          stencil_op<true>(st, sm, taps, idx, g, gy, gx, o);
-      } else {
-        float a[4], b[4];
-        for (int c = 0; c < 4; ++c) {
-          a[c] = rd<false>(sm, st.in0, g, c, gy, gx);
-          b[c] = st.n_in > 1 ? rd<false>(sm, st.in1, g, c, gy, gx) : 0.f;
+          conv_run(s0, src.pitch, nv + nh - 1, wh, nh, acc);
+        float* d = scratch + (c & 1) * rows * sp + r0 * sp + cc;
+#pragma unroll
+        for (int j = 0; j < kRun; ++j)
+          if (j < nv) d[j * sp] = acc[j];
+      };
+      // kRun columns of one row of channel c's W pass (lanes on consecutive
+      // rows) from scratch half c & 1, through the epilogue.
+      auto w_item = [&](int c, int k) {
+        float acc[kRun];
+        const int r = k % rows, c0 = k / rows * kRun, nv = min(kRun, cols - c0);
+        const float* s0 = scratch + (c & 1) * rows * sp + r * sp + c0;
+        if (nv == kRun)
+          run_conv(s0, 1, nw, ww, acc);
+        else
+          conv_run(s0, 1, nv + nw - 1, ww, nw, acc);
+        const int gy = by + r;
+        if (gy < 0 || gy >= H) return;
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          const int cc = c0 + j, gx = bx + cc;
+          if (j < nv && gx >= 0 && gx < W) {
+            const float xval = has_x ? xv.p[c * xv.plane + r * xv.pitch + cc] : 0.f;
+            put(c, r, cc, conv_epilogue(st.code, c, acc[j], xval, st.p));
+          }
         }
-        point_op<kAffine>(st, a, b, taps, idx, g, gy, gx, o);
+      };
+      for (int ph = 0; ph <= 4; ++ph) {
+        const int c_h = ph < 4 ? ph : -1, c_w = ph - 1;
+        if (windowed && !two) {
+          // One buffer: channel ph's copy lands while the block runs the W
+          // pass of channel ph - 1; the H pass of channel ph waits for it.
+          __syncthreads();
+          if (c_h >= 0) load_window_async<T>(x + c_h * plane, wt, false, vec, win);
+          if (c_w >= 0)
+            for (int k = threadIdx.x; k < n_w; k += blockDim.x) w_item(c_w, k);
+          cp_async_wait_all();
+          __syncthreads();
+          if (c_h >= 0)
+            for (int i = threadIdx.x; i < n_h; i += blockDim.x) h_item(c_h, i);
+          continue;
+        }
+        // This channel's window has landed; the last phase's reads of the
+        // scratch half and window buffer reused now are done.
+        if (windowed) cp_async_wait_all();
+        __syncthreads();
+        if (windowed && ph < 3)
+          load_window_async<T>(x + (ph + 1) * plane, wt, false, vec,
+                               win + ((ph + 1) & 1) * args.win_floats);
+        const int items = (c_h >= 0 ? n_h : 0) + (c_w >= 0 ? n_w : 0);
+        for (int i = threadIdx.x; i < items; i += blockDim.x) {
+          if (c_h >= 0 && i < n_h)
+            h_item(c_h, i);
+          else
+            w_item(c_w, i - (c_h >= 0 ? n_h : 0));
+        }
       }
-      for (int c = 0; c < 4; ++c) put<T>(st, sm, out, g, store, c, r, cc, gy, gx, o[c]);
+    } else {
+      const View in0 = st.kind == MC_STENCIL ? view(sm, st.in0, g, st.eh + st.rh, st.ew + st.rh)
+                                             : view(sm, st.in0, g, st.eh, st.ew);
+      const View in1 = st.n_in > 1 ? view(sm, st.in1, g, st.eh, st.ew) : in0;
+      const float* m = dense[s];
+      const float q4 = st.n0 > 0 ? taps[st.t0] : 0.f;
+      // Sharpen, emboss and sobel of 3x3 tables: their term lists in
+      // registers for the whole stage.
+      const bool small = st.kind == MC_STENCIL && st.code != MC_MEDIAN3 && st.n0 <= kTerms9 &&
+                         st.n1 <= kTerms9;
+      Terms9 l0{}, l1{};
+      if (small) {
+        l0 = terms9(taps, idx, st.t0, st.n0, in0.pitch);
+        l1 = terms9(taps, idx, st.t1, st.n1, in0.pitch);
+      }
+      for_each_cell(rows, cols, [&](int r, int cc) {
+        const int gy = by + r, gx = bx + cc;
+        if (gy < 0 || gy >= H || gx < 0 || gx >= W) return;
+        float o[4];
+        if (small) {
+          stencil_op9(st, in0, l0, l1, r, cc, o);
+        } else if (st.kind == MC_STENCIL) {
+          stencil_op(st, in0, taps, idx, r, cc, o);
+        } else {
+          float a[4], b[4];
+          const int at0 = r * in0.pitch + cc, at1 = r * in1.pitch + cc;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            a[c] = in0.p[c * in0.plane + at0];
+            b[c] = st.n_in > 1 ? in1.p[c * in1.plane + at1] : 0.f;
+          }
+          point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) put(c, r, cc, o[c]);
+      });
+    }
+    // A slot whose block crosses the image's edge: its outside cells take
+    // the clamped pixel's value, so that consumers read it unclamped.
+    if (st.out_off >= 0 && (by < 0 || bx < 0 || by + rows > H || bx + cols > W)) {
+      __syncthreads();
+      float* d = sm + st.out_off;
+      for_each_cell(rows, cols, [&](int r, int cc) {
+        const int gy = by + r, gx = bx + cc;
+        const int cy = min(max(gy, 0), H - 1), cx = min(max(gx, 0), W - 1);
+        if (cy == gy && cx == gx) return;
+        const int from = (cy - by) * dpitch + cx - bx, to = r * dpitch + cc;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) d[c * dplane + to] = d[c * dplane + from];
+      });
     }
     __syncthreads();
   }
 }
 
 template <typename T, bool kAffine>
-static int launch(const void* x, void* out, int H, int W, int TH, int TW, int rh_in, int ew_in,
+static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                   const McArgs& args, const float* taps, const int* idx, int store, float time,
                   int smem, cudaStream_t stream) {
   auto kernel = graph_strip_mc_kernel<T, kAffine>;
@@ -574,27 +658,32 @@ static int launch(const void* x, void* out, int H, int W, int TH, int TW, int rh
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), H, W,
-                                           TH, TW, rh_in, ew_in, store, time, taps, idx, args);
+                                           TH, TW, vec, store, time, taps, idx, args);
   return (int)cudaGetLastError();
 }
 
 }  // namespace rf
 
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
-// stage); taps / idx lie on the device.  bf16 selects bf16 storage for
-// input and output (else f32).  Offsets are in floats of dynamic shared
-// memory: the input block at 0, then the pool, scratch_off and taps_off
-// (cuda_ops.McProgram._layout).
+// stage); geo the layout's eight ints (scratch_off, taps_off, in_eh,
+// in_ew, in_used, win_off, win_floats, n_win: cuda_ops.McProgram.geometry);
+// taps / idx lie on the device.  bf16 selects bf16 storage for input and
+// output (else f32).  vec: the input's rows start on 16-byte boundaries.
 extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int W, int TH, int TW,
-                                 int rh_in, int ew_in, const int* stage_i, const float* stage_f,
-                                 int n_stages, int scratch_off, int taps_off, const float* taps,
-                                 const int* idx, int n_taps, int store, float time, int smem,
-                                 void* stream) {
+                                 const int* geo, const int* stage_i, const float* stage_f,
+                                 int n_stages, const float* taps, const int* idx, int n_taps,
+                                 int store, float time, int vec, int smem, void* stream) {
   if (n_stages < 1 || n_stages > rf::kMcMaxStages) return (int)cudaErrorInvalidValue;
   rf::McArgs args{};
   args.n_stages = n_stages;
-  args.scratch_off = scratch_off;
-  args.taps_off = taps_off;
+  args.scratch_off = geo[0];
+  args.taps_off = geo[1];
+  args.in_eh = geo[2];
+  args.in_ew = geo[3];
+  args.in_used = geo[4];
+  args.win_off = geo[5];
+  args.win_floats = geo[6];
+  args.n_win = geo[7];
   args.n_taps = n_taps;
   for (int s = 0; s < n_stages; ++s) {
     const int* v = stage_i + s * rf::kMcStageInts;
@@ -621,14 +710,14 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   for (int s = 0; s < n_stages; ++s) affine = affine || args.st[s].code == rf::MC_AFFINE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return affine ? rf::launch<__nv_bfloat16, true>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps,
-                                                    idx, store, time, smem, s)
-                  : rf::launch<__nv_bfloat16, false>(x, out, H, W, TH, TW, rh_in, ew_in, args,
-                                                     taps, idx, store, time, smem, s);
-  return affine ? rf::launch<float, true>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx,
-                                          store, time, smem, s)
-                : rf::launch<float, false>(x, out, H, W, TH, TW, rh_in, ew_in, args, taps, idx,
-                                           store, time, smem, s);
+    return affine ? rf::launch<__nv_bfloat16, true>(x, out, H, W, TH, TW, vec, args, taps, idx,
+                                                    store, time, smem, s)
+                  : rf::launch<__nv_bfloat16, false>(x, out, H, W, TH, TW, vec, args, taps, idx,
+                                                     store, time, smem, s);
+  return affine ? rf::launch<float, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
+                                          smem, s)
+                : rf::launch<float, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
+                                           smem, s);
 }
 
 // 0: stages per plan; 1: ints per stage (cuda_ops.MC_MAX_STAGES,

@@ -18,7 +18,8 @@ and bound with ctypes):
   * ``stencil_apply`` (stencil.cu): a per-channel neighbourhood function
     (weighted sum of a tap table, median of 3x3) for the per-node tier.
   * ``graph_strip_mc`` (graph_strip_mc.cu): the mc tier's multi-stage
-    all-channel megakernel (conv, stencil and point stages).
+    all-channel megakernel (conv, stencil and point stages; a conv of the
+    input reads its own per-channel windows).
   * ``stencil_reduce`` (stencil_reduce.cu): a windowed all-channel
     weighted reduction plus a final map (bilateral) for the per-node
     tier.
@@ -35,8 +36,10 @@ border), each thread computes
 eight outputs along a pass from a sliding register window, so a window
 value and a tap load from shared memory once a run of eight FMAs, and
 outputs leave through a staging tile in whole rows.  Each output is one
-FMA chain in ascending tap order.  Each wrapper notes its time on the
-card; PERF.md has the bound and the ablation beside it.
+FMA chain in ascending tap order.  ``graph_strip_mc`` loads its windows
+and runs its conv passes with the same pieces; ``conv1d`` blocks sixteen
+outputs a thread, rounding each product and sum.  Each wrapper notes its
+time on the card; PERF.md has the bound and the ablation beside it.
 """
 
 from __future__ import annotations
@@ -147,14 +150,15 @@ def load_library() -> ctypes.CDLL:
         ]
         lib.rf_stencil_apply.restype = _I
         lib.rf_graph_strip_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _F, _I, _P,
+            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P,
         ]
         lib.rf_graph_strip_mc.restype = _I
         lib.rf_stencil_reduce.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _I, _P,
         ]
         lib.rf_stencil_reduce.restype = _I
-        lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P]
+        lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                                  _P]
         lib.rf_conv1d.restype = _I
         lib.rf_stencil_apply_mc.argtypes = [
             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
@@ -1002,12 +1006,24 @@ MC_OUTPUT = -2  # the kernel output (the final node)
 # Kernel limits (csrc kMcMaxStages, kMcStageInts).
 MC_MAX_STAGES = 24
 MC_STAGE_INTS = 22
-# Output tiles (rows, cols) of the mc kernel, largest first; the footprint
-# preferred for two blocks per SM, and the dynamic shared memory a block
-# may take beside the kernel's static stage table (2.5 KB).
-MC_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
-MC_SMEM_SOFT = 113 * 1024
+# Output tiles (rows, cols) the mc kernel may take; McProgram.tile picks
+# among them by its estimated work.  The footprint that leaves two blocks
+# an SM (the SM's 228 KB less each block's 1 KB reserve and 1.1 KB of
+# static dense tables), and the dynamic shared memory one block may take.
+MC_TILES = ((32, 128), (64, 64), (32, 64), (16, 128), (64, 32), (32, 32), (16, 64), (16, 32),
+            (16, 16), (8, 16), (8, 8))
+MC_SMEM_SOFT = 111 * 1024
 MC_SMEM_LIMIT = SMEM_LIMIT - 4096
+# Buffers for a conv's per-channel windows of the input: two (the next
+# channel's copy in flight beside this one's passes) or one (a larger tile
+# in the same footprint); McProgram.tile weighs both.  At the same tile two
+# ran glsl-blur rgba16f 0.9% and glsl-blur-sharpen rgba16f 3.4% faster
+# than one (mc_ablation one_window; PERF.md).
+MC_WINDOW_BUFFERS = (2, 1)
+# Buffer markers of a packed stage (csrc graph_strip_mc.cu McBuf): none,
+# the kernel input in device memory (a conv's per-channel windows), the
+# input block.
+MC_BUF_NONE, MC_BUF_GLOBAL, MC_BUF_INPUT_BLOCK = -1, -2, -3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1121,58 +1137,139 @@ class McProgram:
         self.taps = np.concatenate(ws) if ws else np.zeros(0, np.float32)
         self.term_idx = np.concatenate(idxs) if idxs else np.zeros(0, np.int32)
 
-    def _layout(self, th: int, tw: int):
-        """(slot float offsets, scratch offset, taps offset, bytes) of the
-        shared-memory layout for a (th, tw) tile: the input block, the
-        pool slots (each sized for the largest resource it holds), the
-        conv H-pass buffer (two halves), the taps and their positions.
-        Rows have an odd pitch (csrc graph_strip_mc.cu ``pitch``)."""
+    def _input_block(self) -> tuple[int, int, bool]:
+        """(eh, ew, used) of the four-channel input block: the extents at
+        which stages read the graph input in shared memory.  A conv of the
+        input reads its own per-channel windows (``_windows``) instead."""
+        eh = ew = 0
+        used = False
+        for st in self.stages:
+            lift = st.r if st.kind == MC_STENCIL else 0
+            refs = list(st.ins[1:] if st.kind == MC_CONV else st.ins) + [st.x]
+            for ref in refs:
+                if ref is not None and ref[0] == MC_INPUT:
+                    eh, ew, used = max(eh, st.eh + lift), max(ew, st.ew + lift), True
+        return eh, ew, used
+
+    def _windowed(self, st: McStage) -> bool:
+        return st.kind == MC_CONV and st.ins[0][0] == MC_INPUT
+
+    def _layout(self, th: int, tw: int, n_win: int = 2):
+        """(slot float offsets, bytes, geometry) of the shared-memory layout
+        for a (th, tw) tile: the input block (conv_tile.cuh's window
+        layout, rows from a multiple of CONV_ALIGN columns), the pool slots
+        (each sized for the largest resource it holds, rows of odd pitch,
+        csrc graph_strip_mc.cu ``pitch``), two buffers for the largest
+        per-channel window of a conv of the input (``n_win`` of them), the
+        conv H-pass scratch (two halves), the taps and their positions.  The
+        geometry is the kernel's eight ints: scratch offset, taps offset,
+        the input block's extent and whether a stage reads it, the windows'
+        offset, size and count."""
         def block(eh, ew):
             return 4 * (th + 2 * eh) * ((tw + 2 * ew) | 1)
 
+        def window(eh, ew):
+            return (th + 2 * eh) * _window_cols(tw, ew)[1]
+
+        in_eh, in_ew, in_used = self._input_block()
         cap = [0] * self.n_slots
-        scratch = 0
+        scratch = win = 0
         for st in self.stages:
             if st.out >= 0:
                 cap[st.out] = max(cap[st.out], block(st.eh, st.ew))
             if st.kind == MC_CONV:
-                rw = (len(st.taps[1]) - 1) // 2
+                rh, rw = ((len(v) - 1) // 2 for v in st.taps)
                 scratch = max(scratch, 2 * (th + 2 * st.eh) * ((tw + 2 * st.ew + 2 * rw) | 1))
-        off = block(self.rh_in, self.ew_in)
+                if self._windowed(st):
+                    win = max(win, window(st.eh + rh, st.ew + rw))
+        off = 4 * window(in_eh, in_ew) if in_used else 0
         slot_off = []
         for c in cap:
             slot_off.append(off)
             off += c
-        scratch_off = off
+        win_off = -(-off // CONV_ALIGN) * CONV_ALIGN  # 16-byte aligned for cp.async
+        scratch_off = win_off + n_win * win
         taps_off = scratch_off + scratch
-        return slot_off, scratch_off, taps_off, 4 * (taps_off + 2 * len(self.taps))
+        geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win],
+                       np.int32)
+        return slot_off, 4 * (taps_off + 2 * len(self.taps)), geo
 
-    def tile(self) -> Optional[tuple[int, int, int]]:
-        """(TH, TW, shared-memory bytes): the largest tile under
-        MC_SMEM_SOFT, else under MC_SMEM_LIMIT, else None (the planner
-        then refuses the plan)."""
+    def _work(self, th: int, tw: int) -> float:
+        """Estimated work an output pixel of a (th, tw) tile: the elements
+        loaded (input block and conv windows), the conv FMAs of both passes
+        over each stage's extended block (the H pass also over the halo
+        columns), the stencils' rounded products and sums, about 20
+        operations a point stage's pixel; so halo recompute and load per
+        output, which fall as the tile grows."""
+        def area(eh, ew):
+            return (th + 2 * eh) * (tw + 2 * ew)
+
+        in_eh, in_ew, in_used = self._input_block()
+        work = 4.0 * area(in_eh, in_ew) if in_used else 0.0
+        for st in self.stages:
+            if st.kind == MC_CONV:
+                nh, nw = (len(v) for v in st.taps)
+                rw = (nw - 1) // 2
+                work += 4.0 * ((th + 2 * st.eh) * (tw + 2 * st.ew + 2 * rw) * nh
+                               + area(st.eh, st.ew) * nw)
+                if self._windowed(st):
+                    work += 4.0 * area(st.eh + (nh - 1) // 2, st.ew + rw)
+            elif st.kind == MC_STENCIL:
+                terms = sum(int(np.count_nonzero(t)) for t in st.taps) or 19
+                work += area(st.eh, st.ew) * 3 * 2 * terms
+            else:
+                work += area(st.eh, st.ew) * 20
+        return work / (th * tw)
+
+    def _choice(self):
+        """(TH, TW, window buffers, bytes) of ``tile``, or None."""
         if "tile" not in self._cache:
             self._cache["tile"] = None
+            n_wins = MC_WINDOW_BUFFERS if any(map(self._windowed, self.stages)) else (2,)
+            layouts = {(th, tw, n): self._layout(th, tw, n)[1]
+                       for th, tw in MC_TILES for n in n_wins}
             for budget in (MC_SMEM_SOFT, MC_SMEM_LIMIT):
-                fits = [(th, tw) for th, tw in MC_TILES if self._layout(th, tw)[3] <= budget]
+                fits = [k for k in layouts if layouts[k] <= budget]
                 if fits:
-                    th, tw = fits[0]
-                    self._cache["tile"] = (th, tw, self._layout(th, tw)[3])
+                    best = min(fits, key=lambda k: self._work(k[0], k[1]))
+                    self._cache["tile"] = (*best, layouts[best])
                     break
         return self._cache["tile"]
 
+    def tile(self) -> Optional[tuple[int, int, int]]:
+        """(TH, TW, shared-memory bytes): of the MC_TILES whose layout (with
+        two window buffers, or one: MC_WINDOW_BUFFERS) fits MC_SMEM_SOFT
+        (two blocks an SM), else MC_SMEM_LIMIT, the one of least estimated
+        work (``_work``: halo recompute and load against the tile's size;
+        two buffers first where the work ties); None where none fits (the
+        planner then refuses the plan)."""
+        choice = self._choice()
+        return None if choice is None else (choice[0], choice[1], choice[3])
+
+    def geometry(self, th: int, tw: int) -> np.ndarray:
+        """The layout's eight ints for the kernel (``_layout``), with the
+        window buffers ``tile`` chose."""
+        choice = self._choice()
+        return self._layout(th, tw, choice[2] if choice else 2)[2]
+
     def packed(self, th: int, tw: int):
         """(stage ints, stage floats, scratch offset, taps offset) for the
-        kernel: host arrays of MC_STAGE_INTS ints and 4 floats a stage."""
+        kernel: host arrays of MC_STAGE_INTS ints and 4 floats a stage.  A
+        buffer is (offset, eh, ew): a slot's float offset, MC_BUF_INPUT_BLOCK
+        with the input block's extent, MC_BUF_GLOBAL for a conv of the
+        input (its windows), MC_BUF_NONE."""
         key = ("packed", th, tw)
         if key not in self._cache:
-            slot_off, scratch_off, taps_off, _ = self._layout(th, tw)
+            slot_off, _bytes, geo = self._layout(th, tw, self.geometry(th, tw)[7])
+            in_block = [MC_BUF_INPUT_BLOCK, int(geo[2]), int(geo[3])]
 
-            def buf(ref):
+            def buf(ref, windowed=False):
                 if ref is None:
-                    return [-1, 0, 0]
+                    return [MC_BUF_NONE, 0, 0]
                 slot, eh, ew = ref
-                return [0 if slot == MC_INPUT else slot_off[slot], eh, ew]
+                if slot == MC_INPUT:
+                    return [MC_BUF_GLOBAL, 0, 0] if windowed else in_block
+                return [slot_off[slot], eh, ew]
 
             rows_i, rows_f = [], []
             for st, lists in zip(self.stages, self._lists):
@@ -1181,14 +1278,14 @@ class McProgram:
                 if st.kind == MC_CONV:
                     rh, rw = ((len(v) - 1) // 2 for v in st.taps)
                 rows_i.append(
-                    [st.kind, st.op.code, len(st.ins), *buf(ins[0]), *buf(ins[1]), *buf(st.x),
-                     -1 if st.out == MC_OUTPUT else slot_off[st.out], st.eh, st.ew, rh, rw,
-                     *lists, int(st.store)]
+                    [st.kind, st.op.code, len(st.ins), *buf(ins[0], self._windowed(st)),
+                     *buf(ins[1]), *buf(st.x), -1 if st.out == MC_OUTPUT else slot_off[st.out],
+                     st.eh, st.ew, rh, rw, *lists, int(st.store)]
                 )
                 rows_f.append((list(st.op.params) + [0.0] * 4)[:4])
             stage_i = np.ascontiguousarray(np.array(rows_i, np.int32).reshape(-1, MC_STAGE_INTS))
             stage_f = np.ascontiguousarray(np.array(rows_f, np.float32).reshape(-1, 4))
-            self._cache[key] = (stage_i, stage_f, scratch_off, taps_off)
+            self._cache[key] = (stage_i, stage_f, int(geo[0]), int(geo[1]))
         return self._cache[key]
 
     def device_taps(self, device: torch.device):
@@ -1229,16 +1326,23 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     which streamed channel-full whole-width strips through VMEM with a
     DMA double buffer, carried conv rows between strips and ran heavy
     convs as MXU band matmuls.  Here a block owns a 2-D tile with all four
-    channels: it loads the tile plus the plan's input extent into shared
-    memory with clamped reads, then each stage computes its output over
-    the tile plus its own extent into a shared-memory pool slot.  Every
-    read of an intermediate goes through the clamped global coordinate,
-    so the tier reproduces per-node execution's edge padding of every
-    intermediate without computing outside the image.
+    channels.  Each stage computes its output over the tile plus its own
+    extent into a shared-memory pool slot.  A conv of the input reads its
+    own window of each channel (one or two buffers, 16-byte copies), so
+    the four-channel input block holds only what the other stages read;
+    a border block fills the outside cells of each slot it writes with
+    the clamped values, so that every stage reads shared memory unclamped
+    and the tier reproduces per-node execution's edge padding of every
+    intermediate without computing outside the image.  The tile is the
+    one of least estimated work (halo recompute and load) that leaves
+    two blocks an SM (``McProgram.tile``).
 
-    Bound on the card: the conv tap loops over each stage's extended
-    block, and the halo recomputed by neighbouring tiles.  Its times are
-    in PERF.md."""
+    Bound on the card: issue slots, mostly the conv FMAs, which the
+    halo columns of the H pass and the halo rows and columns of each
+    stage's extent multiply (the demo's blur sigma 8 at its 16x64 tile:
+    2.75 FMAs an output and tap).  Times (demo 3840x2160 rgba32f: 0.900
+    ms, 1.856 before this design; H100 80GB HBM3 at 700 W; ``mc_ablation
+    --parent``) and the ablation are in PERF.md."""
     dtype = torch.bfloat16 if prog.fmt == "rgba16f" else torch.float32
     _check_image(x, (dtype,), "graph_strip_mc")
     if tuple(x.shape) != (4, prog.height, prog.width):
@@ -1253,15 +1357,16 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     if tile is None:
         raise ValueError("graph_strip_mc: no tile fits this plan (the planner refuses it)")
     th, tw, smem = tile
-    stage_i, stage_f, scratch_off, taps_off = prog.packed(th, tw)
+    stage_i, stage_f, _scratch_off, _taps_off = prog.packed(th, tw)
+    geo = prog.geometry(th, tw)
     taps, term_idx = prog.device_taps(x.device)
     out = torch.empty_like(x)
+    vec = prog.width % CONV_ALIGN == 0 and x.data_ptr() % 16 == 0
     rc = lib.rf_graph_strip_mc(
         int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), prog.height, prog.width,
-        th, tw, prog.rh_in, prog.ew_in, stage_i.ctypes.data, stage_f.ctypes.data,
-        len(prog.stages), scratch_off, taps_off, taps.data_ptr(), term_idx.data_ptr(),
-        len(prog.taps), STORE_MODES[prog.fmt], float(t), smem,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        th, tw, geo.ctypes.data, stage_i.ctypes.data, stage_f.ctypes.data, len(prog.stages),
+        taps.data_ptr(), term_idx.data_ptr(), len(prog.taps), STORE_MODES[prog.fmt], float(t),
+        int(vec), smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "graph_strip_mc")
     LAUNCHES["graph_strip_mc"] += 1
@@ -1395,26 +1500,41 @@ def stencil_reduce_mc(x: torch.Tensor, rh: int, rw: int, op: ReduceOp,
 
 # ---- kernel F: conv1d_h / conv1d_w -------------------------------------------------------
 
-# Output tiles (rows, cols) of the 1-D kernels, largest first: the H pass
-# puts a warp across 32 columns, the W pass across 128 (four outputs a
-# lane, 32 apart).  The tile of the global-memory path of each.
+# Consecutive outputs a thread of the 1-D kernels computes along the pass
+# (csrc/conv1d.cu kRun1).
+CONV1D_RUN = 16
+# Output tiles (rows, cols) of the 1-D kernels' shared-memory form, largest
+# first.  H pass: 32 columns, TH / CONV1D_RUN runs a column (blocks of 2 TH
+# threads); W pass: 16 rows of 256 columns, eight warps of 16 rows and two
+# runs each.  And the tile of the global-memory form of each.
 CONV1D_TILES = {
-    True: ((256, 32), (128, 32), (64, 32), (32, 32)),
-    False: ((32, 128), (16, 128), (8, 128)),
+    True: ((128, 32), (64, 32), (32, 32), (16, 32)),
+    False: ((16, 256),),
 }
 CONV1D_GLOBAL_TILE = {True: (32, 32), False: (8, 128)}
 
 
+def conv1d_footprint(along_h: bool, th: int, tw: int, r: int, n_taps: int) -> int:
+    """Shared-memory bytes of a 1-D tile (csrc/conv1d.cu conv1d_shared):
+    the window, f32 -- (th + 2r) rows of tw (H), or th rows of the tile's
+    tw + 2r columns from the multiple of 4 at or before its first one, at
+    an odd pitch (W) -- then the tap list (weight and position)."""
+    if along_h:
+        window = (th + 2 * r) * tw
+    else:
+        lo = (4 - r % 4) % 4
+        window = th * ((4 * -(-(lo + tw + 2 * r) // 4)) | 1)
+    return 4 * (window + 2 * n_taps)
+
+
 def choose_conv1d_tile(along_h: bool, r: int, n_taps: int) -> Optional[tuple[int, int, int]]:
     """(TH, TW, shared-memory bytes) of a 1-D pass of radius ``r`` with
-    ``n_taps`` nonzero taps: the tile plus its halo along the pass and the
-    tap list (weight and position), the largest tile under SMEM_SOFT, else
-    under SMEM_LIMIT, else None (the kernel then reads every tap from
-    global memory)."""
+    ``n_taps`` nonzero taps: the largest tile under SMEM_SOFT, else under
+    SMEM_LIMIT, else None (the kernel then reads every tap from global
+    memory)."""
     for budget in (SMEM_SOFT, SMEM_LIMIT):
         for th, tw in CONV1D_TILES[along_h]:
-            window = (th + 2 * r) * tw if along_h else th * (tw + 2 * r)
-            nbytes = 4 * (window + 2 * n_taps)
+            nbytes = conv1d_footprint(along_h, th, tw, r, n_taps)
             if nbytes <= budget:
                 return th, tw, nbytes
     return None
@@ -1422,10 +1542,12 @@ def choose_conv1d_tile(along_h: bool, r: int, n_taps: int) -> Optional[tuple[int
 
 @functools.lru_cache(maxsize=64)
 def _device_conv1d_taps(key: bytes, device: torch.device):
-    """(nonzero weights f32, their positions int32) of a tap vector."""
+    """(nonzero weights f32, their positions int32, whether there are some
+    and all are equal) of a tap vector."""
     w = np.frombuffer(key, np.float32)
     pos = np.flatnonzero(w != 0.0).astype(np.int32)
-    return torch.from_numpy(w[pos].copy()).to(device), torch.from_numpy(pos).to(device)
+    box = len(pos) > 0 and bool(np.all(w[pos] == w[pos[0]]))
+    return torch.from_numpy(w[pos].copy()).to(device), torch.from_numpy(pos).to(device), box
 
 
 def _conv1d(x: torch.Tensor, weights, mode: str, along_h: bool) -> torch.Tensor:
@@ -1440,13 +1562,15 @@ def _conv1d(x: torch.Tensor, weights, mode: str, along_h: bool) -> torch.Tensor:
     lib = load_library()
     c, h, w = x.shape
     r = (len(weights) - 1) // 2
-    taps, pos = _device_conv1d_taps(weights.tobytes(), x.device)
+    taps, pos, box = _device_conv1d_taps(weights.tobytes(), x.device)
     tile = choose_conv1d_tile(along_h, r, taps.numel())
     th, tw, smem = tile if tile is not None else (*CONV1D_GLOBAL_TILE[along_h], 0)
     out = torch.empty_like(x)
+    vec = w % 4 == 0 and x.data_ptr() % 16 == 0
     rc = lib.rf_conv1d(
         int(along_h), x.data_ptr(), out.data_ptr(), c, h, w, r, int(mode == "zero"), th, tw,
-        taps.data_ptr(), pos.data_ptr(), taps.numel(), smem, _stream(x),
+        taps.data_ptr(), pos.data_ptr(), taps.numel(), smem, int(vec), int(box and smem > 0),
+        _stream(x),
     )
     _check_launch(lib, rc, name)
     LAUNCHES[name] += 1
@@ -1466,11 +1590,20 @@ def conv1d_h(x: torch.Tensor, weights, mode: str = "edge") -> torch.Tensor:
     whose window fits no shared memory reads its taps from global memory
     in the same kernel.
 
-    Bound on the card: operations, two a tap and output (0.32 ms at 4K,
-    four channels, radius 160, against 0.08 ms for the bytes); the kernel
-    also loads each tap from shared memory, one warp-wide load a clock per
-    SM, and takes 2.10 ms there (8.59 at radius 400, whose window takes a
-    135 KB tile: one block an SM; H100 80GB HBM3, 700 W)."""
+    A thread computes 16 consecutive outputs of one column from a
+    register window, so a window value and a tap load from shared memory
+    once a run, not once an output.  Where the nonzero taps are all equal
+    (a box) the block multiplies its window by that weight once and the
+    tap loop only adds: the same rounded products, so the same bits.
+
+    Bound on the card: issue slots, two f32 instructions a tap and output
+    (the rounded product and the rounded sum), or for a box one add a tap
+    and output and one multiply an input: 0.32 ms at 4K, four channels,
+    radius 160, on an H100 at 1980 MHz (0.64 for a gaussian), against
+    0.08 ms for the bytes.  There the box takes 0.534 ms (2.09 before
+    this design), a gaussian 0.875, the box at radius 400 2.11, whose
+    window takes a 125 KB tile: one block an SM (H100 80GB HBM3, 700 W;
+    ``mc_ablation --parent``)."""
     return _conv1d(x, weights, mode, True)
 
 
@@ -1479,10 +1612,12 @@ def conv1d_w(x: torch.Tensor, weights, mode: str = "edge") -> torch.Tensor:
     along the other axis.
 
     Replaces ``pallas_ops.conv1d_w`` (pallas_ops.py:101), which ran
-    whole-width blocks of 128 rows.  Here the tile and its (R) halo left
-    and right load into shared memory, lanes along W.  Bound as
-    ``conv1d_h``: 2.19 ms at 4K radius 160, 4.87 at radius 400 (H100 80GB
-    HBM3, 700 W)."""
+    whole-width blocks of 128 rows.  Here a 16 x 256 tile and its (R) halo
+    left and right load into shared memory at an odd row pitch; a thread
+    computes 16 consecutive outputs of one row, a warp 16 rows and two
+    runs.  Box taps and bound as ``conv1d_h``: the box 0.514 ms at 4K
+    radius 160 (before this design 2.20), a gaussian 0.828, the box at
+    radius 400 1.15 (H100 80GB HBM3, 700 W; ``mc_ablation --parent``)."""
     return _conv1d(x, weights, mode, False)
 
 

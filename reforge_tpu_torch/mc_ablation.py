@@ -1,7 +1,7 @@
 """Split a conv kernel's time at 3840x2160 by cutting parts out, and A/B
 the kernels against another checkout.
 
-    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep] [--tiles 16x64,32x32]
+    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep|conv1d] [--tiles 16x64,32x32]
                                              [--package DIR/reforge_tpu_torch] [--variants a,b]
     python3 -m reforge_tpu_torch.mc_ablation --parent DIR/reforge_tpu_torch
 
@@ -12,8 +12,16 @@ anything.  A variant whose anchors a source lacks is skipped.
 ``--kernel`` picks the source and its variants:
 
   mc     csrc/graph_strip_mc.cu (demo rgba32f and rgba16f, chain3, edges,
-         neon edges): load_only (return once the input block is in shared
-         memory), no_conv, no_stencil (skip those stages);
+         neon edges, glsl-blur and glsl-blur-sharpen rgba32f and rgba16f):
+         load_only (return once the input block is in shared memory),
+         no_conv, no_stencil (skip those stages), conv_one_tap (each conv
+         pass cut to one tap: its loads, phases and stores stay),
+         no_border (border blocks skip their own work: the fill of a
+         slot's outside cells, or, in the parent's source, the clamped
+         conv path; wrong at the image's edges, but timed),
+         one_window (a design choice: the conv's per-channel windows of
+         the input in one buffer on every graph, at the tile the chooser
+         picks; edits kernels/cuda_ops.py);
   strip  csrc/graph_strip.cuh (the flagship, rgba32f and rgba16f):
          load_only, h_only (the H passes, no W pass, no epilogue, no
          store), no_w (the W passes cut to one tap: their loads and
@@ -24,7 +32,11 @@ anything.  A variant whose anchors a source lacks is skipped.
   sep    csrc/sep_conv.cu (sep_conv_fused r12, sep_conv_fused_multi
          r6+12, sep_conv_fused_mxu r12 bf16, sep_conv_fused_mxu_x3 r24):
          load_only, h_only (no W pass, no store), no_w (the W pass cut
-         to one tap).
+         to one tap);
+  conv1d csrc/conv1d.cu (conv1d_h and conv1d_w, box radius 160 and 400,
+         gaussian radius 160, four channels): load_only (return once the window is in shared
+         memory), one_tap (the tap list cut to its first tap: the window's
+         load and the stores stay).
 
 Each copy builds its own kernels and, in a process of its own, times its
 rows with CUDA events (20 launches after 3).  ``full`` runs first and
@@ -36,11 +48,10 @@ cuts run on both (``--package`` an unpacked parent).
 
 ``--parent`` is an A/B run instead: the package of another checkout (an
 unpacked parent commit, say) against this one, parent, this, this,
-parent, each a copy with this file in it, over every row above plus the
-glsl-blur graph and the kernels whose source the redesign leaves alone
-(stencil_apply, stencil_apply_mc, stencil_reduce_mc, conv1d_h and
-conv1d_w).  It prints the max abs difference between the two sides'
-outputs of the graph_strip and sep_conv rows.  Needs a CUDA card and nvcc.
+parent, each a copy with this file in it, over every row above plus
+stencil_apply, stencil_apply_mc and stencil_reduce_mc.  It prints the
+max abs difference between the two sides' outputs of the graph_strip,
+sep_conv, graph_strip_mc and conv1d rows.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -56,6 +67,18 @@ OUT = PACKAGE.parent / "build" / "mc_ablation"
 
 _MC_LOOP = "  for (int s = 0; s < args.n_stages; ++s) {\n"
 _MC_CONV = "    if (st.kind == MC_CONV) {\n"
+# The border blocks' fill of a slot's outside cells (this source's), the
+# parent's interior test of a conv stage and its global store.
+_MC_FILL = "    if (st.out_off >= 0 && (by < 0 || bx < 0 || by + rows > H || bx + cols > W)) {\n"
+_MC_INTERIOR = "      if (tx >= 0 && tx + tcols <= W && by - st.rh >= 0 && by + rows + st.rh <= H) {\n"
+_MC_PUT = "  if (st.out_off < 0) {\n"
+_MC_PUT_GUARD = "    if (gy < 0 || gy >= g.H || gx < 0 || gx >= g.W) return;\n"
+# conv1d.cu: the end of the window's load (this source's, then the
+# parent's), and the kernel's first line.
+_C1_TAPS = "  cp_async_wait_all();\n  __syncthreads();\n"
+_C1_PRE = "  if constexpr (kPre) {\n"
+_C1_LOADED = "    w = w_s;\n    off = off_s;\n    __syncthreads();\n  }\n"
+_C1_FIRST = "  extern __shared__ float smem[];\n"
 # Anchors in the sources before the redesign (PR 5's graph_strip.cu and
 # sep_conv.cu).
 _OLD_STRIP_LOOP = "  for (int k = 0; k < n_plans; ++k) {\n    const int rw = meta[4 * k + 1];\n"
@@ -71,15 +94,24 @@ _W_TAPS = ", 1, 2 * rw + 1, ww, "
 _EPI = "  // the epilogue\n"
 
 # kernel -> (its source: the first of these files a package has, {variant:
-# [alternative edit lists]}); an edit list is [(anchor, replacement)], each
-# anchor found once; the first alternative whose anchors all occur once
-# applies.
+# [alternative edit lists]}); an edit list is [(anchor, replacement)] of
+# the source, or [(anchor, replacement, file)] of another file of the
+# package, each anchor found once; the first alternative whose anchors all
+# occur once applies.
 KERNELS = {
     "mc": (("csrc/graph_strip_mc.cu",), {
         "full": [[]],
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
+        "conv_one_tap": [
+            [("nh = 2 * rh + 1, nw = 2 * rw + 1;", "nh = 1, nw = 1;")],
+            [("nh = 2 * st.rh + 1, nw = 2 * st.rw + 1;", "nh = 1, nw = 1;")],
+        ],
+        "no_border": [[(_MC_FILL, "    if (false) {\n")],
+                      [(_MC_INTERIOR, "      if (true) {\n"), (_MC_PUT, _MC_PUT + _MC_PUT_GUARD)]],
+        "one_window": [[("MC_WINDOW_BUFFERS = (2, 1)", "MC_WINDOW_BUFFERS = (1,)",
+                         "kernels/cuda_ops.py")]],
     }),
     "strip": (("csrc/graph_strip.cuh", "csrc/graph_strip.cu"), {
         "full": [[]],
@@ -134,22 +166,32 @@ KERNELS = {
               "from_f32<TOut>(tmp[y * t.wcols() + xx])")],
         ],
     }),
+    "conv1d": (("csrc/conv1d.cu",), {
+        "full": [[]],
+        "load_only": [[(_C1_TAPS + _C1_PRE, _C1_TAPS + "  if (n >= 0) return;\n" + _C1_PRE)],
+                      [(_C1_LOADED, _C1_LOADED + "  if (n >= 0) return;\n")]],
+        "one_tap": [[(_C1_FIRST, _C1_FIRST + "  n = min(n, 1);\n")]],
+    }),
 }
 MC_GRAPHS = (("demo", "DEMO_CONFIG", "rgba32f"), ("demo", "DEMO_CONFIG", "rgba16f"),
              ("chain3", "CHAIN3_CONFIG", "rgba32f"), ("edges", "EDGES_CONFIG", "rgba32f"))
 # Rows whose outputs the A/B compares between its two sides.
-COMPARED = ("graph_strip", "sep_conv")
+COMPARED = ("graph_strip", "sep_conv", "conv1d")
 
 
-def _apply(src: str, alternatives: list) -> Optional[str]:
-    """The source with the first alternative whose anchors all occur once,
-    or None."""
+def _apply(package: pathlib.Path, source: pathlib.Path, alternatives: list) -> bool:
+    """Apply the first alternative whose anchors all occur once in their
+    files (``source``, or a file of ``package``); False where none does."""
     for edits in alternatives:
-        if all(src.count(anchor) == 1 for anchor, _ in edits):
-            for anchor, new in edits:
-                src = src.replace(anchor, new)
-            return src
-    return None
+        paths = [package / e[2] if len(e) > 2 else source for e in edits]
+        texts = {path: path.read_text() for path in paths}
+        if all(texts[path].count(e[0]) == 1 for path, e in zip(paths, edits)):
+            for path, e in zip(paths, edits):
+                texts[path] = texts[path].replace(e[0], e[1])
+            for path, text in texts.items():
+                path.write_text(text)
+            return True
+    return False
 
 
 def _copy(label: str, package: pathlib.Path, kernel: str = "",
@@ -165,17 +207,16 @@ def _copy(label: str, package: pathlib.Path, kernel: str = "",
     if kernel and variant != "full":
         sources, variants = KERNELS[kernel]
         path = next(p for p in (root / PACKAGE.name / s for s in sources) if p.exists())
-        src = _apply(path.read_text(), variants[variant])
-        if src is None:
+        if not _apply(root / PACKAGE.name, path, variants[variant]):
             shutil.rmtree(root)
             return None
-        path.write_text(src)
     return root
 
 
-def _rows(which: str):
+def _rows(which: str, tiles: dict):
     """[(name, fn)] of the rows to time: ``fn()`` launches one kernel and
-    returns its output(s)."""
+    returns its output(s).  ``tiles`` gets each mc row's tile and window buffers; a graph
+    that plans no mc tier (a forced tile no layout fits) has no row."""
     import numpy as np
     import torch
 
@@ -205,14 +246,20 @@ def _rows(which: str):
     if which in ("mc", "ab"):
         graphs = [(n, getattr(benchmarks, c), f, None) for n, c, f in MC_GRAPHS]
         graphs.append(("neon_edges", benchmarks.LIBRARY_GRAPHS["neon_edges"], "rgba32f", None))
-        if which == "ab":
-            graphs.append(("glsl_blur", benchmarks.GLSL_GRAPHS["glsl_blur"], "rgba32f",
-                           benchmarks.SHADER_DIR))
+        graphs += [(name, benchmarks.GLSL_GRAPHS[name], fmt, benchmarks.SHADER_DIR)
+                   for name in ("glsl_blur", "glsl_blur_sharpen")
+                   for fmt in ("rgba32f", "rgba16f")]
         for name, config, fmt, shaders in graphs:
             prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
+            if prog._strip_plan is None or prog._strip_plan[0] != "mc":
+                continue
             mc = prog._strip_plan[1]
             xin = x.to(prog.storage_dtype)
-            rows.append((f"graph_strip_mc {name} {fmt} tile {list(mc.tile()[:2])}",
+            # the tile, and its window buffers where the source has them
+            geometry = getattr(mc, "geometry", None)
+            tiles[f"graph_strip_mc {name} {fmt}"] = [*mc.tile()[:2]] + (
+                [int(geometry(*mc.tile()[:2])[7])] if geometry else [])
+            rows.append((f"graph_strip_mc {name} {fmt}",
                          lambda m=mc, v=xin: cuda_ops.graph_strip_mc(v, 0.5, m)))
     if which == "ab":
         sharpen = cuda_ops.wsum(library.SHARPEN_TAPS)
@@ -220,15 +267,18 @@ def _rows(which: str):
         r4, op4 = library.bilateral_op(4, 2.5, 0.12)
         lin = cuda_ops.LinearStencilOp(
             np.random.default_rng(1).standard_normal((4, 4, 5, 5)).astype(np.float32))
-        w160 = box_weights(160)
         rows += [
             ("stencil_apply sharpen", lambda: cuda_ops.stencil_apply(x, 1, 1, sharpen)),
             ("stencil_apply_mc 4->4 r2", lambda: cuda_ops.stencil_apply_mc(x, lin)),
             ("stencil_reduce_mc bilateral r4",
              lambda: cuda_ops.stencil_reduce_mc(stack, r4, r4, op4)),
-            ("conv1d_h r160", lambda: cuda_ops.conv1d_h(x, w160)),
-            ("conv1d_w r160", lambda: cuda_ops.conv1d_w(x, w160)),
         ]
+    if which in ("conv1d", "ab"):
+        vectors = {"r160": box_weights(160), "r400": box_weights(400),
+                   "gaussian r160": gaussian_weights(160 / 3.0, 160)}
+        for label, w in vectors.items():
+            rows += [(f"conv1d_h {label}", lambda w=w: cuda_ops.conv1d_h(x, w)),
+                     (f"conv1d_w {label}", lambda w=w: cuda_ops.conv1d_w(x, w))]
     return rows
 
 
@@ -242,8 +292,8 @@ def _time(label: str, which: str, tile: str, save: str) -> None:
     if tile:
         cuda_ops.MC_TILES = (tuple(int(v) for v in tile.split("x")),)
         cuda_ops.MC_SMEM_SOFT = cuda_ops.MC_SMEM_LIMIT
-    row, outs = {}, {}
-    for name, fn in _rows(which):
+    row, outs, tiles = {}, {}, {}
+    for name, fn in _rows(which, tiles):
         for _ in range(3):
             out = fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -254,7 +304,7 @@ def _time(label: str, which: str, tile: str, save: str) -> None:
         torch.cuda.synchronize()
         row[name] = start.elapsed_time(end) / 20
         if save and name.startswith(COMPARED):
-            outs[name] = (torch.stack(out) if isinstance(out, list) else out).float().cpu()
+            outs[name] = (torch.stack(out) if isinstance(out, list) else out).cpu()
         del out
     if save:
         torch.save(outs, save)
@@ -267,7 +317,7 @@ def _time(label: str, which: str, tile: str, save: str) -> None:
             props = [v.split(":", 1)[-1].strip() for v in log[i + 1:i + 4]
                      if "registers" in v or "stack frame" in v]
             ptxas[name] = "; ".join(props)
-    print(json.dumps({"variant": label, "kernel_ms": row, "ptxas": ptxas}))
+    print(json.dumps({"variant": label, "kernel_ms": row, "tiles": tiles, "ptxas": ptxas}))
 
 
 def _run(root: pathlib.Path, label: str, which: str, tile: str = "", save: str = "") -> dict:
@@ -281,7 +331,7 @@ def _run(root: pathlib.Path, label: str, which: str, tile: str = "", save: str =
     shown = {k: v for k, v in result.items() if k != "ptxas"}
     shown["ptxas"] = {k: v for k, v in result["ptxas"].items()
                       if any(s in k for s in ("graph_strip_kernel", "sep_conv_multi_kernel",
-                                              "graph_strip_mc_kernel"))}
+                                              "graph_strip_mc_kernel", "conv1d_kernel"))}
     print(json.dumps(shown))
     return result
 
@@ -294,7 +344,7 @@ def _ab(parent: pathlib.Path) -> None:
     for i, side in enumerate(("parent", "this", "this", "parent")):
         _run(roots[side], f"{side} ({i + 1} of 4)", "ab", save=saved[side] if i < 2 else "")
     a, b = (torch.load(saved[side]) for side in ("parent", "this"))
-    diffs = {name: float((a[name] - b[name]).abs().max()) for name in a}
+    diffs = {name: float((a[name].float() - b[name].float()).abs().max()) for name in a if name in b}
     print(json.dumps({"max_abs_diff_parent_vs_this": diffs}))
 
 

@@ -114,18 +114,24 @@ def test_conv1d_checks_and_counts_nothing_on_the_cpu():
 
 def test_conv1d_tiles():
     """Frost's radius 160 fits the preferred budget on both axes; radius 400
-    fits the H pass only under the 227 KB limit; radius 3000 fits no
+    fits both passes only under the 227 KB limit; radius 3000 fits no
     window (the global-memory path)."""
     for along_h in (True, False):
         th, tw, smem = cuda_ops.choose_conv1d_tile(along_h, 160, 321)
-        assert smem <= cuda_ops.SMEM_SOFT and tw == (32 if along_h else 128)
+        assert smem <= cuda_ops.SMEM_SOFT and (th, tw) == ((128, 32) if along_h else (16, 256))
         th, tw, smem = cuda_ops.choose_conv1d_tile(along_h, 400, 801)
-        assert smem <= cuda_ops.SMEM_LIMIT
-        assert (smem > cuda_ops.SMEM_SOFT) == along_h
+        assert cuda_ops.SMEM_SOFT < smem <= cuda_ops.SMEM_LIMIT
+        assert smem == cuda_ops.conv1d_footprint(along_h, th, tw, 400, 801)
         assert cuda_ops.choose_conv1d_tile(along_h, 3000, 6001) is None
-    # the tile shapes the kernel takes (csrc/conv1d.cu rf_conv1d)
-    assert all(tw == 32 and th % 32 == 0 for th, tw in cuda_ops.CONV1D_TILES[True])
-    assert all(tw == 128 and th % 8 == 0 for th, tw in cuda_ops.CONV1D_TILES[False])
+    # the tile shapes the kernel takes (csrc/conv1d.cu rf_conv1d): H runs of
+    # CONV1D_RUN rows down 32 columns, W eight warps of 16 rows and two runs
+    run = cuda_ops.CONV1D_RUN
+    assert all(tw == 32 and th in (16, 32, 64, 128) for th, tw in cuda_ops.CONV1D_TILES[True])
+    assert all(th % 16 == 0 and tw % (2 * run) == 0 and (th // 16) * (tw // 32) == 8
+               for th, tw in cuda_ops.CONV1D_TILES[False])
+    # the W window starts on a multiple of 4 columns and has an odd pitch
+    assert cuda_ops.conv1d_footprint(False, 16, 256, 1, 3) == 4 * (16 * (264 | 1) + 6)
+    assert cuda_ops.conv1d_footprint(True, 128, 32, 1, 3) == 4 * (130 * 32 + 6)
 
 
 class _ReportsCuda(torch.Tensor):
@@ -178,6 +184,22 @@ def test_conv1d_never_takes_the_plain_version_on_a_gpu(axis, rc, monkeypatch):
     assert first[0] == int(axis == "h") and first[3:7] == (6, 8, 16, 3)
     assert first[12] == 4 and first[13] > 0  # the four nonzero taps, in shared memory
     assert second[12] == 6001 and second[13] == 0  # the global-memory path
+    # equal taps: the shared form premultiplies, the global form does not
+    assert first[15] == 1 and second[15] == 0
+
+
+@pytest.mark.parametrize("name,box", [("gauss3", False), ("half_window", True),
+                                      ("box", True), ("zeros", False), ("sparse", False)])
+def test_conv1d_box_taps(name, box):
+    """The wrapper's premultiply flag: the nonzero taps exist and are all
+    equal (a box, kuwahara's quadrant vector), not for a gaussian, a
+    vector of zeros or unequal taps with gaps."""
+    w = {"gauss3": jops.gaussian_weights(3.0), "half_window": _half_window(5),
+         "box": jops.box_weights(40), "zeros": np.zeros(9, np.float32),
+         "sparse": np.array([0.1, 0, 0.2, 0, 0.1], np.float32)}[name]
+    taps, pos, got = cuda_ops._device_conv1d_taps(w.tobytes(), torch.device("cpu"))
+    assert got is box
+    assert taps.numel() == np.count_nonzero(w) and pos.tolist() == np.flatnonzero(w).tolist()
 
 
 # ---- the route of ops.sep_conv -------------------------------------------------------

@@ -299,3 +299,47 @@ def test_glsl_graphs_on_graph_strip_mc(graph, fmt, hw):
     tol = 1e-5 if fmt == "rgba32f" else 2e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert float((got.float() - per_node.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f", "rgba8"])
+@pytest.mark.parametrize("graph", ["demo", "neon_edges"])
+def test_mc_interior_and_border_blocks(graph, fmt):
+    """333x520, ragged both ways: interior blocks (16-byte window loads)
+    and border blocks (clamped loads, slots' outside cells filled) in one
+    launch, against the plain version and the per-node tier on the card.
+    The conv FMAs round once a tap where the plain version rounds twice
+    (rgba32f 1e-5, rgba16f one bf16 step, rgba8 two buckets on few pixels,
+    as chip_smoke.py holds them); at 4K neon edges' threshold turns that
+    into a bloom disc against plain (chip_smoke.py compares it with per
+    node there), here it agrees with both."""
+    from reforge_tpu_torch.benchmarks import DEMO_CONFIG, LIBRARY_GRAPHS, build_program
+
+    config = DEMO_CONFIG if graph == "demo" else LIBRARY_GRAPHS["neon_edges"]
+    prog = build_program(config, 520, 333, fmt, device="cuda")
+    assert prog._strip_plan[0] == "mc"
+    mc = prog._strip_plan[1]
+    x = _image((4, 333, 520), 7).to(prog.storage_dtype)
+    got = cuda_ops.graph_strip_mc(x, 0.5, mc)
+    for want in (cuda_ops.graph_strip_mc_plain(x, 0.5, mc), prog._forward_nostrip(x, 0.5)):
+        d = (got.float() - want.float()).abs()
+        if fmt == "rgba8":
+            assert float(d.max()) <= 2 / 255 + 1e-6 and float((d > 1 / 512).float().mean()) <= 1e-3
+        else:
+            assert float(d.max()) <= (1e-5 if fmt == "rgba32f" else 2e-2)
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("shape", [(4, 37, 71), (4, 333, 520), (4, 64, 1024)])
+@pytest.mark.parametrize("axis", ["h", "w"])
+def test_conv1d_sparse_taps(axis, shape, mode):
+    """A tap vector with gaps (the register window reloads after each) on a
+    ragged frame (border tiles only), on 333x520 (interior H tiles; every
+    W tile crosses the edge) and on 64x1024 (interior W tiles, 16-byte
+    loads): bit-equal to correlate1d."""
+    w = np.zeros(61, np.float32)
+    w[[0, 3, 4, 5, 17, 30, 31, 44, 60]] = np.linspace(0.05, 0.2, 9, dtype=np.float32)
+    x = _image(shape, 5)
+    entry = cuda_ops.conv1d_h if axis == "h" else cuda_ops.conv1d_w
+    got = entry(x, w, mode)
+    want = cuda_ops.correlate1d(x, w, -2 if axis == "h" else -1, mode)
+    assert float((got - want).abs().max()) == 0.0

@@ -26,8 +26,10 @@ from reforge_tpu.kernels import ops as jops
 from reforge_tpu.kernels import pallas_ops
 from reforge_tpu_torch import utils as tutils
 from reforge_tpu_torch.benchmarks import (
-    CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, MC_TEST_GRAPHS, MIX_SECOND_FIRST_CONFIG, build_program,
+    CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, GLSL_GRAPHS, LIBRARY_GRAPHS, MC_TEST_GRAPHS,
+    MIX_SECOND_FIRST_CONFIG, SHADER_DIR, build_program,
 )
+from reforge_tpu_torch.glsl import affine
 from reforge_tpu_torch.graph import graph_from_reference, make_program
 from reforge_tpu_torch.kernels import cuda_ops
 
@@ -268,3 +270,67 @@ def test_graph_from_reference_carries_params(name):
             for got, want in zip(node.spec.conv_weights(node.params),
                                  ref.spec.conv_weights(ref.params)):
                 np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ---- the kernel's shared-memory layout --------------------------------------------
+
+LAYOUT_GRAPHS = {
+    "demo": (DEMO_CONFIG, None),
+    "edges": (EDGES_CONFIG, None),
+    "chain3": (CHAIN3_CONFIG, None),
+    "neon_edges": (LIBRARY_GRAPHS["neon_edges"], None),
+    "glsl_blur": (GLSL_GRAPHS["glsl_blur"], SHADER_DIR),
+    "glsl_blur_sharpen": (GLSL_GRAPHS["glsl_blur_sharpen"], SHADER_DIR),
+    **{name: (config, None) for name, config in MC_TEST_GRAPHS.items()},
+}
+
+
+@pytest.mark.parametrize("h,w", [(2160, 3840), (37, 71), (333, 520)])
+@pytest.mark.parametrize("name", sorted(LAYOUT_GRAPHS))
+def test_mc_layout_fits_and_buffers_do_not_overlap(name, h, w, tmp_path, monkeypatch):
+    """For each format: the chosen tile's layout fits its budget (two blocks
+    an SM where any tile does), the input block, pool slots, window
+    buffers, scratch and taps lie apart inside it, and ``packed`` keeps
+    MC_STAGE_INTS ints a stage, a conv of the input marked to read its own
+    windows."""
+    monkeypatch.setattr(affine, "CACHE_DIR", tmp_path / "convsynth")
+    config, shaders = LAYOUT_GRAPHS[name]
+    for fmt in ("rgba32f", "rgba16f"):
+        plan = build_program(config, w, h, fmt, device="cpu", shader_path=shaders)._strip_plan
+        assert plan is not None and plan[0] == "mc", (name, fmt)
+        mc = plan[1]
+        th, tw, nbytes = mc.tile()
+        assert nbytes <= cuda_ops.MC_SMEM_LIMIT
+        soft = [t for t in cuda_ops.MC_TILES
+                if min(mc._layout(*t, n)[1] for n in cuda_ops.MC_WINDOW_BUFFERS)
+                <= cuda_ops.MC_SMEM_SOFT]
+        assert nbytes <= cuda_ops.MC_SMEM_SOFT or not soft
+        geo = mc.geometry(th, tw)
+        slot_off, layout_bytes, _geo = mc._layout(th, tw, int(geo[7]))
+        assert layout_bytes == nbytes and list(_geo) == list(geo)
+        scratch_off, taps_off, in_eh, in_ew, in_used, win_off, win, n_win = (int(v) for v in geo)
+        # [start, end) of each buffer in floats
+        spans = []
+        if in_used:
+            spans.append((0, 4 * (th + 2 * in_eh) * cuda_ops._window_cols(tw, in_ew)[1]))
+        cap = {}
+        for st in mc.stages:
+            if st.out >= 0:
+                cap[st.out] = max(cap.get(st.out, 0), 4 * (th + 2 * st.eh) * ((tw + 2 * st.ew) | 1))
+        spans += [(slot_off[k], slot_off[k] + c) for k, c in cap.items()]
+        spans += [(win_off + k * win, win_off + (k + 1) * win) for k in range(n_win) if win]
+        spans += [(scratch_off, taps_off), (taps_off, taps_off + 2 * len(mc.taps))]
+        spans = sorted(sp for sp in spans if sp[1] > sp[0])
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), spans
+        assert spans[-1][1] * 4 == nbytes
+        assert win_off % cuda_ops.CONV_ALIGN == 0 and win % cuda_ops.CONV_ALIGN == 0
+        stage_i, stage_f, s_off, t_off = mc.packed(th, tw)
+        assert stage_i.shape == (len(mc.stages), cuda_ops.MC_STAGE_INTS)
+        assert stage_f.shape == (len(mc.stages), 4) and (s_off, t_off) == (scratch_off, taps_off)
+        for st, row in zip(mc.stages, stage_i):
+            if st.kind == cuda_ops.MC_CONV and st.ins[0][0] == cuda_ops.MC_INPUT:
+                assert row[3] == cuda_ops.MC_BUF_GLOBAL and win > 0
+            for ref, at in ((st.ins[0], 3), (st.x, 9)):
+                if ref is not None and ref[0] == cuda_ops.MC_INPUT and row[at] != cuda_ops.MC_BUF_GLOBAL:
+                    assert row[at] == cuda_ops.MC_BUF_INPUT_BLOCK and in_used
+                    assert tuple(row[at + 1:at + 3]) == (in_eh, in_ew)
