@@ -160,20 +160,90 @@ def _conv1d_instructions(w: np.ndarray, n_out: int) -> int:
     return 2 * len(nz) * n_out
 
 
-def _reduce_bound(n_pixels: int, n_taps: int, max_sm_mhz: float, n_sms: int) -> tuple[float, str, str]:
-    """(ms, what bounds it, the three terms) of bilateral's reduction: four
-    f32 planes read and three written; 11 f32 operations per tap and
-    pixel (a difference, a square, a scale, the exponential counted as
-    one, the spatial weight, three products, four sums) and three
-    divisions a pixel; one exponential per tap and pixel on the SFUs, 16
-    per SM per clock at the highest SM clock."""
-    t_bytes = 7 * 4 * n_pixels / HBM_BYTES_PER_S * 1e3
-    t_ops = (11 * n_taps + 3) * n_pixels / F32_OPS_PER_S * 1e3
-    t_sfu = n_taps * n_pixels / (16 * n_sms * max_sm_mhz * 1e6) * 1e3
-    terms = f"bytes {t_bytes:.4f}, f32 operations {t_ops:.4f}, exponentials {t_sfu:.4f} ms"
-    if t_bytes >= max(t_ops, t_sfu):
-        return t_bytes, "bytes", terms
-    return max(t_ops, t_sfu), "operations", terms
+def _expf_sass_count() -> int:
+    """SASS instructions an expf (the full-precision one, as the kernels
+    build it) costs where it is evaluated again and again, as in a tap
+    loop: two one-line kernels compiled for sm_90a and read back with
+    cuobjdump -sass, y = expf(a) + b and y = expf(a) + expf(b) (each sum
+    rounded alone), and their difference, NOPs not counted.  The second
+    expf reuses the first one's constants, which a loop keeps in
+    registers."""
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    nvcc = cuda_ops._nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    body = ("(const float* x, float* y) {{ const float a = x[threadIdx.x], "
+            "b = x[threadIdx.x + 32]; y[threadIdx.x] = __fadd_rn(expf(a), {}); }}\n")
+    src = ('extern "C" __global__ void rf_probe_one' + body.format("b")
+           + 'extern "C" __global__ void rf_probe_two' + body.format("expf(b)"))
+    with tempfile.TemporaryDirectory(prefix="rf_expf_probe_") as d:
+        cu, cubin = Path(d) / "probe.cu", Path(d) / "probe.cubin"
+        cu.write_text(src)
+        subprocess.run([nvcc, *cuda_ops.ARCH_FLAGS, "-O3", "-cubin", "-o", str(cubin), str(cu)],
+                       check=True, capture_output=True)
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                              text=True).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and line.strip().startswith("/*") and "*/" in line:
+            text = line.split("*/", 1)[1].strip()
+            if text and not text.startswith("/*") and not text.startswith("NOP"):
+                counts[fn] += 1
+    return counts["rf_probe_two"] - counts["rf_probe_one"]
+
+
+def _reduce_bound(n_pixels: int, n_taps: int, expf_sass: int, n_sms: int,
+                  max_sm_mhz: float) -> tuple[float, str, str]:
+    """(ms, what bounds it, its terms) of bilateral's reduction in issue
+    slots (``_issue_bound``): four f32 planes read and three written;
+    per tap and pixel, the range weight -- a difference, a square, a
+    scale, expf at its SASS count, the spatial weight -- then three
+    products and four sums, and three divisions a pixel.  The range weight
+    of tap o at pixel p equals that of tap -o at pixel p + o (the
+    difference changes sign only, the spatial weight is symmetric), so the
+    least work counts it once a pair, (n_taps + 1) / 2 times a pixel with
+    the centre: that count is the bound; the terms show both."""
+    weight = 4 + expf_sass
+    full = n_pixels * (n_taps * (weight + 7) + 3)
+    paired = n_pixels * (n_taps * 7 + (n_taps + 1) // 2 * weight + 3)
+    nbytes = 7 * 4 * n_pixels
+    t_full = _issue_bound(nbytes, full, n_sms, max_sm_mhz)[0]
+    ms, by = _issue_bound(nbytes, paired, n_sms, max_sm_mhz)
+    terms = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; issue slots, expf "
+             f"{expf_sass} SASS: {weight + 7} a tap and pixel {t_full:.4f} ms, the range weight "
+             f"once a pair {paired / n_pixels / n_taps:.2f} a tap and pixel {ms:.4f} ms")
+    return ms, by, terms
+
+
+# f32 instructions of a graph_strip epilogue op on each channel it
+# changes, as the kernel rounds them (an FMA one, an IEEE division or a
+# square root one, min/max one each), and whether it changes only rgb.
+STRIP_EPILOGUE = {
+    "OP_COPY": (0, False), "OP_TAKE1": (0, False),
+    "OP_UNSHARP": (2, True),    # a - b, then an FMA
+    "OP_MIX": (2, False),       # b - a, then an FMA
+    "OP_ACES": (8, True),       # v = a p0, two FMAs and two products, a division, a clamp
+    "OP_REINHARD": (3, True),   # v = a p0, 1 + v, a division
+    "OP_VIGNETTE": (20, True),  # two coordinates, a distance, smoothstep, a fade
+    "OP_FADE_PLANE": (1, True),
+}
+
+
+def _strip_instructions(strip, cuda_ops, n_pixels: int) -> int:
+    """f32 instructions of a graph_strip program at n_pixels pixels: an FMA
+    a tap and channel of each conv's two passes, and the epilogue's ops
+    (STRIP_EPILOGUE; a channel op at 4 a channel)."""
+    taps = sum(len(a) + len(b) for a, b in strip.plans)
+    epilogue = 0
+    for op in strip.ops:
+        name = next((k for k in STRIP_EPILOGUE if getattr(cuda_ops, k) == op.code), None)
+        per, rgb = STRIP_EPILOGUE[name] if name else (4, True)
+        epilogue += per * (3 if rgb else 4)
+    return n_pixels * (4 * taps + epilogue)
 
 
 def _library_sep_conv(x: torch.Tensor, plans):
@@ -245,9 +315,12 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # frame and no spills: graph_strip per storage type, channel-op form and
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
 # storage type and affine form, conv1d per axis and form (shared memory
-# with and without premultiplied box taps, or global).
+# with and without premultiplied box taps, or global), stencil_apply's
+# radius-1 form per kind (wsum, median9) and stencil_reduce_mc's run form
+# per radius (1..8) and tap list (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
-                  "graph_strip_mc_kernel": 4, "conv1d_kernel": 6}
+                  "graph_strip_mc_kernel": 4, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
+                  "stencil_reduce_run_kernel": 16}
 
 
 def _check_no_stack(log: str) -> None:
@@ -433,48 +506,64 @@ def main() -> int:
                   [(w108, w108)], mode, False)
 
     # stencil_apply: the tables of the main path (sharpen and emboss on four
-    # channels, sobel on the luma plane) and the median, edge and zero.
-    # Every product and sum rounds as in the plain version: expected 0.
+    # channels, sobel on the luma plane) and the median, edge and zero, on
+    # the 4K frame, the ragged one (element loads) and the mid one (16-byte
+    # rows, ragged tiles): the radius-1 form; and a 5x5 table (radius 2,
+    # the general form) on the ragged and mid frames.  Every product and
+    # sum rounds as in the plain version: expected 0.
     luma4k = luma(x4k)[None].contiguous()
-    stencils = [("sharpen", cuda_ops.wsum(library.SHARPEN_TAPS), False),
-                ("sobel_x", cuda_ops.wsum(library.SOBEL_X_TAPS), True),
-                ("emboss", cuda_ops.wsum(library.EMBOSS_TAPS), False),
-                ("median9", cuda_ops.MEDIAN9, False)]
-    for x in (x4k, ragged):
+    stencils = [("sharpen", 1, cuda_ops.wsum(library.SHARPEN_TAPS), False),
+                ("sobel_x", 1, cuda_ops.wsum(library.SOBEL_X_TAPS), True),
+                ("emboss", 1, cuda_ops.wsum(library.EMBOSS_TAPS), False),
+                ("median9", 1, cuda_ops.MEDIAN9, False),
+                ("5x5", 2, cuda_ops.wsum(np.arange(25, dtype=np.float32).reshape(5, 5) / 8 - 1),
+                 False)]
+    for x in (x4k, ragged, mid_conv):
         for mode in ("edge", "zero"):
-            for sname, op, one_channel in stencils:
+            for sname, r, op, one_channel in stencils:
+                if r > 1 and x is x4k:
+                    continue
                 xin = (luma4k if x is x4k else luma(x)[None].contiguous()) if one_channel else x
-                got = cuda_ops.stencil_apply(xin, 1, 1, op, mode)
-                want = cuda_ops.stencil_apply_plain(xin, 1, 1, op, mode)
+                got = cuda_ops.stencil_apply(xin, r, r, op, mode)
+                want = cuda_ops.stencil_apply_plain(xin, r, r, op, mode)
                 torch.cuda.synchronize()
                 err = _max_err(got, want)
-                _check(f"stencil_apply {sname} {'x'.join(map(str, xin.shape))} {mode}", err, 0.0)
+                _check(f"stencil_apply {sname} {'x'.join(map(str, xin.shape))} {mode} "
+                       f"({cuda_ops.choose_stencil_form(r, r, op)} form)", err, 0.0)
                 if x is x4k and mode == "edge" and sname == "sharpen":
                     errs["stencil_apply"] = err
 
     # stencil_reduce_mc: bilateral's reduction at newsprint's radius 4 and
-    # watercolor's radius 3 at 4K, and radius 60 (no shared-memory tile
-    # fits it; every tap through global memory) on the ragged frame, in
-    # both border modes.  Kernel and plain version call the same expf and
-    # round every product and sum alike; 1e-6 allows a few f32 ulps of
-    # [0, 1] values.
-    stack4k = torch.cat([x4k[:3], luma(x4k)[None]]).contiguous()
-    stack_ragged = torch.cat([ragged[:3], luma(ragged)[None]]).contiguous()
-    reduce_ops = {"r4": library.bilateral_op(4, 2.5, 0.12), "r3": library.bilateral_op(3, 2.5, 0.12),
-                  "r60": library.bilateral_op(60, 8.0, 0.12)}
-    if cuda_ops.choose_reduce_tile(60, 60, len(reduce_ops["r60"][1].taps)) is not None:
-        raise AssertionError("radius 60 should fit no shared-memory tile")
+    # watercolor's radius 3 (the run form) at 4K and on the ragged and mid
+    # frames, radius 9 (no compiled run form: the shared form) and radius
+    # 60 (no shared-memory tile fits it: every tap through global memory)
+    # on the ragged frame, in both border modes.  Kernel and plain version
+    # call the same expf and round every product and sum alike; 1e-6 allows
+    # a few f32 ulps of [0, 1] values.
+    def stack(x):
+        return torch.cat([x[:3], luma(x)[None]]).contiguous()
+
+    stack4k = stack(x4k)
+    reduce_ops = {f"r{r}": library.bilateral_op(r, 8.0 if r == 60 else 2.5, 0.12)
+                  for r in (4, 3, 9, 60)}
+    forms = {rname: cuda_ops.choose_reduce_form(r, r, op.taps)[0]
+             for rname, (r, op) in reduce_ops.items()}
+    if forms != {"r4": "run", "r3": "run", "r9": "shared", "r60": "global"}:
+        raise AssertionError(f"stencil_reduce_mc forms {forms}")
+    frames_c = {"r4": (x4k, ragged, mid_conv), "r3": (x4k, ragged), "r9": (ragged,),
+                "r60": (ragged,)}
     for rname, (r, op) in reduce_ops.items():
-        x = stack_ragged if rname == "r60" else stack4k
-        for mode in ("edge", "zero"):
-            got = cuda_ops.stencil_reduce_mc(x, r, r, op, mode)
-            want = cuda_ops.stencil_reduce_mc_plain(x, r, r, op, mode)
-            torch.cuda.synchronize()
-            err = _max_err(got, want)
-            _check(f"stencil_reduce_mc bilateral {'x'.join(map(str, x.shape))} r={r} "
-                   f"({len(op.taps)} taps) {mode}", err, 1e-6)
-            if rname == "r4" and mode == "edge":
-                errs["stencil_reduce_mc"] = err
+        for x in frames_c[rname]:
+            xs = stack4k if x is x4k else stack(x)
+            for mode in ("edge", "zero"):
+                got = cuda_ops.stencil_reduce_mc(xs, r, r, op, mode)
+                want = cuda_ops.stencil_reduce_mc_plain(xs, r, r, op, mode)
+                torch.cuda.synchronize()
+                err = _max_err(got, want)
+                _check(f"stencil_reduce_mc bilateral {'x'.join(map(str, xs.shape))} r={r} "
+                       f"({len(op.taps)} taps) {mode} ({forms[rname]} form)", err, 1e-6)
+                if rname == "r4" and x is x4k and mode == "edge":
+                    errs["stencil_reduce_mc"] = err
 
     # conv1d_h / conv1d_w: frost's radius 160 and radius 400 (where the
     # reference itself takes its 1-D kernels at 4K) on the 4K frame; on an
@@ -1082,11 +1171,7 @@ def main() -> int:
     print(f"card state before the kernel timings: {_card_state()}")
     n_px = 4 * HEIGHT * WIDTH
     prog32, x32 = strips["rgba32f"]
-    epilogue_ops = {cuda_ops.OP_COPY: 0, cuda_ops.OP_TAKE1: 0, cuda_ops.OP_UNSHARP: 3,
-                    cuda_ops.OP_MIX: 3, cuda_ops.OP_ACES: 10, cuda_ops.OP_REINHARD: 3,
-                    cuda_ops.OP_VIGNETTE: 15, cuda_ops.OP_FADE_PLANE: 1}
-    strip_ops = n_px * (2 * sum(len(a) + len(b) for a, b in prog32._strip_program.plans)
-                        + sum(epilogue_ops[op.code] for op in prog32._strip_program.ops))
+    strip_instr = _strip_instructions(prog32._strip_program, cuda_ops, HEIGHT * WIDTH)
     demo_prog, demo_x = mc_progs[("demo", "rgba32f")]
     demo_mc = demo_prog._strip_plan[1]
     timed = {
@@ -1106,7 +1191,8 @@ def main() -> int:
         "graph_strip": (lambda: cuda_ops.graph_strip(x32, 0.5, prog32._strip_program),
                         lambda: cuda_ops.graph_strip_plain(x32, 0.5, prog32._strip_program),
                         None,
-                        _bound(2 * 4 * n_px + 4 * HEIGHT * WIDTH, strip_ops)),
+                        _issue_bound(2 * 4 * n_px + 4 * HEIGHT * WIDTH, strip_instr, n_sms,
+                                     max_sm_mhz)),
         "sep_conv_fused_mxu_x3": (lambda: cuda_ops.sep_conv_fused_mxu_x3(x4k, w8, w8),
                                   lambda: cuda_ops.sep_conv_plain(x4k, [(w8, w8)]),
                                   _library_sep_conv(x4k, [(w8, w8)]),
@@ -1115,7 +1201,8 @@ def main() -> int:
             lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
             lambda: cuda_ops.stencil_apply_plain(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
             _library_stencil(x4k, library.SHARPEN_TAPS),
-            _bound(2 * 4 * n_px, 9 * n_px)),
+            # five rounded products and four rounded sums a pixel
+            _issue_bound(2 * 4 * n_px, 9 * n_px, n_sms, max_sm_mhz)),
         "graph_strip_mc": (lambda: cuda_ops.graph_strip_mc(demo_x, 0.5, demo_mc),
                            lambda: cuda_ops.graph_strip_mc_plain(demo_x, 0.5, demo_mc),
                            None,
@@ -1138,23 +1225,25 @@ def main() -> int:
                 _library_conv1d(x4k, wr, along_h),
                 _issue_bound(2 * 4 * n_px, _conv1d_instructions(wr, n_px), n_sms, max_sm_mhz))
     r4, op4 = reduce_ops["r4"]
+    expf_sass = _expf_sass_count()
     reduce_bound_ms, reduce_bound_by, reduce_terms = _reduce_bound(
-        HEIGHT * WIDTH, len(op4.taps), max_sm_mhz, n_sms)
+        HEIGHT * WIDTH, len(op4.taps), expf_sass, n_sms, max_sm_mhz)
     print(f"stencil_reduce_mc bound terms at 4K r={r4} ({len(op4.taps)} taps): {reduce_terms}")
     timed["stencil_reduce_mc"] = (lambda: cuda_ops.stencil_reduce_mc(stack4k, r4, r4, op4),
                                   lambda: cuda_ops.stencil_reduce_mc_plain(stack4k, r4, r4, op4),
                                   None, (reduce_bound_ms, reduce_bound_by))
     # stencil_apply_mc: 4 -> 4 channels at radius 2 (400 terms).  Bound:
-    # four planes read and four written, or a multiply and an add per term
-    # and pixel.  Library: one replicate (or zero) pad and one dense
-    # F.conv2d with the (4, 4, 5, 5) table.
+    # four planes read and four written, or a rounded multiply and a
+    # rounded add per term and pixel, in issue slots.  Library: one
+    # replicate (or zero) pad and one dense F.conv2d with the (4, 4, 5, 5)
+    # table.
     op9 = lin_ops["4->4 r2"]
     k9 = torch.from_numpy(op9.weights).to(dev)
     timed["stencil_apply_mc"] = (
         lambda: cuda_ops.stencil_apply_mc(x4k, op9),
         lambda: cuda_ops.stencil_apply_mc_plain(x4k, op9),
         lambda: F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0],
-        _bound(2 * 4 * n_px, 2 * op9.n_terms * HEIGHT * WIDTH))
+        _issue_bound(2 * 4 * n_px, 2 * op9.n_terms * HEIGHT * WIDTH, n_sms, max_sm_mhz))
     lib9 = F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0]
     print(f"library stencil (replicate pad + dense conv2d, TF32 off) vs plain, 4->4 r2: "
           f"{_max_err(lib9, cuda_ops.stencil_apply_mc_plain(x4k, op9)):.3g}")
@@ -1174,11 +1263,12 @@ def main() -> int:
     extra = {
         "graph_strip rgba16f": (lambda: cuda_ops.graph_strip(strips["rgba16f"][1], 0.5,
                                                              strips["rgba16f"][0]._strip_program)),
-        "stencil_apply median9 4ch": lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.MEDIAN9),
-        "stencil_apply sobel_x 1ch": lambda: cuda_ops.stencil_apply(
+        "stencil_apply median9 4ch (r1 form)": lambda: cuda_ops.stencil_apply(
+            x4k, 1, 1, cuda_ops.MEDIAN9),
+        "stencil_apply sobel_x 1ch (r1 form)": lambda: cuda_ops.stencil_apply(
             luma4k, 1, 1, cuda_ops.wsum(library.SOBEL_X_TAPS)),
-        "stencil_reduce_mc bilateral r=3 (watercolor)": lambda: cuda_ops.stencil_reduce_mc(
-            stack4k, 3, 3, reduce_ops["r3"][1]),
+        "stencil_reduce_mc bilateral r=3 (watercolor, run form)": (
+            lambda: cuda_ops.stencil_reduce_mc(stack4k, 3, 3, reduce_ops["r3"][1])),
     }
     for (graph, fmt), (prog, x) in mc_progs.items():
         if fmt != "rgba8":

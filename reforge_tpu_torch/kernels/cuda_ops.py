@@ -16,13 +16,14 @@ and bound with ctypes):
     and ``sep_conv_fused_mxu_x3`` (heavy f32 convs).
   * ``graph_strip`` (graph_strip.cu): the single-tier whole-graph kernel.
   * ``stencil_apply`` (stencil.cu): a per-channel neighbourhood function
-    (weighted sum of a tap table, median of 3x3) for the per-node tier.
+    (weighted sum of a tap table, median of 3x3) for the per-node tier;
+    radius 1 from a register window with no shared memory.
   * ``graph_strip_mc`` (graph_strip_mc.cu): the mc tier's multi-stage
     all-channel megakernel (conv, stencil and point stages; a conv of the
     input reads its own per-channel windows).
   * ``stencil_reduce`` (stencil_reduce.cu): a windowed all-channel
     weighted reduction plus a final map (bilateral) for the per-node
-    tier.
+    tier; radii 1-8 with eight outputs a thread from register windows.
   * ``conv1d`` (conv1d.cu) serves ``conv1d_h`` and ``conv1d_w``: the 1-D
     passes of a separable conv whose window fits no shared-memory tile
     of the fused kernels (large-radius box blurs and kuwahara).
@@ -149,6 +150,8 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
         ]
         lib.rf_stencil_apply.restype = _I
+        lib.rf_stencil_r1.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]
+        lib.rf_stencil_r1.restype = _I
         lib.rf_graph_strip_mc.argtypes = [
             _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P,
         ]
@@ -157,6 +160,10 @@ def load_library() -> ctypes.CDLL:
             _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _I, _P,
         ]
         lib.rf_stencil_reduce.restype = _I
+        lib.rf_stencil_reduce_run.argtypes = [
+            _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P,
+        ]
+        lib.rf_stencil_reduce_run.restype = _I
         lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                                   _P]
         lib.rf_conv1d.restype = _I
@@ -882,6 +889,42 @@ def _device_terms(terms: tuple, device: torch.device):
     return torch.from_numpy(w).to(device), torch.from_numpy(idx).to(device)
 
 
+def _ascending(terms, cols: int) -> bool:
+    """True when the terms' positions (dy, dx) strictly ascend in row-major
+    order of a table ``cols`` wide (each at most once)."""
+    keys = [dy * cols + dx for dy, dx, *_ in terms]
+    return all(a < b for a, b in zip(keys, keys[1:]))
+
+
+def choose_stencil_form(rh: int, rw: int, op: StencilOp) -> str:
+    """The form of the stencil kernel that evaluates ``op``, by shape:
+    ``"r1"`` (csrc/stencil.cu stencil_r1_kernel, from registers) for the
+    median and for a 3x3 table whose terms ascend in (dy, dx) -- every
+    shipped table --, else ``"general"`` (stencil_kernel, from a shared-memory
+    window)."""
+    if (rh, rw) != (1, 1):
+        return "general"
+    return "r1" if op.kind == "median9" or _ascending(op.terms, 3) else "general"
+
+
+@functools.lru_cache(maxsize=64)
+def _r1_taps(terms: tuple) -> tuple[np.ndarray, int]:
+    """(the nine weights f32 at 3 dy + dx, the mask of the terms' positions)
+    of a 3x3 table's terms, for the radius-1 form."""
+    w = np.zeros(9, np.float32)
+    mask = 0
+    for dy, dx, wt in terms:
+        w[3 * dy + dx] = wt
+        mask |= 1 << (3 * dy + dx)
+    return w, mask
+
+
+def _vec(*tensors: torch.Tensor) -> bool:
+    """True when every tensor starts on a 16-byte boundary and its rows do
+    too (the last dimension a multiple of 4 floats)."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0 for t in tensors)
+
+
 def choose_stencil_tile(rh: int, rw: int, n_terms: int) -> tuple[int, int, int]:
     """(TH, TW, shared-memory bytes) for the stencil kernel: its window
     plus the term weights and positions.  Every radius up to 16 fits the
@@ -900,16 +943,19 @@ def stencil_apply(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
 
     Replaces ``pallas_ops.stencil_apply`` (pallas_ops.py:1935), which took
     the function as a traced Python closure over tap views of a VMEM
-    strip.  Here the function is a ``StencilOp``: a block loads its tile
-    and (rh, rw) halo of one channel into shared memory with clamped or
-    zero-filled reads, and each thread evaluates the op per pixel -- the
-    ``wsum`` terms with ``__fmul_rn``/``__fadd_rn`` in ``conv2d``'s order
-    (so the laplacian's cancellation rounds as the plain version does),
-    or the median network.
+    strip.  Here the function is a ``StencilOp``, evaluated per pixel --
+    the ``wsum`` terms with ``__fmul_rn``/``__fadd_rn`` in ``conv2d``'s
+    order (so the laplacian's cancellation rounds as the plain version
+    does), or the median network -- by one of two forms
+    (``choose_stencil_form``): at radius 1 each thread makes eight
+    outputs of a row from a 3-row register window slid down its column,
+    reading 16 bytes at a time from global memory; any other radius loads
+    its tile and halo into shared memory with clamped or zero-filled
+    reads.
 
     Bound on the card: device memory (one read and one write per pixel;
-    the 3x3 ops do 5-19 operations per pixel).  Its times are in
-    PERF.md."""
+    sharpen needs 9 f32 instructions a pixel, median9 38).  Its times are
+    in PERF.md."""
     _check_image(x, (torch.float32,), "stencil_apply")
     _check_mode(mode)
     _check_stencil(rh, rw, op)
@@ -917,13 +963,22 @@ def stencil_apply(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
         return stencil_apply_plain(x, rh, rw, op, mode)
     lib = load_library()
     c, h, w = x.shape
+    out = torch.empty_like(x)
+    if choose_stencil_form(rh, rw, op) == "r1":
+        w9, mask = _r1_taps(op.terms)
+        rc = lib.rf_stencil_r1(
+            x.data_ptr(), out.data_ptr(), c, h, w, int(mode == "zero"), _STENCIL_KINDS[op.kind],
+            w9.ctypes.data, mask, int(_vec(x, out)), _stream(x),
+        )
+        _check_launch(lib, rc, "stencil_apply")
+        LAUNCHES["stencil_apply"] += 1
+        return out
     terms_w, terms_idx = _device_terms(op.terms, x.device)
     th, tw, smem = choose_stencil_tile(rh, rw, len(op.terms))
-    out = torch.empty_like(x)
     rc = lib.rf_stencil_apply(
         x.data_ptr(), out.data_ptr(), c, h, w, rh, rw, int(mode == "zero"), th, tw,
         _STENCIL_KINDS[op.kind], terms_w.data_ptr(), terms_idx.data_ptr(), len(op.terms),
-        smem, torch.cuda.current_stream(x.device).cuda_stream,
+        smem, _stream(x),
     )
     _check_launch(lib, rc, "stencil_apply")
     LAUNCHES["stencil_apply"] += 1
@@ -1452,6 +1507,69 @@ def choose_reduce_tile(rh: int, rw: int, n_taps: int) -> Optional[tuple[int, int
 
 # The tile of the global-memory path (no shared memory).
 REDUCE_GLOBAL_TILE = (16, 32)
+# Radii with a compiled run form (csrc/stencil_reduce.cu
+# rf_stencil_reduce_run), its outputs a thread (kReduceRun) and its tile:
+# 32 rows (a warp's lanes) by a run for each of the 8 warps.  A block may
+# take REDUCE_RUN_SMEM (kReduceRunSmem): two blocks an SM (ptxas gives
+# the forms 80-128 registers, so no more fit), each beside the 1 KB the
+# SM keeps for a block.
+REDUCE_RUN_RADII = tuple(range(1, 9))
+REDUCE_RUN = 8
+REDUCE_RUN_TILE = (32, 8 * REDUCE_RUN)
+REDUCE_RUN_SMEM = 110 * 1024
+
+
+def reduce_run_footprint(r: int) -> int:
+    """Shared-memory bytes of the run form at radius ``r``
+    (csrc/stencil_reduce.cu RunWindow): a window of four channels of
+    (TH + 2r) rows at the odd pitch of the tile's TW + 2r columns from the
+    multiple of 4 at or before x0 - r -- two of them where both fit
+    REDUCE_RUN_SMEM beside the tables (the next tile's loads while this
+    one's is read), else one -- then the (2r+1)^2 weights and 2r+1 row
+    masks."""
+    th, tw = REDUCE_RUN_TILE
+    lo = (4 - r % 4) % 4
+    pitch = 4 * ((lo + tw + 2 * r + 3) // 4) | 1
+    d = 2 * r + 1
+    window, tables = 4 * 4 * (th + 2 * r) * pitch, 4 * (d * d + d)
+    buffers = 2 if 2 * window + tables <= REDUCE_RUN_SMEM else 1
+    return buffers * window + tables
+
+
+def choose_reduce_form(rh: int, rw: int, taps) -> tuple[str, int, int, int]:
+    """(form, TH, TW, shared-memory bytes) of the stencil_reduce kernel, by
+    shape: ``"run"`` for a compiled radius (rh == rw in REDUCE_RUN_RADII)
+    whose tap list is row-major and whose window fits REDUCE_RUN_SMEM;
+    ``"shared"`` where ``choose_reduce_tile`` finds a tile; else
+    ``"global"`` (every tap through global memory)."""
+    if rh == rw and rh in REDUCE_RUN_RADII and _ascending(taps, 2 * rw + 1):
+        smem = reduce_run_footprint(rh)
+        if smem <= REDUCE_RUN_SMEM:
+            return ("run", *REDUCE_RUN_TILE, smem)
+    tile = choose_reduce_tile(rh, rw, len(taps))
+    if tile is not None:
+        return ("shared", *tile)
+    return ("global", *REDUCE_GLOBAL_TILE, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_reduce_run_taps(taps: tuple, r: int, device: torch.device):
+    """(the spatial weights f32 at dy (2r+1) + dx, 0 where the list lacks
+    the tap; each row's tap mask int32) on ``device``, and whether the
+    list has every tap of the window, for the run form."""
+    d = 2 * r + 1
+    w = np.zeros(d * d, np.float32)
+    rows = np.zeros(d, np.int32)
+    for dy, dx, ws in taps:
+        w[dy * d + dx] = ws
+        rows[dy] |= 1 << dx
+    dense = bool(np.all(rows == (1 << d) - 1))
+    return torch.from_numpy(w).to(device), torch.from_numpy(rows).to(device), dense
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -1467,16 +1585,21 @@ def stencil_reduce_mc(x: torch.Tensor, rh: int, rw: int, op: ReduceOp,
     took the per-tap contribution and the final map as traced closures
     over a double-buffered VMEM strip, and gave up above W radius 128.
     Here the function is a ``ReduceOp``: a block loads its tile and (rh,
-    rw) halo of all four channels into shared memory, and each thread
+    rw) halo of all four channels into shared memory, and each output
     runs the tap list in order with one f32 accumulator per channel,
-    rounding every product and sum as the plain version does.  Every
-    radius runs on the card: one whose tile fits no shared memory reads
-    its taps through the clamped global coordinate in the same kernel.
+    rounding every product and sum as the plain version does.  At radii
+    1-8 with a row-major list (bilateral's) the run form has each thread
+    make eight outputs of a row from a register window slid across each
+    window row; other lists take the general form, a pixel at a time,
+    and a radius whose tile fits no shared memory reads its taps through
+    the clamped global coordinate (``choose_reduce_form``).  The run
+    form's blocks are persistent, two an SM, and copy the next tile's
+    window by cp.async while they compute this one's.
 
-    Bound on the card: the SFU's exponentials (one per tap and pixel) are
-    the largest term of its bound at bilateral's radii, 0.161 ms at 4K
-    radius 4, but the kernel is instruction-issue bound: about 32 SASS
-    instructions per tap and pixel, 0.837 ms (H100 80GB HBM3, 700 W)."""
+    Bound on the card: issue slots, 19 instructions a tap and pixel with
+    expf's 8 (about 13 with each pair of taps' range weight counted
+    once); the run form's loop issues 20 (cuobjdump), the shared form's
+    about 32.  Times: PERF.md."""
     _check_image(x, (torch.float32,), "stencil_reduce_mc")
     _check_mode(mode)
     _check_reduce(x, rh, rw, op)
@@ -1484,10 +1607,19 @@ def stencil_reduce_mc(x: torch.Tensor, rh: int, rw: int, op: ReduceOp,
         return stencil_reduce_mc_plain(x, rh, rw, op, mode)
     lib = load_library()
     _c, h, w = x.shape
-    weights, pos = _device_reduce_taps(op.taps, x.device)
-    tile = choose_reduce_tile(rh, rw, len(op.taps))
-    th, tw, smem = tile if tile is not None else (*REDUCE_GLOBAL_TILE, 0)
+    form, th, tw, smem = choose_reduce_form(rh, rw, op.taps)
     out = torch.empty((3, h, w), dtype=torch.float32, device=x.device)
+    if form == "run":
+        weights, rows, dense = _device_reduce_run_taps(op.taps, rh, x.device)
+        rc = lib.rf_stencil_reduce_run(
+            x.data_ptr(), out.data_ptr(), h, w, rh, int(mode == "zero"), int(_vec(x, out)),
+            int(dense), weights.data_ptr(), rows.data_ptr(), float(op.inv2sr), smem,
+            _sm_count(x.device), _stream(x),
+        )
+        _check_launch(lib, rc, "stencil_reduce_mc")
+        LAUNCHES["stencil_reduce_mc"] += 1
+        return out
+    weights, pos = _device_reduce_taps(op.taps, x.device)
     rc = lib.rf_stencil_reduce(
         x.data_ptr(), out.data_ptr(), h, w, rh, rw, int(mode == "zero"), th, tw,
         _REDUCE_KINDS[op.kind], weights.data_ptr(), pos.data_ptr(), len(op.taps),

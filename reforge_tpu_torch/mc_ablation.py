@@ -1,9 +1,11 @@
 """Split a conv kernel's time at 3840x2160 by cutting parts out, and A/B
 the kernels against another checkout.
 
-    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep|conv1d] [--tiles 16x64,32x32]
+    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep|conv1d|reduce|stencil]
+                                             [--tiles 16x64,32x32]
                                              [--package DIR/reforge_tpu_torch] [--variants a,b]
     python3 -m reforge_tpu_torch.mc_ablation --parent DIR/reforge_tpu_torch
+    python3 -m reforge_tpu_torch.mc_ablation --sass stencil_reduce_run
 
 Each variant is a copy of a package (this one, or ``--package``'s) under
 ``build/mc_ablation/`` whose kernel source carries one set of source
@@ -34,9 +36,29 @@ anything.  A variant whose anchors a source lacks is skipped.
          load_only, h_only (no W pass, no store), no_w (the W pass cut
          to one tap);
   conv1d csrc/conv1d.cu (conv1d_h and conv1d_w, box radius 160 and 400,
-         gaussian radius 160, four channels): load_only (return once the window is in shared
-         memory), one_tap (the tap list cut to its first tap: the window's
-         load and the stores stay).
+         gaussian radius 160, four channels): load_only (return once the
+         window is in shared memory), one_tap (the tap list cut to its
+         first tap: the window's load and the stores stay);
+  reduce csrc/stencil_reduce.cu (stencil_reduce_mc, bilateral radius 4
+         (81 taps), 3 (49) and 60 (the global-memory form), luma the
+         fourth plane): load_only (return once the window is in shared
+         memory), one_tap (the tap list cut to its first tap), no_exp
+         (the exponential replaced by its argument), and design choices
+         of the run form: run_4 (four outputs a thread, a 32x32 tile),
+         no_load (the window's copies skipped: what they cost the full
+         kernel) and dy_unroll (the row loop unrolled three times);
+  stencil csrc/stencil.cu (stencil_apply: sharpen and median9 on four
+         channels, sobel_x on the luma plane): load_only (the radius-1
+         form: the rows load, nothing is computed or stored; the general
+         form: return once the window is in shared memory), centre_only
+         (every output the centre value: loads and stores stay; the
+         radius-1 form's halo columns then go unread), and design choices
+         of the radius-1 form: channel_fastest (the channel the grid's
+         fastest dimension), channels_in_block (a block makes every
+         channel of its tile), rows_16 and rows_32 (rows a warp; 8 by
+         default), y_unrolled (the row loop left to the compiler),
+         bounds_4 and bounds_1 (a floor of four blocks an SM, or none, on
+         the registers; three by default).
 
 Each copy builds its own kernels and, in a process of its own, times its
 rows with CUDA events (20 launches after 3).  ``full`` runs first and
@@ -46,12 +68,15 @@ anchor in the source of this commit and, where that differs, in the
 source of the commit before the conv stage's redesign, so that the same
 cuts run on both (``--package`` an unpacked parent).
 
+``--sass NAME`` prints the SASS of this package's kernels whose names
+contain NAME, counted by opcode (cuobjdump of the built library).
+
 ``--parent`` is an A/B run instead: the package of another checkout (an
 unpacked parent commit, say) against this one, parent, this, this,
 parent, each a copy with this file in it, over every row above plus
-stencil_apply, stencil_apply_mc and stencil_reduce_mc.  It prints the
-max abs difference between the two sides' outputs of the graph_strip,
-sep_conv, graph_strip_mc and conv1d rows.  Needs a CUDA card and nvcc.
+stencil_apply_mc.  It prints the max abs difference between the two
+sides' outputs of every row but stencil_apply_mc's.  Needs a CUDA card
+and nvcc.
 """
 
 import argparse
@@ -79,6 +104,26 @@ _C1_TAPS = "  cp_async_wait_all();\n  __syncthreads();\n"
 _C1_PRE = "  if constexpr (kPre) {\n"
 _C1_LOADED = "    w = w_s;\n    off = off_s;\n    __syncthreads();\n  }\n"
 _C1_FIRST = "  extern __shared__ float smem[];\n"
+# stencil_reduce.cu: the end of the window's load, the kernel's first
+# line and the exponential; stencil.cu: the end of the window's load.
+_RD_LOADED = ("    for (int c = 0; c < 4; ++c) load_window(x + c * plane, t, zero != 0, "
+              "win + c * cs);\n    __syncthreads();\n  }\n")
+_RD_FIRST = "  extern __shared__ float smem[];\n"
+_RD_EXP = "expf(__fmul_rn(-__fmul_rn(d, d), inv2sr))"
+_ST_LOADED = "  load_window(x + c * plane, t, zero != 0, win);\n  __syncthreads();\n"
+# The redesigned sources' run form of stencil_reduce.cu (its call of a
+# tile's work, its row loop, its tap test, its window copies; the general
+# form's first line) and radius-1 form of stencil.cu (its outputs, their
+# evaluation, its grid).
+_RD_RUN_TILE = "    reduce_run_tile<R, kDense>(win, w_s, rows_s, out, H, W, ty * kReduceTH,\n"
+_RD_RUN_DY = "  for (int dy = 0; dy < D; ++dy) {\n"
+_RD_RUN_DX = "      if (kDense || (row >> dx & 1)) {\n"
+_RD_RUN_COPY = "      for (int ch = 0; ch < 4; ++ch) cp_async4("
+_RD_TILE = "  Tile t{H, W, RH, RW, TH, TW, (int)blockIdx.y * TH, (int)blockIdx.x * TW};\n"
+_ST_R1_OUT = "      float o[kRun3];\n"
+_ST_R1_EVAL = "o[j] = r1_eval<kKind>(r0, r1, r2, j, mask, taps);"
+_ST_R1_Y = "    for (int y = ys; y < ye; ++y) {\n"
+_ST_R1_GRID = "  dim3 grid((W + rf::kR1TW - 1) / rf::kR1TW, (H + rf::kR1TH - 1) / rf::kR1TH, C);"
 # Anchors in the sources before the redesign (PR 5's graph_strip.cu and
 # sep_conv.cu).
 _OLD_STRIP_LOOP = "  for (int k = 0; k < n_plans; ++k) {\n    const int rw = meta[4 * k + 1];\n"
@@ -172,11 +217,60 @@ KERNELS = {
                       [(_C1_LOADED, _C1_LOADED + "  if (n >= 0) return;\n")]],
         "one_tap": [[(_C1_FIRST, _C1_FIRST + "  n = min(n, 1);\n")]],
     }),
+    "reduce": (("csrc/stencil_reduce.cu",), {
+        "full": [[]],
+        "load_only": [[(_RD_RUN_TILE, "    if (n_tiles < 0)\n" + _RD_RUN_TILE),
+                       (_RD_LOADED, _RD_LOADED + "  if (n > 0) return;\n")],
+                      [(_RD_LOADED, _RD_LOADED + "  if (n > 0) return;\n")]],
+        "one_tap": [[(_RD_RUN_DY, _RD_RUN_DY.replace("dy < D", "dy < 1")),
+                     (_RD_RUN_DX, "      if (dx == 0) {\n"),
+                     (_RD_TILE, "  n = min(n, 1);\n" + _RD_TILE)],
+                    [(_RD_FIRST, _RD_FIRST + "  n = min(n, 1);\n")]],
+        "no_exp": [[(_RD_EXP, "__fmul_rn(-__fmul_rn(d, d), inv2sr)")]],
+        # Design choices of the run form: four outputs a thread (tile 32x32);
+        # the window's copies skipped (what they cost the full kernel); the
+        # row loop unrolled three times.
+        "run_4": [[("constexpr int kReduceRun = 8;", "constexpr int kReduceRun = 4;"),
+                   ("REDUCE_RUN = 8\n", "REDUCE_RUN = 4\n", "kernels/cuda_ops.py")]],
+        "no_load": [[(_RD_RUN_COPY, _RD_RUN_COPY.replace("ch < 4", "ch < 0"))]],
+        "dy_unroll": [[("#pragma unroll 1\n" + _RD_RUN_DY, "#pragma unroll 3\n" + _RD_RUN_DY)]],
+    }),
+    "stencil": (("csrc/stencil.cu",), {
+        "full": [[]],
+        "load_only": [[(_ST_R1_OUT, "      float sum = 0.f;\n#pragma unroll\n"
+                        "      for (int k = 0; k < kRun3 + 2; ++k) sum += r2[k];\n"
+                        "      if (sum != -1.f) continue;\n" + _ST_R1_OUT)],
+                      [(_ST_LOADED, _ST_LOADED + "  if (n >= 0) return;\n")]],
+        "centre_only": [[(_ST_R1_EVAL, "o[j] = r1[j + 1];")],
+                        [("    if (kind == ST_WSUM) {",
+                          "    v = base[RH * cols + RW];\n    if (kind < 0) {"),
+                         ("    } else {\n      float m[9];",
+                          "    } else if (kind < 0) {\n      float m[9];")]],
+        # Design choices of the radius-1 form: the channel the grid's fastest
+        # dimension; all channels in one block; 16 or 32 rows a warp; the row
+        # loop left to the compiler; a floor of four blocks an SM, or none.
+        "channel_fastest": [[
+            (_ST_R1_GRID, "  dim3 grid(C, (W + rf::kR1TW - 1) / rf::kR1TW, "
+                          "(H + rf::kR1TH - 1) / rf::kR1TH);"),
+            ("(int)blockIdx.x * kR1TW + lane", "(int)blockIdx.y * kR1TW + lane"),
+            ("(int)blockIdx.y * kR1TH + warp", "(int)blockIdx.z * kR1TH + warp"),
+            ("for (int c = blockIdx.z; c < C; c += gridDim.z)",
+             "for (int c = blockIdx.x; c < C; c += gridDim.x)"),
+        ]],
+        "channels_in_block": [[(_ST_R1_GRID, _ST_R1_GRID.replace(", C);", ", 1);"))]],
+        "rows_16": [[("constexpr int kR1Rows = 8;", "constexpr int kR1Rows = 16;")]],
+        "rows_32": [[("constexpr int kR1Rows = 8;", "constexpr int kR1Rows = 32;")]],
+        "y_unrolled": [[("#pragma unroll 1\n" + _ST_R1_Y, _ST_R1_Y)]],
+        "bounds_4": [[("__launch_bounds__(kThreads, 3)\nstencil_r1_kernel",
+                       "__launch_bounds__(kThreads, 4)\nstencil_r1_kernel")]],
+        "bounds_1": [[("__launch_bounds__(kThreads, 3)\nstencil_r1_kernel",
+                       "__launch_bounds__(kThreads)\nstencil_r1_kernel")]],
+    }),
 }
 MC_GRAPHS = (("demo", "DEMO_CONFIG", "rgba32f"), ("demo", "DEMO_CONFIG", "rgba16f"),
              ("chain3", "CHAIN3_CONFIG", "rgba32f"), ("edges", "EDGES_CONFIG", "rgba32f"))
 # Rows whose outputs the A/B compares between its two sides.
-COMPARED = ("graph_strip", "sep_conv", "conv1d")
+COMPARED = ("graph_strip", "sep_conv", "conv1d", "stencil_apply ", "stencil_reduce_mc")
 
 
 def _apply(package: pathlib.Path, source: pathlib.Path, alternatives: list) -> bool:
@@ -222,7 +316,7 @@ def _rows(which: str, tiles: dict):
 
     from . import benchmarks
     from .kernels import cuda_ops, library
-    from .kernels.ops import box_weights, gaussian_weights
+    from .kernels.ops import box_weights, gaussian_weights, luma
 
     x = torch.from_numpy(np.random.default_rng(0).random((4, 2160, 3840), dtype=np.float32)).cuda()
     xb = x.to(torch.bfloat16)
@@ -261,18 +355,23 @@ def _rows(which: str, tiles: dict):
                 [int(geometry(*mc.tile()[:2])[7])] if geometry else [])
             rows.append((f"graph_strip_mc {name} {fmt}",
                          lambda m=mc, v=xin: cuda_ops.graph_strip_mc(v, 0.5, m)))
+    if which in ("stencil", "ab"):
+        y = luma(x)[None].contiguous()
+        stencils = (("sharpen", x, cuda_ops.wsum(library.SHARPEN_TAPS)),
+                    ("median9", x, cuda_ops.MEDIAN9),
+                    ("sobel_x 1ch", y, cuda_ops.wsum(library.SOBEL_X_TAPS)))
+        rows += [(f"stencil_apply {label}", lambda v=v, op=op: cuda_ops.stencil_apply(v, 1, 1, op))
+                 for label, v, op in stencils]
+    if which in ("reduce", "ab"):
+        stack = torch.cat([x[:3], luma(x)[None]]).contiguous()
+        for r, sigma_space in ((4, 2.5), (3, 2.5), (60, 8.0)):
+            rr, op = library.bilateral_op(r, sigma_space, 0.12)
+            rows.append((f"stencil_reduce_mc bilateral r{r}",
+                         lambda rr=rr, op=op: cuda_ops.stencil_reduce_mc(stack, rr, rr, op)))
     if which == "ab":
-        sharpen = cuda_ops.wsum(library.SHARPEN_TAPS)
-        stack = torch.cat([x[:3], x[3:] * 0.5]).contiguous()
-        r4, op4 = library.bilateral_op(4, 2.5, 0.12)
         lin = cuda_ops.LinearStencilOp(
             np.random.default_rng(1).standard_normal((4, 4, 5, 5)).astype(np.float32))
-        rows += [
-            ("stencil_apply sharpen", lambda: cuda_ops.stencil_apply(x, 1, 1, sharpen)),
-            ("stencil_apply_mc 4->4 r2", lambda: cuda_ops.stencil_apply_mc(x, lin)),
-            ("stencil_reduce_mc bilateral r4",
-             lambda: cuda_ops.stencil_reduce_mc(stack, r4, r4, op4)),
-        ]
+        rows.append(("stencil_apply_mc 4->4 r2", lambda: cuda_ops.stencil_apply_mc(x, lin)))
     if which in ("conv1d", "ab"):
         vectors = {"r160": box_weights(160), "r400": box_weights(400),
                    "gaussian r160": gaussian_weights(160 / 3.0, 160)}
@@ -331,7 +430,8 @@ def _run(root: pathlib.Path, label: str, which: str, tile: str = "", save: str =
     shown = {k: v for k, v in result.items() if k != "ptxas"}
     shown["ptxas"] = {k: v for k, v in result["ptxas"].items()
                       if any(s in k for s in ("graph_strip_kernel", "sep_conv_multi_kernel",
-                                              "graph_strip_mc_kernel", "conv1d_kernel"))}
+                                              "graph_strip_mc_kernel", "conv1d_kernel",
+                                              "stencil_kernel", "stencil_r1", "stencil_reduce"))}
     print(json.dumps(shown))
     return result
 
@@ -348,6 +448,39 @@ def _ab(parent: pathlib.Path) -> None:
     print(json.dumps({"max_abs_diff_parent_vs_this": diffs}))
 
 
+def _sass(pattern: str) -> None:
+    """Build this package's kernels and print, for each kernel whose
+    mangled name contains ``pattern``, its SASS instructions (cuobjdump
+    -sass of the built library, NOPs not counted), its MUFU.EX2 count and
+    its opcodes by count."""
+    from collections import Counter
+
+    from .kernels import cuda_ops
+
+    lib = cuda_ops.build_library()
+    cuobjdump = str(pathlib.Path(cuda_ops._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    ops: dict[str, Counter] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            fn = fn if pattern in fn else None
+            if fn:
+                ops[fn] = Counter()
+        elif fn and line.strip().startswith("/*") and "*/" in line:
+            text = line.split("*/", 1)[1].strip().lstrip("{").strip()
+            if text and not text.startswith("/*"):
+                op = text.split()[1 if text.startswith("@") else 0].rstrip(";")
+                if op != "NOP":
+                    ops[fn][op] += 1
+    for name, counts in ops.items():
+        print(json.dumps({"kernel": name, "instructions": sum(counts.values()),
+                          "MUFU.EX2": counts.get("MUFU.EX2", 0),
+                          "opcodes": dict(counts.most_common())}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="mc", choices=sorted(KERNELS))
@@ -355,11 +488,16 @@ def main() -> int:
     ap.add_argument("--package", default="", help="ablate another checkout's package")
     ap.add_argument("--variants", default="", help="comma-separated variants to run (default: all)")
     ap.add_argument("--parent", default="", help="the package directory of another checkout: A/B")
+    ap.add_argument("--sass", default="", metavar="NAME",
+                    help="print the SASS opcode counts of the kernels whose name contains NAME")
     ap.add_argument("--time", nargs=4, metavar=("LABEL", "ROWS", "TILE", "SAVE"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
         _time(*args.time)
+        return 0
+    if args.sass:
+        _sass(args.sass)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()

@@ -343,3 +343,79 @@ def test_conv1d_sparse_taps(axis, shape, mode):
     got = entry(x, w, mode)
     want = cuda_ops.correlate1d(x, w, -2 if axis == "h" else -1, mode)
     assert float((got - want).abs().max()) == 0.0
+
+
+# The run form of stencil_reduce_mc: each compiled radius, full tap lists
+# (sigma_space 2.5) and sparse ones (rows with gaps or none: sigma_space
+# 0.6 at radius 4, 1.2 at radius 8); a ragged frame (border blocks only,
+# element loads) and one with 16-byte rows whose last tiles are ragged.
+REDUCE_RUN_CASES = [(r, 2.5) for r in range(1, 9)] + [(4, 0.6), (8, 1.2)]
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("shape", [(4, 37, 71), (4, 133, 260)])
+@pytest.mark.parametrize("r,sigma_space", REDUCE_RUN_CASES)
+def test_stencil_reduce_run_form(r, sigma_space, shape, mode, monkeypatch):
+    """The run form against the general (shared-memory) form, forced:
+    bit-equal (each output adds its taps in list order from -0), and
+    against the plain version within 1e-6, as test_stencil_reduce_mc."""
+    from reforge_tpu_torch.kernels import library
+
+    x = _image(shape, 18 + r)
+    rr, op = library.bilateral_op(r, sigma_space, 0.12)
+    assert cuda_ops.choose_reduce_form(rr, rr, op.taps)[0] == "run"
+    before = cuda_ops.LAUNCHES["stencil_reduce_mc"]
+    got = cuda_ops.stencil_reduce_mc(x, rr, rr, op, mode)
+    monkeypatch.setattr(cuda_ops, "REDUCE_RUN_RADII", ())
+    assert cuda_ops.choose_reduce_form(rr, rr, op.taps)[0] == "shared"
+    general = cuda_ops.stencil_reduce_mc(x, rr, rr, op, mode)
+    want = cuda_ops.stencil_reduce_mc_plain(x, rr, rr, op, mode)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["stencil_reduce_mc"] == before + 2
+    assert torch.equal(got, general)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+R1_TABLES = {
+    "sharpen": lambda lib: lib.SHARPEN_TAPS,
+    "emboss": lambda lib: lib.EMBOSS_TAPS,
+    "emboss x0.9": lambda lib: lib._emboss_mc_table({"amount": 0.9}),
+    "sobel_x": lambda lib: lib.SOBEL_X_TAPS,
+    "sobel_y": lambda lib: lib.SOBEL_Y_TAPS,
+    "laplacian": lambda lib: np.array([[1, 1, 1], [1, -8, 1], [1, 1, 1]], np.float32),
+    "no terms": lambda lib: np.zeros((3, 3), np.float32),
+}
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("shape", [(4, 37, 71), (1, 133, 260), (4, 300, 520)])
+@pytest.mark.parametrize("table", sorted(R1_TABLES) + ["median9"])
+def test_stencil_r1_form(table, shape, mode, monkeypatch):
+    """The radius-1 form of every shipped 3x3 table and the median against
+    the plain version and against the general form, forced: bit-equal.
+    37x71: ragged runs (element loads); 133x260 and 300x520: 16-byte
+    rows, interior runs and ragged tiles."""
+    from reforge_tpu_torch.kernels import library
+
+    op = cuda_ops.MEDIAN9 if table == "median9" else cuda_ops.wsum(R1_TABLES[table](library))
+    x = _image(shape, 19)
+    assert cuda_ops.choose_stencil_form(1, 1, op) == "r1"
+    before = cuda_ops.LAUNCHES["stencil_apply"]
+    got = cuda_ops.stencil_apply(x, 1, 1, op, mode)
+    monkeypatch.setattr(cuda_ops, "choose_stencil_form", lambda *a: "general")
+    general = cuda_ops.stencil_apply(x, 1, 1, op, mode)
+    want = cuda_ops.stencil_apply_plain(x, 1, 1, op, mode)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["stencil_apply"] == before + 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, general)
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("shape", [(4, 37, 71), (1, 133, 260)])
+def test_stencil_radius2_takes_the_general_form(shape, mode):
+    op = cuda_ops.wsum(np.arange(25, dtype=np.float32).reshape(5, 5) / 8.0 - 1.0)
+    assert cuda_ops.choose_stencil_form(2, 2, op) == "general"
+    x = _image(shape, 20)
+    got = cuda_ops.stencil_apply(x, 2, 2, op, mode)
+    assert torch.equal(got, cuda_ops.stencil_apply_plain(x, 2, 2, op, mode))

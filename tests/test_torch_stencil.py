@@ -195,3 +195,103 @@ def test_stencil_wrappers_check_and_count_nothing():
     for r in (1, 16):
         th, tw, nbytes = cuda_ops.choose_stencil_tile(r, r, (2 * r + 1) ** 2)
         assert nbytes <= cuda_ops.SMEM_SOFT
+
+
+# ---- the stencil kernel's forms ------------------------------------------------------
+
+STENCIL_FORMS = {
+    "sharpen": (1, library.SHARPEN_TAPS, "r1"),
+    "emboss": (1, library.EMBOSS_TAPS, "r1"),
+    "sobel_x": (1, library.SOBEL_X_TAPS, "r1"),
+    "sobel_y": (1, library.SOBEL_Y_TAPS, "r1"),
+    "no terms": (1, np.zeros((3, 3), np.float32), "r1"),
+    "median9": (1, None, "r1"),
+    "5x5": (2, TAPS_5X5, "general"),
+    "radius 16": (16, np.ones((33, 33), np.float32), "general"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STENCIL_FORMS))
+def test_stencil_form_chooser(name):
+    """The radius-1 form for every shipped 3x3 table and the median; the
+    general form for radii 2-16."""
+    r, table, form = STENCIL_FORMS[name]
+    op = cuda_ops.MEDIAN9 if table is None else cuda_ops.wsum(table)
+    assert cuda_ops.choose_stencil_form(r, r, op) == form
+
+
+@pytest.mark.parametrize("case", ["descending terms", "a term twice", "3x1 table"])
+def test_stencil_form_chooser_keeps_odd_tables_general(case):
+    """A 3x3 op whose terms are not in ascending (dy, dx) order (only a
+    hand-built StencilOp has them) would sum in another order in the
+    radius-1 form; a table of another shape is not radius 1."""
+    terms = cuda_ops.wsum(library.SHARPEN_TAPS).terms
+    if case == "descending terms":
+        op, rh, rw = cuda_ops.StencilOp("wsum", (3, 3), tuple(reversed(terms))), 1, 1
+    elif case == "a term twice":
+        op, rh, rw = cuda_ops.StencilOp("wsum", (3, 3), terms + terms[-1:]), 1, 1
+    else:
+        op, rh, rw = cuda_ops.wsum(np.ones((3, 1), np.float32)), 1, 0
+    assert cuda_ops.choose_stencil_form(rh, rw, op) == "general"
+
+
+def test_r1_taps_of_sharpen():
+    w, mask = cuda_ops._r1_taps(cuda_ops.wsum(library.SHARPEN_TAPS).terms)
+    np.testing.assert_array_equal(w, library.SHARPEN_TAPS.reshape(9))
+    assert mask == 0b010111010
+
+
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _FakeLibrary:
+    def __init__(self, rc):
+        self.rc = rc
+        self.calls = []
+
+    def rf_stencil_r1(self, *args):
+        self.calls.append(("r1", args))
+        return self.rc
+
+    def rf_stencil_apply(self, *args):
+        self.calls.append(("general", args))
+        return self.rc
+
+    def rf_error_string(self, rc):
+        return b"refused"
+
+
+@pytest.mark.parametrize("rc", [0, 1])
+@pytest.mark.parametrize("name", ["sharpen", "median9", "5x5"])
+def test_stencil_apply_launches_its_form_on_a_gpu(name, rc, monkeypatch):
+    """On a GPU tensor the wrapper launches the form its chooser names
+    (counted) or raises; it never runs its plain version."""
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a GPU tensor")
+
+    lib = _FakeLibrary(rc)
+    monkeypatch.setattr(cuda_ops, "stencil_apply_plain", no_plain)
+    monkeypatch.setattr(cuda_ops, "load_library", lambda: lib)
+    monkeypatch.setattr(cuda_ops, "_stream", lambda x: 0)
+    monkeypatch.setattr(cuda_ops, "_device_terms", lambda terms, device: (torch.zeros(1),) * 2)
+    r, table, form = STENCIL_FORMS[name]
+    op = cuda_ops.MEDIAN9 if table is None else cuda_ops.wsum(table)
+    x = torch.from_numpy(_image(10, (4, 8, 16))).as_subclass(_ReportsCuda)
+    cuda_ops.reset_launches()
+    if rc:
+        with pytest.raises(RuntimeError, match="stencil_apply launch failed"):
+            cuda_ops.stencil_apply(x, r, r, op)
+    else:
+        assert tuple(cuda_ops.stencil_apply(x, r, r, op).shape) == (4, 8, 16)
+    assert cuda_ops.LAUNCHES["stencil_apply"] == 1 - rc
+    assert [f for f, _ in lib.calls] == [form]
+    if name == "sharpen":
+        args = lib.calls[0][1]
+        assert args[2:7] == (4, 8, 16, 0, 0)  # C, H, W, edge, wsum
+        assert args[8] == 0b010111010 and args[9] == 1  # the mask; 16-byte rows

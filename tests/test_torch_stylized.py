@@ -196,9 +196,14 @@ class _FakeLibrary:
     def __init__(self, rc):
         self.rc = rc
         self.calls = []
+        self.run_calls = []
 
     def rf_stencil_reduce(self, *args):
         self.calls.append(args)
+        return self.rc
+
+    def rf_stencil_reduce_run(self, *args):
+        self.run_calls.append(args)
         return self.rc
 
     def rf_error_string(self, rc):
@@ -232,6 +237,110 @@ def test_stencil_reduce_never_takes_the_plain_version_on_a_gpu(rc, monkeypatch):
         smem = lib.calls[0][-2]
         assert smem == 0  # the global-memory path
     assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("rc", [0, 1])
+def test_stencil_reduce_run_form_launches_on_a_gpu(rc, monkeypatch):
+    """Newsprint's radius 4 takes the run form on a GPU tensor: its own
+    entry, with the radius, the weight table, the row masks and the
+    footprint; counted, or raising where the launch fails."""
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a GPU tensor")
+
+    lib = _FakeLibrary(rc)
+    monkeypatch.setattr(cuda_ops, "stencil_reduce_mc_plain", no_plain)
+    monkeypatch.setattr(cuda_ops, "load_library", lambda: lib)
+    monkeypatch.setattr(cuda_ops, "_stream", lambda x: 0)
+    monkeypatch.setattr(cuda_ops, "_sm_count", lambda device: 132)
+    _r, op = library.bilateral_op(4, 2.5, 0.12)
+    x = torch.from_numpy(_image(8, 16)).as_subclass(_ReportsCuda)
+    cuda_ops.reset_launches()
+    if rc:
+        with pytest.raises(RuntimeError, match="stencil_reduce_mc launch failed"):
+            cuda_ops.stencil_reduce_mc(x, 4, 4, op)
+    else:
+        assert tuple(cuda_ops.stencil_reduce_mc(x, 4, 4, op).shape) == (3, 8, 16)
+    assert cuda_ops.LAUNCHES["stencil_reduce_mc"] == 1 - rc
+    assert lib.calls == [] and len(lib.run_calls) == 1
+    args = lib.run_calls[0]
+    assert args[4] == 4 and args[7] == 1  # radius 4, every tap (the dense form)
+    assert args[-3:-1] == (cuda_ops.reduce_run_footprint(4), 132)
+    weights, rows, dense = cuda_ops._device_reduce_run_taps(op.taps, 4, x.device)
+    assert dense and rows.tolist() == [(1 << 9) - 1] * 9
+    np.testing.assert_array_equal(weights.numpy(), np.float32([t[2] for t in op.taps]))
+
+
+# ---- the tap list of bilateral, and the form chooser --------------------------------
+
+SIGMA_SPACES = (0.3, 0.6, 1.2, 2.5, 8.0)
+
+
+@pytest.mark.parametrize("sigma_space", SIGMA_SPACES)
+@pytest.mark.parametrize("r", range(1, 9))
+def test_bilateral_tap_list_is_row_major(r, sigma_space):
+    """The run form sums each output's taps in (dy, dx) order: bilateral_op's
+    list must be in that order, each tap once."""
+    rr, op = library.bilateral_op(r, sigma_space, 0.12)
+    keys = [dy * (2 * rr + 1) + dx for dy, dx, _ in op.taps]
+    assert keys == sorted(set(keys))
+    assert cuda_ops.choose_reduce_form(rr, rr, op.taps)[0] == "run"
+
+
+@pytest.mark.parametrize("sigma_space", SIGMA_SPACES)
+@pytest.mark.parametrize("r", range(1, 9))
+def test_bilateral_spatial_weights_are_symmetric(r, sigma_space):
+    """ws(o) == ws(-o) in f32, bit for bit, and a tap is in the list exactly
+    when its mirror is: the range weight of tap o at pixel p then equals
+    that of tap -o at pixel p + o, which the bound's pair count uses.
+    Small sigma_space drops the corners (and whole rows)."""
+    rr, op = library.bilateral_op(r, sigma_space, 0.12)
+    ws = {(dy, dx): np.float32(w) for dy, dx, w in op.taps}
+    for (dy, dx), w in ws.items():
+        mirror = ws.get((2 * rr - dy, 2 * rr - dx))
+        assert mirror is not None and mirror.view(np.uint32) == w.view(np.uint32)
+    if sigma_space <= 0.6 and r >= 2:
+        assert (0, 0) not in ws  # the corners are dropped
+
+
+def _reduce_form_case(case, monkeypatch):
+    """(rh, rw, taps) of a chooser case."""
+    _r, op4 = library.bilateral_op(4, 2.5, 0.12)
+    if case == "r4 sparse":
+        return (4, 4, library.bilateral_op(4, 0.6, 0.12)[1].taps)
+    if case in ("r1", "r8", "r9", "r60"):
+        r = int(case[1:])
+        return (r, r, library.bilateral_op(r, 8.0 if r == 60 else 2.5, 0.12)[1].taps)
+    if case == "r4 reversed":
+        return (4, 4, tuple(reversed(op4.taps)))
+    if case == "r4 a tap twice":
+        return (4, 4, op4.taps + op4.taps[-1:])
+    if case == "rh != rw":
+        return (4, 5, op4.taps)
+    if case == "r4 over the budget":
+        monkeypatch.setattr(cuda_ops, "REDUCE_RUN_SMEM", 16 * 1024)
+    return (4, 4, op4.taps)
+
+
+@pytest.mark.parametrize("case,form", [
+    ("r4", "run"), ("r1", "run"), ("r8", "run"), ("r4 sparse", "run"),
+    ("r9", "shared"), ("r4 reversed", "shared"), ("r4 a tap twice", "shared"),
+    ("rh != rw", "shared"), ("r4 over the budget", "shared"), ("r60", "global"),
+])
+def test_reduce_form_chooser(case, form, monkeypatch):
+    """The run form only for a compiled radius, a row-major list and a
+    window that fits the shared-memory budget; otherwise the general form
+    (shared, or global past every tile)."""
+    rh, rw, taps = _reduce_form_case(case, monkeypatch)
+    got, th, tw, smem = cuda_ops.choose_reduce_form(rh, rw, taps)
+    assert got == form
+    if form == "run":
+        assert (th, tw) == cuda_ops.REDUCE_RUN_TILE and smem == cuda_ops.reduce_run_footprint(rh)
+        assert smem <= cuda_ops.REDUCE_RUN_SMEM
+    elif form == "shared":
+        assert (th, tw, smem) == cuda_ops.choose_reduce_tile(rh, rw, len(taps))
+    else:
+        assert smem == 0 and cuda_ops.choose_reduce_tile(rh, rw, len(taps)) is None
 
 
 # ---- samplers and noise -------------------------------------------------------
