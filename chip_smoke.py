@@ -316,11 +316,13 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
 # storage type and affine form, conv1d per axis and form (shared memory
 # with and without premultiplied box taps, or global), stencil_apply's
-# radius-1 form per kind (wsum, median9) and stencil_reduce_mc's run form
-# per radius (1..8) and tap list (full, or with a mask).
+# radius-1 form per kind (wsum, median9), stencil_reduce_mc's run form
+# per radius (1..8) and tap list (full, or with a mask), and
+# stencil_apply_mc's run forms per storage type, W radius (1..3), output
+# channels (1..4) and table (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
                   "graph_strip_mc_kernel": 4, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
-                  "stencil_reduce_run_kernel": 16}
+                  "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
 
 
 def _check_no_stack(log: str) -> None:
@@ -609,22 +611,43 @@ def main() -> int:
                     errs[kname] = err
             del got, want
 
-    # stencil_apply_mc: a dense cross-channel table at 4K (C_in 4 -> C_out
-    # 4, radius 2: 400 terms), C_out 3 at radii (2, 3) and C_out 4 at
-    # radius 1, f32 and bf16, edge and zero, on the 4K and the ragged
-    # frame; radius 24 on the ragged frame, where no shared-memory tile
-    # holds the window and the terms (every term reads global memory).
+    # stencil_apply_mc: every form (cuda_ops.choose_stencil_mc_form) at 4K,
+    # on the ragged frame and on the 333x520 frame, f32 and bf16, edge and
+    # zero.  The run form: a dense table (C_in 4 -> C_out 4, radius 2: 400
+    # terms), C_out 3 at radii (2, 3), C_out 4 at radius 1; the masked run
+    # form: the r2 table with half its terms zero, and C_out 3 at radius 3
+    # with a third of its terms and one output channel empty; the general
+    # form: six input channels; the global form: radius 24 on the ragged
+    # frame, where no shared-memory tile holds the window and the terms.
     # Both sides add each output's products in the table's order, each
     # rounded alone: expected bit-equal (0).
-    lin_ops = {name: cuda_ops.LinearStencilOp(rng.standard_normal(shape).astype(np.float32))
-               for name, shape in (("4->4 r2", (4, 4, 5, 5)), ("4->3 r2,3", (3, 4, 5, 7)),
-                                   ("4->4 r1", (4, 4, 3, 3)), ("4->3 r24", (3, 4, 49, 49)))}
-    if cuda_ops.choose_stencil_mc_tile(4, 24, 24, lin_ops["4->3 r24"].n_terms, 3) is not None:
-        raise AssertionError("radius 24 should fit no shared-memory tile")
+    # The dense tables draw from rng as before; the sparse and six-channel
+    # ones from a generator of their own (the draws after them stay).
+    dense = {name: rng.standard_normal(shape).astype(np.float32)
+             for name, shape in (("4->4 r2", (4, 4, 5, 5)), ("4->3 r2,3", (3, 4, 5, 7)),
+                                 ("4->4 r1", (4, 4, 3, 3)), ("4->3 r24", (3, 4, 49, 49)))}
+    lrng = np.random.default_rng(SEED + 3)
+
+    def lin_table(shape, density=1.0, empty=()):
+        w = lrng.standard_normal(shape).astype(np.float32)
+        w[lrng.random(shape) >= density] = 0.0
+        w[list(empty)] = 0.0
+        return w
+
+    lin_ops = {name: cuda_ops.LinearStencilOp(w) for name, w in (
+        ("4->4 r2", dense["4->4 r2"]), ("4->3 r2,3", dense["4->3 r2,3"]),
+        ("4->4 r1", dense["4->4 r1"]), ("4->4 r2 half", lin_table((4, 4, 5, 5), 0.5)),
+        ("4->3 r3 third, one empty", lin_table((3, 4, 7, 7), 1 / 3, empty=(1,))),
+        ("6->3 r2", lin_table((3, 6, 5, 5))), ("4->3 r24", dense["4->3 r24"]))}
+    lin_forms = {name: cuda_ops.choose_stencil_mc_form(op)[0] for name, op in lin_ops.items()}
+    if list(lin_forms.values()) != ["run", "run", "run", "run_masked", "run_masked", "shared",
+                                    "global"]:
+        raise AssertionError(f"stencil_apply_mc forms {lin_forms}")
     for tname, op in lin_ops.items():
-        tile = cuda_ops.choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms, op.c_out)
-        where = f"tile {tile[:2]}" if tile else "global path"
-        for x in ((ragged,) if tname.endswith("r24") else (x4k, ragged)):
+        form = lin_forms[tname]
+        for x in ((ragged,) if form == "global" else (x4k, ragged, mid_conv)):
+            if op.c_in == 6:
+                x = torch.cat([x, x[:2]]).contiguous()
             for dt in (torch.float32, torch.bfloat16):
                 for mode in ("edge", "zero"):
                     xin = x.to(dt)
@@ -633,7 +656,7 @@ def main() -> int:
                     torch.cuda.synchronize()
                     err = _max_err(got, want)
                     _check(f"stencil_apply_mc {tname} ({op.n_terms} terms) "
-                           f"{'x'.join(map(str, x.shape))} {dt} {mode} {where}", err, 0.0)
+                           f"{'x'.join(map(str, x.shape))} {dt} {mode} ({form} form)", err, 0.0)
                     if x is x4k and tname == "4->4 r2" and dt == torch.float32 and mode == "edge":
                         errs["stencil_apply_mc"] = err
     del got, want
@@ -1232,18 +1255,27 @@ def main() -> int:
     timed["stencil_reduce_mc"] = (lambda: cuda_ops.stencil_reduce_mc(stack4k, r4, r4, op4),
                                   lambda: cuda_ops.stencil_reduce_mc_plain(stack4k, r4, r4, op4),
                                   None, (reduce_bound_ms, reduce_bound_by))
-    # stencil_apply_mc: 4 -> 4 channels at radius 2 (400 terms).  Bound:
-    # four planes read and four written, or a rounded multiply and a
-    # rounded add per term and pixel, in issue slots.  Library: one
-    # replicate (or zero) pad and one dense F.conv2d with the (4, 4, 5, 5)
-    # table.
+    # stencil_apply_mc: 4 -> 4 channels at radius 2 (400 terms) in f32 (the
+    # kernel table's row) and bf16, and the table with half its terms zero.
+    # Bound: four planes read and four written, or a rounded multiply and
+    # a rounded add per term present and pixel, in issue slots.  Library:
+    # one replicate pad and one dense F.conv2d with the (4, 4, 5, 5) table
+    # in the input's type.
+    labels = {}
+    for suffix, xs, table in (("", x4k, "4->4 r2"), (" bf16", x4k_bf, "4->4 r2"),
+                              (" half the terms", x4k, "4->4 r2 half")):
+        op9 = lin_ops[table]
+        k9 = torch.from_numpy(op9.weights).to(dev, xs.dtype)
+        timed["stencil_apply_mc" + suffix] = (
+            lambda v=xs, op=op9: cuda_ops.stencil_apply_mc(v, op),
+            lambda v=xs, op=op9: cuda_ops.stencil_apply_mc_plain(v, op),
+            lambda v=xs, k=k9: F.conv2d(F.pad(v[None], (2, 2, 2, 2), mode="replicate"), k)[0],
+            _issue_bound(2 * 4 * n_px * xs.element_size() // 4,
+                         2 * op9.n_terms * HEIGHT * WIDTH, n_sms, max_sm_mhz))
+        labels["stencil_apply_mc" + suffix] = (
+            f" ({xs.dtype}, {table}, {op9.n_terms} terms, {lin_forms[table]} form)")
     op9 = lin_ops["4->4 r2"]
     k9 = torch.from_numpy(op9.weights).to(dev)
-    timed["stencil_apply_mc"] = (
-        lambda: cuda_ops.stencil_apply_mc(x4k, op9),
-        lambda: cuda_ops.stencil_apply_mc_plain(x4k, op9),
-        lambda: F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0],
-        _issue_bound(2 * 4 * n_px, 2 * op9.n_terms * HEIGHT * WIDTH, n_sms, max_sm_mhz))
     lib9 = F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0]
     print(f"library stencil (replicate pad + dense conv2d, TF32 off) vs plain, 4->4 r2: "
           f"{_max_err(lib9, cuda_ops.stencil_apply_mc_plain(x4k, op9)):.3g}")
@@ -1255,7 +1287,8 @@ def main() -> int:
         l_ms = _time_ms(lib_call, 20) if lib_call is not None else None
         ms[name] = (k_ms, p_ms, bound_ms, bound_by, l_ms)
         lib_txt = f"{l_ms:.3f}" if l_ms is not None else "no single call"
-        print(f"{name} 4K: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        print(f"{name}{labels.get(name, '')} 4K: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms "
               f"({bound_by}), library {lib_txt} [{smi}]")
     lib_err = max(_max_err(g, w) for g, w in zip(_library_sep_conv(x4k, [(w8, w8)])(),
                                                   cuda_ops.sep_conv_plain(x4k, [(w8, w8)])))

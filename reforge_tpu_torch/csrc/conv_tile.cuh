@@ -1,6 +1,7 @@
 // Shared conv-tile stages of the port's Hopper kernels.
 //
-// Two stages live here.  `Tile`, `load_window` and `copy_to_shared` are
+// Two stages live here, beside the cp.async helpers the kernels share.
+// `Tile`, `load_window` and `copy_to_shared` are
 // the scalar window load of the stencil kernels (stencil.cu,
 // stencil_mc.cu, stencil_reduce.cu) and of graph_strip_mc.cu: a block
 // loads its (TH x TW) output tile of one channel plane plus its (RH, RW)
@@ -131,6 +132,24 @@ __device__ __forceinline__ RunTile run_tile(int H, int W, int RH, int RW, int TH
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// A 4-byte cp.async; zero-fills instead where `fill_zero`.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool fill_zero) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(fill_zero ? 0 : 4)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Waits for this thread's cp.async copies (none: returns at once).

@@ -14,18 +14,37 @@
 // (__fmul_rn/__fadd_rn), the order of the plain PyTorch version, so the two
 // agree bit for bit.  Borders: clamped coordinates (edge) or zeros (zero).
 //
-// A block owns one (TH x TW) output tile.  Where the tile and its halo of
-// all C_in channels and the term table fit shared memory, they load once
-// (conv_tile.cuh load_window) and every term reads shared memory;
-// otherwise the block reads the terms and each tap through global memory
-// (the clamped global coordinate).  Device memory is
-// read once per input pixel and written once per output pixel; the term
-// loop (two operations a term and pixel) bounds the kernel at large
-// tables.
+// Forms, chosen by shape before the launch (cuda_ops.choose_stencil_mc_form):
 //
-// Grid: (ceil(W / TW), ceil(H / TH)).
+//   * The run forms (stencil_mc.cuh; f32 here, bf16 in
+//     stencil_mc_bf16.cu): 1-4 input and output channels at radii 1-3,
+//     a table with every term (run) or with some absent (run_masked).
+//     Persistent blocks copy the next tile's window while they compute
+//     this one's; each thread makes eight outputs of a row for every
+//     output channel from register windows, a weight loaded once for
+//     eight outputs and no offset loaded at all; each warp stores its
+//     outputs through a staging area of its own.
+//   * The general form (stencil_mc_kernel, below), any other table: a
+//     block owns one (TH x TW) output tile.  Where the tile and its halo
+//     of all C_in channels and the term table fit shared memory, they
+//     load once (conv_tile.cuh load_window) and every term reads shared
+//     memory through its window offset; otherwise (global) the block
+//     reads the terms and each tap through global memory (the clamped
+//     global coordinate).  Each thread walks its pixels one at a time and
+//     each output channel's terms as one chain.
+//
+// Bound on the card: device memory at small tables, the term loop (two
+// f32 instructions a term and pixel, in issue slots) at large ones.  The
+// general form spends the issue time of about 11 a term and pixel (a
+// chain of two shared loads ahead of each product, one chain a thread);
+// the run forms' loop issues 2.19 (350 SASS instructions a (c, dy) for
+// 320 FMUL and FADD at radius 2, four outputs, cuobjdump).  Times:
+// PERF.md.
+//
+// Grid: (ceil(W / TW), ceil(H / TH)) for the general form; the run forms'
+// persistent blocks.
 
-#include "conv_tile.cuh"
+#include "stencil_mc.cuh"
 
 namespace rf {
 
@@ -100,18 +119,45 @@ static int launch(const void* x, void* out, int C_in, int C_out, int H, int W, i
   return (int)cudaGetLastError();
 }
 
+int launch_mc_run_f32(const void* x, void* out, int C_in, int CO, int H, int W, int RH, int RW,
+                      int zero, int vec, int masked, const float* w, const int* mask,
+                      int nonempty, int smem, cudaStream_t s) {
+  return launch_mc_run<float>(x, out, C_in, CO, H, W, RH, RW, zero, vec, masked, w, mask,
+                              nonempty, smem, s);
+}
+
 }  // namespace rf
 
 // (C_in, H, W) in, (C_out, H, W) out, both f32 or both bf16 (bf16 != 0).
-// w: n weights; pos: (c, dy, dx) per term; start: C_out + 1 term offsets.
-// in_shared: the window of every input channel and the terms lie in
-// shared memory (the caller sized smem for them), else both read global
-// memory and smem is 0.
+// form 0, the general form: w, n weights; pos, (c, dy, dx) per term;
+// start, C_out + 1 term offsets.  in_shared: the window of every input
+// channel and the terms lie in shared memory (the caller sized smem for
+// them), else both read global memory and smem is 0.
+// form 1 (every term of the table) or 2 (a mask of the terms), the run
+// forms: C_in and C_out in 1..4, RH and RW in 1..3, the tile (TH, TW)
+// (rf::kMcTH, rf::kMcTW), in_shared 1; run_w and run_mask, the weight
+// rows and term masks of stencil_mc.cuh's layout on the device; nonempty,
+// bit o set where output channel o has a term; smem, the form's bytes
+// (cuda_ops.stencil_mc_run_footprint); vec: out starts on a 16-byte
+// boundary and its rows are multiples of 16 bytes.
 extern "C" int rf_stencil_apply_mc(int bf16, const void* x, void* out, int C_in, int C_out, int H,
                                    int W, int RH, int RW, int zero, int TH, int TW, int in_shared,
                                    const float* w, const int* pos, const int* start, int n,
-                                   int smem, void* stream) {
+                                   int form, const float* run_w, const int* run_mask,
+                                   int nonempty, int vec, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 1 || form == 2) {
+    if (C_in < 1 || C_in > rf::kMcMaxC || C_out < 1 || C_out > rf::kMcMaxC || RH < 1 ||
+        RH > rf::kMcMaxR || RW < 1 || RW > rf::kMcMaxR || TH != rf::kMcTH || TW != rf::kMcTW ||
+        !in_shared)
+      return (int)cudaErrorInvalidValue;
+    auto go = [&](auto launcher) {
+      return launcher(x, out, C_in, C_out, H, W, RH, RW, zero, vec, form == 2, run_w, run_mask,
+                      nonempty, smem, s);
+    };
+    return bf16 ? go(rf::launch_mc_run_bf16) : go(rf::launch_mc_run_f32);
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   if (bf16)
     return rf::launch<__nv_bfloat16>(x, out, C_in, C_out, H, W, RH, RW, zero, TH, TW, in_shared,
                                      w, pos, start, n, smem, s);

@@ -183,24 +183,6 @@ struct RunWindow {
   static constexpr int kBytes = 4 * (kBuffers * 4 * kPlane + kTables);
 };
 
-// A 4-byte cp.async; zero-fills instead where `fill_zero`.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool fill_zero) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(fill_zero ? 0 : 4)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's newest cp.async groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Starts the copy of the window of the tile at (y0, x0), all four channels:
 // image (y0 - R + r, x0 - R - lo + c) of channel ch at window ch kPlane +
 // r kPitch + c, through the clamped coordinate (edge) or 0 outside (zero).

@@ -168,7 +168,8 @@ def load_library() -> ctypes.CDLL:
                                   _P]
         lib.rf_conv1d.restype = _I
         lib.rf_stencil_apply_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+            _I, _I, _P,
         ]
         lib.rf_stencil_apply_mc.restype = _I
         lib.rf_mc_limits.argtypes = [_I]
@@ -1781,6 +1782,35 @@ class LinearStencilOp:
     def n_terms(self) -> int:
         return sum(len(t) for t in self.terms)
 
+    @property
+    def full(self) -> bool:
+        """Every term of the table is present (nonzero)."""
+        return self.n_terms == self.weights.size
+
+    @property
+    def nonempty(self) -> int:
+        """Bit o set where output channel o has a term."""
+        return sum(1 << o for o, t in enumerate(self.terms) if t)
+
+    def device_run_terms(self, device: torch.device):
+        """(weights f32, masks int32) of the run forms on ``device``, built
+        once: for each (c, dy), a row of the weights at o (2rw+1) + dx,
+        zero-padded to a multiple of four, and a mask with bit o (2rw+1) +
+        dx set for each term present (csrc/stencil_mc.cuh)."""
+        key = ("run", device)
+        if key not in self._device:
+            kw = 2 * self.rw + 1
+            row_w = -(-self.c_out * kw // 4) * 4
+            # (c, dy, o, dx): a (c, dy) row is o major, then dx
+            rows = self.weights.transpose(1, 2, 0, 3).reshape(-1, self.c_out * kw)
+            w = np.zeros((rows.shape[0], row_w), np.float32)
+            w[:, : rows.shape[1]] = rows
+            bits = (rows != 0) * (1 << np.arange(rows.shape[1], dtype=np.int64))
+            masks = bits.sum(axis=1).astype(np.int32)
+            self._device[key] = (torch.from_numpy(w.ravel()).to(device),
+                                 torch.from_numpy(masks).to(device))
+        return self._device[key]
+
     def device_terms(self, device: torch.device):
         """(weights f32, (c, dy, dx) int32 per term, C_out + 1 offsets) on
         ``device``, built once."""
@@ -1830,6 +1860,46 @@ def choose_stencil_mc_tile(c_in: int, rh: int, rw: int, n_terms: int,
 
 # The tile of stencil_apply_mc's global-memory path.
 STENCIL_MC_GLOBAL_TILE = (16, 32)
+# The run forms of stencil_apply_mc (csrc/stencil_mc.cuh): input and
+# output channels 1..STENCIL_MC_RUN_CHANNELS and radii in
+# STENCIL_MC_RUN_RADII on each axis; outputs a thread (kMcRun) and the
+# tile, 32 rows (a warp's lanes) by a run for each of the 8 warps.
+STENCIL_MC_RUN_CHANNELS = 4
+STENCIL_MC_RUN_RADII = (1, 2, 3)
+STENCIL_MC_RUN = 8
+STENCIL_MC_RUN_TILE = (32, 8 * STENCIL_MC_RUN)
+# The form argument of rf_stencil_apply_mc.
+_STENCIL_MC_FORMS = {"shared": 0, "global": 0, "run": 1, "run_masked": 2}
+
+
+def stencil_mc_run_footprint(c_in: int, c_out: int, rh: int, rw: int) -> int:
+    """Shared-memory bytes of a run form (csrc/stencil_mc.cuh
+    mc_run_bytes): for each (c, dy) a row of c_out (2rw+1) weights padded
+    to a multiple of four and a term mask, each of the 8 warps' staging
+    area of TH rows at the odd pitch STENCIL_MC_RUN | 1, then two windows
+    (this tile's and the next one's) of c_in planes of (TH + 2rh) rows at
+    the odd pitch of TW + 2rw columns."""
+    th, tw = STENCIL_MC_RUN_TILE
+    rows = c_in * (2 * rh + 1)
+    row_w = -(-c_out * (2 * rw + 1) // 4) * 4
+    staging = 8 * th * (STENCIL_MC_RUN | 1)
+    return 4 * (rows * row_w + rows + staging + 2 * c_in * (th + 2 * rh) * ((tw + 2 * rw) | 1))
+
+
+def choose_stencil_mc_form(op: LinearStencilOp) -> tuple[str, int, int, int]:
+    """(form, TH, TW, shared-memory bytes) of stencil_apply_mc, by shape:
+    ``"run"`` (every term present) or ``"run_masked"`` (some absent) for 1-4
+    input and output channels at radii 1-3 on each axis; otherwise
+    ``"shared"`` where ``choose_stencil_mc_tile`` finds a tile, else
+    ``"global"`` (every term through global memory)."""
+    if (max(op.c_in, op.c_out) <= STENCIL_MC_RUN_CHANNELS and op.rh in STENCIL_MC_RUN_RADII
+            and op.rw in STENCIL_MC_RUN_RADII):
+        return ("run" if op.full else "run_masked", *STENCIL_MC_RUN_TILE,
+                stencil_mc_run_footprint(op.c_in, op.c_out, op.rh, op.rw))
+    tile = choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms, op.c_out)
+    if tile is not None:
+        return ("shared", *tile)
+    return ("global", *STENCIL_MC_GLOBAL_TILE, 0)
 
 
 def stencil_apply_mc(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -> torch.Tensor:
@@ -1839,16 +1909,25 @@ def stencil_apply_mc(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -
     Replaces ``pallas_ops.stencil_apply_mc`` (pallas_ops.py:2082), which ran
     a traced closure over all channels of a double-buffered VMEM strip and
     gave up where its strips did not fit VMEM.  Here the function is a
-    ``LinearStencilOp`` tap table: a block loads its tile and (rh, rw)
-    halo of every input channel into shared memory (clamped or zero-filled
-    reads) and each thread runs every output channel's term list as one
-    serial chain of rounded products and sums, bit-equal to the plain
-    version.  A window that fits no shared memory reads its taps through
-    the clamped global coordinate.  No module of either package calls it.
+    ``LinearStencilOp`` tap table, and every output channel adds its
+    terms' products in ascending (c, dy, dx), each product and sum rounded
+    alone: bit-equal to the plain version in every form.
+
+    Forms (``choose_stencil_mc_form``): a table of 1-4 input and output
+    channels at radii 1-3 takes a run form, whose persistent blocks copy
+    the next tile's window of every input channel into shared memory
+    while they compute this one's, and whose threads make eight outputs
+    of a row for every output channel from register windows, a weight
+    loaded once for eight outputs (``run`` where every term is present,
+    ``run_masked`` testing a bit a term otherwise).  Any other table takes
+    the general form: a block loads its tile's window and the terms into
+    shared memory and each thread runs every output channel's term list
+    a pixel at a time, or, where no tile fits, reads its taps through the
+    clamped global coordinate.  No module of either package calls it.
 
     Bound on the card: device memory at small tables, the term loop (two
-    operations a term and pixel) at large ones; its times are in
-    PERF.md."""
+    f32 instructions a term and pixel, in issue slots) at large ones; its
+    times are in PERF.md."""
     _check_image(x, (torch.float32, torch.bfloat16), "stencil_apply_mc")
     _check_mode(mode)
     if x.shape[0] != op.c_in:
@@ -1857,17 +1936,20 @@ def stencil_apply_mc(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -
         return stencil_apply_mc_plain(x, op, mode)
     lib = load_library()
     _c, h, w = x.shape
-    weights, pos, start = op.device_terms(x.device)
-    tile = choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms, op.c_out)
-    if tile is None:
-        th, tw, smem = (*STENCIL_MC_GLOBAL_TILE, 0)
-    else:
-        th, tw, smem = tile
+    form, th, tw, smem = choose_stencil_mc_form(op)
     out = torch.empty((op.c_out, h, w), dtype=x.dtype, device=x.device)
+    # the general form's (weights, positions, starts) or the run forms'
+    # (weight rows, masks); null pointers for the other form's
+    if form in ("run", "run_masked"):
+        general, run = (None, None, None), op.device_run_terms(x.device)
+    else:
+        general, run = op.device_terms(x.device), (None, None)
+    ptrs = [None if t is None else t.data_ptr() for t in (*general, *run)]
+    vec = out.data_ptr() % 16 == 0 and (w * out.element_size()) % 16 == 0
     rc = lib.rf_stencil_apply_mc(
         int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), op.c_in, op.c_out, h, w,
-        op.rh, op.rw, int(mode == "zero"), th, tw, int(tile is not None), weights.data_ptr(),
-        pos.data_ptr(), start.data_ptr(), op.n_terms, smem, _stream(x),
+        op.rh, op.rw, int(mode == "zero"), th, tw, int(form != "global"), *ptrs[:3], op.n_terms,
+        _STENCIL_MC_FORMS[form], *ptrs[3:], op.nonempty, int(vec), smem, _stream(x),
     )
     _check_launch(lib, rc, "stencil_apply_mc")
     LAUNCHES["stencil_apply_mc"] += 1

@@ -1,7 +1,7 @@
 """Split a conv kernel's time at 3840x2160 by cutting parts out, and A/B
 the kernels against another checkout.
 
-    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep|conv1d|reduce|stencil]
+    python3 -m reforge_tpu_torch.mc_ablation [--kernel mc|strip|sep|conv1d|reduce|stencil|stencil_mc]
                                              [--tiles 16x64,32x32]
                                              [--package DIR/reforge_tpu_torch] [--variants a,b]
     python3 -m reforge_tpu_torch.mc_ablation --parent DIR/reforge_tpu_torch
@@ -58,7 +58,24 @@ anything.  A variant whose anchors a source lacks is skipped.
          channel of its tile), rows_16 and rows_32 (rows a warp; 8 by
          default), y_unrolled (the row loop left to the compiler),
          bounds_4 and bounds_1 (a floor of four blocks an SM, or none, on
-         the registers; three by default).
+         the registers; three by default);
+  stencil_mc csrc/stencil_mc.cuh, or csrc/stencil_mc.cu in a source from
+         before the run forms (stencil_apply_mc: f32 4->4 radius 2, its
+         bf16 input, the same table with half its terms zero, 4->3 at
+         radii (2, 3), 4->4 radius 1, all on the run forms; 6->3 radius 2
+         on the general form; 4->3 radius 24 on a 960x540 crop, the global
+         form): load_only (the run forms: no rows of terms and no stores,
+         the window copies stay; the general form: return once the window
+         is in shared memory), one_term (each output's list cut to its
+         first term; loads and stores stay), no_offset (the general form
+         reads each tap at the pixel itself, with no offset load), and
+         design choices of the run forms: no_load and no_store (the f32
+         window's copies skipped, or the outputs' staging and stores: what
+         they cost the full kernel), sync_copy (f32 copied through
+         registers, not by cp.async), outputs_4 and outputs_16 (outputs a
+         thread, 8 by default), dy_unroll (the row loop unrolled twice)
+         and global_rows (no window in shared memory: each thread reads
+         its window rows from global memory, lanes on column runs).
 
 Each copy builds its own kernels and, in a process of its own, times its
 rows with CUDA events (20 launches after 3).  ``full`` runs first and
@@ -69,14 +86,14 @@ source of the commit before the conv stage's redesign, so that the same
 cuts run on both (``--package`` an unpacked parent).
 
 ``--sass NAME`` prints the SASS of this package's kernels whose names
-contain NAME, counted by opcode (cuobjdump of the built library).
+contain NAME, counted by opcode, and the opcodes of each one's hottest
+loop (cuobjdump of the built library).
 
 ``--parent`` is an A/B run instead: the package of another checkout (an
 unpacked parent commit, say) against this one, parent, this, this,
-parent, each a copy with this file in it, over every row above plus
-stencil_apply_mc.  It prints the max abs difference between the two
-sides' outputs of every row but stencil_apply_mc's.  Needs a CUDA card
-and nvcc.
+parent, each a copy with this file in it, over every row above.  It
+prints the max abs difference between the two sides' outputs of every
+row.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -124,6 +141,103 @@ _ST_R1_OUT = "      float o[kRun3];\n"
 _ST_R1_EVAL = "o[j] = r1_eval<kKind>(r0, r1, r2, j, mask, taps);"
 _ST_R1_Y = "    for (int y = ys; y < ye; ++y) {\n"
 _ST_R1_GRID = "  dim3 grid((W + rf::kR1TW - 1) / rf::kR1TW, (H + rf::kR1TH - 1) / rf::kR1TH, C);"
+# stencil_mc.cu before its redesign: the end of the window's load, an
+# output's term range and a tap's shared-memory read.
+_SM_LOADED = "    w_t = w_s;\n    start_t = start_s;\n  }\n  __syncthreads();\n"
+_SM_RANGE = "const int k0 = start_t[o], k1 = start_t[o + 1];"
+_SM_TAP = "if (in_shared) return base[off_s[k]];"
+# stencil_mc.cuh, the run forms: a tile's work, the rolled (c, dy) loops,
+# the dx loop, the window's per-channel copy and its f32 cp.async.
+_MC_RUN_DY = "    for (int dy = 0; dy < KH; ++dy) {\n"
+_MC_RUN_DX = "      for (int dx = 0; dx < KW; ++dx) {\n"
+_MC_RUN_STORE = "    store_mc_runs<T, CO>(acc, stage, out, H, W, ty * kMcTH,\n"
+_MC_RUN_NO_STORE = [(_MC_RUN_STORE, "    if (nonempty < 0)\n" + _MC_RUN_STORE)]
+_MC_RUN_COPY = "    for (int ch = 0; ch < kMcMaxC; ++ch) {\n      if (ch < C_in) {\n"
+_MC_RUN_ASYNC = "        if constexpr (std::is_same_v<T, float>)\n          cp_async4("
+# global_rows: the run form with no window in shared memory; each thread
+# reads its window rows from global memory (through L1), lanes on column
+# runs (row warp 4 + lane / 8 of the tile, columns (lane % 8) 8), as
+# stencil_r1_kernel does.  Its buffers are still allocated (the form is
+# held at two blocks an SM by its registers anyway).
+_MC_GLOBAL_TERMS = """template <typename T, int RW, int CO, bool kMasked>
+__device__ __forceinline__ void mc_run_terms_global(
+    const T* __restrict__ x, int H, int W, int RH, bool zero, int y0, int x0,
+    const float* __restrict__ w_s, const int* __restrict__ mask_s, int C_in, int nonempty,
+    float (&acc)[CO][kMcRun]) {
+  using G = McRun<RW, CO>;
+  constexpr int KW = G::kKW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gy = y0 + warp * 4 + (lane >> 3), gx0 = x0 + (lane & 7) * kMcRun - RW;
+  const int KH = 2 * RH + 1;
+  const size_t hw = (size_t)H * W;
+  const bool inner = gx0 >= 0 && gx0 + kMcRun + 2 * RW <= W;
+#pragma unroll
+  for (int o = 0; o < CO; ++o) {
+#pragma unroll
+    for (int j = 0; j < kMcRun; ++j) acc[o][j] = (nonempty >> o & 1) ? -0.f : 0.f;
+  }
+#pragma unroll 1
+  for (int c = 0; c < C_in; ++c) {
+#pragma unroll 1
+    for (int dy = 0; dy < KH; ++dy) {
+      const int row = c * KH + dy, sy = gy + dy - RH;
+      const T* src = x + c * hw + (size_t)min(max(sy, 0), H - 1) * W;
+      const bool row_out = zero && (sy < 0 || sy >= H);
+      float v[kMcRun + 2 * RW], w[G::kRowW];
+#pragma unroll
+      for (int k = 0; k < kMcRun + 2 * RW; ++k) {
+        const int sx = gx0 + k;
+        if (inner)
+          v[k] = row_out ? 0.f : to_f32(__ldg(src + sx));
+        else
+          v[k] = (row_out || (zero && (sx < 0 || sx >= W))) ? 0.f
+                                                            : to_f32(__ldg(src + min(max(sx, 0), W - 1)));
+      }
+#pragma unroll
+      for (int q = 0; q < G::kRowW / 4; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(w_s + row * G::kRowW)[q];
+        w[4 * q] = f.x;
+        w[4 * q + 1] = f.y;
+        w[4 * q + 2] = f.z;
+        w[4 * q + 3] = f.w;
+      }
+      const int m = kMasked ? mask_s[row] : 0;
+#pragma unroll
+      for (int dx = 0; dx < KW; ++dx) {
+#pragma unroll
+        for (int o = 0; o < CO; ++o) {
+          if (!kMasked || (m >> (o * KW + dx) & 1)) {
+#pragma unroll
+            for (int j = 0; j < kMcRun; ++j)
+              acc[o][j] = __fadd_rn(acc[o][j], __fmul_rn(v[j + dx], w[o * KW + dx]));
+          }
+        }
+      }
+    }
+  }
+}
+
+"""
+_MC_GLOBAL_ROWS = [
+    ("// Persistent blocks: block b makes tiles", _MC_GLOBAL_TERMS
+     + "// Persistent blocks: block b makes tiles"),
+    ("    mc_run_terms<RW, CO, kMasked>(win0 + (i & 1) * window, w_s, mask_s, C_in, RH, plane,\n"
+     "                                  nonempty, acc);\n",
+     "    const int ty0 = tile / tiles_x, lane = threadIdx.x & 31;\n"
+     "    mc_run_terms_global<T, RW, CO, kMasked>(x, H, W, RH, zero != 0, ty0 * kMcTH,\n"
+     "        (tile - ty0 * tiles_x) * kMcTW, w_s, mask_s, C_in, nonempty, acc);\n"
+     "    {  // lanes on consecutive runs of a row: the stores coalesce as they are\n"
+     "      const int gy = ty0 * kMcTH + (threadIdx.x >> 5) * 4 + (lane >> 3);\n"
+     "      const int gx = (tile - ty0 * tiles_x) * kMcTW + (lane & 7) * kMcRun;\n"
+     "      for (int o = 0; o < CO; ++o)\n"
+     "        for (int j = 0; j < kMcRun; ++j)\n"
+     "          if (gy < H && gx + j < W) out[o * (size_t)H * W + (size_t)gy * W + gx + j] =\n"
+     "              from_f32<T>(acc[o][j]);\n"
+     "    }\n"),
+    ("    if (tile >= n_tiles) return;\n", "    if (tile >= 0) return;\n"),
+    *_MC_RUN_NO_STORE,
+]
+_MC_GENERAL = "csrc/stencil_mc.cu"
 # Anchors in the sources before the redesign (PR 5's graph_strip.cu and
 # sep_conv.cu).
 _OLD_STRIP_LOOP = "  for (int k = 0; k < n_plans; ++k) {\n    const int rw = meta[4 * k + 1];\n"
@@ -266,11 +380,72 @@ KERNELS = {
         "bounds_1": [[("__launch_bounds__(kThreads, 3)\nstencil_r1_kernel",
                        "__launch_bounds__(kThreads)\nstencil_r1_kernel")]],
     }),
+    "stencil_mc": (("csrc/stencil_mc.cuh", "csrc/stencil_mc.cu"), {
+        "full": [[]],
+        # the run forms: no rows of terms and no stores; the window copies
+        # (bf16's beside the rows of each channel) stay
+        "load_only": [[(_MC_RUN_DY, _MC_RUN_DY.replace("dy < KH", "dy < 0")), *_MC_RUN_NO_STORE,
+                       (_SM_LOADED, _SM_LOADED + "  if (n > 0) return;\n", _MC_GENERAL)],
+                      [(_SM_LOADED, _SM_LOADED + "  if (n > 0) return;\n")]],
+        # the run forms: one row of channel 0, its first dx
+        "one_term": [[(_MC_RUN_DY, _MC_RUN_DY.replace("dy < KH", "dy < (c == 0)")),
+                      (_MC_RUN_DX, _MC_RUN_DX.replace("dx < KW", "dx < 1")),
+                      (_SM_RANGE, _SM_RANGE.replace("start_t[o + 1]", "min(start_t[o + 1], k0 + 1)"),
+                       _MC_GENERAL)],
+                     [(_SM_RANGE, _SM_RANGE.replace("start_t[o + 1]", "min(start_t[o + 1], k0 + 1)"))]],
+        # the general form's source only: a per-term read that no compiler
+        # can hoist, at the pixel itself
+        "no_offset": [[(_SM_TAP, "if (in_shared) return base[k & 0x40000000];")]],
+        # Design choices of the run forms: the f32 window's copies skipped,
+        # or the outputs' staging and stores (what they cost the full
+        # kernel, whose terms still run); f32 copied through registers, as
+        # bf16 is, not by cp.async; four or sixteen outputs a thread (tiles
+        # of 32 x 32 and 32 x 128); the row loop unrolled twice; the window
+        # rows read from global memory (_MC_GLOBAL_ROWS).
+        "no_load": [[(_MC_RUN_COPY, _MC_RUN_COPY.replace("ch < kMcMaxC", "ch < 0"))]],
+        "no_store": [_MC_RUN_NO_STORE],
+        "sync_copy": [[(_MC_RUN_ASYNC, _MC_RUN_ASYNC.replace("std::is_same_v<T, float>", "false"))]],
+        "outputs_4": [[("constexpr int kMcRun = 8;", "constexpr int kMcRun = 4;"),
+                       ("STENCIL_MC_RUN = 8\n", "STENCIL_MC_RUN = 4\n", "kernels/cuda_ops.py")]],
+        "outputs_16": [[("constexpr int kMcRun = 8;", "constexpr int kMcRun = 16;"),
+                        ("STENCIL_MC_RUN = 8\n", "STENCIL_MC_RUN = 16\n", "kernels/cuda_ops.py")]],
+        "dy_unroll": [[("#pragma unroll 1\n" + _MC_RUN_DY, "#pragma unroll 2\n" + _MC_RUN_DY)]],
+        "global_rows": [_MC_GLOBAL_ROWS],
+    }),
 }
 MC_GRAPHS = (("demo", "DEMO_CONFIG", "rgba32f"), ("demo", "DEMO_CONFIG", "rgba16f"),
              ("chain3", "CHAIN3_CONFIG", "rgba32f"), ("edges", "EDGES_CONFIG", "rgba32f"))
 # Rows whose outputs the A/B compares between its two sides.
-COMPARED = ("graph_strip", "sep_conv", "conv1d", "stencil_apply ", "stencil_reduce_mc")
+COMPARED = ("graph_strip", "sep_conv", "conv1d", "stencil_apply", "stencil_reduce_mc")
+
+
+def _stencil_mc_rows(x):
+    """[(label, input, LinearStencilOp)] of stencil_apply_mc's rows: tables
+    from a seed, four input channels of the 4K frame ``x`` (f32, bf16),
+    dense at radius 2, half the terms of it zero, C_out 3 at radii (2, 3),
+    radius 1; six channels (more than any compiled run form takes), and
+    radius 24 on a 960x540 crop, where no shared-memory tile holds the
+    window (the global-memory form)."""
+    import numpy as np
+    import torch
+
+    from .kernels import cuda_ops
+
+    rng = np.random.default_rng(1)
+
+    def table(c_out, c_in, rh, rw, density=1.0):
+        w = rng.standard_normal((c_out, c_in, 2 * rh + 1, 2 * rw + 1)).astype(np.float32)
+        w[rng.random(w.shape) >= density] = 0.0
+        return cuda_ops.LinearStencilOp(w)
+
+    dense = table(4, 4, 2, 2)
+    six = torch.cat([x, x[:2]]).contiguous()
+    crop = x[:, :540, :960].contiguous()
+    return [("4->4 r2 f32", x, dense), ("4->4 r2 bf16", x.to(torch.bfloat16), dense),
+            ("4->4 r2 f32 half the terms", x, table(4, 4, 2, 2, 0.5)),
+            ("4->3 r2,3 f32", x, table(3, 4, 2, 3)), ("4->4 r1 f32", x, table(4, 4, 1, 1)),
+            ("6->3 r2 f32", six, table(3, 6, 2, 2)),
+            ("4->3 r24 f32 960x540", crop, table(3, 4, 24, 24))]
 
 
 def _apply(package: pathlib.Path, source: pathlib.Path, alternatives: list) -> bool:
@@ -368,10 +543,9 @@ def _rows(which: str, tiles: dict):
             rr, op = library.bilateral_op(r, sigma_space, 0.12)
             rows.append((f"stencil_reduce_mc bilateral r{r}",
                          lambda rr=rr, op=op: cuda_ops.stencil_reduce_mc(stack, rr, rr, op)))
-    if which == "ab":
-        lin = cuda_ops.LinearStencilOp(
-            np.random.default_rng(1).standard_normal((4, 4, 5, 5)).astype(np.float32))
-        rows.append(("stencil_apply_mc 4->4 r2", lambda: cuda_ops.stencil_apply_mc(x, lin)))
+    if which in ("stencil_mc", "ab"):
+        rows += [(f"stencil_apply_mc {label}", lambda v=v, op=op: cuda_ops.stencil_apply_mc(v, op))
+                 for label, v, op in _stencil_mc_rows(x)]
     if which in ("conv1d", "ab"):
         vectors = {"r160": box_weights(160), "r400": box_weights(400),
                    "gaussian r160": gaussian_weights(160 / 3.0, 160)}
@@ -431,7 +605,8 @@ def _run(root: pathlib.Path, label: str, which: str, tile: str = "", save: str =
     shown["ptxas"] = {k: v for k, v in result["ptxas"].items()
                       if any(s in k for s in ("graph_strip_kernel", "sep_conv_multi_kernel",
                                               "graph_strip_mc_kernel", "conv1d_kernel",
-                                              "stencil_kernel", "stencil_r1", "stencil_reduce"))}
+                                              "stencil_kernel", "stencil_r1", "stencil_reduce",
+                                              "stencil_mc"))}
     print(json.dumps(shown))
     return result
 
@@ -451,8 +626,11 @@ def _ab(parent: pathlib.Path) -> None:
 def _sass(pattern: str) -> None:
     """Build this package's kernels and print, for each kernel whose
     mangled name contains ``pattern``, its SASS instructions (cuobjdump
-    -sass of the built library, NOPs not counted), its MUFU.EX2 count and
-    its opcodes by count."""
+    -sass of the built library, NOPs not counted), its MUFU.EX2 count, its
+    opcodes by count, and those of its hottest loop: the span from a
+    backward branch's target to the branch that holds the most FMULs
+    (the shortest of those)."""
+    import re
     from collections import Counter
 
     from .kernels import cuda_ops
@@ -461,24 +639,35 @@ def _sass(pattern: str) -> None:
     cuobjdump = str(pathlib.Path(cuda_ops._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
-    ops: dict[str, Counter] = {}
+    code: dict[str, list] = {}  # kernel -> [(address, opcode, text)]
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split(":", 1)[1].strip()
             fn = fn if pattern in fn else None
             if fn:
-                ops[fn] = Counter()
+                code[fn] = []
         elif fn and line.strip().startswith("/*") and "*/" in line:
-            text = line.split("*/", 1)[1].strip().lstrip("{").strip()
+            addr, text = line.strip()[2:].split("*/", 1)
+            text = text.strip().lstrip("{").strip()
             if text and not text.startswith("/*"):
                 op = text.split()[1 if text.startswith("@") else 0].rstrip(";")
                 if op != "NOP":
-                    ops[fn][op] += 1
-    for name, counts in ops.items():
+                    code[fn].append((int(addr, 16), op, text))
+    for name, ins in code.items():
+        counts = Counter(op for _, op, _ in ins)
+        loops = []
+        for addr, op, text in ins:
+            m = re.search(r"BRA\s+(0x[0-9a-f]+)", text) if op == "BRA" else None
+            if m and int(m.group(1), 16) < addr:
+                body = Counter(o for a, o, _ in ins if int(m.group(1), 16) <= a <= addr)
+                loops.append((-body.get("FMUL", 0), sum(body.values()), body))
+        loop = min(loops, key=lambda t: t[:2])[2] if loops else Counter()
         print(json.dumps({"kernel": name, "instructions": sum(counts.values()),
                           "MUFU.EX2": counts.get("MUFU.EX2", 0),
-                          "opcodes": dict(counts.most_common())}))
+                          "opcodes": dict(counts.most_common()),
+                          "loop_instructions": sum(loop.values()),
+                          "loop_opcodes": dict(loop.most_common())}))
 
 
 def main() -> int:

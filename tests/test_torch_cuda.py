@@ -419,3 +419,52 @@ def test_stencil_radius2_takes_the_general_form(shape, mode):
     x = _image(shape, 20)
     got = cuda_ops.stencil_apply(x, 2, 2, op, mode)
     assert torch.equal(got, cuda_ops.stencil_apply_plain(x, 2, 2, op, mode))
+
+
+# (C_in, C_out) pairs of the run forms' tests: every C_out with four input
+# channels, and fewer input channels.
+STENCIL_MC_CHANNELS = [(4, 1), (4, 2), (4, 3), (4, 4), (1, 4), (2, 3), (3, 2)]
+
+
+def _stencil_mc_table(c_out, c_in, rh, rw, density, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((c_out, c_in, 2 * rh + 1, 2 * rw + 1)).astype(np.float32)
+    if density < 1.0:
+        w[rng.random(w.shape) >= density] = 0.0
+        if c_out > 1:
+            w[c_out - 1] = 0.0  # an output channel with no terms
+    return cuda_ops.LinearStencilOp(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("hw", [(37, 71), (100, 264)])  # ragged; 16-byte rows, ragged tiles
+@pytest.mark.parametrize("density", [1.0, 0.5])
+@pytest.mark.parametrize("rh,rw", [(1, 1), (2, 2), (2, 3), (3, 3)])
+def test_stencil_apply_mc_run_forms(rh, rw, density, hw, mode, dtype, monkeypatch):
+    """Each run form against the plain version and against the general
+    form, forced: bit-equal (each output adds its terms in the table's
+    order from -0; an output channel with no terms is +0)."""
+    x4 = _image((4, *hw), 21 + rh + rw).to(dtype)
+    for c_in, c_out in STENCIL_MC_CHANNELS:
+        op = _stencil_mc_table(c_out, c_in, rh, rw, density, 10 * c_in + c_out)
+        x = x4[:c_in].contiguous()
+        form = cuda_ops.choose_stencil_mc_form(op)[0]
+        assert form == ("run" if density == 1.0 else "run_masked")
+        before = cuda_ops.LAUNCHES["stencil_apply_mc"]
+        got = cuda_ops.stencil_apply_mc(x, op, mode)
+        with monkeypatch.context() as m:
+            m.setattr(cuda_ops, "choose_stencil_mc_form", lambda op: (
+                "shared", *cuda_ops.choose_stencil_mc_tile(op.c_in, op.rh, op.rw, op.n_terms,
+                                                           op.c_out)))
+            general = cuda_ops.stencil_apply_mc(x, op, mode)
+        want = cuda_ops.stencil_apply_mc_plain(x, op, mode)
+        torch.cuda.synchronize()
+        assert cuda_ops.LAUNCHES["stencil_apply_mc"] == before + 2
+        assert got.dtype == dtype and torch.equal(_bits(got), _bits(want)), (c_in, c_out, form)
+        assert torch.equal(_bits(got), _bits(general)), (c_in, c_out, form)
+
+
+def _bits(t):
+    """The tensor's bit patterns (so that -0 and +0 differ)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)

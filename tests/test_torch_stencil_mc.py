@@ -6,7 +6,9 @@ the port takes a ``LinearStencilOp`` tap table.  Each case gives the
 Pallas kernel (in interpret mode, as the JAX package's own tests run it) a
 closure computing the table's linear map, and holds the port's plain
 version to it.  The kernel itself is held to the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Here, too: the form
+chooser, each form's launch for a tensor on a GPU (a fake library), and
+the run forms' tables and summation order replayed in numpy.
 """
 
 import jax.numpy as jnp
@@ -179,3 +181,114 @@ def test_never_takes_the_plain_version_on_a_gpu(rc, r, monkeypatch):
         in_shared, smem = lib.calls[0][12], lib.calls[0][-2]
         assert (in_shared, smem == 0) == ((1, False) if r == 2 else (0, True))
     assert len(lib.calls) == 1
+
+
+# (C_out, C_in, rh, rw, density, the form chosen)
+FORM_CASES = [
+    (4, 4, 2, 2, 1.0, "run"),
+    (4, 4, 2, 2, 0.5, "run_masked"),
+    (1, 1, 1, 1, 1.0, "run"),
+    (3, 4, 2, 3, 1.0, "run"),
+    (4, 4, 3, 3, 1.0, "run"),
+    (2, 3, 1, 3, 0.5, "run_masked"),
+    (4, 2, 3, 1, 0.3, "run_masked"),
+    (4, 4, 4, 4, 1.0, "shared"),  # a radius past the run forms
+    (4, 4, 1, 4, 1.0, "shared"),
+    (4, 4, 0, 2, 1.0, "shared"),  # radius 0
+    (5, 4, 2, 2, 1.0, "shared"),  # five output channels
+    (4, 5, 1, 1, 0.5, "shared"),  # five input channels
+    (3, 4, 24, 24, 1.0, "global"),  # no shared-memory tile holds the window
+]
+
+
+def _op(c_out, c_in, rh, rw, density, seed=5):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((c_out, c_in, 2 * rh + 1, 2 * rw + 1)).astype(np.float32)
+    w[rng.random(w.shape) >= density] = 0.0
+    return cuda_ops.LinearStencilOp(w)
+
+
+@pytest.mark.parametrize("case", FORM_CASES, ids=lambda c: f"{c[0]}<-{c[1]} r{c[2]},{c[3]} "
+                                                          f"d{c[4]} {c[5]}")
+def test_form_chooser(case):
+    c_out, c_in, rh, rw, density, form = case
+    op = _op(c_out, c_in, rh, rw, density)
+    got, th, tw, smem = cuda_ops.choose_stencil_mc_form(op)
+    assert got == form
+    if form.startswith("run"):
+        assert (th, tw) == cuda_ops.STENCIL_MC_RUN_TILE
+        assert smem == cuda_ops.stencil_mc_run_footprint(c_in, c_out, rh, rw) <= cuda_ops.SMEM_LIMIT
+        assert op.full == (form == "run")
+    elif form == "shared":
+        assert (th, tw, smem) == cuda_ops.choose_stencil_mc_tile(c_in, rh, rw, op.n_terms, c_out)
+    else:
+        assert smem == 0 and (th, tw) == cuda_ops.STENCIL_MC_GLOBAL_TILE
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FORM_CASES, ids=lambda c: c[5] + f" r{c[2]},{c[3]} {c[0]}<-{c[1]}")
+def test_each_form_launches_on_a_gpu(case, dtype, monkeypatch):
+    """For a tensor on a GPU every form launches once (counted) with its
+    form's arguments, in f32 and bf16, and never runs the plain version."""
+    c_out, c_in, rh, rw, density, form = case
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a GPU tensor")
+
+    lib = _FakeLibrary(0)
+    monkeypatch.setattr(cuda_ops, "stencil_apply_mc_plain", no_plain)
+    monkeypatch.setattr(cuda_ops, "load_library", lambda: lib)
+    monkeypatch.setattr(cuda_ops, "_stream", lambda x: 0)
+    op = _op(c_out, c_in, rh, rw, density)
+    x = torch.rand(c_in, 8, 16).to(dtype).as_subclass(_ReportsCuda)
+    cuda_ops.reset_launches()
+    out = cuda_ops.stencil_apply_mc(x, op, "zero")
+    assert out.dtype == dtype and tuple(out.shape) == (c_out, 8, 16)
+    assert cuda_ops.LAUNCHES["stencil_apply_mc"] == 1 and len(lib.calls) == 1
+    args = lib.calls[0]
+    assert (args[0], args[9], args[17]) == (int(dtype == torch.bfloat16), 1,
+                                            {"run": 1, "run_masked": 2}.get(form, 0))
+    assert args[12] == int(form != "global")
+    assert args[-2] == cuda_ops.choose_stencil_mc_form(op)[3]
+    run = form.startswith("run")
+    assert (args[13] is None, args[18] is None) == (run, not run)
+    assert args[20] == op.nonempty
+
+
+def _run_form_replay(x, op, mode):
+    """The run forms' loop in numpy float32, from their tables
+    (``device_run_terms``): for each input channel c and window row dy,
+    each dx and output channel o, add the product where the term's mask
+    bit is set; each output starts at -0, or +0 where its channel has no
+    term."""
+    weights, masks = (t.numpy() for t in op.device_run_terms(torch.device("cpu")))
+    kh, kw = 2 * op.rh + 1, 2 * op.rw + 1
+    rows = weights.reshape(op.c_in * kh, -1)
+    h, w = x.shape[1:]
+    xp = np.pad(x, ((0, 0), (op.rh, op.rh), (op.rw, op.rw)),
+                mode="edge" if mode == "edge" else "constant")
+    acc = [np.full((h, w), -0.0 if op.nonempty >> o & 1 else 0.0, np.float32)
+           for o in range(op.c_out)]
+    for c in range(op.c_in):
+        for dy in range(kh):
+            row = c * kh + dy
+            for dx in range(kw):
+                for o in range(op.c_out):
+                    if masks[row] >> (o * kw + dx) & 1:
+                        acc[o] = acc[o] + xp[c, dy:dy + h, dx:dx + w] * rows[row, o * kw + dx]
+    return np.stack(acc)
+
+
+@pytest.mark.parametrize("mode", ["edge", "zero"])
+@pytest.mark.parametrize("density", [1.0, 0.4])
+def test_run_form_order_matches_the_plain_version(density, mode):
+    """The run forms' tables and loop order, replayed on the CPU, give the
+    plain version's bits, -0 and +0 included."""
+    op = _op(3, 4, 2, 3, density, seed=11)
+    if density < 1.0:
+        op = cuda_ops.LinearStencilOp(np.concatenate([op.weights[:2], 0 * op.weights[2:]]))
+        assert op.nonempty == 0b011
+    x = np.random.default_rng(12).random((4, 19, 27), dtype=np.float32) - 0.5
+    want = cuda_ops.stencil_apply_mc_plain(torch.from_numpy(x), op, mode).numpy()
+    got = _run_form_replay(x, op, mode)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
