@@ -23,8 +23,10 @@ Graphs:
     tier), glsl-blur-sharpen (plus sharpen.comp, a synthesized stencil
     stage), the reference's own glsl-chain and glsl-sharpen
     (benchmarks/glsl_graphs.py there; they end in tonemap.comp, a point
-    shader, so the port runs them per node), and the 16 examples of
-    ``examples/`` whose shaders touch only images.
+    shader, so the port runs them per node), the 16 examples of
+    ``examples/`` whose shaders touch only images, the three whose shaders
+    use storage buffers and atomics, and a lut1d graph fed by the port's
+    gamma_curve.comp.
 
 Timings end in ``torch.cuda.synchronize()`` on a GPU: launches are
 asynchronous, and the synchronize proves every frame finished.
@@ -347,6 +349,20 @@ GLSL_EXAMPLES = (
     "bloom_glow", "film_look", "glass", "mandelzoom", "blur_sharpen_blend", "crt_tv", "edges",
     "neon_edges", "flow_smear", "raymarch", "old_film", "watercolor", "oil_paint", "psychedelic",
     "ink_drip", "light_trails",
+)
+# The examples whose shaders use storage buffers and atomics: histogram ->
+# equalize (atomicAdd into 256 bins, a 256-round CDF loop), auto_expose
+# (expose_meter's atomicMax and atomicAdd, expose_apply) and waveform_scope
+# (waveform's imageAtomicAdd, scope_overlay).
+BUFFER_EXAMPLES = ("equalize", "auto_expose", "waveform_scope")
+# The port's own shaders: gamma_curve.comp writes the 256-entry Curve that
+# the lut1d builtin reads (no shipped shader writes one).
+PORT_SHADER_DIR = str(Path(__file__).resolve().parent / "shaders")
+LUT1D_CONFIG = (
+    "input -> lut -> output\n"
+    "curve:Curve -> lut:Curve\n"
+    "curve: gamma_curve { gamma: 0.6 }\n"
+    "lut: lut1d {}\n"
 )
 
 

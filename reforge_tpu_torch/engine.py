@@ -1,23 +1,40 @@
 """Render engine: program construction, input upload, frame dispatch with
-a bounded in-flight queue, and one-shot renders (the port of
-``reforge_tpu/engine.py``).
+a bounded in-flight queue, one-shot renders, and live reload with
+keep-last-good (the port of ``reforge_tpu/engine.py``; reference:
+src/render.rs).
 
-Live reload, resize, the preview downscale, sharding and pipelining are
-not ported yet.
+  * own the graph program and the input image           (render.rs:42-57)
+  * frame lifecycle driven by the caller's loop          (render.rs:328-495)
+  * live reload: poll the config and kernel-file mtimes, rebuild, keep the
+    last good program on any failure                     (render.rs:497-519)
+  * ``_rf_time`` changes every frame without a rebuild   (render.rs:212-223)
+  * per-node and whole-frame timing readouts             (render.rs:521-523)
+
+A rebuild is parse, kernel load (GLSL translation and reflection; an
+unchanged shader keeps its spec), graph build, the program's shape check on
+``meta`` tensors, strip planning with the GLSL affine probe, and the first
+use's nvcc build of the kernels.  There is no compile per program: the
+kernels are built once a process.  With ``async_compile`` all of it runs on
+a build thread while the old program keeps rendering; the new program is
+adopted on a later poll, the last edit winning.  Sharding and pipelining
+are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time as _time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import utils
 from .config import Config, parse_file, single_shader_parse
 from .graph import GraphProgram, build_graph, make_program
 from .io import decode_image_to_planar, encode_planar_to_image
+from .kernels import cuda_ops
 from .utils import warnln
 
 DEFAULT_CONFIG = "input -> passthrough -> output"
@@ -40,6 +57,8 @@ class RenderInfo:
     has_input_image: bool = False
     shader_file_path: Optional[str] = None
     timing: str = "fused"  # "fused" | "per-node"
+    # Rebuild on a background thread while the old program keeps rendering.
+    async_compile: bool = False
     # Single-frame headless render: skip strip planning and run per node
     # (with same-input conv bundles).
     one_shot: bool = False
@@ -53,10 +72,17 @@ class Engine:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {info.device!r}")
         self.info = info
+        self.frame_index = 0
         self.start_time = _time.perf_counter()
         self.last_gpu_times: dict[str, float] = {}
         self._inflight: list = []
         self._input_planar: Optional[torch.Tensor] = None
+        self._compile_lock = threading.Lock()
+        self._pending: Optional[tuple] = None
+        self._build_seq = 0
+        self._pending_seq = 0
+        self._build_threads: list[threading.Thread] = []
+        self._resize_target: Optional[tuple[int, int]] = None
 
         config = self._create_config()
         if config is None:
@@ -66,6 +92,13 @@ class Engine:
             raise RuntimeError("Failed to build initial pipeline graph")
         self.config = config
         self.program = program
+
+        self._last_config_mtime = (
+            utils.get_modified_time(info.config_path) if info.config_path else 0
+        )
+        self._last_kernel_mtimes = self._kernel_mtimes()
+        self._watcher = self._make_watcher()
+        self._force_poll = False
 
     # ---- construction helpers ------------------------------------------
 
@@ -84,16 +117,30 @@ class Engine:
         return parse_file(DEFAULT_CONFIG, True, info.shader_path)
 
     def _build_program(self, config: Config) -> Optional[GraphProgram]:
+        """Graph build, shape check and strip planning (the kernels' first
+        build included on the card), so that no frame plans."""
         graph = build_graph(config)
         if graph is None:
             return None
+        width, height = self._target_size()
+        if self.device.type == "cuda":
+            cuda_ops.load_library()
         program = make_program(
-            graph, self.info.width, self.info.height, self.info.fmt,
+            graph, width, height, self.info.fmt,
             plan_strips=not self.info.one_shot, device=self.device,
         )
-        if program is not None and self.info.one_shot:
+        if program is None:
+            return None
+        if self.info.one_shot:
             program._use_unfused = True
+        else:
+            program._strip_plan  # noqa: B018  (plans now, not in the first frame)
         return program
+
+    def _kernel_mtimes(self) -> dict[str, int]:
+        """mtimes of the file-backed kernels (reference: render.rs:225-249)."""
+        return {gp.file_path: utils.get_modified_time(gp.file_path)
+                for gp in self.config.graph_pipelines.values() if gp.file_path}
 
     # ---- input ----------------------------------------------------------
 
@@ -110,6 +157,190 @@ class Engine:
         return torch.zeros(
             (4, self.info.height, self.info.width), dtype=torch.float32, device=self.device
         )
+
+    # ---- live reload ----------------------------------------------------
+
+    def trigger_reloads(self) -> bool:
+        """Poll the config and kernel mtimes and rebuild as needed.
+
+        Returns True when the program was swapped.  Any failure keeps the
+        last good program (render.rs:121-136).  With ``async_compile`` the
+        rebuild runs on a build thread and its program is adopted on a
+        later poll; frames keep coming from the old one meanwhile."""
+        swapped = self._adopt_pending()
+        # The inotify watcher skips the mtime stats on quiet frames; the
+        # mtime comparison stays the authority.  The first poll after a
+        # swap compares mtimes whatever the watcher says: the swap made a
+        # new watcher, and an edit racing it may have no event.
+        if (
+            self._watcher is not None
+            and not self._force_poll
+            and not self._watcher.poll()
+        ):
+            return swapped
+        self._force_poll = False
+        if self._config_changed():
+            swapped = self._recreate_program() or swapped
+        else:
+            swapped = self._reload_changed_kernels() or swapped
+        return swapped
+
+    def _make_watcher(self):
+        from .runtime.watcher import FileWatcher
+
+        paths = list(self._last_kernel_mtimes)
+        if self.info.config_path:
+            paths.append(self.info.config_path)
+        if not paths:
+            return None
+        watcher = FileWatcher(paths)
+        return watcher if watcher.active else None
+
+    def _adopt_pending(self) -> bool:
+        with self._compile_lock:
+            pending = self._pending
+            self._pending = None
+        if pending is None:
+            return False
+        self._swap(*pending)
+        return True
+
+    def _finish_build(self, config: Config) -> bool:
+        """Build the program for ``config`` inline and swap it in, or start
+        a build thread (``async_compile``) whose program a later poll
+        adopts; a generation counter makes the last edit win."""
+        if not self.info.async_compile:
+            try:
+                program = self._build_program(config)
+            except Exception as e:  # a kernel that cannot build: keep last good
+                warnln(f"Rebuild failed: {e}")
+                return False
+            if program is None:
+                return False
+            self._swap(config, program)
+            return True
+
+        with self._compile_lock:
+            self._build_seq += 1
+            seq = self._build_seq
+
+        def work():
+            try:
+                if self.device.type == "cuda":
+                    # Anything the build puts on the card goes to a stream
+                    # of its own, never the render thread's.
+                    stream = torch.cuda.Stream(self.device)
+                    with torch.cuda.stream(stream):
+                        program = self._build_program(config)
+                    stream.synchronize()
+                else:
+                    program = self._build_program(config)
+            except Exception as e:  # any failure: keep last good
+                warnln(f"Background rebuild failed: {e}")
+                return
+            if program is None:
+                return  # warned already; keep last good
+            with self._compile_lock:
+                if seq >= self._pending_seq:
+                    self._pending = (config, program)
+                    self._pending_seq = seq
+
+        thread = threading.Thread(target=work, daemon=True, name="rf-build")
+        self._build_threads = [th for th in self._build_threads if th.is_alive()]
+        self._build_threads.append(thread)
+        thread.start()
+        return False
+
+    def wait_for_compiles(self) -> None:
+        """Block until every background rebuild has finished, then adopt
+        the result."""
+        for th in list(self._build_threads):
+            th.join()
+        self._adopt_pending()
+
+    def _config_changed(self) -> bool:
+        path = self.info.config_path
+        if path is None:
+            return False
+        current = utils.get_modified_time(path)
+        if current == 0:
+            if self._last_config_mtime != 0:
+                warnln(f"Unable to access config file: {path}")
+                self._last_config_mtime = 0
+            return False
+        if current == self._last_config_mtime:
+            return False
+        self._last_config_mtime = current
+        return True
+
+    def _reload_changed_kernels(self) -> bool:
+        current = self._kernel_mtimes()
+        changed = False
+        for path, last in self._last_kernel_mtimes.items():
+            now = current.get(path, 0)
+            if now == 0:
+                if last != 0:
+                    warnln(f"Unable to access kernel file: {path}")
+            elif now != last:
+                changed = True
+        self._last_kernel_mtimes = current
+        if not changed:
+            return False
+        # Kernel sources are re-read by the graph build (an unchanged one
+        # keeps its spec), so a kernel edit rebuilds the program with the
+        # same config.
+        return self._rebuild_keeping_config()
+
+    def _recreate_program(self) -> bool:
+        config = self._create_config()
+        if config is None:
+            return False
+        return self._finish_build(config)
+
+    def _rebuild_keeping_config(self) -> bool:
+        return self._finish_build(self.config)
+
+    def resize(self, width: int, height: int) -> bool:
+        """Rebuild the graph at a new extent (a window resize, no input
+        image).  With an input image the extent stays the image's (the
+        preview scales instead; render.rs:529-532).  The old extent stays
+        in force until the rebuilt program swaps in."""
+        if self.info.has_input_image:
+            return False
+        if (width, height) == self._target_size():
+            return False
+        self._resize_target = (width, height)
+        return self._rebuild_keeping_config()
+
+    def _target_size(self) -> tuple[int, int]:
+        return self._resize_target or (self.info.width, self.info.height)
+
+    def _swap(self, config: Config, program: GraphProgram) -> None:
+        self._drain()
+        self.config = config
+        self.program = program
+        # A pending resize takes effect with the program built for it.
+        self.info.width, self.info.height = program.width, program.height
+        if self._resize_target == (program.width, program.height):
+            self._resize_target = None
+        self.frame_index = 0
+        self.last_gpu_times = {}
+        self._last_kernel_mtimes = self._kernel_mtimes()
+        # The new graph may name other kernel files and directories.
+        if self._watcher is not None:
+            self._watcher.close()
+        self._watcher = self._make_watcher()
+        self._force_poll = True
+
+    def close(self) -> None:
+        """Join the build threads, wait for the frames still in flight and
+        close the watcher."""
+        for th in self._build_threads:
+            th.join()
+        self._drain()
+        if self._watcher is not None:
+            self._watcher.close()
+            self._watcher = None
 
     # ---- frame execution ------------------------------------------------
 
@@ -138,6 +369,7 @@ class Engine:
                 if len(self._inflight) >= max(1, self.info.num_frames):
                     self._inflight.pop(0).synchronize()
             self.last_gpu_times = {"graph": (_time.perf_counter() - start) * 1000.0}
+        self.frame_index = (self.frame_index + 1) % max(1, self.info.num_frames)
         return out
 
     def render_frame_blocking(self, t: Optional[float] = None) -> torch.Tensor:
@@ -160,9 +392,25 @@ class Engine:
         """Device linear (4, H, W) -> host sRGB (H, W, 4) uint8 (render.rs:406-433)."""
         return encode_planar_to_image(out).cpu().numpy()
 
-    def close(self) -> None:
-        """Wait for the frames still in flight."""
-        self._drain()
+    def read_output_scaled(self, out: torch.Tensor, target_px: Optional[int]) -> np.ndarray:
+        """``read_output`` box-downsampled on the device, so that only the
+        preview-sized image crosses to the host: an integer step that keeps
+        the longer edge at or above ``target_px`` (at most the short edge),
+        averaged in linear light before the sRGB encode.  None, or a bound
+        at or above the frame size, reads the full frame."""
+        if target_px is None or target_px <= 0:
+            return self.read_output(out)
+        h, w = out.shape[1], out.shape[2]
+        step = max(1, min(max(h, w) // int(target_px), min(h, w)))
+        if step == 1:
+            return self.read_output(out)
+        x = out.to(torch.float32)
+        hc, wc = h // step, w // step
+        cells = x[:, :hc * step, :wc * step].reshape(x.shape[0], hc, step, wc, step)
+        return self.read_output(cells.mean(dim=(2, 4)))
+
+    def gpu_times_str(self) -> str:
+        return ", ".join(f"{k}: {v:.3f}ms" for k, v in self.last_gpu_times.items())
 
     def _drain(self) -> None:
         if self.device.type == "cuda":

@@ -9,14 +9,14 @@ vectorizing interpreter in interp.py, eagerly, on the program's device.
 ``translate_shader(source, name, path)`` is the loader hook for ``.comp``,
 ``.frag`` and ``.glsl`` files, giving an ordinary KernelSpec.  Its halo,
 border and mc-block eligibility come from ``reflect_spatial``: an abstract
-run of the shader on ``meta`` tensors records the largest static
+run of the shader (on small CPU tensors) records the largest static
 image-load shift, the border convention and whether any data-dependent
 gather occurred, as the reference's ``jax.eval_shape`` run does.
 
-This slice runs shaders that touch only images.  Storage buffers (SSBO
-blocks), atomics and workgroup ``shared`` arrays are refused at translate
-time with a "not ported yet" diagnostic; they still reflect, so their
-bindings and halos read as in the reference.
+Storage buffers (SSBO blocks) reflect into buffer bindings: the kernel
+takes each bound block as a 1-D f32 tensor and returns every block it
+writes.  Buffer, atomic and ``shared``-array shaders reflect a gather
+(halo None), so they run per node.
 """
 
 from __future__ import annotations
@@ -33,8 +33,7 @@ from .lexer import GlslError
 from .parser import parse_shader_source
 from ..kernels.base import KernelContext, KernelSpec, ParamDecl, ParamKind
 
-__all__ = ["translate_shader", "GlslError", "reflect_bindings", "reflect_spatial",
-           "unported_features"]
+__all__ = ["translate_shader", "GlslError", "reflect_bindings", "reflect_spatial"]
 
 def _walk_image_usage(shader: ast.Shader) -> tuple[set, set]:
     """Which images are imageLoad'ed / imageStore'd anywhere in the shader."""
@@ -310,38 +309,6 @@ def reflect_bindings(shader: ast.Shader) -> dict:
         "param_aliases": param_aliases,
     }
 
-def unported_features(shader: ast.Shader) -> list[str]:
-    """The features of ``shader`` the PyTorch engine does not run yet."""
-    found: list[str] = []
-    if shader.ssbos:
-        found.append("storage buffers (SSBO blocks)")
-    if shader.shared:
-        found.append("workgroup shared arrays")
-    atomics = set(ATOMIC_FUNCS) | set(IMAGE_ATOMIC_FUNCS)
-    hit: list[str] = []
-
-    def walk(node: Any) -> None:
-        if hit:
-            return
-        if isinstance(node, (list, tuple)):
-            for item in node:
-                walk(item)
-            return
-        if not hasattr(node, "__dataclass_fields__"):
-            return
-        if isinstance(node, ast.Call) and node.name in atomics:
-            hit.append(node.name)
-            return
-        for field in node.__dataclass_fields__:
-            walk(getattr(node, field))
-
-    for fn in shader.functions.values():
-        walk(fn.body)
-    if hit:
-        found.append("atomics")
-    return found
-
-
 # Probe extents of the halo reflection (the reference's).
 PROBE_EXTENTS = ((64, 64), (96, 80))
 
@@ -350,10 +317,13 @@ def dry_stats(shader: ast.Shader, images_in, params: dict, h: int, w: int) -> di
     """Reflection statistics of one abstract run at (h, w)."""
     stats = {"max_shift": 0, "gather": False, "edge_shift": False, "zero_shift": False,
              "dyn_gather": False}
-    meta = torch.device("meta")
-    imgs = {n: torch.zeros((4, h, w), dtype=torch.float32, device=meta) for n in images_in}
-    time = torch.zeros((), dtype=torch.float32, device=meta)
-    Interp(shader, h, w, imgs, dict(params), time=time, stats=stats, device=meta).run_main()
+    # Small CPU tensors under abstract evaluation: an op on meta tensors
+    # costs PyTorch's Python references a millisecond or so, one on a
+    # 64x64 CPU tensor microseconds.
+    imgs = {n: torch.zeros((4, h, w), dtype=torch.float32) for n in images_in}
+    time = torch.zeros((), dtype=torch.float32)
+    Interp(shader, h, w, imgs, dict(params), time=time, stats=stats, device="cpu",
+           abstract=True).run_main()
     return stats
 
 
@@ -393,29 +363,28 @@ def translate_shader(
     bindings = reflect_bindings(shader)
     if not bindings["images_out"] and not bindings["ssbos_out"]:
         raise GlslError(f"shader '{name}' never stores to any image or buffer")
-    missing = unported_features(shader)
-    if missing:
-        raise GlslError(
-            f"shader '{name}' uses {' and '.join(missing)}: not ported yet to the PyTorch "
-            f"engine (shaders that touch only images run)"
-        )
 
     def run(ctx: KernelContext, **kwargs: Any) -> dict[str, Any]:
         images = {k: v for k, v in kwargs.items() if k in bindings["images_in"]}
-        params = {k: v for k, v in kwargs.items() if k not in images}
-        device = next(iter(images.values())).device if images else torch.device(ctx.device)
+        buffers = {k: v for k, v in kwargs.items() if k in bindings["ssbos_in"]}
+        params = {k: v for k, v in kwargs.items() if k not in images and k not in buffers}
+        bound = next(iter({**images, **buffers}.values()), None)
+        device = bound.device if bound is not None else torch.device(ctx.device)
         # The frame time is a per-frame value, not a constant (the
         # reference traces it), so it reaches the shader as a tensor.
         t = ctx.time
         if not isinstance(t, torch.Tensor):
             t = torch.full((), float(t), dtype=torch.float32, device=device)
-        interp = Interp(shader, ctx.height, ctx.width, images, params, time=t, device=device)
+        interp = Interp(shader, ctx.height, ctx.width, images, params, time=t, device=device,
+                        buffers_in=buffers)
         outputs = interp.run_main()
         for out_name in bindings["images_out"]:
             if out_name not in outputs:
                 # An unwritten output passes through zeros.
                 outputs[out_name] = torch.zeros((4, ctx.height, ctx.width),
                                                 dtype=torch.float32, device=device)
+        for out_name in bindings["ssbos_out"]:
+            outputs[out_name] = interp.buffers[out_name]
         return outputs
 
     @functools.lru_cache(maxsize=64)
@@ -430,6 +399,9 @@ def translate_shader(
         fn=run,
         images_in=tuple(bindings["images_in"]),
         images_out=tuple(bindings["images_out"]),
+        ssbos_in=tuple(bindings["ssbos_in"]),
+        ssbos_out=tuple(bindings["ssbos_out"]),
+        ssbo_sizes=bindings["ssbo_sizes"],
         params=bindings["params"],
         param_aliases=bindings["param_aliases"],
         halo=lambda params: spatial(key(params))[0],

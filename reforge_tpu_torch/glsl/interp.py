@@ -26,14 +26,17 @@ the mapping, as in the reference:
     store hit one pixel, the last lane in row-major order wins (the JAX
     package's CPU result), on every device.
 
-Abstract evaluation: on ``meta`` tensors nothing is computed and no loop
-can test its live mask, so a data-dependent loop runs its body exactly once
--- what ``jax.eval_shape`` traces -- and every load inside it is seen.  The
-halo reflection (``glsl/__init__.py``) and the program's shape check run
-this way.  Storage buffers, atomics and workgroup ``shared`` arrays exist
-only there: their reads and writes give abstract values of the right shape,
-so reflection sees the shader as the reference does, and on any real device
-they raise "not ported yet".
+  * storage buffers are flat f32 tensors, one a block, and workgroup
+    ``shared`` arrays one f32 plane of (groups * size) elements; every
+    atomic call site is one masked reduction over the pixel grid (see
+    ``_atomic_apply``), in an order fixed on each device.
+
+Abstract evaluation: no loop tests its live mask, so a data-dependent loop
+runs its body exactly once -- what ``jax.eval_shape`` traces -- and every
+load inside it is seen; atomics leave their buffers as they are.  The
+program's shape check runs this way on ``meta`` tensors (nothing is
+computed), and the halo reflection (``glsl/__init__.py``) on small CPU
+tensors of zeros, whose values nothing reads.
 """
 
 from __future__ import annotations
@@ -68,8 +71,8 @@ DTYPES = {"float": torch.float32, "int": torch.int32, "uint": torch.int64, "bool
 U32 = 0xFFFFFFFF
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
-# Elements a runtime-sized SSBO trailing array gets (the reference's
-# DEFAULT_RUNTIME_SSBO_ELEMS), for reflection only.
+# Elements a runtime-sized SSBO trailing array gets when no buffer is bound
+# (the reference's DEFAULT_RUNTIME_SSBO_ELEMS).
 DEFAULT_RUNTIME_SSBO_ELEMS = 65536
 
 
@@ -191,7 +194,8 @@ _MAX_UNROLL = 65536
 
 class Interp:
     """One shader execution over a (height, width) pixel grid on ``device``
-    (``meta``: abstract evaluation, see the module docstring)."""
+    (``meta``, or ``abstract=True`` on any device: abstract evaluation, see
+    the module docstring)."""
 
     def __init__(
         self,
@@ -203,6 +207,8 @@ class Interp:
         time: Any = 0.0,
         stats: Optional[dict] = None,
         device: Any = "cpu",
+        buffers_in: Optional[dict[str, Any]] = None,  # block name -> (N,) f32
+        abstract: Optional[bool] = None,
     ):
         self.shader = shader
         self.h = height
@@ -210,20 +216,29 @@ class Interp:
         self.global_h = height
         self.global_w = width
         self.device = torch.device(device)
-        self.abstract = self.device.type == "meta"
+        self.abstract = self.device.type == "meta" if abstract is None else abstract
         self.images_in = images_in
         self.params = params
         self.time = time
         # Output image accumulators, created lazily on first store.
         self.stores: dict[str, list] = {}
-        # SSBO member tables (abstract evaluation only; see _unported).
+        # SSBO state: one flat f32 buffer per block (its input, else
+        # zeros); each member is an element range of it (std430 over
+        # 4-byte elements), a runtime-sized trailing array sized from the
+        # bound buffer, else DEFAULT_RUNTIME_SSBO_ELEMS.
+        self.buffers: dict[str, Any] = {}
         self.ssbo_members: dict[str, tuple[str, int]] = {}  # member -> (block, size)
+        self.ssbo_offsets: dict[str, int] = {}  # member -> element offset in its block
         self.ssbo_scalar: set[str] = set()
         self.ssbo_elem: dict[str, str] = {}
         self.ssbo_instances: dict[str, str] = {}
         for ssbo in shader.ssbos:
             if not ssbo.members:
                 raise GlslError(f"SSBO block '{ssbo.block_name}' has no members", ssbo.line)
+            init = (buffers_in or {}).get(ssbo.block_name)
+            fixed = sum(int(m.array_size) if m.array_size is not None else 1
+                        for m in ssbo.members if not m.runtime_array)
+            off = 0
             for j, m in enumerate(ssbo.members):
                 if m.type not in ("float", "int", "uint"):
                     raise GlslError(
@@ -237,17 +252,29 @@ class Interp:
                             f"its block (std430)",
                             ssbo.line,
                         )
-                    size = DEFAULT_RUNTIME_SSBO_ELEMS
+                    size = (max(int(init.shape[0]) - fixed, 0) if init is not None
+                            else DEFAULT_RUNTIME_SSBO_ELEMS)
                 elif m.array_size is not None:
                     size = int(m.array_size)
                 else:
                     size = 1
                     self.ssbo_scalar.add(m.name)
                 self.ssbo_members[m.name] = (ssbo.block_name, size)
+                self.ssbo_offsets[m.name] = off
                 self.ssbo_elem[m.name] = m.type
+                off += size
             if ssbo.instance_name:
                 self.ssbo_instances[ssbo.instance_name] = ssbo.block_name
+            if init is None:
+                init = torch.zeros((off,), dtype=torch.float32, device=self.device)
+            self.buffers[ssbo.block_name] = init
+        # Workgroup-shared arrays: one flat (n_groups * size,) f32 plane per
+        # declaration, indexed by group id * size + element.  Every
+        # statement runs for all invocations before the next, which is
+        # stronger than barrier(), so barriers are no-ops.
         self.shared_members: dict[str, tuple[str, int]] = {}
+        self.shared_state: dict[str, Any] = {}
+        self._gids: Optional[Any] = None
         if shader.shared:
             lsx, lsy, _ = shader.local_size
             groups = (-(-self.w // lsx)) * (-(-self.global_h // lsy))
@@ -259,6 +286,8 @@ class Interp:
                         sline,
                     )
                 self.shared_members[sname] = (elem, size)
+                self.shared_state[sname] = torch.zeros((groups * size,), dtype=torch.float32,
+                                                       device=self.device)
         # Active lane mask (None = all lanes).
         self.mask: Optional[Any] = None
         # Fragment discard: lanes whose output is dropped (zeros).
@@ -286,15 +315,6 @@ class Interp:
             )
 
     # ---- machinery ------------------------------------------------------
-
-    def _unported(self, what: str, line: int) -> None:
-        """Storage buffers, atomics and shared arrays run only abstractly."""
-        if not self.abstract:
-            raise GlslError(f"{what} is not ported yet to the PyTorch engine", line)
-
-    def _abstract_plane(self, elem: str, shape=None) -> Any:
-        return torch.zeros(shape if shape is not None else (self.h, self.w),
-                           dtype=DTYPES[elem], device=self.device)
 
     def _full(self, value, elem: str) -> torch.Tensor:
         """A 0-d tensor of GLSL type ``elem`` on the device."""
@@ -905,7 +925,9 @@ class Interp:
 
         The carry holds every variable the body (or a callee) assigns, as
         (H, W) planes, the planes of every image it stores, the globals its
-        callees write, and an active-lane mask.  Each round runs the body
+        callees write, the storage buffers and shared arrays when it runs an
+        atomic (the shared arrays also for a plain shared store), and an
+        active-lane mask.  Each round runs the body
         predicated on the mask; the loop ends when no lane is active (one
         host read a round), or after _WHILE_CAP rounds.  A loop inside
         non-uniform control flow starts with the enclosing mask folded into
@@ -928,6 +950,10 @@ class Interp:
                 line,
             )
         stored_imgs = self._stored_images(effect_stmts, line)
+        has_atomic = self._body_has_atomic(effect_stmts)
+        buf_keys = list(self.buffers) if has_atomic else []
+        shm_keys = (list(self.shared_state)
+                    if has_atomic or self._body_has_shared_write(effect_stmts) else [])
         assigned, declared = self._collect_assigned(effect_stmts)
         carried = [
             n for n in assigned
@@ -982,10 +1008,17 @@ class Interp:
             prev_stores = {nm: self.stores.get(nm) for nm in stored_imgs}
             for nm in stored_imgs:
                 self.stores[nm] = list(carry["_img:" + nm])
+            prev_bufs = {k: self.buffers[k] for k in buf_keys}
+            prev_shm = {k: self.shared_state[k] for k in shm_keys}
+            for k in buf_keys:
+                self.buffers[k] = carry["_buf:" + k]
+            for k in shm_keys:
+                self.shared_state[k] = carry["_shm:" + k]
             prev_globals = {n: self.globals[n] for n in glob_carried}
             for n in glob_carried:
                 self.globals[n] = self._tree_to_val(carry["_g:" + n], gprotos[n])
             new_imgs, new_globs = {}, {}
+            new_bufs, new_shm = {}, {}
             self._vec_loop_stack.append((act, boxes))
             try:
                 for st in body:
@@ -1001,6 +1034,10 @@ class Interp:
                 cnext = true_val if cond_expr is None else self.eval_expr(cond_expr, inner)
                 for nm in stored_imgs:
                     new_imgs[nm] = [self._as_array(p, "float") for p in self.stores[nm]]
+                for k in buf_keys:
+                    new_bufs[k] = self.buffers[k]
+                for k in shm_keys:
+                    new_shm[k] = self.shared_state[k]
                 for n in glob_carried:
                     new_globs[n] = self.globals[n]
             finally:
@@ -1013,11 +1050,19 @@ class Interp:
                         self.stores.pop(nm, None)
                     else:
                         self.stores[nm] = pv
+                for k, pv in prev_bufs.items():
+                    self.buffers[k] = pv
+                for k, pv in prev_shm.items():
+                    self.shared_state[k] = pv
                 for n, pv in prev_globals.items():
                     self.globals[n] = pv
             out = {n: self._val_to_tree(inner.lookup(n)) for n in carried}
             for nm in stored_imgs:
                 out["_img:" + nm] = new_imgs[nm]
+            for k in buf_keys:
+                out["_buf:" + k] = new_bufs[k]
+            for k in shm_keys:
+                out["_shm:" + k] = new_shm[k]
             for n in glob_carried:
                 out["_g:" + n] = self._val_to_tree(new_globs[n])
             active = carry["_active"] & cond_plane(cnext)
@@ -1050,6 +1095,10 @@ class Interp:
         carry = {n: self._val_to_tree(protos[n]) for n in carried}
         for nm in stored_imgs:
             carry["_img:" + nm] = [self._as_array(p, "float") for p in self._image_current(nm)]
+        for k in buf_keys:
+            carry["_buf:" + k] = self.buffers[k]
+        for k in shm_keys:
+            carry["_shm:" + k] = self.shared_state[k]
         for n in glob_carried:
             carry["_g:" + n] = self._val_to_tree(gprotos[n])
         active = (torch.ones(hw, dtype=torch.bool, device=self.device) if at_least_once
@@ -1073,6 +1122,10 @@ class Interp:
             self.globals[n] = self._tree_to_val(final["_g:" + n], gprotos[n])
         for nm in stored_imgs:
             self.stores[nm] = list(final["_img:" + nm])
+        for k in buf_keys:
+            self.buffers[k] = final["_buf:" + k]
+        for k in shm_keys:
+            self.shared_state[k] = final["_shm:" + k]
         if self.shader.stage == "fragment":
             fd = final["_discard"]
             self.discard_mask = fd if self.discard_mask is None else self.discard_mask | fd
@@ -1442,6 +1495,34 @@ class Interp:
 
         walk(stmts)
         return names
+
+    def _body_has_atomic(self, stmts) -> bool:
+        """True when a loop body calls an SSBO or shared-array atomic,
+        directly or inside a called user function (transitively)."""
+        found = False
+
+        def walk(node):
+            nonlocal found
+            if found:
+                return
+            if isinstance(node, (list, tuple)):
+                for x in node:
+                    walk(x)
+                return
+            if not hasattr(node, "__dataclass_fields__"):
+                return
+            if isinstance(node, ast.Call) and (
+                node.name in ATOMIC_FUNCS
+                or (node.name in self.shader.functions
+                    and self._callee_effect_summary(node.name)[1])
+            ):
+                found = True
+                return
+            for f in node.__dataclass_fields__:
+                walk(getattr(node, f))
+
+        walk(stmts)
+        return found
 
     def _body_has_shared_write(self, stmts, _seen: Optional[set] = None) -> bool:
         """True when a loop body performs a plain (non-atomic) store or
@@ -3027,6 +3108,10 @@ class Interp:
         """Read plane at (x+dx, y+dy): clamped indices (edge) or zeros."""
         arr = self._as_array(plane, "float")
         h, w = self.h, self.w
+        if self.abstract:
+            # Shapes only: index arithmetic on meta tensors runs through
+            # PyTorch's Python references, milliseconds an op.
+            return torch.zeros((h, w), dtype=arr.dtype, device=self.device)
         if clamped:
             ys = torch.clamp(torch.arange(dy, dy + h, device=self.device), 0, h - 1)
             xs = torch.clamp(torch.arange(dx, dx + w, device=self.device), 0, w - 1)
@@ -3062,26 +3147,17 @@ class Interp:
         """imageStore at a computed coordinate: a per-pixel scatter.
 
         GLSL leaves concurrent same-pixel writes unordered.  Here the last
-        active lane in row-major order wins, the JAX package's result on
-        the CPU (XLA's scatter applies updates in order): each target takes
-        the largest lane index that writes it (an integer max, the same on
-        every device).  Out-of-bounds and masked lanes write nothing: each
-        writes a slot of its own past the image (one shared slot would
-        serialize millions of atomics on the card)."""
+        active lane in row-major order wins (see _last_writer); out-of-bounds
+        and masked lanes write nothing."""
         if not coord.is_vector() or coord.size != 2:
             raise GlslError("imageStore coordinate must be ivec2", line)
         self.stats["gather"] = True
-        n = self.h * self.w
         xs = self._as_array(coord.data[0], "int")
         ys = self._as_array(coord.data[1], "int")
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
         mask = self._effective_mask(scope)
         keep = inb if mask is None else land(inb, mask)
-        lane = torch.arange(n, device=self.device)
-        flat = torch.where(keep.reshape(-1), (ys.to(torch.int64) * self.w + xs).reshape(-1),
-                           n + lane)
-        winner = torch.full((2 * n,), -1, dtype=torch.int64, device=self.device)
-        winner = winner.scatter_reduce(0, flat, lane, reduce="amax")[:n]
+        winner = self._last_writer(ys.to(torch.int64) * self.w + xs, keep, self.h * self.w)
         hit = winner >= 0
         src = winner.clamp(min=0)
         stored = []
@@ -3098,27 +3174,33 @@ class Interp:
         v._comp_origins = [None, None]  # type: ignore[attr-defined]
         return v
 
-    # ---- storage buffers, shared arrays, atomics: abstract only ----------
-    #
-    # The reference's semantics (interp.py:3537-3856 there) are the next
-    # slice's.  Here they give values of the reference's shapes and record
-    # its reflection statistics, so the halo reflection sees these shaders
-    # as the reference does; on a real device each raises.
+    # ---- storage buffers ------------------------------------------------
 
     def _ssbo_read(self, ref: tuple, idx: Val, line: int) -> Val:
-        self._unported("reading a storage buffer", line)
-        _block, member = ref
+        block, member = ref
         size = self.ssbo_members[member][1]
+        off = self.ssbo_offsets[member]
         elem = self.ssbo_elem.get(member, "float")
+        buf = self.buffers[block]
         if is_static(idx.data):
-            if not 0 <= int(idx.data) < size:
-                return self._zero_of(elem, line)  # robust OOB
-            return Val(elem, self._abstract_plane(elem, ()))
-        self.stats["gather"] = True
-        return Val(elem, self._abstract_plane(elem))
+            i = int(idx.data)
+            if not 0 <= i < size:
+                return self._zero_of(elem, line)  # robust out-of-bounds read
+            v = buf[off + i]
+        else:
+            self.stats["gather"] = True
+            ii = idx.data.to(torch.int64)
+            inb = (ii >= 0) & (ii < size)
+            v = torch.where(inb, buf[off + ii.clamp(0, size - 1)], 0.0)
+        if elem != "float":
+            v = cast(v, elem)  # f32 storage, the declared type's value view
+        return Val(elem, v)
 
     def _ssbo_write(self, ref: tuple, idx: Val, value: Val, scope, line: int) -> None:
-        self._unported("writing a storage buffer", line)
+        """Plain indexed store: a uniform index and value only (a per-pixel
+        scatter has no defined order in GLSL; atomics accumulate)."""
+        block, member = ref
+        size = self.ssbo_members[member][1]
         if not is_static(idx.data):
             raise GlslError(
                 "SSBO stores need a uniform index (use atomicAdd for per-pixel accumulation)",
@@ -3129,41 +3211,226 @@ class Interp:
         v = self.convert(value, "float", line).data
         if not is_static(v) and getattr(v, "ndim", 0) != 0:
             raise GlslError("SSBO stores need a uniform value", line)
+        i = int(idx.data)
+        if 0 <= i < size:
+            buf = self.buffers[block].clone()
+            buf[self.ssbo_offsets[member] + i] = v
+            self.buffers[block] = buf
+
+    # ---- workgroup-shared arrays ----------------------------------------
+
+    def _group_ids(self):
+        """(H, W) int64 plane of flattened workgroup ids."""
+        if self._gids is None:
+            lsx, lsy, _ = self.shader.local_size
+            groups_x = -(-self.global_w // lsx)
+            self._gids = (self._iota("y") // lsy) * groups_x + self._iota("x") // lsx
+        return self._gids
+
+    def _lane_index(self, idx: Val):
+        """``idx`` as an (H, W) int64 plane."""
+        if is_static(idx.data):
+            return torch.full((self.h, self.w), int(idx.data), dtype=torch.int64,
+                              device=self.device)
+        return torch.broadcast_to(idx.data.to(torch.int64), (self.h, self.w))
+
+    def _shared_fid(self, name: str, idx: Val):
+        """(flat slot plane, in-bounds mask) of shared[idx] per pixel."""
+        size = self.shared_members[name][1]
+        ii = self._lane_index(idx)
+        inb = (ii >= 0) & (ii < size)
+        return self._group_ids() * size + ii.clamp(0, size - 1), inb
 
     def _shared_read(self, name: str, idx: Val, line: int) -> Val:
-        self._unported("reading a shared array", line)
         self.stats["gather"] = True
-        elem, _ = self.shared_members[name]
-        return Val(elem, self._abstract_plane(elem))
+        elem = self.shared_members[name][0]
+        fid, inb = self._shared_fid(name, idx)
+        v = torch.where(inb, self.shared_state[name][fid], 0.0)
+        return Val(elem, v if elem == "float" else cast(v, elem))
 
     def _shared_write(self, name: str, idx: Val, value: Val, scope, line: int) -> None:
-        self._unported("writing a shared array", line)
+        """Plain store: a per-pixel scatter.  Two invocations of one
+        workgroup writing one slot is undefined in GLSL; the last active
+        lane in row-major order wins, as in the JAX package on the CPU."""
         self.stats["gather"] = True
-        self.convert(value, self.shared_members[name][0], line)
+        elem = self.shared_members[name][0]
+        vv = self._as_array(self.convert(value, elem, line).data, "float")
+        fid, inb = self._shared_fid(name, idx)
+        mask = self._effective_mask(scope)
+        keep = inb if mask is None else land(inb, mask)
+        state = self.shared_state[name]
+        winner = self._last_writer(fid, keep, state.shape[0])
+        self.shared_state[name] = torch.where(winner >= 0, vv.reshape(-1)[winner.clamp(min=0)],
+                                              state)
+
+    def _last_writer(self, fid, keep, total: int):
+        """For each of ``total`` slots the largest lane index (row-major)
+        of an active lane writing it, else -1: XLA's in-order scatter on
+        the CPU, as an integer max that is the same on every device.
+        Inactive lanes each target a slot of their own past the end (one
+        shared slot would serialize millions of atomics on the card)."""
+        n = self.h * self.w
+        lane = torch.arange(n, device=self.device)
+        keep = torch.broadcast_to(keep, (self.h, self.w)).reshape(-1)
+        flat = torch.where(keep, fid.reshape(-1), total + lane)
+        winner = torch.full((total + n,), -1, dtype=torch.int64, device=self.device)
+        return winner.scatter_reduce(0, flat, lane, reduce="amax")[:total]
+
+    # ---- atomics --------------------------------------------------------
+
+    # Per op: (identity of inactive lanes, reduction) for add/min/max.
+    _RMW = {
+        "atomicAdd": (0.0, "sum"),
+        "atomicMin": (float("inf"), "min"),
+        "atomicMax": (float("-inf"), "max"),
+    }
+    _BITWISE = ("atomicAnd", "atomicOr", "atomicXor")
+
+    def _lanes_i32(self, val: Val, line: int):
+        """(H, W) int32 plane of a scalar operand's 32-bit two's-complement
+        value (uint wraps; float truncates)."""
+        if val.is_vector() or val.type.startswith(("mat", "struct:")):
+            raise GlslError("atomic operand must be a scalar int/uint", line)
+        v = val.data
+        if is_static(v):
+            return torch.full((self.h, self.w), self._wrap_static_int(int(v), "int"),
+                              dtype=torch.int32, device=self.device)
+        return torch.broadcast_to(cast(v, "int"), (self.h, self.w))
+
+    def _segment_reduce(self, buf, fid, contrib, how: str, ident: float):
+        """``buf`` with each lane's ``contrib`` reduced into its slot.
+
+        On the CPU in lane order (``index_add``: ((b + c0) + c1) + ..., the
+        bits of the JAX package's scatter-add; min and max by
+        ``scatter_reduce``).  On the card the order is fixed as well, so a
+        frame is bit-identical from run to run: a stable sort of the slots
+        and one fixed-order segment reduction (``torch.segment_reduce``)
+        per slot, then the buffer's value (no float atomics, whose order
+        varies).  A sum there leaves the CPU's order; counts of 1.0 stay
+        exact below 2**24."""
+        if buf.device.type != "cuda":
+            if how == "sum":
+                return buf.index_add(0, fid, contrib)
+            return buf.scatter_reduce(0, fid, contrib, reduce="a" + how, include_self=True)
+        order = torch.sort(fid, stable=True).indices
+        lengths = torch.bincount(fid, minlength=buf.shape[0])
+        part = torch.segment_reduce(contrib[order], how, lengths=lengths, initial=ident,
+                                    unsafe=True)
+        if how == "sum":
+            return buf + part
+        return torch.minimum(buf, part) if how == "min" else torch.maximum(buf, part)
+
+    def _atomic_apply(self, buf, fid, keep, op, vv_f, vv_i):
+        """One atomic call site over a flat f32 buffer.
+
+        ``fid`` is the (H, W) slot of each lane (clamped in bounds),
+        ``keep`` the active lanes, ``vv_f``/``vv_i`` the operand as f32 and
+        two's-complement int32 planes.  add/min/max: a masked segment
+        reduction, inactive lanes giving the identity.  and/or/xor: the
+        exact 32-bit-plane reduction on the integer value view (bit b of a
+        slot from its own bit and the count of active lanes carrying bit
+        b), stored back as f32.  exchange: the last active lane in
+        row-major order wins (see _last_writer)."""
+        if self.abstract:
+            return buf
+        total = buf.shape[0]
+        hw = (self.h, self.w)
+        keep = torch.broadcast_to(keep, hw)
+        if op in self._RMW:
+            ident, how = self._RMW[op]
+            contrib = torch.where(keep, vv_f, ident).reshape(-1)
+            return self._segment_reduce(buf, fid.reshape(-1), contrib, how, ident)
+        if op == "atomicExchange":
+            winner = self._last_writer(fid, keep, total)
+            return torch.where(winner >= 0, vv_f.reshape(-1)[winner.clamp(min=0)], buf)
+        fk = torch.where(keep, fid, total).reshape(-1)  # inactive lanes: a dropped slot
+        keep_i = keep.reshape(-1).to(torch.int64)
+
+        def count(bits):
+            c = torch.zeros((total + 1,), dtype=torch.int64, device=self.device)
+            return c.index_add_(0, fk, bits)[:total]
+
+        cnt = count(keep_i)
+        cur = cast(buf, "int")
+        res = torch.zeros((total,), dtype=torch.int64, device=self.device)
+        for b in range(32):
+            cb = count(((vv_i >> b) & 1).reshape(-1).to(torch.int64) * keep_i)
+            ib = ((cur >> b) & 1).to(torch.int64)
+            if op == "atomicOr":
+                nb = ib | (cb > 0).to(torch.int64)
+            elif op == "atomicXor":
+                nb = ib ^ (cb & 1)
+            else:  # atomicAnd
+                nb = ib & torch.where(cnt > 0, cb == cnt, True).to(torch.int64)
+            res = res | (nb << b)
+        return cast(res, "int").to(torch.float32)  # two's complement, then the f32 value
+
+    def _atomic_call(self, buf, fid, keep, op: str, vals: list, line: int):
+        """``buf`` after atomic ``op`` with operands ``vals``; compSwap is
+        an exchange by the lanes whose compare matches the buffer before
+        the call, the last of them winning: one order a GPU could run."""
+        data = vals[-1]
+        vv_f = self._as_array(self.convert(data, "float", line).data, "float")
+        vv_i = (self._lanes_i32(data, line)
+                if op in self._BITWISE or op == "atomicCompSwap" else None)
+        if op == "atomicCompSwap":
+            keep = land(keep, cast(buf[fid], "int") == self._lanes_i32(vals[0], line))
+            op = "atomicExchange"
+        return self._atomic_apply(buf, fid, keep, op, vv_f, vv_i)
 
     def _atomic_rmw(self, op: str, arg_exprs: list, scope, line: int) -> Val:
-        self._unported(op, line)
+        """atomicAdd/Min/Max/And/Or/Xor/Exchange(mem[idx], value) and
+        atomicCompSwap(mem[idx], compare, data) on SSBO members and shared
+        arrays: one masked reduction over the pixel grid a call site (see
+        _atomic_apply and _atomic_call).  Every atomic returns 0: the value
+        before the operation depends on execution order on a GPU and has
+        no meaning here."""
         nargs = 3 if op == "atomicCompSwap" else 2
         shape = "compare, data" if nargs == 3 else "value"
         if len(arg_exprs) != nargs:
             raise GlslError(f"{op}(ssbo_member[index], {shape})", line)
         if isinstance(arg_exprs[0], ast.Index):
             target = self.eval_expr(arg_exprs[0].expr, scope)
-            self.eval_expr(arg_exprs[0].index, scope)
+            idx = self.eval_expr(arg_exprs[0].index, scope)
         else:
+            # A scalar SSBO member: element 0 of its range.
             target = self._ssbo_ref_of(arg_exprs[0], scope)
             if target is None or self.ssbo_members[target.data[1]][1] != 1:
                 raise GlslError(f"{op}(ssbo_member[index], {shape})", line)
-        for a in arg_exprs[1:]:
-            self.eval_expr(a, scope)
-        if target.type not in ("shared", "ssbo"):
+            idx = Val("int", 0)
+        vals = [self.eval_expr(a, scope) for a in arg_exprs[1:]]
+        if target.type == "shared":
+            name = target.data
+            fid, inb = self._shared_fid(name, idx)
+            buf = self.shared_state[name]
+        elif target.type == "ssbo":
+            block, member = target.data
+            size = self.ssbo_members[member][1]
+            ii = self._lane_index(idx)
+            inb = (ii >= 0) & (ii < size)
+            fid = self.ssbo_offsets[member] + ii.clamp(0, size - 1)
+            buf = self.buffers[block]
+        else:
             raise GlslError(f"{op} target must be an SSBO member or shared array element", line)
         self.stats["gather"] = True
+        mask = self._effective_mask(scope)
+        keep = inb if mask is None else land(inb, mask)
+        new = self._atomic_call(buf, fid, keep, op, vals, line)
+        if target.type == "shared":
+            self.shared_state[name] = new
+        else:
+            self.buffers[block] = new
         return Val("float", 0.0)
 
     def _image_atomic(self, op: str, arg_exprs: list, scope, line: int) -> Val:
-        self._unported(op, line)
-        nargs = 4 if op == "imageAtomicCompSwap" else 3
+        """imageAtomicAdd/Min/Max/And/Or/Xor/Exchange(image, ivec2, data) and
+        imageAtomicCompSwap(image, ivec2, compare, data) on channel 0 of a
+        storage image (GLSL allows image atomics on one-channel formats
+        only), lowered as the SSBO atomics with the plane as a flat
+        (h * w) buffer.  Out-of-bounds coordinates are dropped.  Returns
+        0."""
+        base = "atomic" + op[len("imageAtomic"):]
+        nargs = 4 if base == "atomicCompSwap" else 3
         shape = "compare, data" if nargs == 4 else "data"
         if len(arg_exprs) != nargs:
             raise GlslError(f"{op}(image, ivec2, {shape})", line)
@@ -3171,11 +3438,18 @@ class Interp:
         coord = self.eval_expr(arg_exprs[1], scope)
         if not coord.is_vector() or coord.size != 2:
             raise GlslError(f"{op} coordinate must be ivec2", line)
-        for a in arg_exprs[2:]:
-            self.eval_expr(a, scope)
+        vals = [self.eval_expr(a, scope) for a in arg_exprs[2:]]
         self.stats["gather"] = True
+        xs = self._as_array(coord.data[0], "int").to(torch.int64)
+        ys = self._as_array(coord.data[1], "int").to(torch.int64)
+        inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
+        mask = self._effective_mask(scope)
+        keep = inb if mask is None else land(inb, mask)
+        fid = ys.clamp(0, self.h - 1) * self.w + xs.clamp(0, self.w - 1)
         planes = self._image_current(name)
-        self.stores[name] = [self._abstract_plane("float")] + [
+        buf = self._as_array(planes[0], "float").reshape(-1)
+        new = self._atomic_call(buf, fid, keep, base, vals, line)
+        self.stores[name] = [new.reshape(self.h, self.w)] + [
             self._as_array(p, "float") for p in planes[1:]]
         return Val("float", 0.0)
 

@@ -633,6 +633,17 @@ class GraphProgram:
                     f"'{desc}' (produced: {', '.join(outs)})"
                 )
             value = outs[desc]
+            if desc in node.spec.ssbos_out:
+                # A storage buffer: 1-D f32 of the graph's size for the
+                # resource, never cast to the storage type or quantized.
+                expected_len = self.graph.buffer_sizes.get(res, value.shape[-1])
+                if tuple(value.shape) != (expected_len,):
+                    raise GraphTraceError(
+                        f"kernel '{node.spec.name}' buffer output '{desc}' has shape "
+                        f"{tuple(value.shape)}, expected ({expected_len},)"
+                    )
+                written[res] = value.to(torch.float32)
+                continue
             expected = (4, self.height, self.width)
             if tuple(value.shape) != expected:
                 raise GraphTraceError(

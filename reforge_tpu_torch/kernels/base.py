@@ -96,8 +96,8 @@ class KernelSpec:
     fn: Callable[..., Any]
     images_in: tuple[str, ...] = ("input_image",)
     images_out: tuple[str, ...] = ("output_image",)
-    # Storage-buffer bindings (1-D f32 between nodes).  No ported builtin
-    # declares one; the graph builder still validates their wiring.
+    # Storage-buffer bindings (1-D f32 between nodes): GLSL SSBO blocks
+    # and lut1d's Curve.
     ssbos_in: tuple[str, ...] = ()
     ssbos_out: tuple[str, ...] = ()
     ssbo_sizes: dict[str, int] = dataclasses.field(default_factory=dict)
@@ -204,14 +204,16 @@ def kernel(
     *,
     images_in: tuple[str, ...] | None = None,
     images_out: tuple[str, ...] = ("output_image",),
+    ssbos_in: tuple[str, ...] = (),
+    ssbo_sizes: dict[str, int] | None = None,
     halo: int | Callable[[Mapping[str, Any]], Optional[int]] = 0,
     doc: str = "",
 ):
     """Decorator declaring a kernel from a plain function.
 
-    Parameters after ``ctx`` without defaults are image bindings; keyword
-    parameters with scalar defaults become ``ParamDecl``s typed by their
-    default.
+    Parameters after ``ctx`` without defaults are image bindings, but those
+    named in ``ssbos_in`` (buffer bindings); keyword parameters with scalar
+    defaults become ``ParamDecl``s typed by their default.
     """
 
     def wrap(fn: Callable[..., Any]) -> KernelSpec:
@@ -224,7 +226,8 @@ def kernel(
         for pname in names[1:]:
             p = sig.parameters[pname]
             if p.default is inspect.Parameter.empty:
-                inferred_images.append(pname)
+                if pname not in ssbos_in:
+                    inferred_images.append(pname)
             else:
                 params[pname] = ParamDecl(pname, ParamKind.of(p.default), p.default)
         halo_fn = halo if callable(halo) else (lambda _params, _h=halo: _h)
@@ -233,6 +236,8 @@ def kernel(
             fn=fn,
             images_in=tuple(images_in if images_in is not None else inferred_images),
             images_out=images_out,
+            ssbos_in=ssbos_in,
+            ssbo_sizes=dict(ssbo_sizes or {}),
             params=params,
             halo=halo_fn,
             doc=doc or (fn.__doc__ or ""),

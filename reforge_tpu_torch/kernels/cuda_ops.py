@@ -52,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Any, Callable, Optional, Sequence
 
@@ -70,6 +71,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lib: Optional[ctypes.CDLL] = None
+# One build at a time in a process: an engine's background rebuild and its
+# render thread may both reach the first use.
+_build_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -132,8 +136,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernels, with every argument type
-    declared so that pointers keep their 64 bits."""
+    """Build (first use, under a lock) and load the kernels, with every
+    argument type declared so that pointers keep their 64 bits."""
+    if _lib is None:
+        with _build_lock:
+            _load_locked()
+    return _lib
+
+
+def _load_locked() -> None:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
@@ -179,7 +190,6 @@ def load_library() -> ctypes.CDLL:
         lib.rf_strip_limits.argtypes = [_I]
         lib.rf_strip_limits.restype = _I
         _lib = lib
-    return _lib
 
 
 def _check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:

@@ -1,6 +1,6 @@
 """Builtin kernels (the port of ``reforge_tpu/kernels/library.py``): every
-builtin of the reference library but ``lut1d``, which reads a storage
-buffer that only a GLSL or ``.py`` kernel can write.
+builtin of the reference library, ``lut1d`` with its 256-entry ``Curve``
+storage buffer, which a GLSL shader upstream writes.
 
 Every form of each builtin is ported: ``fn``, ``conv_weights``,
 ``conv_pre``, ``conv_epilogue`` and ``conv_epilogue_cw``, ``cw_fn``,
@@ -897,6 +897,21 @@ def radial_blur(ctx, input_image, *, strength=0.15, samples=12, center_x=0.5, ce
         s = sample_bilinear(input_image, cy + (ys - cy) * t, cx + (xs - cx) * t)
         acc = s if acc is None else acc + s
     return with_alpha(true_divide(acc[:3], n), input_image[3])
+
+
+# ---- lookup tables ----------------------------------------------------------------
+
+
+@kernel("lut1d", ssbos_in=("Curve",), ssbo_sizes={"Curve": 256})
+def lut1d(ctx, input_image, Curve):
+    """Map channels through a 256-entry tone curve stored in an SSBO."""
+
+    def f(rgb):
+        # XLA's float -> int conversion: truncation, NaN to 0.
+        idx = torch.nan_to_num(torch.clamp(rgb * 255.0, 0.0, 255.0), nan=0.0)
+        return Curve[idx.to(torch.int64)]
+
+    return map_rgb(input_image, f)
 
 
 # ---- generators -------------------------------------------------------------------

@@ -3,9 +3,9 @@
 A node's kernel comes from a source file in the shader path when one
 exists, else from the builtin registry.  ``.comp``, ``.frag`` and
 ``.glsl`` files go through the GLSL compiler (``glsl.translate_shader``);
-a shader it cannot run (a syntax error, or a storage buffer, atomic or
-``shared`` array, which are not ported yet) warns and gives no spec, so the
-graph build fails and the engine keeps its last good program.  A ``.py``
+a shader it rejects (a syntax error, an unsupported construct) warns and
+gives no spec, so the graph build fails and the engine keeps its last good
+program.  A ``.py``
 kernel file is JAX code in the reference and gets a "not ported"
 diagnostic the same way.
 """

@@ -1,5 +1,5 @@
-"""Terminal coloring and warnings (the subset of ``reforge_tpu.utils`` the
-port uses, with the same behaviour).
+"""Terminal coloring, warnings and file mtimes (the subset of
+``reforge_tpu.utils`` the port uses, with the same behaviour).
 
 ``warnln`` prints a yellow warning to stderr after clearing the in-place
 status line, and records it so tests and keep-last-good paths can assert
@@ -9,6 +9,7 @@ on diagnostics without capturing stderr (reference: src/utils.rs:13-18).
 from __future__ import annotations
 
 import collections
+import os
 import sys
 from typing import Deque
 
@@ -37,3 +38,13 @@ def recent_warnings() -> list[str]:
 
 def clear_warnings() -> None:
     _recent_warnings.clear()
+
+
+def get_modified_time(path: str) -> int:
+    """File mtime in nanoseconds; 0 if the file cannot be stat'ed (live
+    reload re-detects a file that disappears and comes back;
+    src/utils.rs:33-54, src/render.rs:146-151)."""
+    try:
+        return os.stat(path).st_mtime_ns
+    except OSError:
+        return 0

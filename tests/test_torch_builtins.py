@@ -126,13 +126,14 @@ def test_builtin_matches_jax(name, fmt):
 
 
 def test_registry_matches_the_reference():
-    """The port registers every reference builtin but lut1d, with its
-    params.  Every reference builtin with a channel form has a cw_op in
-    the port; every one of halo 0 with an image input (the reference's mc
-    point stages, program.py:512-529 there) has an mc_op."""
+    """The port registers every reference builtin, with its params and
+    buffer bindings.  Every reference builtin with a channel form has a
+    cw_op in the port; every one of halo 0 with an image input and no
+    buffer (the reference's mc point stages, program.py:512-529 there; its
+    planners refuse buffer nodes) has an mc_op."""
     ref = jbase.builtin_kernels()
     port = builtin_kernels()
-    assert set(ref) - set(port) == {"lut1d"} and set(port) <= set(ref)
+    assert set(port) == set(ref) and len(port) == 47
     for name, spec in port.items():
         rspec = ref[name]
         assert spec.images_in == rspec.images_in, name
@@ -142,7 +143,9 @@ def test_registry_matches_the_reference():
         assert spec.halo_for(defaults) == rspec.halo_for(defaults), name
         if rspec.cw_fn is not None:
             assert spec.cw_fn is not None and spec.cw_op is not None, name
-        if rspec.halo_for(defaults) == 0 and rspec.images_in:
+        assert (spec.ssbos_in, spec.ssbos_out, spec.ssbo_sizes) == (
+            rspec.ssbos_in, rspec.ssbos_out, rspec.ssbo_sizes), name
+        if rspec.halo_for(defaults) == 0 and rspec.images_in and not rspec.ssbos_in:
             assert spec.mc_op is not None, name
         for form in ("conv_weights", "conv_epilogue", "conv_epilogue_cw", "conv_pre",
                      "cw_coord_plane", "cw_plane_fn", "mc_stencil_fn"):

@@ -1,7 +1,7 @@
 """The port's GLSL compiler (``reforge_tpu_torch/glsl``) against the JAX
 package's, on the CPU: the parse tree, binding reflection and halo
-reflection of all 27 shipped shaders, the 22 that touch only images run
-through both interpreters on the same seeded images, the sequential scalar
+reflection of all 27 shipped shaders, each run through both interpreters
+on the same seeded images (and buffers), the sequential scalar
 reference (``tests/scalar_ref.py``) for the numerically stable ones, and
 targeted cases of the semantics where PyTorch and XLA differ by default
 (integer division, uint wrap, bit casts, data-dependent loops, scatter
@@ -30,7 +30,7 @@ from reforge_tpu_torch import config as tconfig
 from reforge_tpu_torch import utils as tutils
 from reforge_tpu_torch.benchmarks import EXAMPLES_DIR, SHADER_DIR
 from reforge_tpu_torch.glsl import (
-    PROBE_EXTENTS, GlslError, dry_stats, reflect_bindings, reflect_spatial, translate_shader,
+    PROBE_EXTENTS, dry_stats, reflect_bindings, reflect_spatial, translate_shader,
 )
 from reforge_tpu_torch.glsl.parser import parse_shader_source as tparse
 from reforge_tpu_torch.kernels.base import KernelContext
@@ -39,9 +39,9 @@ from scalar_ref import ScalarRef
 
 SHADERS = sorted(os.path.splitext(os.path.basename(p))[0]
                  for p in glob.glob(os.path.join(SHADER_DIR, "*.*")))
-# Storage buffers, atomics or workgroup shared arrays: not ported yet.
-NOT_PORTED = ("equalize", "expose_apply", "expose_meter", "histogram", "waveform")
-IMAGE_ONLY = [s for s in SHADERS if s not in NOT_PORTED]
+# Storage buffers and atomics (tests/test_torch_ssbo.py has the rest).
+BUFFER_SHADERS = ("equalize", "expose_apply", "expose_meter", "histogram", "waveform")
+IMAGE_ONLY = [s for s in SHADERS if s not in BUFFER_SHADERS]
 # Escape-time shaders: an f32 difference of an ulp moves a pixel across an
 # iteration boundary and flips its whole colour (tests/test_scalar_ref.py).
 ESCAPE_TIME = ("mandelbrot", "raymarch")
@@ -166,6 +166,7 @@ def _run_both(stem, params=None, h=H, w=W, seed=0, t=0.5):
     tspec = translate_shader(src, stem, path=_path(stem))
     rng = np.random.default_rng(seed)
     base = {n: rng.random((4, h, w), dtype=np.float32) for n in jspec.images_in}
+    base.update({n: rng.random(jspec.ssbo_sizes[n], dtype=np.float32) for n in jspec.ssbos_in})
     jparams = jspec.resolve_params(params or {})
     tparams = tspec.resolve_params(params or {})
     assert tparams == jparams
@@ -208,10 +209,23 @@ def test_stable_shader_matches_scalar_ref(stem):
     np.testing.assert_allclose(got.numpy().astype(np.float64), want, atol=3e-4)
 
 
-@pytest.mark.parametrize("stem", NOT_PORTED)
+@pytest.mark.parametrize("stem", BUFFER_SHADERS)
 def test_buffer_atomic_and_shared_shaders_are_not_ported_yet(stem):
-    with pytest.raises(GlslError, match="not ported yet"):
-        translate_shader(_source(stem), stem, path=_path(stem))
+    """Each shader with storage buffers or atomics, with the params its
+    example sets, on a seeded 24x40 image and seeded input buffers: its
+    buffers bit-equal to the JAX package's (counts; expose_meter's peak and
+    its luma sum, added in the same lane order), its images within 1e-5 of
+    max(1, |value|) (a random Expo buffer gives expose_apply gains near
+    100)."""
+    outs, _base = _run_both(stem, EXAMPLE_PARAMS.get(stem), seed=SHADERS.index(stem))
+    spec = translate_shader(_source(stem), stem, path=_path(stem))
+    for name, (got, want) in outs.items():
+        assert got.shape == want.shape and got.dtype == np.float32, name
+        if name in spec.ssbos_out:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            d = np.abs(got.astype(np.float64) - want) / np.maximum(1.0, np.abs(want))
+            assert float(d.max()) <= 1e-5, name
 
 
 # ---- targeted semantics ------------------------------------------------------

@@ -3,8 +3,8 @@ CPU: conv synthesis (``glsl/affine.py``), the mc planner's synthesized
 conv and stencil stages, the engine with the shipped shaders from the
 repository root (the default config and the GLSL graphs on the mc tier;
 the reference's GLSL graphs and the examples are in
-``test_torch_glsl_examples.py``), and the "not ported yet" diagnostic of
-storage-buffer shaders.
+``test_torch_glsl_examples.py``), and the histogram -> equalize example
+of storage-buffer shaders (the rest of them in ``test_torch_ssbo.py``).
 
 The JAX side runs its per-node path eagerly (``_forward_nostrip``), as its
 own tests run it on the CPU.
@@ -210,12 +210,13 @@ def _u8(seed=11):
     return np.random.default_rng(seed).integers(0, 256, (H, W, 4), dtype=np.uint8)
 
 
-def _render_both(config_path, fmt, u8, t=0.25):
+def _render_both(config_path, fmt, u8, t=0.25, **info):
     """The port's Engine (a frame on its tier, and per node) and the JAX
     Engine's per-node path on the same linear input (the port's decode of
     ``u8``; the two decodes differ by an ulp of pow), both engines built
-    the way a user builds them, from the repository root."""
-    kw = dict(fmt=fmt, has_input_image=True)
+    the way a user builds them, from the repository root (``info``: more
+    RenderInfo fields for both)."""
+    kw = dict(fmt=fmt, has_input_image=True, **info)
     if config_path is not None:
         kw.update(config_path=config_path)
     engine = Engine(RenderInfo(W, H, "cpu", **kw))
@@ -253,21 +254,25 @@ def test_engine_renders_e1_to_e3_like_jax(graph, fmt, tmp_path, monkeypatch):
     assert float(np.abs(frame - per_node).max()) <= tier_bound
 
 
-def test_storage_buffer_shader_is_a_not_ported_diagnostic(tmp_path):
-    """A config naming SSBO shaders (histogram.comp, equalize.comp) fails its build with
-    the compiler's "not ported yet" diagnostic: no graph, no program, and an
-    engine keeps what it had (here: it cannot start)."""
+def test_storage_buffer_shader_is_a_not_ported_diagnostic(tmp_path, monkeypatch):
+    """A config naming SSBO shaders (histogram.comp, equalize.comp) builds
+    with no diagnostic: the histogram's Bins is a 256-element buffer
+    resource, and the engine renders it per node like the JAX Engine's
+    per-node path (PARITY.md's whole-graph bound, _check)."""
     text = (REPO_DIR / "examples" / "equalize.rf").read_text()
     cfg = tconfig.parse_file(text, True, SHADER_DIR)
     assert cfg is not None
     tutils.clear_warnings()
-    assert build_graph(cfg) is None
-    assert any("not ported yet" in w and "histogram.comp" in w for w in tutils.recent_warnings())
+    graph = build_graph(cfg)
+    assert graph is not None and not tutils.recent_warnings()
+    assert graph.buffer_sizes == {"histogram:Bins": 256}
     path = tmp_path / "equalize.rf"
     path.write_text(text)
-    with pytest.raises(RuntimeError, match="Failed to build"):
-        Engine(RenderInfo(W, H, "cpu", config_path=str(path), shader_path=SHADER_DIR,
-                          has_input_image=True))
+    monkeypatch.chdir(REPO_DIR)
+    engine, frame, per_node, want = _render_both(str(path), "rgba32f", _u8(2))
+    assert engine.program._strip_plan is None
+    np.testing.assert_array_equal(frame, per_node)
+    _check("rgba32f", frame, want, "equalize")
 
 
 def test_loader_caches_specs_by_source_and_refuses_py_kernels(tmp_path):
