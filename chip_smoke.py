@@ -6,8 +6,9 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives seven main paths at 3840x2160 through ``Engine``, each with the
-launch counters set to 0 just before it and read just after:
+drives eight main paths at 3840x2160 through ``Engine`` and the command
+line, each with the launch counters set to 0 just before it and read just
+after:
 
   A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
      per node with conv bundles, and the graph_strip tier);
@@ -40,7 +41,14 @@ launch counters set to 0 just before it and read just after:
   G. live reload: config and shader edits, keep-last-good on bad ones,
      inline and with async_compile (whose build puts nothing on the card),
      resize, the preview downscale, and the reload-to-frame latency of
-     three edits, warm and cold.
+     three edits, warm and cold;
+  H. the command line (``cli.main``, no ``--backend``): a 4K PNG rendered
+     headless with the flagship (one-shot per node), equal to
+     ``render_one_shot``; a resize on input; card against ``--backend
+     cpu``; the live loop of the demo (graph_strip_mc) with no preview and
+     with the kitty preview; batch over a directory (graph_strip); an
+     animated export and a transcode where the libav extension builds;
+     ``python -m reforge_tpu_torch --profile``.
 
 Paths A-D use an empty shader path, so the builtins they measure are not
 replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
@@ -58,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -788,6 +797,254 @@ def check_build_alone(u8: np.ndarray, tmp: str, smi: str) -> None:
     eng.close()
     print(f"check G async build alone: no device event (a frame after it: "
           f"{len(frame_events)} kinds of device event) [{smi}]")
+
+
+def _cli(argv: list, stdout=None) -> tuple[float, str]:
+    """``cli.main(argv)`` with its standard error captured (and its
+    standard output sent to ``stdout`` when given): (wall ms, stderr).
+    Fails on a non-zero return."""
+    import contextlib
+    import io as _io
+
+    from reforge_tpu_torch import cli
+
+    err = _io.StringIO()
+    out = stdout if stdout is not None else _io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    ms = (time.perf_counter() - start) * 1e3
+    if rc != 0:
+        raise AssertionError(f"H: cli.main({argv}) returned {rc}:\n{err.getvalue()[-2000:]}")
+    return ms, err.getvalue()
+
+
+def _read_png(path: str) -> np.ndarray:
+    from reforge_tpu_torch.io.png import decode_png
+
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def path_h(tmp: str, smi: str) -> dict:
+    """Path H: the command line on the card, through ``cli.main`` with no
+    ``--backend`` (the CLI picks the card) and an empty shader path (the
+    builtins, as paths A-D).  (1) A seeded 3840x2160 RGBA PNG written by
+    the port's encoder, rendered headless with the flagship in rgba32f and
+    rgba16f (one-shot per node: the conv bundle through
+    sep_conv_fused_multi, sep_conv_fused_mxu in rgba16f), the file equal
+    bit for bit to ``render_one_shot`` of the same pixels; decode, render
+    and encode timed apart.  (2) A 1920x1080 input with ``--width 3840``:
+    a 3840x2160 output through the Lanczos resize.  (3) At 512x288 the
+    card's file within one code of ``--backend cpu``'s, flagship and demo.
+    (4) The live loop on the demo at 4K, 120 frames with no preview
+    (graph_strip_mc once a frame), then 10 with the kitty preview (its
+    payload from read_output_scaled).  (5) Batch over a directory of four
+    1920x1080 PNGs (the strip tier: graph_strip), each output equal to
+    ``read_output(program(x, 0))`` and within one code of the one-shot
+    CLI.  (6) With the libav extension, an animated export and a
+    transcode of it.  (7) ``python -m reforge_tpu_torch --profile`` in a
+    child process writes a Chrome trace holding device events.  Returns
+    the launch counts of (1)-(6)."""
+    import contextlib
+
+    from reforge_tpu_torch.benchmarks import DEMO_CONFIG, FLAGSHIP_CONFIG
+    from reforge_tpu_torch.engine import Engine, RenderInfo
+    from reforge_tpu_torch.io import (
+        ImageFileDecoder, VideoFrames, encode, native_backend_available, native_backend_reason,
+    )
+    from reforge_tpu_torch.io.png import HEADER_BYTES, read_header
+    from reforge_tpu_torch.io.resize import resize_lanczos
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    hdir = os.path.join(tmp, "h")
+    empty = os.path.join(hdir, "empty")
+    os.makedirs(empty)
+    configs = {}
+    for name, text in (("flagship", FLAGSHIP_CONFIG), ("demo", DEMO_CONFIG)):
+        configs[name] = os.path.join(hdir, f"{name}.rf")
+        with open(configs[name], "w") as f:
+            f.write(text)
+    rng = np.random.default_rng(SEED + 11)
+
+    def write_png(name, h, w):
+        u8 = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
+        path = os.path.join(hdir, name)
+        start = time.perf_counter()
+        encode(path, u8)
+        return path, u8, (time.perf_counter() - start) * 1e3
+
+    def args(graph, inp, *rest):
+        return ["-i", inp, "--config", configs[graph], "--shader-path", empty, *rest]
+
+    total = {k: 0 for k in cuda_ops.LAUNCHES}
+
+    def take(what, launched_at_least=(), exactly=None):
+        """Read and reset the launch counts of a step; fail unless each
+        kernel of ``launched_at_least`` launched and each of ``exactly``
+        launched that many times."""
+        counts = dict(cuda_ops.LAUNCHES)
+        cuda_ops.reset_launches()
+        for k, v in counts.items():
+            total[k] += v
+        launched = {k: v for k, v in counts.items() if v}
+        bad = [k for k in launched_at_least if counts[k] == 0]
+        bad += [k for k, n in (exactly or {}).items() if counts[k] != n]
+        if bad:
+            raise AssertionError(f"H {what}: launches {launched}; expected "
+                                 f"{list(launched_at_least)} launched, {exactly or {}} exactly")
+        print(f"H {what} launches: {json.dumps(launched)}")
+
+    # (1) headless flagship at 4K.
+    in4k, u8_4k, enc_in_ms = write_png("in_4k.png", HEIGHT, WIDTH)
+    dec = ImageFileDecoder(in4k)
+    start = time.perf_counter()
+    decoded = dec.decode(WIDTH, HEIGHT)
+    dec_ms = (time.perf_counter() - start) * 1e3
+    if not np.array_equal(decoded, u8_4k):
+        raise AssertionError("H: the 4K PNG does not decode to its pixels")
+    cuda_ops.reset_launches()
+    for fmt, entry in (("rgba32f", "sep_conv_fused_multi"), ("rgba16f", "sep_conv_fused_mxu")):
+        out = os.path.join(hdir, f"out_4k_{fmt}.png")
+        cli_ms, _ = _cli(args("flagship", in4k, "-o", out, "--shader-format", fmt))
+        take(f"(1) one-shot flagship {fmt} 4K", [entry])
+        got = _read_png(out)
+        engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", config_path=configs["flagship"],
+                                   shader_path=empty, fmt=fmt, has_input_image=True,
+                                   one_shot=True))
+        engine.render_one_shot(u8_4k, 0.0)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        want = engine.render_one_shot(u8_4k, 0.0)
+        render_ms = (time.perf_counter() - start) * 1e3
+        engine.close()
+        cuda_ops.reset_launches()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"H (1) flagship {fmt}: the CLI's file differs from "
+                                 f"render_one_shot ({int((got != want).sum())} values)")
+        start = time.perf_counter()
+        encode(os.path.join(hdir, "again.png"), want)
+        out_ms = (time.perf_counter() - start) * 1e3
+        print(f"H (1) flagship {fmt} 3840x2160 PNG -> PNG through cli.main: {cli_ms:.1f} ms "
+              f"wall; decode {dec_ms:.1f} ms, render_one_shot {render_ms:.2f} "
+              f"ms (warm), encode (zlib level 9) {out_ms:.1f} ms; file equal to render_one_shot "
+              f"bit for bit; writing the input took {enc_in_ms:.1f} ms [{smi}]")
+
+    # (2) resize: 1920x1080 in, --width 3840.
+    in1080, u8_1080, _ = write_png("in_1080.png", 1080, 1920)
+    out = os.path.join(hdir, "out_resized.png")
+    cli_ms, _ = _cli(args("flagship", in1080, "-o", out, "--width", "3840"))
+    take("(2) one-shot flagship with --width 3840", ["sep_conv_fused_multi"])
+    with open(out, "rb") as f:
+        head = read_header(f.read(HEADER_BYTES), out)
+    if (head.width, head.height) != (WIDTH, HEIGHT):
+        raise AssertionError(f"H (2): output {head.width}x{head.height}, expected 3840x2160")
+    start = time.perf_counter()
+    resize_lanczos(u8_1080, WIDTH, HEIGHT)
+    lanczos_ms = (time.perf_counter() - start) * 1e3
+    print(f"H (2) 1920x1080 -> 3840x2160 (get_dim from --width 3840): Lanczos {lanczos_ms:.1f} "
+          f"ms on the host; cli.main {cli_ms:.1f} ms wall [{smi}]")
+
+    # (3) card against CPU at 512x288, rgba32f.
+    in_small, _, _ = write_png("in_512.png", 288, 512)
+    for graph in ("flagship", "demo"):
+        card, cpu = (os.path.join(hdir, f"{graph}_{d}.png") for d in ("card", "cpu"))
+        _cli(args(graph, in_small, "-o", card))
+        _cli(args(graph, in_small, "-o", cpu, "--backend", "cpu"))
+        d = np.abs(_read_png(card).astype(np.int16) - _read_png(cpu).astype(np.int16))
+        _check(f"H (3) {graph} rgba32f 512x288 CLI card vs --backend cpu (u8 codes)",
+               float(d.max()), 1.0)
+    take("(3) 512x288 on the card")
+
+    # (4) the live loop on the demo at 4K.
+    frames = 120
+    cli_ms, err = _cli(args("demo", in4k, "--preview", "none", "--frames", str(frames)))
+    take(f"(4) live loop demo 4K, {frames} frames", exactly={"graph_strip_mc": frames})
+    frame_ms = [float(v) for v in re.findall(r"Frame:\s*([0-9.]+)ms", err)]
+    if len(frame_ms) != frames:
+        raise AssertionError(f"H (4): {len(frame_ms)} status lines for {frames} frames")
+    steady = frame_ms[20:]
+    print(f"H (4) live loop demo rgba32f 4K, preview none: frame average {statistics.mean(steady):.3f} "
+          f"ms over frames 20-{frames} (p50 {statistics.median(steady):.3f}, max "
+          f"{max(steady):.3f}; host clock between frames, 2 in flight); cli.main "
+          f"{cli_ms:.1f} ms wall [{smi}]")
+    kitty = os.path.join(hdir, "kitty.out")
+    with open(kitty, "w") as f:
+        cli_ms, err = _cli(args("demo", in4k, "--preview", "kitty", "--frames", "10"), stdout=f)
+    take("(4) live loop demo 4K, kitty preview, 10 frames", exactly={"graph_strip_mc": 10})
+    payload = Path(kitty).read_text()
+    shown = re.findall(r"\x1b_Ga=T,f=32,s=(\d+),v=(\d+),o=z", payload)
+    if len(shown) != 10 or set(shown) != {("960", "540")}:
+        raise AssertionError(f"H (4) kitty: {len(shown)} images of sizes {set(shown)}")
+    frame_ms = [float(v) for v in re.findall(r"Frame:\s*([0-9.]+)ms", err)]
+    print(f"H (4) live loop demo 4K, kitty preview (read_output_scaled to 960x540, zlib "
+          f"payload, {len(payload) / 1e6:.1f} MB for 10 frames): frame average "
+          f"{statistics.mean(frame_ms[2:]):.3f} ms over frames 2-10 [{smi}]")
+
+    # (5) batch over a directory of four 1920x1080 PNGs.
+    bdir, bout = os.path.join(hdir, "batch"), os.path.join(hdir, "batch_out")
+    os.makedirs(bdir)
+    batch = []
+    for i in range(4):
+        path, u8, _ = write_png(f"batch/f{i}.png", 1080, 1920)
+        batch.append(u8)
+    cli_ms, _ = _cli(args("flagship", bdir, "-o", bout))
+    take("(5) batch flagship 4 x 1920x1080", exactly={"graph_strip": 4})
+    engine = Engine(RenderInfo(1920, 1080, "cuda", config_path=configs["flagship"],
+                               shader_path=empty, has_input_image=True))
+    for i, u8 in enumerate(batch):
+        want = engine.read_output(engine.program(engine.decode_to_planar(u8), 0.0))
+        got = _read_png(os.path.join(bout, f"f{i}.png"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"H (5) batch f{i}: differs from read_output(program(x, 0))")
+    engine.close()
+    single = os.path.join(hdir, "single_f2.png")
+    _cli(args("flagship", os.path.join(bdir, "f2.png"), "-o", single))
+    d = np.abs(_read_png(single).astype(np.int16)
+               - _read_png(os.path.join(bout, "f2.png")).astype(np.int16))
+    _check("H (5) batch f2 (strip tier) vs the one-shot CLI (per node), u8 codes",
+           float(d.max()), 1.0)
+    cuda_ops.reset_launches()  # the checks' own launches
+    print(f"H (5) batch of 4 1920x1080 PNGs (flagship, graph_strip): cli.main {cli_ms:.1f} ms "
+          f"wall; every file equal to read_output(program(x, 0)) [{smi}]")
+
+    # (6) video, where the libav extension builds.
+    if native_backend_available():
+        anim, trans = os.path.join(hdir, "anim.mp4"), os.path.join(hdir, "trans.mp4")
+        anim_ms, _ = _cli(args("flagship", in1080, "-o", anim, "--duration", "1", "--fps", "24"))
+        take("(6) animated export flagship 1920x1080, 24 frames", exactly={"graph_strip": 24})
+        n = sum(1 for _ in VideoFrames(ImageFileDecoder(anim), 1920, 1080))
+        if n != 24:
+            raise AssertionError(f"H (6): the animated export holds {n} frames, not 24")
+        trans_ms, _ = _cli(args("flagship", anim, "-o", trans))
+        take("(6) transcode of it", exactly={"graph_strip": 24})
+        n = sum(1 for _ in VideoFrames(ImageFileDecoder(trans), 1920, 1080))
+        if n != 24:
+            raise AssertionError(f"H (6): the transcode holds {n} frames, not 24")
+        print(f"H (6) animated export 1920x1080 24 frames: {anim_ms:.1f} ms wall; transcode "
+              f"of it: {trans_ms:.1f} ms wall; 24 frames each [{smi}]")
+    else:
+        print(f"H (6) video: not run, the libav extension is not built on this machine: "
+              f"{native_backend_reason()}")
+
+    # (7) --profile, from `python -m reforge_tpu_torch` in a child process:
+    # a profiler session in this one changes what later sessions see.
+    trace_dir = os.path.join(hdir, "trace")
+    out = os.path.join(hdir, "profiled.png")
+    subprocess.run([sys.executable, "-m", "reforge_tpu_torch",
+                    *args("flagship", in_small, "-o", out, "--profile", trace_dir)],
+                   check=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)),
+                   stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    traces = sorted(Path(trace_dir).glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"H (7): {len(traces)} trace files in {trace_dir}")
+    events = json.loads(traces[0].read_text()).get("traceEvents", [])
+    kernels = sorted({e.get("name", "")[:40] for e in events if e.get("cat") == "kernel"})
+    if not kernels:
+        raise AssertionError("H (7): the trace holds no device (kernel) events")
+    print(f"H (7) python -m reforge_tpu_torch --profile: {traces[0].name}, {len(events)} events, "
+          f"{len(kernels)} device kernels, e.g. {kernels[:3]} [{smi}]")
+    return total
 
 
 def main() -> int:
@@ -1819,6 +2076,9 @@ def main() -> int:
           f"{json.dumps(counts_g)}")
     if counts_g["graph_strip"] == 0 or counts_g["graph_strip_mc"] == 0:
         raise AssertionError("main path G never launched graph_strip or graph_strip_mc")
+    counts_h = path_h(tmp, smi)
+    print(f"main path H (the CLI: one-shot flagship, resize, card vs CPU, live loop, batch, "
+          f"video) launches: {json.dumps(counts_h)}")
 
     sources = {
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",

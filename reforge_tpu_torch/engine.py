@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from . import utils
-from .config import Config, parse_file, single_shader_parse
+from .config import FINAL_OUTPUT, Config, parse_file, single_shader_parse
 from .graph import GraphProgram, build_graph, make_program
 from .io import decode_image_to_planar, encode_planar_to_image
 from .kernels import cuda_ops
@@ -62,6 +62,9 @@ class RenderInfo:
     # Single-frame headless render: skip strip planning and run per node
     # (with same-input conv bundles).
     one_shot: bool = False
+    # Raise on a NaN in a frame's output (and in each node's output when
+    # timed per node), naming the node (the CLI's --debug-nans).
+    debug_nans: bool = False
 
 
 class Engine:
@@ -357,11 +360,13 @@ class Engine:
         if t is None:
             t = self.time_since_start
         if self.info.timing == "per-node":
-            out, times = self.program.run_per_node(self._file_input(), t)
+            out, times = self.program.run_per_node(self._file_input(), t,
+                                                   check_nans=self.info.debug_nans)
             self.last_gpu_times = times
         else:
             start = _time.perf_counter()
             out = self.program(self._file_input(), t)
+            self.check_nans(out)
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record()
@@ -386,7 +391,16 @@ class Engine:
             rgba_u8 = np.zeros((self.info.height, self.info.width, 4), np.uint8)
         planar = self.decode_to_planar(rgba_u8)
         out = self.program._forward(planar, t)
+        self.check_nans(out)
         return encode_planar_to_image(out).cpu().numpy()
+
+    def check_nans(self, out: torch.Tensor) -> None:
+        """With ``debug_nans``, raise FloatingPointError if ``out`` (a
+        frame's output) holds a NaN, naming the node that wrote it."""
+        if self.info.debug_nans and bool(torch.isnan(out).any()):
+            node = next((n.name for n in self.program.graph.ordered_nodes
+                         if any(res == FINAL_OUTPUT for res, _ in n.outputs)), FINAL_OUTPUT)
+            raise FloatingPointError(f"NaN in the frame's output, written by node '{node}'")
 
     def read_output(self, out: torch.Tensor) -> np.ndarray:
         """Device linear (4, H, W) -> host sRGB (H, W, 4) uint8 (render.rs:406-433)."""

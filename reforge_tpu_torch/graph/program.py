@@ -770,11 +770,13 @@ class GraphProgram:
         return out
 
     def run_per_node(
-        self, file_input: torch.Tensor, t: float
+        self, file_input: torch.Tensor, t: float, check_nans: bool = False
     ) -> tuple[torch.Tensor, dict[str, float]]:
         """Execute node by node, timing each node on the host clock after
         the device has finished it.  Returns (final_output, {node: ms})
-        (reference: per-pipeline GPU timestamps, vkutils.rs:104-134)."""
+        (reference: per-pipeline GPU timestamps, vkutils.rs:104-134).
+        ``check_nans`` raises FloatingPointError at the first node whose
+        output holds a NaN, naming it."""
         x = file_input.to(self.storage_dtype)
         resources: dict[str, Any] = {FILE_INPUT: x}
         ctx = self._ctx(t, x.device)
@@ -782,9 +784,12 @@ class GraphProgram:
         _sync(x.device)
         for node in self.graph.ordered_nodes:
             start = _time.perf_counter()
-            resources.update(self._run_node(node, ctx, resources))
+            written = self._run_node(node, ctx, resources)
             _sync(x.device)
             times[node.name] = (_time.perf_counter() - start) * 1000.0
+            if check_nans and any(bool(torch.isnan(v).any()) for v in written.values()):
+                raise FloatingPointError(f"NaN in the output of node '{node.name}'")
+            resources.update(written)
         out = resources.get(FINAL_OUTPUT)
         if out is None:
             raise GraphTraceError("no node wrote the final output")

@@ -1,7 +1,23 @@
-"""Color management at the program boundary.  Image-file I/O
-(``reforge_tpu/io/imagefile.py``) is not ported yet: it needs Pillow or
-the native libav extension."""
+"""Host image I/O and color management (the port of ``reforge_tpu/io/``).
 
+Image files: PNG through the port's own codec (``png.py``: zlib and numpy,
+no Pillow) with Pillow's Lanczos resize in torch (``resize.py``); other
+stills through the libav extension or Pillow, video through the libav
+extension (``imagefile.py``).  The sRGB conversions run on the device at
+the program boundary (``srgb.py``).
+"""
+
+from .imagefile import (
+    VIDEO_EXTENSIONS,
+    ImageFileDecoder,
+    ImageFileError,
+    VideoEncoder,
+    VideoFrames,
+    encode,
+    is_video_path,
+    native_backend_available,
+    native_backend_reason,
+)
 from .srgb import (
     decode_image_to_planar,
     encode_planar_to_image,
@@ -10,6 +26,15 @@ from .srgb import (
 )
 
 __all__ = [
+    "VIDEO_EXTENSIONS",
+    "ImageFileDecoder",
+    "ImageFileError",
+    "VideoEncoder",
+    "VideoFrames",
+    "encode",
+    "is_video_path",
+    "native_backend_available",
+    "native_backend_reason",
     "decode_image_to_planar",
     "encode_planar_to_image",
     "linear_to_srgb",

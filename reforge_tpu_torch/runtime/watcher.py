@@ -16,16 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Iterable, Optional
 
 from ..utils import warnln
+from .native import BUILD_DIR, REPO_DIR, NativeBuildError, build_library
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "watcher.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reforge_tpu_torch"
+SOURCE = REPO_DIR / "native" / "watcher.cpp"
 LIB_PATH = BUILD_DIR / "libreforge_watch.so"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -36,25 +34,14 @@ _lock = threading.Lock()
 def _build() -> Optional[Path]:
     """Compile native/watcher.cpp unless a library newer than it exists;
     None (and one warning) when that cannot be done."""
-    if LIB_PATH.exists() and (not SOURCE.exists()
-                              or LIB_PATH.stat().st_mtime_ns >= SOURCE.stat().st_mtime_ns):
-        return LIB_PATH
-    cxx = shutil.which("g++")
-    if cxx is None or not SOURCE.exists():
-        warnln("File watcher: no C++ compiler or no native/watcher.cpp; live reload polls "
-               "file mtimes every frame")
+    if not SOURCE.exists():
+        warnln("File watcher: no native/watcher.cpp; live reload polls file mtimes every frame")
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, "-O2", "-fPIC", "-std=c++17", "-shared", str(SOURCE),
-                           "-o", str(partial)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        partial.unlink(missing_ok=True)
-        warnln(f"File watcher: building {SOURCE.name} failed; live reload polls file mtimes "
-               f"every frame\n{proc.stderr.strip()}")
+    try:
+        return build_library(SOURCE, LIB_PATH)
+    except NativeBuildError as e:
+        warnln(f"File watcher: {e}; live reload polls file mtimes every frame")
         return None
-    os.replace(partial, LIB_PATH)
-    return LIB_PATH
 
 
 def _native() -> Optional[ctypes.CDLL]:

@@ -1,5 +1,5 @@
-"""Terminal coloring, warnings and file mtimes (the subset of
-``reforge_tpu.utils`` the port uses, with the same behaviour).
+"""Terminal coloring, warnings, file mtimes and the CLI's small helpers
+(the port's copy of ``reforge_tpu.utils``, with the same behaviour).
 
 ``warnln`` prints a yellow warning to stderr after clearing the in-place
 status line, and records it so tests and keep-last-good paths can assert
@@ -11,6 +11,7 @@ from __future__ import annotations
 import collections
 import os
 import sys
+import time
 from typing import Deque
 
 TERM_RED = "\x1b[31m"
@@ -48,3 +49,41 @@ def get_modified_time(path: str) -> int:
         return os.stat(path).st_mtime_ns
     except OSError:
         return 0
+
+
+def get_dim(
+    image_width: int,
+    image_height: int,
+    requested_width: int | None,
+    requested_height: int | None,
+) -> tuple[int, int]:
+    """Aspect-preserving dimension selection.
+
+    If both width and height are requested, use them as-is.  If only one is
+    requested, scale the other to preserve the source aspect ratio.  If
+    neither, use the source dimensions.  (reference: src/utils.rs:56-74)
+    """
+    if requested_width is not None and requested_height is not None:
+        return requested_width, requested_height
+    if requested_width is not None:
+        scale = requested_width / image_width
+        return requested_width, max(1, round(image_height * scale))
+    if requested_height is not None:
+        scale = requested_height / image_height
+        return max(1, round(image_width * scale)), requested_height
+    return image_width, image_height
+
+
+MOVING_AVG_WINDOW = 60
+
+
+def moving_avg(avg: float, new_value: float, window: int = MOVING_AVG_WINDOW) -> float:
+    """Constant-window moving average (src/utils.rs:76-82)."""
+    avg -= avg / window
+    avg += new_value / window
+    return avg
+
+
+def get_elapsed_ms(t_start: float) -> float:
+    """Milliseconds since ``t_start`` (a time.perf_counter() value)."""
+    return (time.perf_counter() - t_start) * 1000.0

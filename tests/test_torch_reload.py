@@ -372,7 +372,7 @@ def test_watcher_sees_edits_and_falls_back_to_polling(tmp_path, monkeypatch):
     monkeypatch.setattr(watcher, "_lib", None)
     monkeypatch.setattr(watcher, "_lib_tried", False)
     monkeypatch.setattr(watcher, "LIB_PATH", tmp_path / "none" / "libreforge_watch.so")
-    monkeypatch.setattr(watcher.shutil, "which", lambda _name: None)
+    monkeypatch.setattr("shutil.which", lambda _name: None)
     utils.clear_warnings()
     fallback = watcher.FileWatcher([str(path)])
     assert not fallback.active and fallback.poll() is True and fallback.poll() is True
