@@ -6,7 +6,7 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives eight main paths at 3840x2160 through ``Engine`` and the command
+drives nine main paths at 3840x2160 through ``Engine`` and the command
 line, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -30,8 +30,9 @@ after:
      the default config (passthrough.comp), glsl-blur (gaussian_h.comp ->
      gaussian_v.comp) and glsl-blur-sharpen (plus sharpen.comp) on the mc
      tier as synthesized conv and stencil stages of graph_strip_mc, the
-     reference's glsl-chain and glsl-sharpen per node (tonemap.comp is a
-     point shader), and the examples whose shaders touch only images;
+     reference's glsl-chain and glsl-sharpen on the segments tier
+     (tonemap.comp is a point shader, per node), and the examples whose
+     shaders touch only images;
   F. storage buffers, atomics and lut1d: the examples equalize,
      auto_expose and waveform_scope and a lut1d graph (the port's
      gamma_curve.comp writes its Curve) per node in rgba32f and rgba16f,
@@ -41,14 +42,21 @@ after:
   G. live reload: config and shader edits, keep-last-good on bad ones,
      inline and with async_compile (whose build puts nothing on the card),
      resize, the preview downscale, and the reload-to-frame latency of
-     three edits, warm and cold;
+     three edits, warm and cold, with the program cache's hits and the
+     nodes each edit shape-checks;
   H. the command line (``cli.main``, no ``--backend``): a 4K PNG rendered
      headless with the flagship (one-shot per node), equal to
      ``render_one_shot``; a resize on input; card against ``--backend
      cpu``; the live loop of the demo (graph_strip_mc) with no preview and
      with the kitty preview; batch over a directory (graph_strip); an
      animated export and a transcode where the libav extension builds;
-     ``python -m reforge_tpu_torch --profile``.
+     ``python -m reforge_tpu_torch --profile``;
+  I. the segments tier and a ``.py`` kernel: every graph the planner
+     gives a segments plan at 4K (the shipped examples' plans printed),
+     and a .py kernel at the head of gaussian -> sobel -> tonemap, in
+     rgba32f and rgba16f, against per node, timed against per node, with
+     launches, sequenced fps and the device busy share; the .py kernel in
+     single-shader mode through ``cli.main``.
 
 Paths A-D use an empty shader path, so the builtins they measure are not
 replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
@@ -100,6 +108,10 @@ def _f32_tol(plans) -> float:
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _tier(prog) -> str:
+    return f"{prog._strip_plan[0]} tier" if prog._strip_plan else "per-node"
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -624,6 +636,7 @@ def path_g(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
             if frames > 10_000:
                 raise AssertionError(f"G {mode}: the config edit was never adopted")
         new = eng.render_frame_blocking(0.5)
+        edit_cache = (eng.program.from_cache, eng.program.nodes_checked)
         if torch.equal(new, old) or not torch.equal(new, fresh(edited)):
             raise AssertionError(f"G {mode}: the config edit did not swap in its program")
         utils.clear_warnings()
@@ -647,9 +660,13 @@ def path_g(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
         eng.wait_for_compiles()
         if not torch.equal(eng.render_frame_blocking(0.5), good):
             raise AssertionError(f"G {mode}: the restored shader renders another frame")
+        if not eng.program.from_cache:
+            raise AssertionError(f"G {mode}: the restored shader missed the program cache")
         eng.close()
-        print(f"check G {mode} 4K: config edit swapped ({frames} old frames while it built), "
-              f"bad config and bad shader edits kept the last good program [{smi}]")
+        print(f"check G {mode} 4K: config edit swapped ({frames} old frames while it built; "
+              f"program cache hit, nodes shape-checked: {edit_cache}), bad config and bad "
+              f"shader edits kept the last good program, the restored shader hit the program "
+              f"cache [{smi}]")
 
     # resize (no input image) and the preview downscale.
     gen = os.path.join(gdir, "checker.rf")
@@ -732,6 +749,7 @@ def reload_latency(smi: str) -> None:
             eng.load_input(u8)
             eng.render_frame_blocking(0.5)
             runs = {"cold": [], "warm": []}
+            cache = {"cold": [], "warm": []}  # (program cache hit, nodes shape-checked)
             polls, adopts = [], []
             for phase in ("cold", "warm"):
                 for t in texts:
@@ -747,11 +765,19 @@ def reload_latency(smi: str) -> None:
                     adopts.append((time.perf_counter() - t0) * 1e3)
                     eng.render_frame_blocking(0.5)
                     runs[phase].append((time.perf_counter() - t0) * 1e3)
+                    cache[phase].append((eng.program.from_cache, eng.program.nodes_checked))
             eng.close()
             warm[name] = statistics.median(runs["warm"])
             print(f"reload-to-frame 4K {name} (async_compile, fresh process): warm "
                   f"{_stats(runs['warm'])}; cold {_stats(runs['cold'])}; adopted "
                   f"{_stats(adopts)}; poll {_stats(polls)} [{smi}]", flush=True)
+            for phase, seen in cache.items():
+                print(f"reload {name} {phase}: program cache hits {sum(h for h, _ in seen)} of "
+                      f"{len(seen)}; nodes shape-checked per edit {[n for _, n in seen]}",
+                      flush=True)
+            # Every warm edit revisits a text of the cold round.
+            if not all(hit for hit, _ in cache["warm"]):
+                raise AssertionError(f"G {name}: a warm edit missed the program cache")
     print("reload-to-frame warm p50 against the reference's 100 ms target: "
           + ", ".join(f"{k} {v:.2f} ms ({'meets' if v < 100.0 else 'misses'})"
                       for k, v in warm.items()), flush=True)
@@ -1045,6 +1071,168 @@ def path_h(tmp: str, smi: str) -> dict:
     print(f"H (7) python -m reforge_tpu_torch --profile: {traces[0].name}, {len(events)} events, "
           f"{len(kernels)} device kernels, e.g. {kernels[:3]} [{smi}]")
     return total
+
+
+# ---- path I ----------------------------------------------------------------------
+
+# Path I's .py kernel, at the head of PY_GRAPH: the user's torch code, on
+# the card through the per-node tier.
+PY_KERNEL = """import torch
+
+from reforge_tpu_torch.kernels import kernel
+
+
+@kernel("dbl", register=False)
+def dbl(ctx, input_image, *, gain=0.8):
+    return input_image * gain + 0.05
+"""
+PY_GRAPH = ("input -> dbl -> gs -> edge -> tone -> output\n"
+            "gs: gaussian { sigma: 2 }\nedge: sobel {}\ntone: tonemap {}\n")
+PY_STEPS = [("node", ["dbl"]), ("seg mc", ["gs", "edge", "tone"])]
+
+
+def path_i(u8: np.ndarray, tmp: str, smi: str) -> dict:
+    """Path I: the segments tier and a .py kernel at 4K.  Prints the plan of
+    every shipped example and benchmark graph at 4K and takes each that
+    plans segments, plus PY_GRAPH (dbl.py written to a directory of its
+    own, with the builtins beside it); drives each through Engine in
+    rgba32f and rgba16f: a frame and a sequence of 4 on segments against
+    per node (the same program's ``_forward_layers``), the launches of a
+    frame by kernel (one strip kernel for each segment); a .py kernel in
+    single-shader mode through ``cli.main`` against ``--backend cpu``.
+    Returns the launch counts; ``time_path_i`` times the same programs."""
+    from reforge_tpu_torch.benchmarks import (
+        CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, GLSL_GRAPHS, LIBRARY_GRAPHS,
+        SHADER_DIR, STYLIZED_GRAPHS, build_program, example_config, plan_steps,
+    )
+    from reforge_tpu_torch.engine import Engine, RenderInfo
+    from reforge_tpu_torch.io import encode
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    idir = os.path.join(tmp, "i")
+    empty, pydir = os.path.join(idir, "empty"), os.path.join(idir, "py")
+    os.makedirs(empty)
+    os.makedirs(pydir)
+    with open(os.path.join(pydir, "dbl.py"), "w") as f:
+        f.write(PY_KERNEL)
+    # Builtin graphs with no shader path (as paths A-D run them), the GLSL
+    # graphs and every example with the shipped shaders.
+    candidates = {name: (text, empty) for name, text in (
+        ("flagship", FLAGSHIP_CONFIG), ("demo", DEMO_CONFIG), ("edges", EDGES_CONFIG),
+        ("chain3", CHAIN3_CONFIG), *STYLIZED_GRAPHS.items(), *LIBRARY_GRAPHS.items())}
+    candidates.update({name: (text, SHADER_DIR) for name, text in GLSL_GRAPHS.items()})
+    for rf in sorted(Path("examples").glob("*.rf")):
+        candidates[f"examples/{rf.name}"] = (example_config(rf.stem), SHADER_DIR)
+    graphs = {}
+    for name, (text, shader_path) in candidates.items():
+        for fmt in ("rgba32f", "rgba16f"):
+            prog = build_program(text, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_path)
+            print(f"I plan {name} {fmt} 4K: {plan_steps(prog)}")
+            if prog._strip_plan is not None and prog._strip_plan[0] == "segments":
+                graphs[name] = (text, shader_path)
+    graphs["py_graph"] = (PY_GRAPH, pydir)
+    print(f"I segment graphs (from the planner) and the .py graph: {sorted(graphs)}")
+
+    cuda_ops.reset_launches()
+    driven = {}
+    for name, (text, shader_path) in graphs.items():
+        for fmt in ("rgba32f", "rgba16f"):
+            cfg = os.path.join(idir, f"{name.replace('/', '_')}_{fmt}.rf")
+            with open(cfg, "w") as f:
+                f.write(text)
+            engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", config_path=cfg,
+                                       shader_path=shader_path, fmt=fmt, has_input_image=True))
+            engine.load_input(u8)
+            prog, x = engine.program, engine._file_input()
+            steps = plan_steps(prog)
+            if prog._strip_plan is None or prog._strip_plan[0] != "segments":
+                raise AssertionError(f"I {name} {fmt}: plan {steps}, not segments")
+            if name == "py_graph" and steps != PY_STEPS:
+                raise AssertionError(f"I {name} {fmt}: plan {steps}, expected {PY_STEPS}")
+            before = dict(cuda_ops.LAUNCHES)
+            frame = engine.render_frame_blocking(0.5)
+            per_frame = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
+            want = {}
+            for step in prog._strip_plan[1]:
+                if step[0] == "seg":
+                    k = "graph_strip_mc" if step[1]._strip_plan[0] == "mc" else "graph_strip"
+                    want[k] = want.get(k, 0) + 1
+            if any(per_frame.get(k, 0) != n for k, n in want.items()):
+                raise AssertionError(f"I {name} {fmt}: launches {per_frame}, expected {want} "
+                                     "strip kernels (one a segment)")
+            seq = prog.render_sequence(x, 0.5, 0.016, 4, stack=True)
+            per_node = prog._forward_nostrip(x, 0.5)
+            for what, v in (("frame", frame), ("per node", per_node)):
+                if tuple(v.shape) != (4, HEIGHT, WIDTH) or not bool(torch.isfinite(v).all()):
+                    raise AssertionError(f"I {name} {fmt} {what}: bad shape or non-finite values")
+            _check(f"I {name} {fmt} render_sequence frame 0 vs render_frame",
+                   _max_err(seq[0], frame), 0.0)
+            _check(f"I {name} {fmt} segments vs per node 4K", _max_err(frame, per_node),
+                   1e-5 if fmt == "rgba32f" else 2e-2)
+            print(f"I {name} {fmt} 4K: steps {steps}; launches a frame {json.dumps(per_frame)} "
+                  f"[{smi}]")
+            driven[(name, fmt)] = (engine, prog, x)
+            del frame, seq, per_node
+    counts = dict(cuda_ops.LAUNCHES)
+
+    # Single-shader mode with the .py file through the command line, on the
+    # card against --backend cpu (512x288, one code).
+    png = os.path.join(idir, "in.png")
+    outs = [os.path.join(idir, f"dbl_{b}.png") for b in ("card", "cpu")]
+    small = np.random.default_rng(SEED + 9).integers(0, 256, size=(288, 512, 4), dtype=np.uint8)
+    small[..., 3] = 255
+    encode(png, small)
+    dbl = os.path.join(pydir, "dbl.py")
+    _cli([dbl, "-i", png, "-o", outs[0]])
+    _cli([dbl, "-i", png, "-o", outs[1], "--backend", "cpu"])
+    card, cpu = (_read_png(path).astype(np.int16) for path in outs)
+    codes = int(np.abs(card - cpu).max())
+    _check("I dbl.py single-shader mode, cli.main on the card vs --backend cpu 512x288 (u8 codes)",
+           codes, 1.0)
+    return counts, driven
+
+
+def time_path_i(driven: dict, smi: str) -> None:
+    """Path I's timings, after every other path's: ms a frame on segments
+    and per node (CUDA events), and each segment's kernel against its nodes
+    per node on the frame input; sequenced fps (render_sequence, chunks of
+    24); a lone builtin stencil of each kind as a segment against its
+    per-node kernel; then the device busy share of each graph on segments
+    (torch.profiler)."""
+    from reforge_tpu_torch.benchmarks import bench_program_sequenced, build_program
+
+    def segment_ms(prog, x):
+        """[(node names, kernel ms, per-node ms)] of each segment."""
+        x = x.to(prog.storage_dtype)
+        return [([n.name for n in step[4]],
+                 _time_ms(lambda c=step[1]: c._strip_fused_forward(x, 0.5), 20),
+                 _time_ms(lambda c=step[1]: c._forward_nostrip(x, 0.5), 20))
+                for step in prog._strip_plan[1] if step[0] == "seg"]
+
+    for (name, fmt), (_engine, prog, x) in driven.items():
+        seg_ms = _time_ms(lambda: prog._forward(x, 0.5), 10)
+        pn_ms = _time_ms(lambda: prog._forward_nostrip(x, 0.5), 5)
+        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+        parts = "; ".join(f"{nodes} {k:.3f} vs {p:.3f}" for nodes, k, p in segment_ms(prog, x))
+        print(f"I {name} {fmt} 4K: segments {seg_ms:.3f} ms a frame, per node {pn_ms:.3f} "
+              f"({'segments' if seg_ms < pn_ms else 'per node'} faster, "
+              f"{pn_ms / seg_ms:.2f}x); each segment's kernel vs its nodes per node (ms): "
+              f"{parts}; sequenced {seq['ms_per_frame']:.3f} ms a frame "
+              f"({seq['fps']:.2f} fps) [{smi}]", flush=True)
+    x = next(iter(driven.values()))[2]
+    for fmt in ("rgba32f", "rgba16f"):
+        for stencil in ("median3", "sobel", "sharpen", "emboss"):
+            config = f"input -> s -> px -> output\ns: {stencil} {{}}\npx: pixelate {{ size: 4 }}\n"
+            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda")
+            [(_nodes, k_ms, p_ms)] = segment_ms(prog, x)
+            print(f"I lone {stencil} {fmt} 4K: mc segment {k_ms:.3f} ms, per node {p_ms:.3f} "
+                  f"[{smi}]", flush=True)
+    for (name, fmt), (engine, prog, x) in driven.items():
+        rows, busy = _profile(lambda: prog._forward(x, 0.5), 6)
+        engine.close()
+        top = "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in rows[:5])
+        print(f"profile I {name} {fmt} segments: device busy {busy:.1%}; device ms a frame "
+              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]", flush=True)
 
 
 def main() -> int:
@@ -1684,10 +1872,11 @@ def main() -> int:
     # (passthrough.comp, per node through the interpreter); E2 glsl_blur and
     # E3 glsl_blur_sharpen on the mc tier (one graph_strip_mc a frame;
     # their one-shot runs the interpreter per node and launches nothing);
-    # E4 the reference's glsl_chain and glsl_sharpen per node (tonemap.comp
-    # is a point shader: no device form, no kernel); E5 the image-only
-    # examples in rgba32f, one frame each on the tier the planner picks,
-    # and their per-node times.
+    # E4 the reference's glsl_chain and glsl_sharpen on the segments tier
+    # (tonemap.comp is a point shader with no device form: it runs per node
+    # after one graph_strip_mc a frame); E5 the image-only examples in
+    # rgba32f, one frame each on the tier the planner picks, and their
+    # per-node times.
     if not os.path.isfile(os.path.join("shaders", "passthrough.comp")):
         raise AssertionError("path E runs from the repository root (shaders/passthrough.comp)")
     cuda_ops.reset_launches()
@@ -1715,7 +1904,7 @@ def main() -> int:
         engine.close()
         if tuple(frame.shape) != big or not bool(torch.isfinite(frame.float()).all()):
             raise AssertionError(f"E5 {name}: bad shape or non-finite values")
-        tier = engine.program._strip_plan[0] if engine.program._strip_plan else "per-node"
+        tier = _tier(engine.program)
         e5[name] = (tier, frame_ms, times)
         print(f"E5 {name} rgba32f 4K: {tier}, first frame {frame_ms:.2f} ms, launches "
               f"{json.dumps(launched)}; per-node ms (host clock after sync): "
@@ -1725,21 +1914,21 @@ def main() -> int:
           f"glsl_sharpen, {len(GLSL_EXAMPLES)} examples) launches: {json.dumps(counts_e)}")
     if counts_e["graph_strip_mc"] == 0:
         raise AssertionError("main path E never launched graph_strip_mc")
+    tiers_e = {"glsl_blur": "mc", "glsl_blur_sharpen": "mc", "glsl_chain": "segments",
+               "glsl_sharpen": "segments"}
     for (graph, fmt), out in outputs.items():
         prog = out[4].program
-        on_mc = graph in ("glsl_blur", "glsl_blur_sharpen")
         tier = prog._strip_plan[0] if prog._strip_plan else None
-        if tier != ("mc" if on_mc else None):
+        if tier != tiers_e[graph]:
             raise AssertionError(f"{graph} {fmt}: tier {tier}")
-        frame_want = {"graph_strip_mc": 6} if on_mc else {}
-        for what, counts, want1 in (("one-shot", out[5], {}), ("frame path", out[6], frame_want)):
+        for what, counts, want1 in (("one-shot", out[5], {}),
+                                    ("frame path", out[6], {"graph_strip_mc": 6})):
             want = {k: want1.get(k, 0) for k in counts}
             if counts != want:
                 raise AssertionError(f"{graph} {fmt} {what}: launches {counts}, expected {want}")
         # rgba16f: the mc tier's bf16 roundings differ from per node's by up
         # to 2e-2, which sRGB's slope turns into more than one u8 code.
-        check_outputs(graph, fmt, *out[:5], tier="mc tier" if on_mc else "frame path",
-                      shot_vs_per_node=on_mc and fmt == "rgba16f")
+        check_outputs(graph, fmt, *out[:5], tier=_tier(prog), shot_vs_per_node=fmt == "rgba16f")
     del outputs
 
     # Small renders on the card against the port's CPU path, both tiers.
@@ -1796,7 +1985,7 @@ def main() -> int:
             got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu().float()
             want = cpu._forward(torch.from_numpy(small_x), 0.5).float()
             d = (got - want).abs()
-            what = f"{graph} {fmt} {'mc tier' if gpu._strip_plan else 'per-node'} 512x288 card vs CPU"
+            what = f"{graph} {fmt} {_tier(gpu)} 512x288 card vs CPU"
             if fmt == "rgba32f":
                 _check(what, float(d.max()), tol32_d.get(graph, 1e-5))
                 continue
@@ -1831,7 +2020,7 @@ def main() -> int:
         got = gpu._forward(torch.from_numpy(small_x).to(dev), 0.5).cpu().float()
         want = cpu._forward(torch.from_numpy(small_x), 0.5).float()
         d = (got - want).abs()
-        what = f"{graph} {fmt} {'mc tier' if gpu._strip_plan else 'per-node'} 512x288 card vs CPU"
+        what = f"{graph} {fmt} {_tier(gpu)} 512x288 card vs CPU"
         if graph == "mandelzoom":
             share = float((d > 1e-4).float().mean())
             if share > 1e-2:
@@ -1993,13 +2182,14 @@ def main() -> int:
             print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
                   f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
     # Path E: the GLSL graphs on their tiers (E2 and E3 on the mc tier,
-    # against their per-node tier: the interpreter), E4 per node.
+    # against their per-node tier: the interpreter), E4 on segments (path
+    # I times them against per node).
     for graph, config in GLSL_GRAPHS.items():
         for fmt in ("rgba32f", "rgba16f"):
             prog = build_program(config, WIDTH, HEIGHT, fmt, device=dev, shader_path=SHADER_DIR)
             x = x4k.to(prog.storage_dtype)
             seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-            tier = "mc tier" if prog._strip_plan else "per-node"
+            tier = _tier(prog)
             line = (f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
                     f"({seq['fps']:.2f} fps)")
             if prog._strip_plan:
@@ -2018,7 +2208,7 @@ def main() -> int:
         seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
         disp = bench_program(prog, x, frames=24)
         frame_ms_d[(graph, fmt)] = seq["ms_per_frame"]
-        tier = "mc tier" if prog._strip_plan else "per-node"
+        tier = _tier(prog)
         print(f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
               f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
               f"({disp['fps']:.2f} fps) [{smi}]")
@@ -2079,6 +2269,12 @@ def main() -> int:
     counts_h = path_h(tmp, smi)
     print(f"main path H (the CLI: one-shot flagship, resize, card vs CPU, live loop, batch, "
           f"video) launches: {json.dumps(counts_h)}")
+    counts_i, driven_i = path_i(u8, tmp, smi)
+    print(f"main path I (segments and a .py kernel) launches: {json.dumps(counts_i)}")
+    if counts_i["graph_strip_mc"] == 0:
+        raise AssertionError("main path I never launched graph_strip_mc")
+    time_path_i(driven_i, smi)
+    del driven_i
 
     sources = {
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
@@ -2102,13 +2298,13 @@ def main() -> int:
         "conv1d_w": "reforge_tpu/kernels/pallas_ops.py:101",
         "stencil_apply_mc": "reforge_tpu/kernels/pallas_ops.py:2082",
     }
-    # Each kernel's launches come from the main path it belongs to;
-    # stencil_apply_mc's from path E, where nothing calls it (0).
+    # Each kernel's launches come from the main path it belongs to, plus
+    # path I's; stencil_apply_mc's from path E, where nothing calls it (0).
     path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
                "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
                "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d,
                "stencil_apply_mc": counts_e}
-    launches = {name: path_of.get(name, counts_b)[name] for name in replaces}
+    launches = {name: path_of.get(name, counts_b)[name] + counts_i[name] for name in replaces}
     kernels = [
         {
             "name": name, "route": "cuda",

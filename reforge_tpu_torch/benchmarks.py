@@ -389,6 +389,21 @@ def build_program(config: str, width: int, height: int, fmt: str = "rgba32f",
     return program
 
 
+def plan_steps(program: GraphProgram) -> list[tuple[str, list[str]]]:
+    """A program's strip plan as (tier, node names) steps: one step for a
+    whole-graph plan ("single" or "mc") or for per-node execution
+    ("per-node"); for a segments plan, ("seg <child tier>", names) and
+    ("node", [name]) in execution order."""
+    plan = program._strip_plan
+    names = [n.name for n in program.graph.ordered_nodes]
+    if plan is None:
+        return [("per-node", names)]
+    if plan[0] != "segments":
+        return [(plan[0], names)]
+    return [(f"seg {step[1]._strip_plan[0]}", [n.name for n in step[4]]) if step[0] == "seg"
+            else ("node", [step[1].name]) for step in plan[1]]
+
+
 def build_flagship(width: int, height: int, fmt: str = "rgba32f", device="cuda",
                    plan_strips: bool = True) -> GraphProgram:
     return build_program(FLAGSHIP_CONFIG, width, height, fmt, device, plan_strips)

@@ -10,14 +10,15 @@ src/render.rs).
   * ``_rf_time`` changes every frame without a rebuild   (render.rs:212-223)
   * per-node and whole-frame timing readouts             (render.rs:521-523)
 
-A rebuild is parse, kernel load (GLSL translation and reflection; an
-unchanged shader keeps its spec), graph build, the program's shape check on
-``meta`` tensors, strip planning with the GLSL affine probe, and the first
-use's nvcc build of the kernels.  There is no compile per program: the
-kernels are built once a process.  With ``async_compile`` all of it runs on
-a build thread while the old program keeps rendering; the new program is
-adopted on a later poll, the last edit winning.  Sharding and pipelining
-are not ported.
+A rebuild is parse, kernel load (GLSL translation and reflection, or a
+``.py`` module; a text loaded before keeps its spec), graph build, the
+program's shape check on ``meta`` tensors (of the nodes whose signature is
+new), strip planning with the GLSL affine probe (none for a graph built
+before), and the first use's nvcc build of the kernels.  There is no
+compile per program: the kernels are built once a process.  With
+``async_compile`` all of it runs on a build thread while the old program
+keeps rendering; the new program is adopted on a later poll, the last edit
+winning.  Sharding and pipelining are not ported.
 """
 
 from __future__ import annotations

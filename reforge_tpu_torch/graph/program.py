@@ -1,6 +1,6 @@
 """GraphProgram: run a built graph on one device (the port of
-``reforge_tpu/graph/program.py``: the per-node tier and the single and mc
-strip tiers).
+``reforge_tpu/graph/program.py``: the per-node tier and the three strip
+tiers).
 
 Execution modes:
   * ``__call__`` / ``_forward`` -- a strip tier when the graph qualifies,
@@ -11,6 +11,9 @@ Execution modes:
         emboss, median3), channel-mixing point nodes and GLSL shaders whose
         body is an affine tap-sum (glsl/affine.py); the whole graph in one
         ``graph_strip_mc`` kernel.
+      - segments: neither takes the whole graph, so the maximal contiguous
+        node ranges that one of them takes run as child programs (one
+        kernel each) and the nodes between them run per node.
     Otherwise layer by layer, with same-input convs of a layer bundled
     into one ``sep_conv_fused_multi`` launch; stencils run as
     ``stencil_apply`` and heavy f32 convs as ``sep_conv_fused_mxu_x3``.
@@ -22,12 +25,19 @@ The planners keep the reference's structural gates and drop the gates
 that modelled the TPU (VMEM tile models, lane-multiple widths, MXU
 eligibility, transpose variants, ``REFORGE_STRIP_*``/``REFORGE_MC_*``
 knobs).  A plan whose kernel fits no shared-memory tile is refused when
-it is planned.  The segments tier is not ported: a graph that needs it
-runs per node.
+it is planned, so a planned segment never falls back at run time.
+
+``make_program`` checks a graph's wiring and shapes on ``meta`` tensors
+before any frame.  What a program builds on the host (the check and the
+strip plan) is kept across programs by graph signature, and the check of
+each node by the node's own signature: a rebuild back to a graph this
+process has built checks and plans nothing, and a rebuild that changes
+one node checks that node alone.
 """
 
 from __future__ import annotations
 
+import threading
 import time as _time
 from typing import Any, Optional
 
@@ -39,8 +49,8 @@ from ..glsl.affine import ConvSynth, StencilSynth, compose, synthesize_conv
 from ..kernels import cuda_ops
 from ..kernels.base import KernelContext, quantize_rgba8
 from ..kernels.ops import X3_MIN_TAPS
-from ..utils import warnln
-from .builder import BuiltGraph, PipelineNode
+from ..utils import remember, warnln
+from .builder import BuiltGraph, PipelineNode, _order_by_execution
 
 
 class GraphTraceError(Exception):
@@ -56,6 +66,46 @@ _MC_KINDS = {"conv": cuda_ops.MC_CONV, "stencil": cuda_ops.MC_STENCIL, "point": 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# ---- caches across programs (reference: program.py:38-86) -----------------
+#
+# Keys name a kernel by the identity of its spec: the loader returns one
+# spec per file path and source text, and builtins are registry objects, so
+# an unchanged kernel, or an edit back to a text loaded before, keys the
+# same.  Each value pins its specs, so an id() in a key is never reused.
+# Past its bound a cache drops its oldest half (``utils.remember``).
+_NODE_CHECKS: dict[tuple, tuple] = {}  # node key -> (spec, its meta outputs)
+_NODE_CHECKS_MAX = 512
+_PROGRAMS: dict[tuple, tuple] = {}  # program key -> (specs, _HostBuild)
+_PROGRAMS_MAX = 64
+
+
+def _node_key(node: PipelineNode, graph: BuiltGraph, width: int, height: int, fmt: str) -> tuple:
+    """Everything a node's shape check depends on: its kernel, resolved
+    params, wiring, the sizes of the buffers it touches, extent and format."""
+    wired = list(node.inputs) + list(node.outputs)
+    return (
+        id(node.spec),
+        tuple(sorted(node.params.items())),
+        tuple(node.inputs),
+        tuple(node.outputs),
+        tuple(graph.buffer_sizes.get(res, 0) for res, _ in wired),
+        width,
+        height,
+        fmt,
+    )
+
+
+class _HostBuild:
+    """What a program builds on the host: its strip plan and, on the single
+    tier, its StripProgram.  Programs of one graph signature share one."""
+
+    def __init__(self, planned: bool):
+        self.lock = threading.Lock()
+        self.planned = planned
+        self.plan = None
+        self.strip_program: Optional[cuda_ops.StripProgram] = None
 
 
 class GraphProgram:
@@ -76,6 +126,7 @@ class GraphProgram:
         *,
         device: Any = "cuda",
         plan_strips: bool = True,
+        segments_ok: bool = True,
     ):
         if fmt not in self.STORAGE_DTYPES:
             raise ValueError(f"unknown storage format {fmt!r}")
@@ -87,22 +138,50 @@ class GraphProgram:
         self.height = height
         self.fmt = fmt
         self.storage_dtype = self.STORAGE_DTYPES[fmt]
+        self.plan_strips = plan_strips
+        # A segment's child plans the single and mc tiers only.
+        self._segments_ok = segments_ok
         # plan_strips=False (one-shot renders) skips strip planning.
         # Planning is lazy: see the _strip_plan property.
-        self._strip_planned = not plan_strips
-        self._strip_plan_cache = None
-        self._strip_program: Optional[cuda_ops.StripProgram] = None
+        self._host = _HostBuild(planned=not plan_strips)
         # Interim/one-shot mode: __call__ runs node by node.
         self._use_unfused = False
+        # Set by make_program: whether the program came from the cache,
+        # and how many nodes its shape check ran.
+        self.from_cache = False
+        self.nodes_checked = 0
 
     # ---- planning -------------------------------------------------------
 
     @property
     def _strip_plan(self):
-        if not self._strip_planned:
-            self._strip_planned = True
-            self._strip_plan_cache = self._plan_strip_fusion()
-        return self._strip_plan_cache
+        host = self._host
+        if not host.planned:
+            with host.lock:  # a build thread and the render thread may both ask
+                if not host.planned:
+                    host.plan = self._plan_strip_fusion()
+                    host.planned = True
+        return host.plan
+
+    @property
+    def _strip_program(self) -> Optional[cuda_ops.StripProgram]:
+        return self._host.strip_program
+
+    @_strip_program.setter
+    def _strip_program(self, value: Optional[cuda_ops.StripProgram]) -> None:
+        self._host.strip_program = value
+
+    def _program_key(self) -> tuple:
+        """The graph signature of the program cache (reference:
+        ``_fused_key``, program.py:1534-1542): each node's name and check
+        key in execution order, plus device, planning and buffer sizes."""
+        return (
+            tuple((n.name,) + _node_key(n, self.graph, self.width, self.height, self.fmt)
+                  for n in self.graph.ordered_nodes),
+            str(self.device),
+            self.plan_strips,
+            tuple(sorted(self.graph.buffer_sizes.items())),
+        )
 
     def _ctx(self, t, device) -> KernelContext:
         return KernelContext(
@@ -126,15 +205,103 @@ class GraphProgram:
     def _plan_strip_fusion(self):
         """``("single", conv_items, pointwise)`` when the whole graph can run
         as one graph_strip kernel, else ``("mc", McProgram)`` when it can
-        run as one graph_strip_mc kernel, else None (per-node
-        execution)."""
+        run as one graph_strip_mc kernel, else ``("segments", steps)`` when
+        some of its node ranges can, else None (per-node execution)."""
         single = self._plan_strip_single()
         if single is not None:
             return ("single",) + single
         mc = self._plan_strip_mc()
         if mc is not None:
             return ("mc", mc)
-        return None
+        return self._plan_strip_segments()
+
+    def _plan_strip_segments(self):
+        """The third tier (reference: program.py:969-1110): the maximal
+        contiguous node ranges, in execution order, with exactly one
+        external image input and one exiting resource, each a child
+        GraphProgram over a renamed subgraph whose own single/mc planner
+        decides whether it fuses; the nodes between them run per node.
+
+        Steps are ``("seg", child, r_in, r_out, nodes)`` and ``("node",
+        node)``.  The whole graph is not a range (both tiers refused it),
+        and a one-node range is taken only for a stencil or a GLSL node: a
+        lone builtin conv or point node has its own per-node kernel.
+        Graphs with storage buffers are refused (buffer resources do not
+        rename), and a graph where no range fuses plans None."""
+        if not self._segments_ok:
+            return None
+        order = self.graph.ordered_nodes
+        if len(order) < 2 or any(n.spec.ssbos_in or n.spec.ssbos_out for n in order):
+            return None
+        produced_at = {res: i for i, n in enumerate(order) for res, _ in n.outputs}
+        consumers: dict[str, list[int]] = {}
+        for i, n in enumerate(order):
+            for res, _ in n.inputs:
+                consumers.setdefault(res, []).append(i)
+
+        def segment_io(i: int, j: int):
+            """(r_in, r_out) when order[i..j] has exactly one external input
+            and one exiting resource that is not also read inside, else
+            None."""
+            inside = range(i, j + 1)
+            ext_in = {res for k in inside for res, _ in order[k].inputs
+                      if produced_at.get(res) not in inside}
+            if len(ext_in) != 1:
+                return None
+            exits = []
+            for k in inside:
+                for res, _ in order[k].outputs:
+                    readers = consumers.get(res, [])
+                    if res == FINAL_OUTPUT or any(c not in inside for c in readers):
+                        if any(c in inside for c in readers):
+                            return None  # an exit read back inside: ambiguous
+                        exits.append(res)
+            if len(exits) != 1:
+                return None
+            return next(iter(ext_in)), exits[0]
+
+        def child_for(i: int, j: int, r_in: str, r_out: str):
+            def rename(res: str) -> str:
+                return {r_in: FILE_INPUT, r_out: FINAL_OUTPUT}.get(res, res)
+
+            nodes = {
+                n.name: PipelineNode(
+                    name=n.name, spec=n.spec, inputs=[(rename(r), d) for r, d in n.inputs],
+                    outputs=[(rename(r), d) for r, d in n.outputs], params=n.params)
+                for n in order[i:j + 1]
+            }
+            layers = _order_by_execution(nodes)
+            if layers is None:
+                return None
+            kinds = {res: "image" for n in nodes.values() for res, _ in n.inputs + n.outputs}
+            sub = BuiltGraph(nodes=nodes, layers=layers, resource_kinds=kinds)
+            return GraphProgram(sub, self.width, self.height, self.fmt, device=self.device,
+                                segments_ok=False)
+
+        steps: list = []
+        i, n = 0, len(order)
+        while i < n:
+            for j in range(n - 1, i - 1, -1):
+                if i == 0 and j == n - 1:
+                    continue  # the whole graph: both tiers said no
+                if j == i and order[i].spec.mc_stencil_fn is None \
+                        and order[i].spec.source_path is None:
+                    continue
+                io = segment_io(i, j)
+                if io is None:
+                    continue
+                child = child_for(i, j, *io)
+                if child is None or child._strip_plan is None:
+                    continue
+                steps.append(("seg", child, io[0], io[1], list(order[i:j + 1])))
+                i = j + 1
+                break
+            else:
+                steps.append(("node", order[i]))
+                i += 1
+        if not any(step[0] == "seg" for step in steps):
+            return None
+        return ("segments", steps)
 
     def _conv_plan_for(self, node):
         """(wh, ww) numpy tap vectors when this node is strip-fusable as a
@@ -601,15 +768,39 @@ class GraphProgram:
 
     def _strip_fused_forward(self, file_input, t):
         """Run the whole graph as one graph_strip or graph_strip_mc kernel,
-        or return None when the graph has no strip plan.  ``file_input``
-        is in storage type."""
-        if self._strip_plan is None:
+        or return None when the graph has no whole-graph strip plan.
+        ``file_input`` is in storage type."""
+        plan = self._strip_plan
+        if plan is None or plan[0] == "segments":
             return None
-        if self._strip_plan[0] == "mc":
-            return cuda_ops.graph_strip_mc(file_input, t, self._strip_plan[1])
+        if plan[0] == "mc":
+            return cuda_ops.graph_strip_mc(file_input, t, plan[1])
         if self._strip_program is None:
             self._strip_program = self._build_strip_program()
         return cuda_ops.graph_strip(file_input, t, self._strip_program)
+
+    def _segments_forward(self, x: torch.Tensor, t) -> torch.Tensor:
+        """Run a ``("segments", steps)`` plan: each segment's child kernel
+        on its input in storage type, the other nodes per node.  Values
+        between steps are in storage type either way, as per node.  A
+        child's plan was fixed when it was taken, so a child with no kernel
+        to run is a fault, not a cue to run per node."""
+        resources: dict[str, Any] = {FILE_INPUT: x}
+        ctx = self._ctx(t, x.device)
+        for step in self._strip_plan[1]:
+            if step[0] == "node":
+                resources.update(self._run_node(step[1], ctx, resources))
+                continue
+            _, child, r_in, r_out, nodes = step
+            out = child._strip_fused_forward(resources[r_in], t)
+            if out is None:
+                raise GraphTraceError(
+                    f"segment {[nd.name for nd in nodes]} has no strip plan at run time")
+            resources[r_out] = out
+        out = resources.get(FINAL_OUTPUT)
+        if out is None:
+            raise GraphTraceError("no node wrote the final output")
+        return out
 
     # ---- per-node tier --------------------------------------------------
 
@@ -655,16 +846,44 @@ class GraphProgram:
 
     def _forward(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
         x = file_input.to(self.storage_dtype)
+        plan = self._strip_plan
+        if plan is not None and plan[0] == "segments":
+            return self._segments_forward(x, t)
         strip = self._strip_fused_forward(x, t)
         if strip is not None:
             return strip
         return self._forward_layers({FILE_INPUT: x}, self._ctx(t, x.device))
 
     def _forward_nostrip(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
-        """Per-node path only: make_program checks wiring with this, so
-        building a program never plans strips."""
+        """Per-node path only, with same-input conv bundles."""
         x = file_input.to(self.storage_dtype)
         return self._forward_layers({FILE_INPUT: x}, self._ctx(t, x.device))
+
+    def _check_shapes(self) -> int:
+        """Run each node once on ``meta`` tensors (shapes only, no data, no
+        kernel launch), in execution order, and return how many ran: a node
+        whose check key passed before takes its outputs from the memo
+        (reference: the per-node cache, ``_node_fn``, program.py:1544-1590).
+        Raises GraphTraceError, or the kernel's own error, on a bad node."""
+        meta = torch.device("meta")
+        ctx = self._ctx(0.0, meta)
+        resources: dict[str, Any] = {
+            FILE_INPUT: torch.empty((4, self.height, self.width), dtype=self.storage_dtype,
+                                    device=meta)}
+        ran = 0
+        for node in self.graph.ordered_nodes:
+            key = _node_key(node, self.graph, self.width, self.height, self.fmt)
+            hit = _NODE_CHECKS.get(key)
+            if hit is None:
+                written = self._run_node(node, ctx, resources)
+                ran += 1
+                remember(_NODE_CHECKS, _NODE_CHECKS_MAX, key, (node.spec, written))
+            else:
+                written = hit[1]
+            resources.update(written)
+        if FINAL_OUTPUT not in resources:
+            raise GraphTraceError("no node wrote the final output")
+        return ran
 
     def _forward_layers(self, resources: dict, ctx: KernelContext):
         for layer in self.graph.layers:
@@ -803,18 +1022,26 @@ def make_program(
     """Build a GraphProgram on ``device`` (the card unless the caller names
     the CPU; raises without one) and check its wiring and shapes.
 
-    The per-node path runs once on ``meta`` tensors (shapes only, no
-    data, no kernel launch): the analog of the reference's
-    ``jax.eval_shape`` check, so a bad edit is rejected before any frame
-    renders."""
+    Each node runs once on ``meta`` tensors (``_check_shapes``): the analog
+    of the reference's ``jax.eval_shape`` check, so a bad edit is rejected
+    before any frame renders.  A graph signature this process has checked
+    before skips the check and shares that program's plan (reference:
+    ``compile_cached``, program.py:1524-1532 and :1634-1638)."""
     program = GraphProgram(graph, width, height, fmt, device=device, plan_strips=plan_strips)
+    key = program._program_key()
+    hit = _PROGRAMS.get(key)
+    if hit is not None:
+        program._host = hit[1]
+        program.from_cache = True
+        return program
     try:
-        x = torch.empty((4, height, width), dtype=torch.float32, device="meta")
-        program._forward_nostrip(x, 0.0)
+        program.nodes_checked = program._check_shapes()
     except GraphTraceError as e:
         warnln(f"Graph build failed: {e}")
         return None
     except Exception as e:  # a kernel that cannot run on these shapes
         warnln(f"Graph build failed while checking kernels: {e}")
         return None
+    specs = tuple(n.spec for n in graph.ordered_nodes)
+    remember(_PROGRAMS, _PROGRAMS_MAX, key, (specs, program._host))
     return program

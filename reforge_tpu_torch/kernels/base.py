@@ -205,15 +205,20 @@ def kernel(
     images_in: tuple[str, ...] | None = None,
     images_out: tuple[str, ...] = ("output_image",),
     ssbos_in: tuple[str, ...] = (),
+    ssbos_out: tuple[str, ...] = (),
     ssbo_sizes: dict[str, int] | None = None,
     halo: int | Callable[[Mapping[str, Any]], Optional[int]] = 0,
+    register: bool = True,
     doc: str = "",
 ):
     """Decorator declaring a kernel from a plain function.
 
     Parameters after ``ctx`` without defaults are image bindings, but those
     named in ``ssbos_in`` (buffer bindings); keyword parameters with scalar
-    defaults become ``ParamDecl``s typed by their default.
+    defaults become ``ParamDecl``s typed by their default.  ``ssbos_out``
+    declares buffer outputs (1-D f32, sized by ``ssbo_sizes``).  With
+    ``register=False`` the spec stays out of the builtin registry (a
+    ``.py`` kernel file's own kernels).
     """
 
     def wrap(fn: Callable[..., Any]) -> KernelSpec:
@@ -237,12 +242,14 @@ def kernel(
             images_in=tuple(images_in if images_in is not None else inferred_images),
             images_out=images_out,
             ssbos_in=ssbos_in,
+            ssbos_out=ssbos_out,
             ssbo_sizes=dict(ssbo_sizes or {}),
             params=params,
             halo=halo_fn,
             doc=doc or (fn.__doc__ or ""),
         )
-        register_kernel(spec)
+        if register:
+            register_kernel(spec)
         return spec
 
     return wrap

@@ -1,5 +1,6 @@
 """Terminal coloring, warnings, file mtimes and the CLI's small helpers
-(the port's copy of ``reforge_tpu.utils``, with the same behaviour).
+(the port's copy of ``reforge_tpu.utils``, with the same behaviour), and
+the bounded caches' insert.
 
 ``warnln`` prints a yellow warning to stderr after clearing the in-place
 status line, and records it so tests and keep-last-good paths can assert
@@ -39,6 +40,15 @@ def recent_warnings() -> list[str]:
 
 def clear_warnings() -> None:
     _recent_warnings.clear()
+
+
+def remember(cache: dict, limit: int, key, value) -> None:
+    """``cache[key] = value``, first dropping the oldest half of ``cache``
+    (dicts keep insertion order) when it holds ``limit`` entries."""
+    if len(cache) >= limit:
+        for old in list(cache)[: limit // 2]:
+            cache.pop(old, None)  # another build thread may have dropped it
+    cache[key] = value
 
 
 def get_modified_time(path: str) -> int:

@@ -345,8 +345,11 @@ def test_graph_from_reference_carries_library_graphs(name):
 
 
 # The reference's tiers at 3840x2160 (its planner on the CPU) and the
-# port's: neon edges runs as segments there, a tier the port does not have,
-# and takes the port's mc tier (one kernel) since a plan fits.
+# port's: neon edges runs as segments there (its wide-frame conv gate), and
+# takes the port's mc tier (one kernel) since a plan fits; the others hold
+# no node range that a strip tier takes (a range of point nodes alone has no
+# halo work to share; gathers and noise have no device form), so the
+# port's segments tier plans nothing for them either.
 REFERENCE_TIERS = {"film_look": None, "old_film": None, "pop_art": None, "psychedelic": None,
                    "neon_edges": "segments", "frost": None}
 

@@ -1,8 +1,8 @@
 """The PyTorch port's command line on the CPU (``--backend cpu``): the
 reference's CLI cases (``tests/test_engine.py:149-230`` and ``:302-330``,
 ``tests/test_window.py:83-140``) with the port, the port's own rules
-(no CPU fallback, multi-device and ``.py`` kernels not ported,
-``--debug-nans``), and the slice against the JAX package's CLI on the
+(no CPU fallback, multi-device not ported, a ``.py`` kernel module
+that fails to load, ``--debug-nans``), and the slice against the JAX package's CLI on the
 same PNG within one u8 code (the goldens' bound)."""
 
 import glob
@@ -117,13 +117,16 @@ def test_shader_plus_image_positionals(tmp_path):
 
 
 def test_py_kernel_is_not_ported(tmp_path):
+    """A .py kernel module that fails to load: exit 1, no output, and the
+    loader's diagnostic (the working .py path is in test_torch_pykernel.py)."""
     _image(tmp_path / "in.png", 8, 8, seed=7)
     shp = tmp_path / "half.py"
-    shp.write_text("raise SystemExit('never imported')\n")
+    shp.write_text("raise RuntimeError('a broken kernel module')\n")
     outp = tmp_path / "out.png"
     assert main([str(shp), str(tmp_path / "in.png"), str(outp), "--backend", "cpu"]) == 1
     assert not outp.exists()
-    assert any(".py kernels are not ported" in w for w in utils.recent_warnings())
+    assert any("Error loading kernel module" in w and "a broken kernel module" in w
+               for w in utils.recent_warnings())
 
 
 def test_positional_conflicts():

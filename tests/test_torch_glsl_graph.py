@@ -105,10 +105,17 @@ def test_point_shader_and_loops_are_not_synthesized():
 
 
 def _plan(name, fmt):
+    """The program whose mc plan holds the graph's shaders (the graph's own,
+    or its segment's child where tonemap.comp runs per node) and that
+    plan's stages."""
     prog = build_program(GLSL_GRAPHS[name], W, H, fmt, device="cpu", shader_path=SHADER_DIR)
     plan = prog._strip_plan
     if plan is None:
         return prog, None
+    if plan[0] == "segments":
+        assert plan[1][-1][0] == "node" and plan[1][-1][1].name == "tm"
+        prog = plan[1][0][1]
+        plan = prog._strip_plan
     return prog, [(st.kind, st.op.code, len(st.taps[0]) + len(st.taps[1])
                    if st.kind == cuda_ops.MC_CONV else np.size(st.taps[0])) for st in plan[1].stages]
 
@@ -126,8 +133,9 @@ PLANS = {
     ("glsl_blur", "rgba16f"): [CONV + (14,), MIX, CONV + (14,), MIX],
     ("glsl_blur_sharpen", "rgba32f"): [CONV + (26,), MIX, STENCIL],
     ("glsl_blur_sharpen", "rgba8"): [CONV + (14,), MIX, CONV + (14,), MIX, STENCIL],
-    ("glsl_chain", "rgba32f"): None,  # tonemap.comp: a point shader, no device form
-    ("glsl_sharpen", "rgba32f"): None,
+    # tonemap.comp: a point shader, no device form; the segment before it
+    ("glsl_chain", "rgba32f"): [CONV + (26,), MIX],
+    ("glsl_sharpen", "rgba32f"): [STENCIL],
 }
 
 
@@ -276,9 +284,9 @@ def test_storage_buffer_shader_is_a_not_ported_diagnostic(tmp_path, monkeypatch)
 
 
 def test_loader_caches_specs_by_source_and_refuses_py_kernels(tmp_path):
-    """A shader file's spec is reused while its text is unchanged and
-    rebuilt after an edit; a .py kernel (JAX code in the reference) gives
-    a "not ported" diagnostic and no spec."""
+    """A shader file's spec is reused while its text is unchanged, rebuilt
+    after an edit, and reused again when the edit is undone; a .py kernel
+    module that defines no spec gives a diagnostic and no spec."""
     from reforge_tpu_torch.kernels import loader
 
     path = tmp_path / "tint.comp"
@@ -289,8 +297,11 @@ def test_loader_caches_specs_by_source_and_refuses_py_kernels(tmp_path):
     assert loader.load_kernel_file(str(path)) is first
     path.write_text(src + "\n// edited\n")
     assert loader.load_kernel_file(str(path)) is not first
+    path.write_text(src)
+    assert loader.load_kernel_file(str(path)) is first
     py = tmp_path / "mykernel.py"
     py.write_text("def kernel(ctx, input_image):\n    return input_image\n")
     tutils.clear_warnings()
     assert loader.load_kernel_file(str(py)) is None
-    assert any("not ported" in w and "mykernel.py" in w for w in tutils.recent_warnings())
+    assert any("defines no KernelSpec" in w and "mykernel.py" in w
+               for w in tutils.recent_warnings())

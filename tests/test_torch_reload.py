@@ -20,6 +20,7 @@ from reforge_tpu.engine import Engine as JEngine
 from reforge_tpu.engine import RenderInfo as JRenderInfo
 from reforge_tpu_torch import utils
 from reforge_tpu_torch.engine import Engine, RenderInfo
+from reforge_tpu_torch.graph import program
 from reforge_tpu_torch.kernels import cuda_ops, loader
 from reforge_tpu_torch.runtime import watcher
 
@@ -382,3 +383,150 @@ def test_watcher_sees_edits_and_falls_back_to_polling(tmp_path, monkeypatch):
     assert eng._watcher is None
     bump(cfg, "input -> passthrough -> output")
     assert eng.trigger_reloads() is True
+
+
+# ---- the program caches across rebuilds ---------------------------------------
+
+FIVE_NODES = ("input -> a -> b -> c -> d -> e -> output\n"
+              "a: gaussian { sigma: 2.0 }\nb: sobel {}\nc: tonemap { exposure: %s }\n"
+              "d: invert {}\ne: vignette {}\n")
+HALF_PY = ("from reforge_tpu_torch.kernels import kernel\n"
+           "@kernel('half', register=False)\n"
+           "def half(ctx, input_image):\n"
+           "    return input_image%s * 0.5\n")
+
+
+@pytest.fixture
+def cold_caches(monkeypatch):
+    """Empty program and node-check caches, and counts of the shape checks
+    and plannings that run."""
+    monkeypatch.setattr(program, "_PROGRAMS", {})
+    monkeypatch.setattr(program, "_NODE_CHECKS", {})
+    calls = {"check": 0, "plan": 0}
+    check, plan = program.GraphProgram._check_shapes, program.GraphProgram._plan_strip_fusion
+
+    def counted_check(self):
+        calls["check"] += 1
+        return check(self)
+
+    def counted_plan(self):
+        calls["plan"] += 1
+        return plan(self)
+
+    monkeypatch.setattr(program.GraphProgram, "_check_shapes", counted_check)
+    monkeypatch.setattr(program.GraphProgram, "_plan_strip_fusion", counted_plan)
+    return calls
+
+
+def _cold_frame(tmp_path, config_text, kernel_file=None):
+    """A frame of ``config_text`` from a fresh engine with every cache
+    empty (in a directory of its own, with a copy of ``kernel_file``)."""
+    d = tmp_path / "cold"
+    d.mkdir()
+    if kernel_file is not None:
+        (d / kernel_file.name).write_text(kernel_file.read_text())
+    saved = dict(program._PROGRAMS), dict(program._NODE_CHECKS), dict(loader._spec_cache)
+    program._PROGRAMS.clear()
+    program._NODE_CHECKS.clear()
+    loader._spec_cache.clear()
+    try:
+        eng, _ = make_engine(d, config_text)
+        assert not eng.program.from_cache
+        return frame(eng)
+    finally:
+        program._PROGRAMS.update(saved[0])
+        program._NODE_CHECKS.update(saved[1])
+        loader._spec_cache.update(saved[2])
+
+
+def test_config_edit_back_hits_the_program_cache(tmp_path, cold_caches):
+    """A -> B -> A: the second A takes the first A's checked and planned
+    program (no shape check, no planning) and renders bit-equal to a cold
+    build of A; B checks only the node it changed."""
+    a, b = FIVE_NODES % "1.0", FIVE_NODES % "1.5"
+    eng, cfg = make_engine(tmp_path, a)
+    assert not eng.program.from_cache and eng.program.nodes_checked == 5
+    assert eng.program._strip_plan[0] == "mc" and cold_caches == {"check": 1, "plan": 1}
+    first = frame(eng)
+    bump(cfg, b)
+    assert eng.trigger_reloads() is True
+    assert not eng.program.from_cache and eng.program.nodes_checked == 1
+    assert cold_caches == {"check": 2, "plan": 2}
+    assert not np.array_equal(frame(eng), first)
+    bump(cfg, a)
+    assert eng.trigger_reloads() is True
+    assert eng.program.from_cache and eng.program.nodes_checked == 0
+    assert cold_caches == {"check": 2, "plan": 2}
+    np.testing.assert_array_equal(frame(eng), first)
+    np.testing.assert_array_equal(_cold_frame(tmp_path, a), first)
+
+
+def test_shader_edit_back_hits_the_program_cache(tmp_path, cold_caches):
+    """A -> B -> A of a shader's text: the loader gives the second A the
+    first A's spec, so the program cache hits, and the frame is bit-equal
+    to a cold build."""
+    kpath = tmp_path / "gainer.comp"
+    kpath.write_text(GAIN_SHADER % "0.0")
+    config = "input -> g -> output\ng: gainer { gain: 2.0 }"
+    eng, _ = make_engine(tmp_path, config)
+    spec = eng.program.graph.nodes["g"].spec
+    first = frame(eng)
+    bump(kpath, GAIN_SHADER % "1.0")
+    assert eng.trigger_reloads() is True and not eng.program.from_cache
+    assert eng.program.nodes_checked == 1
+    bump(kpath, GAIN_SHADER % "0.0")
+    assert eng.trigger_reloads() is True
+    assert eng.program.graph.nodes["g"].spec is spec
+    assert eng.program.from_cache and cold_caches["check"] == 2
+    np.testing.assert_array_equal(frame(eng), first)
+    np.testing.assert_array_equal(_cold_frame(tmp_path, config, kpath), first)
+
+
+def test_edit_of_one_node_of_five_checks_one_node(tmp_path, cold_caches):
+    eng, cfg = make_engine(tmp_path, FIVE_NODES % "1.0")
+    for k, exposure in enumerate(("1.25", "0.75", "1.5")):
+        bump(cfg, FIVE_NODES % exposure)
+        assert eng.trigger_reloads() is True
+        assert eng.program.nodes_checked == 1 and cold_caches["check"] == 2 + k
+    # A rewiring checks the node it rewires: e reads c's output now.
+    bump(cfg, FIVE_NODES.replace("d -> e", "e").replace("d: invert {}\n", "") % "1.0")
+    assert eng.trigger_reloads() is True and eng.program.nodes_checked == 1
+
+
+def test_bad_edit_is_still_rejected(tmp_path, cold_caches):
+    """A changed node keeps its check: a .py kernel edited to return the
+    wrong shape is refused with its diagnostic, again on a second bad edit
+    (a failed check is never remembered), while the last good program
+    renders; the good text back hits the cache."""
+    kpath = tmp_path / "half.py"
+    kpath.write_text(HALF_PY % "")
+    eng, _ = make_engine(tmp_path, "input -> gs -> half -> output\ngs: gaussian { sigma: 1.0 }")
+    good = frame(eng)
+    for _ in range(2):
+        utils.clear_warnings()
+        bump(kpath, HALF_PY % "[:, :8]")
+        assert eng.trigger_reloads() is False
+        assert any("Graph build failed" in w and "kernel 'half' output 'output_image' has shape"
+                   in w for w in utils.recent_warnings()), utils.recent_warnings()
+        np.testing.assert_array_equal(frame(eng), good)
+    bump(kpath, HALF_PY % "")
+    assert eng.trigger_reloads() is True and eng.program.from_cache
+    np.testing.assert_array_equal(frame(eng), good)
+
+
+def test_program_cache_drops_its_oldest_half(cold_caches):
+    """Past 64 graph signatures the oldest 32 go (the reference's bound)."""
+    from reforge_tpu_torch.config import parse
+    from reforge_tpu_torch.graph import build_graph, make_program
+
+    def build(k):
+        text = f"input -> n -> output\nn: exposure {{ stops: {k / 100.0} }}"
+        return make_program(build_graph(parse(text, expects_input=True)), 8, 4, device="cpu")
+
+    for k in range(program._PROGRAMS_MAX):
+        assert not build(k).from_cache
+    assert len(program._PROGRAMS) == program._PROGRAMS_MAX
+    assert not build(program._PROGRAMS_MAX).from_cache
+    assert len(program._PROGRAMS) == program._PROGRAMS_MAX // 2 + 1
+    assert not build(0).from_cache  # dropped
+    assert build(program._PROGRAMS_MAX - 1).from_cache and build(program._PROGRAMS_MAX).from_cache

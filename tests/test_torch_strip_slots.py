@@ -13,7 +13,7 @@ import torch
 
 from reforge_tpu_torch import utils as tutils
 from reforge_tpu_torch.benchmarks import (
-    CW_CHECK_CONFIG, FLAGSHIP_CONFIG, PLAN_LIMIT_CONFIG, build_program,
+    CW_CHECK_CONFIG, FLAGSHIP_CONFIG, PLAN_LIMIT_CONFIG, build_program, plan_steps,
 )
 from reforge_tpu_torch.kernels import cuda_ops
 from reforge_tpu_torch.kernels.base import builtin_kernels
@@ -138,13 +138,17 @@ def test_more_convs_than_the_kernel_takes_plan_another_tier(fmt):
 
 def test_more_ops_than_the_kernel_takes_plan_another_tier():
     """One conv and 32 pointwise nodes: 33 ops, past the op list the
-    kernel's parameters hold; per node (the mc tier holds 24 stages)."""
+    kernel's parameters hold, and the mc tier holds 24 stages; the segments
+    tier runs the conv and the first 31 as one graph_strip, the last per
+    node."""
     chain = " -> ".join(f"n{k}" for k in range(32))
     config = (f"input -> soft -> {chain} -> output\nsoft: gaussian {{ sigma: 1.0 }}\n"
               + "".join(f"n{k}: invert {{ }}\n" for k in range(32)))
     prog = build_program(config, W, H, device="cpu")
     assert cuda_ops.MAX_OPS == 32 and prog._plan_strip_single() is None
-    assert prog._strip_plan is None
+    assert prog._plan_strip_mc() is None
+    assert plan_steps(prog) == [("seg single", ["soft"] + [f"n{k}" for k in range(31)]),
+                                ("node", ["n31"])]
     x = _image("rgba32f", seed=7)
     assert torch.equal(prog._forward(x, T), prog._forward_nostrip(x, T))
 
