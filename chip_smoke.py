@@ -6,9 +6,9 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``reforge_tpu_torch/csrc`` (first use; one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives nine main paths at 3840x2160 through ``Engine`` and the command
+drives the main paths at 3840x2160 through ``Engine`` and the command
 line, each with the launch counters set to 0 just before it and read just
-after:
+after (ten main paths, A-J):
 
   A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
      per node with conv bundles, and the graph_strip tier);
@@ -30,9 +30,9 @@ after:
      the default config (passthrough.comp), glsl-blur (gaussian_h.comp ->
      gaussian_v.comp) and glsl-blur-sharpen (plus sharpen.comp) on the mc
      tier as synthesized conv and stencil stages of graph_strip_mc, the
-     reference's glsl-chain and glsl-sharpen on the segments tier
-     (tonemap.comp is a point shader, per node), and the examples whose
-     shaders touch only images;
+     reference's glsl-chain and glsl-sharpen on the mc tier (tonemap.comp
+     a GLSL point stage: its op list), and the examples whose shaders
+     touch only images;
   F. storage buffers, atomics and lut1d: the examples equalize,
      auto_expose and waveform_scope and a lut1d graph (the port's
      gamma_curve.comp writes its Curve) per node in rgba32f and rgba16f,
@@ -42,7 +42,9 @@ after:
   G. live reload: config and shader edits, keep-last-good on bad ones,
      inline and with async_compile (whose build puts nothing on the card),
      resize, the preview downscale, and the reload-to-frame latency of
-     three edits, warm and cold, with the program cache's hits and the
+     four edits (one of them tonemap.comp in glsl-chain: translation,
+     reflection and the op list's lowering), warm and cold, with the
+     program cache's hits and the
      nodes each edit shape-checks;
   H. the command line (``cli.main``, no ``--backend``): a 4K PNG rendered
      headless with the flagship (one-shot per node), equal to
@@ -56,7 +58,20 @@ after:
      and a .py kernel at the head of gaussian -> sobel -> tonemap, in
      rgba32f and rgba16f, against per node, timed against per node, with
      launches, sequenced fps and the device busy share; the .py kernel in
-     single-shader mode through ``cli.main``.
+     single-shader mode through ``cli.main``;
+  J. GLSL point shaders and zero-border GLSL convs on the mc tier: the
+     graphs of ``benchmarks.point_graphs()`` (glsl-chain, glsl-sharpen,
+     tonemap.comp before sharpen.comp (its op list on an odd word),
+     blur_sharpen_blend, bloom_glow; nblur.comp before a builtin tonemap
+     in zero mode, and before a builtin gaussian on segments) and an op
+     probe (a shader of every kind of op: time, uint, int division,
+     branches, transcendentals) in three formats: the plan (with its
+     halo recompute, and that of the demo, neon edges and bloom_glow's
+     builtin form), the kernel
+     against its plain version, each frame through Engine against the
+     same program per node, then ms a frame on the mc tier against the
+     segments plan without GLSL point stages (and per node), the kernel
+     alone against its bound, and the device's busy share.
 
 Paths A-D use an empty shader path, so the builtins they measure are not
 replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
@@ -120,26 +135,29 @@ def _check(name: str, err: float, tol: float) -> None:
     print(f"check {name}: max abs error {err:.3g} <= {tol:.3g}")
 
 
-def _rgba8_check(name: str, a: torch.Tensor, b: torch.Tensor, steps: int = 2) -> float:
+def _rgba8_check(name: str, a: torch.Tensor, b: torch.Tensor, steps: int = 2,
+                 flips: float = 1e-3) -> float:
     # A pre-quantization difference of one rounding flips a 1/255 bucket
     # where a value sits on its edge, and a flip can cascade through one
     # more quantized node downstream: at most two steps, on few pixels.
     # Where a stencil follows a quantized conv the flip is amplified before
     # the next store (sobel moves its magnitude by up to 2*sqrt(2) buckets
     # per flipped tap, and ACES tonemap's slope reaches 1.3): ``steps`` 4.
+    # ``flips``: the share of values that may differ, where a graph puts
+    # many values on a bucket's midpoint.
     d = (a.float() - b.float()).abs()
     err = float(d.max())
     frac = float((d > 1.0 / 512.0).float().mean())
-    if err > steps / 255.0 + 1e-6 or frac > 1e-3:
+    if err > steps / 255.0 + 1e-6 or frac > flips:
         raise AssertionError(f"{name}: rgba8 max {err}, flipped fraction {frac}")
     print(f"check {name}: rgba8 max abs error {err:.3g}, flipped fraction {frac:.3g}")
     return err
 
 
 def _check_fmt(name: str, fmt: str, got: torch.Tensor, want: torch.Tensor,
-               rgba8_steps: int = 2) -> float:
+               rgba8_steps: int = 2, rgba8_flips: float = 1e-3) -> float:
     if fmt == "rgba8":
-        return _rgba8_check(name, got, want, rgba8_steps)
+        return _rgba8_check(name, got, want, rgba8_steps, rgba8_flips)
     err = _max_err(got, want)
     _check(name, err, 1e-5 if fmt == "rgba32f" else 2e-2)
     return err
@@ -321,7 +339,8 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
     """f32 instructions per pixel (all channels) of an mc plan's stages at
     the tile itself, halo recompute not counted: a conv FMA one, a wsum
     term two (its rounded product and sum), each exchange of the median
-    network two (a min and a max), point ops by their arithmetic."""
+    network two (a min and a max), point ops by their arithmetic (a GLSL
+    op list one an op, an affine mix twelve)."""
     point_ops = {cuda_ops.MC_COPY: 0, cuda_ops.MC_MIX: 12, cuda_ops.MC_ACES: 30,
                  cuda_ops.MC_REINHARD: 9, cuda_ops.MC_VIGNETTE: 21, cuda_ops.MC_GRAYSCALE: 5,
                  cuda_ops.MC_SATURATION: 14, cuda_ops.MC_THRESHOLD: 6,
@@ -338,6 +357,10 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
                 total += 9 * 5 + 2 * terms + 4
             else:
                 total += 3 * (2 * terms + 2)
+        elif st.op.code == cuda_ops.MC_GLSL:
+            total += int(st.taps[0][0])  # one instruction an op of the list, at the least
+        elif st.op.code == cuda_ops.MC_AFFINE:
+            total += 12
         else:
             total += point_ops.get(st.op.code, 0)
     return total
@@ -346,7 +369,8 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # Forms of the register-blocked kernels ptxas must compile with no stack
 # frame and no spills: graph_strip per storage type, channel-op form and
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
-# storage type and affine form, conv1d per axis and form (shared memory
+# storage type and affine form (its glsl form, GLSL_FORM, keeps an op
+# list's register file in a stack frame: no spills there), conv1d per axis and form (shared memory
 # with and without premultiplied box taps, or global), stencil_apply's
 # radius-1 form per kind (wsum, median9), stencil_reduce_mc's run form
 # per radius (1..8) and tap list (full, or with a mask), and
@@ -355,6 +379,8 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
                   "graph_strip_mc_kernel": 4, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
                   "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
+# graph_strip_mc_kernel<T, kAffine = true, kGlsl = true>, mangled.
+GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELb1EE")
 
 
 def _check_no_stack(log: str) -> None:
@@ -366,8 +392,14 @@ def _check_no_stack(log: str) -> None:
             entry = line.split("'")[1]
         elif "bytes stack frame" in line and entry is not None:
             props.setdefault(entry, line.strip())  # the entry's own, first after it
+    glsl = {k: v for k, v in props.items() if GLSL_FORM.search(k)}
+    if len(glsl) != 2 or any(not v.endswith("0 bytes spill stores, 0 bytes spill loads")
+                             for v in glsl.values()):
+        raise AssertionError(f"ptxas: graph_strip_mc's glsl forms: {glsl}")
+    print(f"check ptxas: 2 glsl forms of graph_strip_mc_kernel, no spills: "
+          f"{sorted(set(v.split(',')[0] for v in glsl.values()))}")
     for kernel, forms in NO_STACK_FORMS.items():
-        found = {k: v for k, v in props.items() if kernel in k}
+        found = {k: v for k, v in props.items() if kernel in k and k not in glsl}
         if len(found) != forms:
             raise AssertionError(f"ptxas: {len(found)} forms of {kernel}, expected {forms}")
         for name, line in found.items():
@@ -708,7 +740,8 @@ def reload_latency(smi: str) -> None:
     """Path G's reload-to-frame latency (``chip_smoke.py --reload-latency``,
     a fresh process): from writing an edit to the first frame of the new
     program, with async_compile at 4K, for a flagship parameter, glsl-blur's
-    gaussian_h.comp source and the auto_expose graph; 8 cold edits (texts
+    gaussian_h.comp source, glsl-chain's tonemap.comp source (an op-list
+    point stage) and the auto_expose graph; 8 cold edits (texts
     new to the process) and the same 8 again warm; p50s against the
     reference's 100 ms target."""
     from reforge_tpu_torch.benchmarks import (
@@ -721,12 +754,13 @@ def reload_latency(smi: str) -> None:
         shaders, empty = os.path.join(tmp, "shaders"), os.path.join(tmp, "empty")
         os.makedirs(shaders)
         os.makedirs(empty)
-        for stem in ("gaussian_h", "gaussian_v"):
+        for stem in ("gaussian_h", "gaussian_v", "tonemap"):
             shutil.copy(os.path.join(SHADER_DIR, f"{stem}.comp"), shaders)
         blur_src = Path(shaders, "gaussian_h.comp").read_text()
+        tonemap_src = Path(shaders, "tonemap.comp").read_text()
         expose_text = example_config("auto_expose")
-        flagship, blur, expose = (os.path.join(tmp, f"{n}.rf")
-                                  for n in ("flagship", "glsl_blur", "auto_expose"))
+        flagship, blur, chain, expose = (os.path.join(tmp, f"{n}.rf") for n in (
+            "flagship", "glsl_blur", "glsl_chain", "auto_expose"))
         edits = {
             "flagship sigma": (flagship, FLAGSHIP_CONFIG, empty, flagship,
                                [FLAGSHIP_CONFIG.replace("sigma: 4.0", f"sigma: {3.0 + 0.25 * k}")
@@ -734,6 +768,10 @@ def reload_latency(smi: str) -> None:
             "glsl-blur gaussian_h.comp": (blur, GLSL_GRAPHS["glsl_blur"], shaders,
                                           os.path.join(shaders, "gaussian_h.comp"),
                                           [blur_src + f"\n// edit {k}\n" for k in range(8)]),
+            # a point shader: each cold edit lowers a new op list
+            "glsl-chain tonemap.comp": (chain, GLSL_GRAPHS["glsl_chain"], shaders,
+                                        os.path.join(shaders, "tonemap.comp"),
+                                        [tonemap_src + f"\n// edit {k}\n" for k in range(8)]),
             "auto_expose graph": (expose, expose_text, SHADER_DIR, expose,
                                   [expose_text.replace("target: 0.95",
                                                        f"target: {0.90 + 0.01 * k:.2f}")
@@ -1233,6 +1271,282 @@ def time_path_i(driven: dict, smi: str) -> None:
         top = "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in rows[:5])
         print(f"profile I {name} {fmt} segments: device busy {busy:.1%}; device ms a frame "
               f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]", flush=True)
+
+
+# ---- path J ---------------------------------------------------------------------
+
+# Every kind of op of the GLSL point stage's op list (glsl/lower.py): the
+# frame time, uint arithmetic that wraps, int division and remainder,
+# casts, a per-pixel branch, a counted loop, transcendentals, comparisons
+# and selects (tests/test_torch_glsl_mc.py holds it bit-equal to the
+# interpreter on the CPU).  Before a builtin gaussian, so that the graph
+# plans the mc tier and the probe reads the input itself.
+OP_PROBE = """#version 450
+layout (local_size_x = 16, local_size_y = 16) in;
+layout (binding = 0, rgba32f) uniform readonly image2D input_image;
+layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
+layout (binding = 2) uniform UBO { float gain; int levels; float _rf_time; };
+void main() {
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    ivec2 size = imageSize(input_image);
+    vec4 c = imageLoad(input_image, pos);
+    uint h = uint(pos.x) * 2654435761u + uint(pos.y) * 40503u;
+    float noise = float(h % 1024u) / 1023.0;
+    int q = pos.x / 3 - pos.y % 5 - 7;
+    float t = fract(_rf_time * 0.37 + float(q) * 0.01);
+    vec3 v = c.rgb * gain;
+    if (c.r > 0.5) {
+        v = sqrt(v) + vec3(sin(t), cos(t), exp2(-t));
+    } else {
+        v = pow(v, vec3(2.2)) * abs(sign(c.g - 0.5)) + atan(c.b, 0.5 - t);
+    }
+    for (int i = 0; i < 3; i++) {
+        v += 0.01 * float(i) * v;
+    }
+    float m = mod(float(pos.x) + _rf_time, 7.0);
+    v = clamp(mix(v, vec3(noise), 0.1), 0.0, 1.0) + step(3.5, m) * 0.05;
+    float lv = floor(v.r * float(levels)) / float(levels);
+    bool edge = pos.x == 0 || pos.y == size.y - 1;
+    int iq = int(lv * 255.0) / -2;
+    imageStore(output_image, pos,
+               vec4(edge ? 1.0 : lv, log(1.0 + v.g) + float(iq) * 1e-3,
+                    max(v.b, min(t, 0.5)), c.a * inversesqrt(1.0 + c.a)));
+}
+"""
+OP_PROBE_GRAPH = ("input -> probe -> gs -> output\nprobe: probe { gain: 1.3, levels: 7 }\n"
+                  "gs: gaussian { sigma: 2.0 }\n")
+
+
+def _mc_plan_text(prog, cuda_ops) -> str:
+    """The mc plan's mode, tile and stages (kind, opcode; a GLSL stage's
+    op, register and constant counts), or a segment child's."""
+    plan = prog._strip_plan
+    if plan is None:
+        return "no strip plan"
+    if plan[0] == "segments":
+        return "; ".join(_mc_plan_text(step[1], cuda_ops) for step in plan[1] if step[0] == "seg")
+    if plan[0] != "mc":
+        return plan[0]
+    mc = plan[1]
+    names = {cuda_ops.MC_CONV: "conv", cuda_ops.MC_STENCIL: "stencil", cuda_ops.MC_POINT: "point"}
+    stages = []
+    for st in mc.stages:
+        text = f"{names[st.kind]} {st.op.code}"
+        if st.op.code == cuda_ops.MC_GLSL:
+            words = st.taps[0]
+            text += (f" (GLSL: {int(words[0])} ops, {int(words[1])} float and {int(words[2])} "
+                     f"integer registers, {int(words[3]) + int(words[4])} constants)")
+        stages.append(text)
+    work, halo = mc.halo_work()
+    return (f"mode {mc.mode}, tile {mc.tile()[:2]}, estimated work a pixel {work:.1f}, halo "
+            f"{halo:.1f} ({halo / len(mc.stages):.1f} a stage), stages [{', '.join(stages)}]")
+
+
+def _mc_of(prog):
+    """The mc plan of a program, or of its first segment child."""
+    plan = prog._strip_plan
+    if plan[0] == "segments":
+        plan = next(step[1] for step in plan[1] if step[0] == "seg")._strip_plan
+    return plan[1]
+
+
+def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
+    """Path J: GLSL point shaders (op-list stages, MC_GLSL) and zero-border
+    GLSL convs on the mc tier at 4K.  Kernel checks first (not counted):
+    the plan of each graph of point_graphs() and of OP_PROBE_GRAPH in
+    rgba32f, rgba16f and rgba8, and graph_strip_mc against its plain
+    version on the card.  Then, counted, each graph of point_graphs() through
+    Engine in the three formats: one frame on its tier against the same
+    program per node, a sequence of 4, the launches of a frame.  Returns
+    the launch counts, the driven programs (``time_path_j`` times them) and
+    glsl-chain's kernel error in rgba32f."""
+    from reforge_tpu_torch.benchmarks import (
+        DEMO_CONFIG, LIBRARY_GRAPHS, build_program, plan_steps, point_graphs,
+    )
+    from reforge_tpu_torch.engine import Engine, RenderInfo
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    jdir = os.path.join(tmp, "j")
+    probe_dir = os.path.join(jdir, "probe")
+    os.makedirs(probe_dir)
+    with open(os.path.join(probe_dir, "probe.comp"), "w") as f:
+        f.write(OP_PROBE)
+    big = (4, HEIGHT, WIDTH)
+    x = torch.from_numpy(np.random.default_rng(SEED + 13).random(big, dtype=np.float32)).cuda()
+    # rgba8 codes a flip may move: sharpen.comp at 0.7 amplifies one by up to
+    # 1 + 8 * 0.7; ACES tonemap's slope reaches 1.3.
+    steps8 = {"glsl_sharpen": 7, "tonemap_sharpen": 7, "blur_sharpen_blend": 7, "bloom_glow": 4,
+              "glsl_chain": 4}
+    # tonemap.comp's output, stored on the rgba8 grid, feeds sharpen.comp
+    # at 0.7: 255 * (c + 0.7 * (4c - n - s - w - e)) is then a multiple of
+    # 0.1 codes, on a bucket's midpoint wherever the Laplacian is 5 codes
+    # mod 10, and there per node (the interpreter's order) and the mc
+    # stencil (a tap-sum) round apart by one code.
+    flips8 = {"tonemap_sharpen": 1e-2}
+    graphs = dict(point_graphs(), op_probe=(OP_PROBE_GRAPH, probe_dir))
+    tiers = {"mixed_border": "segments"}
+    chain_err = None
+    for name, (config, shader_dir) in graphs.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_dir)
+            tier = prog._strip_plan[0] if prog._strip_plan else None
+            if tier != tiers.get(name, "mc"):
+                raise AssertionError(f"J {name} {fmt}: tier {tier}")
+            mc = _mc_of(prog)
+            if (mc.mode == "zero") != (name in ("zero_border", "mixed_border")):
+                raise AssertionError(f"J {name} {fmt}: mode {mc.mode}")
+            print(f"J plan {name} {fmt} 4K: {plan_steps(prog)}; {_mc_plan_text(prog, cuda_ops)}")
+            xin = x.to(prog.storage_dtype)
+            got = cuda_ops.graph_strip_mc(xin, 0.5, mc)
+            want = cuda_ops.graph_strip_mc_plain(xin, 0.5, mc)
+            torch.cuda.synchronize()
+            err = _check_fmt(f"J graph_strip_mc {name} {fmt} 4K ({mc.mode}) vs its plain version",
+                             fmt, got, want, rgba8_steps=steps8.get(name, 2))
+            if (name, fmt) == ("glsl_chain", "rgba32f"):
+                chain_err = err
+            del got, want
+
+    # The halo recompute of mc plans that beat per node (the demo, neon
+    # edges) and of one that loses to it (bloom_glow, builtin tonemap).
+    with tempfile.TemporaryDirectory(prefix="rf_chip_smoke_empty_") as empty:
+        for name, config in (("demo", DEMO_CONFIG), ("neon_edges", LIBRARY_GRAPHS["neon_edges"]),
+                             ("bloom_glow builtin", point_graphs()["bloom_glow"][0])):
+            prog = build_program(config, WIDTH, HEIGHT, device="cuda", shader_path=empty)
+            print(f"J plan {name} rgba32f 4K: {_mc_plan_text(prog, cuda_ops)}")
+
+    cuda_ops.reset_launches()
+    driven = {}
+    for name, (config, shader_dir) in point_graphs().items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            cfg = os.path.join(jdir, f"{name}_{fmt}.rf")
+            with open(cfg, "w") as f:
+                f.write(config)
+            engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", config_path=cfg,
+                                       shader_path=shader_dir, fmt=fmt, has_input_image=True))
+            engine.load_input(u8)
+            prog, xf = engine.program, engine._file_input()
+            before = dict(cuda_ops.LAUNCHES)
+            frame = engine.render_frame_blocking(0.5)
+            per_frame = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
+            if per_frame.get("graph_strip_mc") != 1:
+                raise AssertionError(f"J {name} {fmt}: launches a frame {per_frame}")
+            seq = prog.render_sequence(xf, 0.5, 0.016, 4, stack=True)
+            per_node = prog._forward_nostrip(xf, 0.5)
+            for what, v in (("frame", frame), ("per node", per_node)):
+                if tuple(v.shape) != big or not bool(torch.isfinite(v.float()).all()):
+                    raise AssertionError(f"J {name} {fmt} {what}: bad shape or non-finite values")
+            _check(f"J {name} {fmt} render_sequence frame 0 vs render_frame",
+                   _max_err(seq[0], frame), 0.0)
+            _check_fmt(f"J {name} {fmt} {_tier(prog)} vs per node 4K", fmt, frame, per_node,
+                       rgba8_steps=steps8.get(name, 2), rgba8_flips=flips8.get(name, 1e-3))
+            print(f"J {name} {fmt} 4K: launches a frame {json.dumps(per_frame)} [{smi}]")
+            if fmt != "rgba8":
+                driven[(name, fmt)] = (engine, prog, xf)
+            else:
+                engine.close()
+            del frame, seq, per_node
+    return dict(cuda_ops.LAUNCHES), driven, chain_err
+
+
+def _segments_without_point_stages(prog):
+    """A program of ``prog``'s graph planned as before GLSL point stages
+    (the mc planner without its GLSL point class), on a host build of its
+    own."""
+    from reforge_tpu_torch.graph import GraphProgram
+
+    seg = GraphProgram(prog.graph, prog.width, prog.height, prog.fmt, device=prog.device)
+    saved = GraphProgram._glsl_point
+    GraphProgram._glsl_point = lambda self, node: None
+    try:
+        seg._strip_plan
+    finally:
+        GraphProgram._glsl_point = saved
+    return seg
+
+
+def time_path_j(driven: dict, smi: str, n_sms: int, max_sm_mhz: float) -> dict:
+    """Path J's timings, after path I's: ms a frame (CUDA events) on the mc
+    tier against the segments plan without GLSL point stages (the four
+    point graphs; the two border graphs ran per node before zero-border
+    plans) and per node; the kernel alone against its plain version and
+    its bound; bloom_glow with the builtin tonemap; then the device busy
+    share on each tier (``profile_path_j``, a child process).  Returns
+    glsl-chain's rgba32f kernel row (ms, plain ms, bound ms, bound by)."""
+    from reforge_tpu_torch.benchmarks import (
+        bench_program_sequenced, build_program, plan_steps, point_graphs,
+    )
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    n_px = 4 * HEIGHT * WIDTH
+    row = None
+    for (name, fmt), (engine, prog, x) in driven.items():
+        mc = _mc_of(prog)
+        xs = x.to(prog.storage_dtype)
+        tier_ms = _time_ms(lambda: prog._forward(x, 0.5), 20)
+        pn_ms = _time_ms(lambda: prog._forward_nostrip(x, 0.5), 5)
+        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
+        line = (f"J {name} {fmt} 4K: {_tier(prog)} {tier_ms:.3f} ms a frame, per node "
+                f"{pn_ms:.3f}")
+        if name not in ("zero_border", "mixed_border"):
+            seg = _segments_without_point_stages(prog)
+            seg_ms = _time_ms(lambda: seg._forward(x, 0.5), 20)
+            line += f", segments without point stages {seg_ms:.3f} ({plan_steps(seg)})"
+        k_ms = _time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 20)
+        p_ms = _time_ms(lambda: cuda_ops.graph_strip_mc_plain(xs, 0.5, mc), 3)
+        bound_ms, bound_by = _issue_bound(2 * n_px * xs.element_size(),
+                                          HEIGHT * WIDTH * _mc_ops_per_pixel(mc, cuda_ops),
+                                          n_sms, max_sm_mhz)
+        print(f"{line}; sequenced {seq['ms_per_frame']:.3f} ms a frame ({seq['fps']:.2f} fps); "
+              f"graph_strip_mc alone {k_ms:.3f} ms (tile {mc.tile()[:2]}), plain {p_ms:.3f}, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
+        if (name, fmt) == ("glsl_chain", "rgba32f"):
+            row = (k_ms, p_ms, bound_ms, bound_by)
+    # bloom_glow's mc plan with the builtin tonemap (an empty shader path):
+    # the cost of its bloom conv (radius 30, a pre-mapped input) at the
+    # 16x16 tile its slots leave, without the op list.
+    with tempfile.TemporaryDirectory(prefix="rf_chip_smoke_empty_") as empty:
+        for fmt in ("rgba32f", "rgba16f"):
+            _engine, _prog, x = driven[("bloom_glow", fmt)]
+            prog = build_program(point_graphs()["bloom_glow"][0], WIDTH, HEIGHT, fmt,
+                                 device="cuda", shader_path=empty)
+            mc, xs = prog._strip_plan[1], x.to(prog.storage_dtype)
+            print(f"J bloom_glow {fmt} 4K with the builtin tonemap: {_tier(prog)}, "
+                  f"graph_strip_mc {_time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 10):.3f}"
+                  f" ms (tile {mc.tile()[:2]}), per node "
+                  f"{_time_ms(lambda: prog._forward_nostrip(x, 0.5), 5):.3f} [{smi}]", flush=True)
+    for engine, _prog, _x in driven.values():
+        engine.close()
+    # The busy shares, in a fresh process: a profiler session late in this
+    # one, after path I's, saw part of a frame's device events (path J's
+    # glsl-chain 0.55 of its 1.33 device ms on an H100 80GB HBM3).
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-path-j", smi],
+                   check=True, timeout=600)
+    return row
+
+
+def profile_path_j(smi: str) -> None:
+    """Path J's device busy shares (``chip_smoke.py --profile-path-j``, a
+    fresh process): each graph of point_graphs() on its tier and the
+    point graphs on the segments plan without GLSL point stages, rgba32f
+    and rgba16f, torch.profiler over 12 frames (6 for the segments
+    plan)."""
+    from reforge_tpu_torch.benchmarks import build_program, point_graphs
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 13).random(
+        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
+    for name, (config, shader_dir) in point_graphs().items():
+        for fmt in ("rgba32f", "rgba16f"):
+            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_dir)
+            rows, busy = _profile(lambda: prog._forward(x, 0.5), 12)
+            top = "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in rows[:4])
+            text = (f"profile J {name} {fmt} {_tier(prog)}: device busy {busy:.1%}; device ms a "
+                    f"frame {sum(ms for _, ms in rows):.3f}: {top}")
+            if name not in ("zero_border", "mixed_border"):
+                seg = _segments_without_point_stages(prog)
+                rows_s, busy_s = _profile(lambda: seg._forward(x, 0.5), 6)
+                text += (f"; segments without point stages: busy {busy_s:.1%}, device ms a frame "
+                         f"{sum(ms for _, ms in rows_s):.3f}")
+            print(f"{text} [{smi}]", flush=True)
 
 
 def main() -> int:
@@ -1872,9 +2186,9 @@ def main() -> int:
     # (passthrough.comp, per node through the interpreter); E2 glsl_blur and
     # E3 glsl_blur_sharpen on the mc tier (one graph_strip_mc a frame;
     # their one-shot runs the interpreter per node and launches nothing);
-    # E4 the reference's glsl_chain and glsl_sharpen on the segments tier
-    # (tonemap.comp is a point shader with no device form: it runs per node
-    # after one graph_strip_mc a frame); E5 the image-only examples in
+    # E4 the reference's glsl_chain and glsl_sharpen on the mc tier as well
+    # (tonemap.comp an op-list point stage, one graph_strip_mc a frame); E5
+    # the image-only examples in
     # rgba32f, one frame each on the tier the planner picks, and their
     # per-node times.
     if not os.path.isfile(os.path.join("shaders", "passthrough.comp")):
@@ -1914,8 +2228,8 @@ def main() -> int:
           f"glsl_sharpen, {len(GLSL_EXAMPLES)} examples) launches: {json.dumps(counts_e)}")
     if counts_e["graph_strip_mc"] == 0:
         raise AssertionError("main path E never launched graph_strip_mc")
-    tiers_e = {"glsl_blur": "mc", "glsl_blur_sharpen": "mc", "glsl_chain": "segments",
-               "glsl_sharpen": "segments"}
+    tiers_e = {"glsl_blur": "mc", "glsl_blur_sharpen": "mc", "glsl_chain": "mc",
+               "glsl_sharpen": "mc"}
     for (graph, fmt), out in outputs.items():
         prog = out[4].program
         tier = prog._strip_plan[0] if prog._strip_plan else None
@@ -2181,9 +2495,8 @@ def main() -> int:
             pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
             print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
                   f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
-    # Path E: the GLSL graphs on their tiers (E2 and E3 on the mc tier,
-    # against their per-node tier: the interpreter), E4 on segments (path
-    # I times them against per node).
+    # Path E: the GLSL graphs on the mc tier against their per-node tier
+    # (the interpreter); path J times E4's against the segments plan.
     for graph, config in GLSL_GRAPHS.items():
         for fmt in ("rgba32f", "rgba16f"):
             prog = build_program(config, WIDTH, HEIGHT, fmt, device=dev, shader_path=SHADER_DIR)
@@ -2273,8 +2586,18 @@ def main() -> int:
     print(f"main path I (segments and a .py kernel) launches: {json.dumps(counts_i)}")
     if counts_i["graph_strip_mc"] == 0:
         raise AssertionError("main path I never launched graph_strip_mc")
+    counts_j, driven_j, chain_err = path_j(u8, tmp, smi)
+    print(f"main path J (GLSL point shaders and zero-border convs on the mc tier) launches: "
+          f"{json.dumps(counts_j)}")
+    if counts_j["graph_strip_mc"] == 0:
+        raise AssertionError("main path J never launched graph_strip_mc")
     time_path_i(driven_i, smi)
     del driven_i
+    chain_row = time_path_j(driven_j, smi, n_sms, max_sm_mhz)
+    del driven_j
+    print(f"graph_strip_mc glsl-chain rgba32f 4K: kernel {chain_row[0]:.3f} ms, plain "
+          f"{chain_row[1]:.3f} ms, bound {chain_row[2]:.4f} ms ({chain_row[3]}), max abs error "
+          f"{chain_err:.3g} [{smi}]")
 
     sources = {
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
@@ -2299,12 +2622,14 @@ def main() -> int:
         "stencil_apply_mc": "reforge_tpu/kernels/pallas_ops.py:2082",
     }
     # Each kernel's launches come from the main path it belongs to, plus
-    # path I's; stencil_apply_mc's from path E, where nothing calls it (0).
+    # paths I's and J's; stencil_apply_mc's from path E, where nothing calls
+    # it (0).
     path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
                "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
                "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d,
                "stencil_apply_mc": counts_e}
-    launches = {name: path_of.get(name, counts_b)[name] + counts_i[name] for name in replaces}
+    launches = {name: path_of.get(name, counts_b)[name] + counts_i[name] + counts_j[name]
+                for name in replaces}
     kernels = [
         {
             "name": name, "route": "cuda",
@@ -2328,5 +2653,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--reload-latency"]:  # path G's child process
         reload_latency(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--profile-path-j"]:  # path J's child process
+        profile_path_j(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -23,10 +23,15 @@ Graphs:
     tier), glsl-blur-sharpen (plus sharpen.comp, a synthesized stencil
     stage), the reference's own glsl-chain and glsl-sharpen
     (benchmarks/glsl_graphs.py there; they end in tonemap.comp, a point
-    shader, so the port runs them per node), the 16 examples of
+    shader: an op-list stage of the mc tier), the 16 examples of
     ``examples/`` whose shaders touch only images, the three whose shaders
     use storage buffers and atomics, and a lut1d graph fed by the port's
-    gamma_curve.comp.
+    gamma_curve.comp;
+  * the point-shader graphs (``point_graphs()``): glsl-chain, glsl-sharpen,
+    blur_sharpen_blend and bloom_glow with the shipped shaders on the mc
+    tier, and the port's nblur.comp (zeros out of bounds) before a builtin
+    tonemap (the mc tier in zero mode) and before a builtin gaussian
+    (mixed borders: segments).
 
 Timings end in ``torch.cuda.synchronize()`` on a GPU: launches are
 asynchronous, and the synchronize proves every frame finished.
@@ -338,6 +343,13 @@ GLSL_SHARPEN_CONFIG = (
     "sh: sharpen { amount: 0.7 }\n"
     "tm: tonemap { exposure: 1.1 }\n"
 )
+# tonemap.comp's op list before sharpen.comp's stencil, whose tap lists
+# (five terms) put the op list on an odd word of the kernel's shared memory.
+TONEMAP_SHARPEN_CONFIG = (
+    "input -> tm -> sh -> output\n"
+    "tm: tonemap { exposure: 1.1 }\n"
+    "sh: sharpen { amount: 0.7 }\n"
+)
 GLSL_GRAPHS = {
     "glsl_blur": GLSL_BLUR_CONFIG,
     "glsl_blur_sharpen": GLSL_BLUR_SHARPEN_CONFIG,
@@ -364,11 +376,33 @@ LUT1D_CONFIG = (
     "curve: gamma_curve { gamma: 0.6 }\n"
     "lut: lut1d {}\n"
 )
+# The port's nblur.comp (the reference's tests/test_graph.py ZERO_1D): a
+# 1-D tap-sum that reads out of bounds as zero.  Before the builtin
+# tonemap it plans the mc tier in zero mode; before the builtin gaussian
+# (an edge conv) the borders mix, and it plans segments: nblur a zero-mode
+# child, gs per node.
+ZERO_BORDER_CONFIG = "input -> nblur -> tm -> output\ntm: tonemap {}\n"
+MIXED_BORDER_CONFIG = "input -> nblur -> gs -> output\ngs: gaussian { sigma: 2.0 }\n"
 
 
 def example_config(name: str) -> str:
     """The config text of ``examples/<name>.rf``."""
     return (EXAMPLES_DIR / f"{name}.rf").read_text()
+
+
+def point_graphs() -> dict[str, tuple[str, str]]:
+    """The graphs whose GLSL point shaders run as op-list stages of the mc
+    tier (MC_GLSL), and the two border graphs: name -> (config, shader
+    path).  Two are examples, read from the checkout when called."""
+    return {
+        "glsl_chain": (GLSL_CHAIN_CONFIG, SHADER_DIR),
+        "glsl_sharpen": (GLSL_SHARPEN_CONFIG, SHADER_DIR),
+        "tonemap_sharpen": (TONEMAP_SHARPEN_CONFIG, SHADER_DIR),
+        "blur_sharpen_blend": (example_config("blur_sharpen_blend"), SHADER_DIR),
+        "bloom_glow": (example_config("bloom_glow"), SHADER_DIR),
+        "zero_border": (ZERO_BORDER_CONFIG, PORT_SHADER_DIR),
+        "mixed_border": (MIXED_BORDER_CONFIG, PORT_SHADER_DIR),
+    }
 
 
 def build_program(config: str, width: int, height: int, fmt: str = "rgba32f",

@@ -40,9 +40,19 @@
 //     term lists of up to 9 terms ride in registers for the stage.
 //     point: channel-full ops of one or two inputs at a pixel (a 3x3 colour
 //     matrix, or a fifth param, comes as tap list 0, expanded once a block
-//     into a dense table), and a GLSL shader's affine mix s_c v_c + p_c x_c
-//     + b_c of the conv or stencil stage before it (v, f32) and that
-//     stage's input (x); its twelve floats come as tap list 0.
+//     into a dense table); a synthesized GLSL conv or stencil's affine mix
+//     s_c v_c + p_c x_c + b_c of the conv or stencil stage before it (v,
+//     f32) and that stage's input (x), its twelve floats as tap list 0;
+//     and a GLSL point shader's op list (glsl/lower.py PointProgram, the
+//     int words of tap list 0), evaluated at each pixel over per-thread
+//     register files (MC_GLSL, the kernel's glsl form only).
+//   * Border mode, whole-plan.  "edge" (every builtin, and GLSL shaders
+//     that clamp their reads) or "zero" (a synthesized GLSL conv or
+//     stencil that reads out of bounds as zero, GL's robust access): the
+//     input block and a conv's per-channel windows then read zeros
+//     outside the image (the glsl form runs such plans).  The planner
+//     takes zero mode only where no conv or stencil stage reads an
+//     intermediate, so no pool slot needs a zero fill.
 //   * Storage rounding.  Each node's output rounds to storage (bf16 RNE
 //     or the rgba8 grid, pixel_ops.cuh store_round) as per-node
 //     execution stores it; a bloom pre-map (store == 0) stays f32.
@@ -51,7 +61,8 @@
 // stage at a time into registers.  Point and stencil arithmetic rounds
 // each operation (__fmul_rn/__fadd_rn) as the plain PyTorch version does;
 // the conv tap loops use FMAs.  fminf/fmaxf drop a NaN where torch.minimum
-// propagates it; images are finite.
+// propagates it; images are finite (a GLSL op list propagates NaN as
+// torch does).
 //
 // Bound on the card: issue slots.  The demo's conv (blur sigma 8, 49 taps
 // a pass) issues 2.75 FMAs an output and tap at its 16x64 tile (the H pass
@@ -89,6 +100,7 @@ enum McOp : int {
   MC_SEPIA = MC_CH0 + CH_COUNT,  // rgb: in0 + (clip01(sepia . in0) - in0) * p0
   MC_HUE_SAT = MC_SEPIA + 1,     // rgb: hue matrix (list 0, 3x3), saturation p0, lightness p1
   MC_AFFINE = MC_HUE_SAT + 1,    // all channels: s_c in0 + p_c in1 + b_c (list 0, rows c)
+  MC_GLSL = MC_AFFINE + 1,       // all channels: a GLSL point shader's op list (list 0's ints)
   MC_CONV_IDENTITY = 32,
   MC_CONV_UNSHARP = 33,  // rgb: x + p0 * (x - blur)
   MC_CONV_BLOOM = 34,    // rgb: x + p0 * blur
@@ -135,6 +147,7 @@ struct McArgs {
   int n_stages, scratch_off, taps_off, n_taps;
   int in_eh, in_ew, in_used, win_off, win_floats, n_win;
   McStage st[kMcMaxStages];
+  int zero;  // border mode: zeros outside the image (else the clamped pixel's value)
 };
 
 struct McGeo {
@@ -283,6 +296,208 @@ __device__ __forceinline__ void point_op(const McStage& st, const float* a, cons
     }
   }
   for (int c = 0; c < 4; ++c) o[c] = __int_as_float(0x7fc00000);  // unknown opcode: NaN
+}
+
+
+// ---- GLSL point shaders: glsl/lower.py PointProgram --------------------------
+//
+// A point shader's op list, packed by PointProgram.packed: each typed op of
+// the list resolved on the host to one of these opcodes (glsl/lower.py
+// KERNEL_OPS, in this order), so the kernel dispatches once an op.  Two
+// register files, floats and integers (i32, i64 -- the interpreter's
+// uint, int64 masked to 32 bits -- and bool as 0 or 1, all in 64 bits,
+// i32 sign-extended), each holding the program's live values and then its
+// constants, loaded once a stage.  The files are arrays indexed at run
+// time, so they live in local memory (register arrays need constant
+// indices); the form that holds them compiles apart from the builtins'
+// and affine forms, which keep their registers.
+enum GlslKop : int {
+  K_LOAD = 0, K_COORD_X, K_COORD_Y, K_TIME, K_FADD, K_FSUB, K_FMUL, K_FDIV, K_FREM, K_FFMOD,
+  K_FMAX, K_FMIN, K_FPOW, K_FATAN2, K_FEQ, K_FNE, K_FLT, K_FLE, K_FGT, K_FGE, K_FNEG, K_FABS,
+  K_FSIGN, K_FFLOOR, K_FCEIL, K_FTRUNC, K_FROUND, K_FEXP, K_FEXP2, K_FLOG, K_FLOG2, K_FSQRT,
+  K_FRECIP, K_FSIN, K_FCOS, K_FTAN, K_FASIN, K_FACOS, K_FATAN, K_FSINH, K_FCOSH, K_FTANH,
+  K_FISNAN, K_FWHERE, K_FCLAMP, K_FNAN2NUM, K_IADD, K_ISUB, K_IMUL, K_IDIV, K_IFLOORDIV, K_IREM,
+  K_IFMOD, K_IMAX, K_IMIN, K_IAND, K_IOR, K_IXOR, K_IEQ, K_INE, K_ILT, K_ILE, K_IGT, K_IGE,
+  K_INEG, K_IABS, K_ISIGN, K_INOT, K_ILNOT, K_IWHERE, K_ICLAMP, K_F2I, K_F2L, K_F2B, K_I2F, K_L2F,
+  K_B2F, K_L2I, K_I2B, K_ICOPY,
+};
+// File sizes (glsl/lower.py MAX_F, MAX_I) and the header's ints: ops, the
+// files' live registers, the float and integer constants, the four
+// output channels' float registers.
+constexpr int kGlslF = 64, kGlslI = 32, kGlslHead = 9;
+
+struct GlslFile {
+  float f[kGlslF];
+  long long i[kGlslI];
+};
+
+// The constants of a program into its files, after the live registers.
+__device__ __forceinline__ void glsl_constants(const int* __restrict__ prog, GlslFile& r) {
+  const int n_f = prog[1], n_i = prog[2], k_f = prog[3], k_i = prog[4];
+  const int* c = prog + kGlslHead;
+  for (int k = 0; k < k_f; ++k) r.f[n_f + k] = __int_as_float(c[k]);
+  c += k_f;
+  for (int k = 0; k < k_i; ++k)
+    r.i[n_i + k] = (long long)(((unsigned long long)(unsigned)c[2 * k + 1] << 32) |
+                               (unsigned)c[2 * k]);
+}
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ long long wrap32(bool w, long long v) {
+  return w ? (long long)(int)v : v;
+}
+
+// The op list at one pixel: a, b the two inputs' channels, (gy, gx) the
+// image pixel; o the four output channels.  Float ops round once each,
+// with the CUDA math functions that torch's CUDA kernels call for the
+// interpreter's ops (expf for torch.exp, sinf for torch.sin, ...), a
+// correctly rounded square root and reciprocal, round half to even;
+// maximum and minimum propagate NaN (torch's rule); remainder takes the
+// divisor's sign, fmod the dividend's.  Integer ops wrap in their width
+// (the op's wrap flag: i32); division truncates (IDIV) or floors
+// (IFLOORDIV).  Casts convert as torch does: float to integer truncates
+// toward zero, i64 to i32 wraps, anything nonzero (NaN too) is true.
+__device__ __forceinline__ void glsl_point(const int* __restrict__ prog, GlslFile& r,
+                                           const float* a, const float* b, int gy, int gx,
+                                           float time, float* o) {
+  const int n_ops = prog[0];
+  // Two words an op, read one at a time: the list may start on any word.
+  const int* ops = prog + kGlslHead + prog[3] + 2 * prog[4];
+  float* F = r.f;
+  long long* I = r.i;
+  for (int n = 0; n < n_ops; ++n) {
+    const unsigned w0 = ops[2 * n], w1 = ops[2 * n + 1];
+    const int d = (w0 >> 8) & 255, x = (w0 >> 16) & 255, y = w0 >> 24;
+    const int z = w1 & 255, u = (w1 >> 8) & 255;
+    const bool wr = (w1 >> 16) & 1;
+    switch (w0 & 255) {
+      case K_LOAD: F[d] = x == 0 ? a[y] : b[y]; break;
+      case K_COORD_X: I[d] = gx; break;
+      case K_COORD_Y: I[d] = gy; break;
+      case K_TIME: F[d] = time; break;
+      case K_FADD: F[d] = __fadd_rn(F[x], F[y]); break;
+      case K_FSUB: F[d] = __fsub_rn(F[x], F[y]); break;
+      case K_FMUL: F[d] = __fmul_rn(F[x], F[y]); break;
+      case K_FDIV: F[d] = __fdiv_rn(F[x], F[y]); break;
+      case K_FREM: {
+        float m = fmodf(F[x], F[y]);
+        if (m != 0.f && ((F[y] < 0.f) != (m < 0.f))) m = __fadd_rn(m, F[y]);
+        F[d] = m;
+        break;
+      }
+      case K_FFMOD: F[d] = fmodf(F[x], F[y]); break;
+      case K_FMAX: F[d] = F[x] != F[x] || F[y] != F[y] ? nan_f() : fmaxf(F[x], F[y]); break;
+      case K_FMIN: F[d] = F[x] != F[x] || F[y] != F[y] ? nan_f() : fminf(F[x], F[y]); break;
+      case K_FPOW: F[d] = powf(F[x], F[y]); break;
+      case K_FATAN2: F[d] = atan2f(F[x], F[y]); break;
+      case K_FEQ: I[d] = F[x] == F[y]; break;
+      case K_FNE: I[d] = F[x] != F[y]; break;
+      case K_FLT: I[d] = F[x] < F[y]; break;
+      case K_FLE: I[d] = F[x] <= F[y]; break;
+      case K_FGT: I[d] = F[x] > F[y]; break;
+      case K_FGE: I[d] = F[x] >= F[y]; break;
+      case K_FNEG: F[d] = -F[x]; break;
+      case K_FABS: F[d] = fabsf(F[x]); break;
+      case K_FSIGN: F[d] = (float)((0.f < F[x]) - (F[x] < 0.f)); break;
+      case K_FFLOOR: F[d] = floorf(F[x]); break;
+      case K_FCEIL: F[d] = ceilf(F[x]); break;
+      case K_FTRUNC: F[d] = truncf(F[x]); break;
+      case K_FROUND: F[d] = rintf(F[x]); break;
+      case K_FEXP: F[d] = expf(F[x]); break;
+      case K_FEXP2: F[d] = exp2f(F[x]); break;
+      case K_FLOG: F[d] = logf(F[x]); break;
+      case K_FLOG2: F[d] = log2f(F[x]); break;
+      case K_FSQRT: F[d] = __fsqrt_rn(F[x]); break;
+      case K_FRECIP: F[d] = __fdiv_rn(1.f, F[x]); break;
+      case K_FSIN: F[d] = sinf(F[x]); break;
+      case K_FCOS: F[d] = cosf(F[x]); break;
+      case K_FTAN: F[d] = tanf(F[x]); break;
+      case K_FASIN: F[d] = asinf(F[x]); break;
+      case K_FACOS: F[d] = acosf(F[x]); break;
+      case K_FATAN: F[d] = atanf(F[x]); break;
+      case K_FSINH: F[d] = sinhf(F[x]); break;
+      case K_FCOSH: F[d] = coshf(F[x]); break;
+      case K_FTANH: F[d] = tanhf(F[x]); break;
+      case K_FISNAN: I[d] = F[x] != F[x]; break;
+      case K_FWHERE: F[d] = I[x] ? F[y] : F[z]; break;
+      case K_FCLAMP:
+        F[d] = F[x] != F[x] ? F[x] : fminf(fmaxf(F[x], F[y]), F[z]);
+        break;
+      case K_FNAN2NUM:
+        F[d] = F[x] != F[x] ? F[y] : isinf(F[x]) ? (F[x] > 0.f ? F[z] : F[u]) : F[x];
+        break;
+      case K_IADD:
+        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] + (unsigned long long)I[y]));
+        break;
+      case K_ISUB:
+        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] - (unsigned long long)I[y]));
+        break;
+      case K_IMUL:
+        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] * (unsigned long long)I[y]));
+        break;
+      case K_IDIV:
+        I[d] = I[y] == 0 ? 0
+             : I[y] == -1 ? wrap32(wr, (long long)(0ull - (unsigned long long)I[x]))
+                          : I[x] / I[y];
+        break;
+      case K_IFLOORDIV: {
+        const long long p = I[x], q = I[y];
+        long long v = 0;
+        if (q == -1) {
+          v = wrap32(wr, (long long)(0ull - (unsigned long long)p));
+        } else if (q != 0) {
+          v = p / q;
+          if (p % q != 0 && ((p < 0) != (q < 0))) --v;
+        }
+        I[d] = v;
+        break;
+      }
+      case K_IREM: {
+        const long long q = I[y];
+        long long v = q == 0 || q == -1 ? 0 : I[x] % q;
+        if (v != 0 && ((v < 0) != (q < 0))) v += q;
+        I[d] = v;
+        break;
+      }
+      case K_IFMOD: I[d] = I[y] == 0 || I[y] == -1 ? 0 : I[x] % I[y]; break;
+      case K_IMAX: I[d] = I[x] > I[y] ? I[x] : I[y]; break;
+      case K_IMIN: I[d] = I[x] < I[y] ? I[x] : I[y]; break;
+      case K_IAND: I[d] = I[x] & I[y]; break;
+      case K_IOR: I[d] = I[x] | I[y]; break;
+      case K_IXOR: I[d] = I[x] ^ I[y]; break;
+      case K_IEQ: I[d] = I[x] == I[y]; break;
+      case K_INE: I[d] = I[x] != I[y]; break;
+      case K_ILT: I[d] = I[x] < I[y]; break;
+      case K_ILE: I[d] = I[x] <= I[y]; break;
+      case K_IGT: I[d] = I[x] > I[y]; break;
+      case K_IGE: I[d] = I[x] >= I[y]; break;
+      case K_INEG: I[d] = wrap32(wr, (long long)(0ull - (unsigned long long)I[x])); break;
+      case K_IABS:
+        I[d] = wrap32(wr, I[x] < 0 ? (long long)(0ull - (unsigned long long)I[x]) : I[x]);
+        break;
+      case K_ISIGN: I[d] = (I[x] > 0) - (I[x] < 0); break;
+      case K_INOT: I[d] = wrap32(wr, ~I[x]); break;
+      case K_ILNOT: I[d] = I[x] == 0; break;
+      case K_IWHERE: I[d] = I[x] ? I[y] : I[z]; break;
+      case K_ICLAMP: {
+        const long long v = I[x] < I[y] ? I[y] : I[x];
+        I[d] = v > I[z] ? I[z] : v;
+        break;
+      }
+      case K_F2I: I[d] = __float2int_rz(F[x]); break;
+      case K_F2L: I[d] = __float2ll_rz(F[x]); break;
+      case K_F2B: I[d] = F[x] != 0.f; break;
+      case K_I2F: F[d] = __int2float_rn((int)I[x]); break;
+      case K_L2F: F[d] = __ll2float_rn(I[x]); break;
+      case K_B2F: F[d] = I[x] ? 1.f : 0.f; break;
+      case K_L2I: I[d] = (long long)(int)I[x]; break;
+      case K_I2B: I[d] = I[x] != 0; break;
+      case K_ICOPY: I[d] = I[x]; break;
+      default: F[d] = nan_f();  // an opcode this kernel lacks
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) o[c] = F[prog[5 + c]];
 }
 
 __device__ __forceinline__ float conv_epilogue(int code, int c, float blur, float x, const float* p) {
@@ -453,9 +668,13 @@ __device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
   }
 }
 
-// kAffine: the plan has MC_AFFINE stages (GLSL shaders); the builtins'
-// plans run the form without them.
-template <typename T, bool kAffine>
+// kAffine: the plan has MC_AFFINE stages (synthesized GLSL convs and
+// stencils); kGlsl: it has MC_GLSL stages (point shaders, with the affine
+// ones), whose register files live in local memory, or reads in zero
+// mode (launch_form).  The builtins' and affine forms keep the edge
+// mode's code alone (a runtime zero flag cost the affine form 1.5% on
+// glsl-blur-sharpen, PERF.md).
+template <typename T, bool kAffine, bool kGlsl>
 __global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int vec, int store, float time, const float* __restrict__ taps_g,
@@ -470,11 +689,12 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   float* taps = sm + args.taps_off;
   int* idx = reinterpret_cast<int*>(taps + args.n_taps);
   float* win = sm + args.win_off;
-  (void)time;  // no op of the ported builtins reads the frame time yet
+  const bool zero = kGlsl && args.zero != 0;
 
   if (args.in_used) {
     const int in_plane = in_t.wrows() * in_t.wp;
-    for (int c = 0; c < 4; ++c) load_window_async<T>(x + c * plane, in_t, false, vec, sm + c * in_plane);
+    for (int c = 0; c < 4; ++c)
+      load_window_async<T>(x + c * plane, in_t, zero, vec, sm + c * in_plane);
   }
   copy_to_shared(taps_g, args.n_taps, taps);
   for (int i = threadIdx.x; i < args.n_taps; i += blockDim.x) idx[i] = idx_g[i];
@@ -482,7 +702,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
     const int s = i / kDense, k = i - s * kDense;
     const McStage& st = args.st[s];
     float v = 0.f;
-    if (st.kind == MC_POINT)
+    if (st.kind == MC_POINT && !(kGlsl && st.code == MC_GLSL))
       for (int t = 0; t < st.n0; ++t) {
         const int pos = idx_g[st.t0 + t];
         if ((pos >> 6) * 3 + (pos & 63) == k) v = taps_g[st.t0 + t];
@@ -523,7 +743,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
       // block convolves channel c.  One: each channel's copy waits for the
       // H pass of the one before, beside the W pass of that one.
       const bool two = args.n_win == 2;
-      if (windowed && two) load_window_async<T>(x, wt, false, vec, win);
+      if (windowed && two) load_window_async<T>(x, wt, zero, vec, win);
       const int n_h = (rows + kRun - 1) / kRun * tcols;
       const int n_w = rows * ((cols + kRun - 1) / kRun);
       // kRun rows of one column of channel c's H pass (lanes on
@@ -569,7 +789,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
           // One buffer: channel ph's copy lands while the block runs the W
           // pass of channel ph - 1; the H pass of channel ph waits for it.
           __syncthreads();
-          if (c_h >= 0) load_window_async<T>(x + c_h * plane, wt, false, vec, win);
+          if (c_h >= 0) load_window_async<T>(x + c_h * plane, wt, zero, vec, win);
           if (c_w >= 0)
             for (int k = threadIdx.x; k < n_w; k += blockDim.x) w_item(c_w, k);
           cp_async_wait_all();
@@ -583,7 +803,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
         if (windowed) cp_async_wait_all();
         __syncthreads();
         if (windowed && ph < 3)
-          load_window_async<T>(x + (ph + 1) * plane, wt, false, vec,
+          load_window_async<T>(x + (ph + 1) * plane, wt, zero, vec,
                                win + ((ph + 1) & 1) * args.win_floats);
         const int items = (c_h >= 0 ? n_h : 0) + (c_w >= 0 ? n_w : 0);
         for (int i = threadIdx.x; i < items; i += blockDim.x) {
@@ -608,6 +828,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
         l0 = terms9(taps, idx, st.t0, st.n0, in0.pitch);
         l1 = terms9(taps, idx, st.t1, st.n1, in0.pitch);
       }
+      // A GLSL stage's register files, its constants loaded once a stage.
+      std::conditional_t<kGlsl, GlslFile, char> file;
+      if constexpr (kGlsl) {
+        if (st.code == MC_GLSL) glsl_constants(idx + st.t0, file);
+      }
       for_each_cell(rows, cols, [&](int r, int cc) {
         const int gy = by + r, gx = bx + cc;
         if (gy < 0 || gy >= H || gx < 0 || gx >= W) return;
@@ -624,7 +849,14 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
             a[c] = in0.p[c * in0.plane + at0];
             b[c] = st.n_in > 1 ? in1.p[c * in1.plane + at1] : 0.f;
           }
-          point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+          if constexpr (kGlsl) {
+            if (st.code == MC_GLSL)
+              glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);
+            else
+              point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+          } else {
+            point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+          }
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) put(c, r, cc, o[c]);
@@ -648,11 +880,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   }
 }
 
-template <typename T, bool kAffine>
+template <typename T, bool kAffine, bool kGlsl>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                   const McArgs& args, const float* taps, const int* idx, int store, float time,
                   int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T, kAffine>;
+  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -662,17 +894,42 @@ static int launch(const void* x, void* out, int H, int W, int TH, int TW, int ve
   return (int)cudaGetLastError();
 }
 
+// The kernel form of a plan, chosen here only: the glsl form where a stage
+// is MC_GLSL, and for zero mode, which rides on it (the other forms read
+// the edge mode only); else the affine form where a stage is MC_AFFINE;
+// else the builtins'.
+template <typename T>
+static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, int vec,
+                       const McArgs& args, const float* taps, const int* idx, int store,
+                       float time, int smem, cudaStream_t stream) {
+  bool glsl = args.zero != 0, affine = false;
+  for (int s = 0; s < args.n_stages; ++s) {
+    glsl = glsl || args.st[s].code == MC_GLSL;
+    affine = affine || args.st[s].code == MC_AFFINE;
+  }
+  if (glsl)
+    return launch<T, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                                 stream);
+  if (affine)
+    return launch<T, true, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                                  stream);
+  return launch<T, false, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                                 stream);
+}
+
 }  // namespace rf
 
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
 // stage); geo the layout's eight ints (scratch_off, taps_off, in_eh,
 // in_ew, in_used, win_off, win_floats, n_win: cuda_ops.McProgram.geometry);
 // taps / idx lie on the device.  bf16 selects bf16 storage for input and
-// output (else f32).  vec: the input's rows start on 16-byte boundaries.
+// output (else f32).  vec: the input's rows start on 16-byte boundaries;
+// zero: the plan's border mode is "zero".
 extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int W, int TH, int TW,
                                  const int* geo, const int* stage_i, const float* stage_f,
                                  int n_stages, const float* taps, const int* idx, int n_taps,
-                                 int store, float time, int vec, int smem, void* stream) {
+                                 int store, float time, int vec, int zero, int smem,
+                                 void* stream) {
   if (n_stages < 1 || n_stages > rf::kMcMaxStages) return (int)cudaErrorInvalidValue;
   rf::McArgs args{};
   args.n_stages = n_stages;
@@ -685,6 +942,7 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   args.win_floats = geo[6];
   args.n_win = geo[7];
   args.n_taps = n_taps;
+  args.zero = zero;
   for (int s = 0; s < n_stages; ++s) {
     const int* v = stage_i + s * rf::kMcStageInts;
     rf::McStage& st = args.st[s];
@@ -706,18 +964,11 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
     st.store = v[21];
     for (int k = 0; k < 4; ++k) st.p[k] = stage_f[4 * s + k];
   }
-  bool affine = false;
-  for (int s = 0; s < n_stages; ++s) affine = affine || args.st[s].code == rf::MC_AFFINE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return affine ? rf::launch<__nv_bfloat16, true>(x, out, H, W, TH, TW, vec, args, taps, idx,
-                                                    store, time, smem, s)
-                  : rf::launch<__nv_bfloat16, false>(x, out, H, W, TH, TW, vec, args, taps, idx,
-                                                     store, time, smem, s);
-  return affine ? rf::launch<float, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
-                                          smem, s)
-                : rf::launch<float, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
-                                           smem, s);
+    return rf::launch_form<__nv_bfloat16>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
+                                          smem, s);
+  return rf::launch_form<float>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem, s);
 }
 
 // 0: stages per plan; 1: ints per stage (cuda_ops.MC_MAX_STAGES,

@@ -411,4 +411,5 @@ def translate_shader(
         doc=f"GLSL kernel translated from {path or name}",
         # Content identity for the conv-synthesis cache (glsl/affine.py).
         source_hash=hashlib.sha256(source.encode()).hexdigest(),
+        glsl=shader,
     )

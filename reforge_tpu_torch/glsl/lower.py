@@ -1,0 +1,774 @@
+"""GLSL point shaders as typed op lists for the mc kernel.
+
+The reference evaluates a point shader (reflected halo 0, ``mc_block_ok``)
+by tracing its vectorized interpreter into the mc kernel's blocks
+(``program.py:670-682`` there).  A CUDA kernel takes no closure, so here a
+point shader becomes a record: a ``PointProgram``, a list of typed scalar
+ops over two small register files (floats, integers) that
+``graph_strip_mc`` evaluates at each pixel (an ``MC_GLSL`` point stage,
+csrc/graph_strip_mc.cu).  Each op carries the kernel's opcode, chosen
+when the op is recorded, and the plain version dispatches on it too.
+
+The op list is lowered from the port's own interpreter, not from a second
+reading of GLSL: ``lower_point`` runs ``Interp`` on ``meta`` tensors of
+the frame's size under a ``TorchDispatchMode`` that records every aten op
+on a per-pixel value.  The leaves are the input images' channels (a
+``select`` of an input image), the coordinate planes (``arange`` viewed
+as a row or a column) and the frame time (a 0-d tensor).  UBO params and
+``imageSize`` are Python scalars in the interpreter, so they arrive as
+constants, and an op whose operands are all constants is folded on the
+CPU with the same aten op.  Type promotion is made explicit: each op
+computes in one type (f32, i32, i64 -- the interpreter's ``uint``, int64
+masked to 32 bits -- or bool) and a cast precedes any operand of another
+type, with torch's conversions.
+
+The interpreter runs with ``abstract=False``: counted loops unroll as on
+a real frame, and a data-dependent loop's first host read of its live
+mask refuses the lowering.  So do an op outside the op set, a gather, an
+in-place update, storage buffers, atomics and ``shared`` arrays, more
+than two input images and more registers and constants than the kernel's
+files hold: each raises ``Refused``, whose reason ``lower_point`` returns, and
+such a node runs per node (or between segments), as before.
+
+``point_program_plain`` is the plain version: the ops in order, each with
+the torch function the interpreter called and the same operand forms (a
+Python scalar where the interpreter passed one), so that on the CPU it is
+bit-equal to the interpreter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from . import ast
+from .interp import ATOMIC_FUNCS, IMAGE_ATOMIC_FUNCS, Interp
+
+# Value types.
+F32, I32, I64, BOOL = 0, 1, 2, 3
+_TYPE_OF = {torch.float32: F32, torch.int32: I32, torch.int64: I64, torch.bool: BOOL}
+DTYPES = {v: k for k, v in _TYPE_OF.items()}
+
+# The kernel's two register files, float (f32) and integer (i32, i64 and
+# bool, in 64 bits): each holds a program's live values of its class and
+# then its constants (csrc kGlslF, kGlslI).  Integer registers of an op
+# list are numbered from I_BASE.  The ints of the packed program's header
+# (``PointProgram.packed``); each op packs into two words.
+MAX_F = 64
+MAX_I = 32
+I_BASE = 128
+HEAD_INTS = 9
+
+# The opcodes, one list for the recorder, the plain version and the kernel
+# (csrc/graph_strip_mc.cu GlslKop, in this order).  An op of a name with
+# no type prefix (an aten op's: ADD, LT, SIN, ...) takes F for an f32 op,
+# I for an integer or bool one (``_opcode``); a cast's name says its
+# operand's type and its own.
+KERNEL_OPS = (
+    "LOAD", "COORD_X", "COORD_Y", "TIME",
+    "FADD", "FSUB", "FMUL", "FDIV", "FREM", "FFMOD", "FMAX", "FMIN", "FPOW", "FATAN2",
+    "FEQ", "FNE", "FLT", "FLE", "FGT", "FGE",
+    "FNEG", "FABS", "FSIGN", "FFLOOR", "FCEIL", "FTRUNC", "FROUND", "FEXP", "FEXP2", "FLOG",
+    "FLOG2", "FSQRT", "FRECIP", "FSIN", "FCOS", "FTAN", "FASIN", "FACOS", "FATAN", "FSINH",
+    "FCOSH", "FTANH", "FISNAN",
+    "FWHERE", "FCLAMP", "FNAN2NUM",
+    "IADD", "ISUB", "IMUL", "IDIV", "IFLOORDIV", "IREM", "IFMOD", "IMAX", "IMIN", "IAND", "IOR",
+    "IXOR",
+    "IEQ", "INE", "ILT", "ILE", "IGT", "IGE",
+    "INEG", "IABS", "ISIGN", "INOT", "ILNOT",
+    "IWHERE", "ICLAMP",
+    "F2I", "F2L", "F2B", "I2F", "L2F", "B2F", "L2I", "I2B", "ICOPY",
+)
+K = {name: k for k, name in enumerate(KERNEL_OPS)}
+_LEAVES = ("LOAD", "COORD_X", "COORD_Y", "TIME")
+_CASTS = {(F32, I32): "F2I", (F32, I64): "F2L", (F32, BOOL): "F2B", (I32, F32): "I2F",
+          (I64, F32): "L2F", (BOOL, F32): "B2F", (I64, I32): "L2I", (I32, BOOL): "I2B",
+          (I64, BOOL): "I2B", (I32, I64): "ICOPY", (BOOL, I32): "ICOPY", (BOOL, I64): "ICOPY"}
+_CAST_OPS = {K[name] for name in _CASTS.values()}
+# Ops that compute in their type and give bool.
+_BOOL_OUT = {K[p + n] for p in "FI" for n in ("EQ", "NE", "LT", "LE", "GT", "GE")} | {K["FISNAN"]}
+
+_aten = torch.ops.aten
+_BINARY = {
+    _aten.add: "ADD", _aten.sub: "SUB", _aten.mul: "MUL", _aten.div: "DIV",
+    _aten.remainder: "REM", _aten.maximum: "MAX", _aten.minimum: "MIN", _aten.atan2: "ATAN2",
+    _aten.bitwise_and: "AND", _aten.bitwise_or: "OR", _aten.bitwise_xor: "XOR",
+    _aten.logical_and: "AND", _aten.logical_or: "OR", _aten.logical_xor: "XOR",
+    _aten.floor_divide: "FLOORDIV", _aten.pow: "POW", _aten.fmod: "FMOD",
+}
+_COMPARE = {_aten.eq: "EQ", _aten.ne: "NE", _aten.lt: "LT", _aten.le: "LE", _aten.gt: "GT",
+            _aten.ge: "GE"}
+_UNARY = {
+    _aten.neg: "NEG", _aten.abs: "ABS", _aten.sign: "SIGN", _aten.floor: "FLOOR",
+    _aten.ceil: "CEIL", _aten.trunc: "TRUNC", _aten.round: "ROUND", _aten.exp: "EXP",
+    _aten.exp2: "EXP2", _aten.log: "LOG", _aten.log2: "LOG2", _aten.sqrt: "SQRT",
+    _aten.reciprocal: "RECIP", _aten.sin: "SIN", _aten.cos: "COS", _aten.tan: "TAN",
+    _aten.asin: "ASIN", _aten.acos: "ACOS", _aten.atan: "ATAN", _aten.sinh: "SINH",
+    _aten.cosh: "COSH", _aten.tanh: "TANH",
+}
+# Unary ops that leave an integer operand as it is (torch returns a copy).
+_INT_IDENTITY = {"FLOOR", "CEIL", "TRUNC", "ROUND"}
+_IDENTITY = {_aten.clone, _aten.alias, _aten.detach, _aten.lift_fresh, _aten.lift_fresh_copy,
+             _aten.contiguous}
+_VIEWS = {_aten.view, _aten._unsafe_view, _aten.expand, _aten.unsqueeze, _aten.squeeze,
+          _aten.reshape}
+_CREATE = {_aten.full, _aten.scalar_tensor, _aten.zeros, _aten.ones, _aten.zeros_like,
+           _aten.ones_like, _aten.full_like, _aten.new_zeros, _aten.new_ones, _aten.new_full}
+_HOST_READS = {_aten.is_nonzero, _aten._local_scalar_dense, _aten.item, _aten.equal}
+
+
+class Refused(Exception):
+    """The shader has no op list; ``str()`` says why."""
+
+
+def _opcode(name: str, typ: int, src: Optional[int] = None) -> int:
+    """The opcode of op ``name`` computing in ``typ`` (``src``: a cast's
+    operand type); Refused where the kernel has none."""
+    if name == "CAST":
+        name = _CASTS.get((src, typ), "")
+    elif name not in _LEAVES:
+        name = ("F" if typ == F32 else "I") + name
+    if name not in K:
+        raise Refused(f"no op {name or 'cast'} of type {DTYPES[typ]} (src {src})")
+    return K[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class Const:
+    """A constant operand: its type, its value (a Python number exactly
+    representable in the type) and whether the interpreter passed it as a
+    Python scalar (the plain version passes it the same way)."""
+
+    typ: int
+    value: Any
+    scalar: bool = False
+
+
+def out_type(op: int, typ: int) -> int:
+    """The type of an op's result: bool for a comparison or isnan (which
+    compute in ``typ``), else ``typ``."""
+    return BOOL if op in _BOOL_OUT else typ
+
+
+@dataclasses.dataclass(frozen=True)
+class PointProgram:
+    """A point shader's op list for one (source, params, frame size).
+
+    ``ops`` are ``(op, typ, dst, refs)``: the opcode (an index of
+    KERNEL_OPS), the type it computes in (a cast's: its result's), the
+    result's register and the operands, each a register or constant ``-1
+    - k`` (a LOAD's: the image and the channel).  Float registers count
+    from 0 (``n_f`` of them), integer ones from I_BASE (``n_i``).
+    ``outputs`` are the four channels' operands (f32).  ``images`` are the
+    input images read, by name, in the kernel spec's order."""
+
+    ops: tuple
+    consts: tuple
+    outputs: tuple
+    n_f: int
+    n_i: int
+    images: tuple
+    reads_coords: bool
+    reads_time: bool
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.ops)
+
+    def _slots(self) -> dict:
+        """Each constant's index in its register file: after the file's
+        live registers, floats and integers apart."""
+        slot, n = {}, {True: self.n_f, False: self.n_i}
+        for k, c in enumerate(self.consts):
+            slot[k] = n[c.typ == F32]
+            n[c.typ == F32] += 1
+        return slot
+
+    def packed(self) -> np.ndarray:
+        """The program as the kernel reads it (int32): the header (ops, the
+        float and integer registers in use, the float and integer constants'
+        counts, the four output channels' float registers); the float
+        constants' bits; the integer constants, the low and high words of
+        their 64-bit form; then two words an op: its opcode | dst << 8 | a
+        << 16 | b << 24 and c | d << 8 | (i32: wraps to 32 bits) << 16,
+        each operand its index in its file (a LOAD's a and b the image and
+        the channel)."""
+        slot = self._slots()
+
+        def at(ref: int) -> int:
+            if ref < 0:
+                return slot[-1 - ref]
+            return ref - I_BASE if ref >= I_BASE else ref
+
+        fk = [k for k, c in enumerate(self.consts) if c.typ == F32]
+        ik = [k for k, c in enumerate(self.consts) if c.typ != F32]
+        words = [len(self.ops), self.n_f, self.n_i, len(fk), len(ik),
+                 *(at(o) for o in self.outputs)]
+        words += [_register_bits(F32, self.consts[k].value) for k in fk]
+        for k in ik:
+            bits = _register_bits(self.consts[k].typ, self.consts[k].value)
+            words += [bits & 0xFFFFFFFF, bits >> 32]
+        for op, typ, dst, refs in self.ops:
+            f = (list(refs) if op == K["LOAD"] else [at(r) for r in refs]) + [0] * (4 - len(refs))
+            words += [op | at(dst) << 8 | f[0] << 16 | f[1] << 24,
+                      f[2] | f[3] << 8 | int(typ == I32) << 16]
+        return np.asarray([_i32(w) for w in words], np.int32)
+
+
+def _i32(u: int) -> int:
+    u &= 0xFFFFFFFF
+    return u - (1 << 32) if u >= 1 << 31 else u
+
+
+def _register_bits(typ: int, value) -> int:
+    """A value's 64-bit register form in the kernel: f32 as its bits, i32
+    sign-extended, i64 as it is, bool 0 or 1 (as unsigned 64 bits)."""
+    if typ == F32:
+        return struct.unpack("<I", struct.pack("<f", float(value)))[0]
+    return int(value) & 0xFFFFFFFFFFFFFFFF
+
+
+# ---- the recorder ----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Img:
+    k: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _Vec:
+    items: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class _Arange:
+    n: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _Bad:
+    """A value with no op list: the Refused reason, raised where an output
+    uses it (the interpreter makes values that no output reads)."""
+
+    reason: str
+
+
+class _Py:
+    """A Python scalar argument."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+class _Other:
+    """An argument that is neither a tensor nor a scalar (a shape, a dtype)."""
+
+
+def _convert(value, from_dtype, typ: int):
+    """``value`` (Python number of ``from_dtype``, or None for a Python
+    scalar) converted to ``typ`` as torch converts it."""
+    src = torch.tensor(value) if from_dtype is None else torch.tensor(value, dtype=from_dtype)
+    return src.to(DTYPES[typ]).item()
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, height: int, width: int):
+        super().__init__()
+        self.h, self.w = height, width
+        self.vals: dict[int, Any] = {}
+        self.keep: list = []  # the recorded tensors stay alive: ids stay unique
+        self.nodes: list[tuple] = []  # (op, typ, operands); a LOAD's operands (image, channel)
+        self.loads: dict[tuple, int] = {}
+        self.refused: Optional[str] = None
+
+    # -- bookkeeping
+
+    def bind(self, t: torch.Tensor, value) -> None:
+        self.vals[id(t)] = value
+        self.keep.append(t)
+
+    def value(self, x):
+        if isinstance(x, torch.Tensor):
+            return self.vals.get(id(x), _Bad("a tensor from outside the shader"))
+        if isinstance(x, (bool, int, float)):
+            return _Py(x)
+        return _Other()
+
+    def emit(self, name: str, typ: int, operands=(), src: Optional[int] = None) -> int:
+        self.nodes.append((_opcode(name, typ, src), typ, tuple(operands)))
+        return len(self.nodes) - 1
+
+    def refuse(self, reason: str) -> None:
+        """Refuse the whole shader, even where the interpreter catches the
+        exception."""
+        if self.refused is None:
+            self.refused = reason
+        raise Refused(reason)
+
+    # -- operands
+
+    def operand(self, v, typ: int):
+        """``v`` (a node, Const or _Py) as an operand of type ``typ``."""
+        if isinstance(v, _Py):
+            return Const(typ, _convert(v.value, None, typ), scalar=True)
+        if isinstance(v, Const):
+            if v.typ == typ:
+                return v
+            return Const(typ, _convert(v.value, DTYPES[v.typ], typ))
+        src = out_type(*self.nodes[v][:2])
+        if src == typ:
+            return v
+        return self.emit("CAST", typ, (v,), src)
+
+    # -- the dispatch
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        if packet in _HOST_READS:
+            self.refuse("data-dependent loop (a host read of a per-pixel value)")
+        if func._schema.is_mutable or packet.__name__.endswith("_"):
+            self.refuse(f"in-place update ({packet.__name__})")
+        out = func(*args, **kwargs)
+        if isinstance(out, torch.Tensor):
+            try:
+                value = self.lower(func, packet, args, kwargs, out)
+            except Refused as e:
+                value = _Bad(str(e))
+            self.bind(out, value)
+        elif isinstance(out, (tuple, list)):
+            for o in out:
+                if isinstance(o, torch.Tensor):
+                    self.bind(o, _Bad(f"{packet.__name__} returns several tensors"))
+        return out
+
+    def lower(self, func, packet, args, kwargs, out):
+        name = packet.__name__
+        vals = [self.value(a) for a in args]
+        if packet is _aten.stack:
+            if (kwargs.get("dim", args[1] if len(args) > 1 else 0)) != 0:
+                raise Refused("stack along a pixel axis")
+            items = tuple(self.value(t) for t in args[0])
+            return _Vec(items)
+        if packet is _aten.arange:
+            if len(args) != 1 or out.dtype != torch.int64:
+                raise Refused("arange other than a coordinate plane")
+            return _Arange(int(args[0]))
+        for v in vals:
+            if isinstance(v, _Bad):
+                return v
+        if out.dtype not in _TYPE_OF:
+            raise Refused(f"{name} gives {out.dtype}")
+        if packet in _CREATE:
+            fill = {"zeros": 0, "zeros_like": 0, "new_zeros": 0, "ones": 1, "ones_like": 1,
+                    "new_ones": 1}.get(name)
+            if fill is None:
+                fill = kwargs.get("fill_value", args[-1] if name != "scalar_tensor" else args[0])
+            return Const(_TYPE_OF[out.dtype], _convert(fill, None, _TYPE_OF[out.dtype]))
+        if packet in _VIEWS:
+            v = vals[0]
+            if isinstance(v, _Arange):
+                shape = tuple(out.shape)
+                if packet is _aten.view and shape == (1, v.n) and v.n == self.w:
+                    return self.emit("COORD_X", I64)
+                if packet is _aten.view and shape == (v.n, 1) and v.n == self.h:
+                    return self.emit("COORD_Y", I64)
+                raise Refused("arange other than a coordinate plane")
+            if isinstance(v, (_Img, _Vec)) and tuple(out.shape) != tuple(args[0].shape):
+                raise Refused(f"{name} of an image")
+            return v
+        if packet in _IDENTITY:
+            return vals[0]
+        if packet is _aten.slice:
+            if tuple(out.shape) != tuple(args[0].shape) or (len(args) > 4 and args[4] != 1):
+                raise Refused("a slice of an image (a shifted read)")
+            return vals[0]
+        if packet is _aten.select:
+            v, dim, i = vals[0], args[1], args[2]
+            if isinstance(v, _Img) and dim == 0:
+                key = (v.k, int(i))
+                if key not in self.loads:
+                    self.loads[key] = self.emit("LOAD", F32, key)
+                return self.loads[key]
+            if isinstance(v, _Vec) and dim == 0:
+                return v.items[i]
+            if isinstance(v, Const):
+                return v
+            raise Refused("select of a pixel row or column")
+        if packet is _aten._to_copy:
+            v = vals[0]
+            if isinstance(v, (_Img, _Vec, _Arange)):
+                raise Refused("a conversion of a whole image")
+            return self.operand(v, _TYPE_OF[out.dtype])
+        for v in vals:
+            if isinstance(v, (_Img, _Vec, _Arange)):
+                raise Refused(f"{name} of a whole image")
+        tensors = [v for a, v in zip(args, vals) if isinstance(a, torch.Tensor)]
+        if tensors and all(isinstance(v, Const) for v in tensors):
+            return self.fold(func, args, kwargs, out)
+        typ = _TYPE_OF[out.dtype]
+        if packet in _BINARY or packet is _aten.rsub:
+            return self.binary(packet, name, vals, kwargs, typ)
+        if packet in _COMPARE:
+            ctype = _TYPE_OF[torch.result_type(args[0], args[1])]
+            return self.emit(_COMPARE[packet], ctype,
+                             (self.operand(vals[0], ctype), self.operand(vals[1], ctype)))
+        if packet is _aten.isnan:
+            return self.emit("ISNAN", F32, (self.operand(vals[0], F32),))
+        if packet is _aten.logical_not:
+            return self.emit("LNOT", BOOL, (self.operand(vals[0], BOOL),))
+        if packet is _aten.bitwise_not:
+            return self.emit("LNOT" if typ == BOOL else "NOT", typ, (self.operand(vals[0], typ),))
+        if packet in _UNARY:
+            op = _UNARY[packet]
+            if op in _INT_IDENTITY and typ != F32:
+                return self.operand(vals[0], typ)
+            return self.emit(op, typ, (self.operand(vals[0], typ),))
+        if packet is _aten.where:
+            return self.emit("WHERE", typ, (self.operand(vals[0], BOOL),
+                                            self.operand(vals[1], typ),
+                                            self.operand(vals[2], typ)))
+        if packet is _aten.clamp:
+            lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+            hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+            bounds = []
+            for bound, far in ((lo, -1), (hi, 1)):
+                if bound is None:
+                    if typ == F32:
+                        bounds.append(Const(F32, far * float("inf"), scalar=True))
+                    else:
+                        info = torch.iinfo(DTYPES[typ])
+                        bounds.append(Const(typ, info.min if far < 0 else info.max, scalar=True))
+                else:
+                    bounds.append(self.operand(self.value(bound), typ))
+            return self.emit("CLAMP", typ, (self.operand(vals[0], typ), *bounds))
+        if packet is _aten.nan_to_num:
+            if typ != F32:
+                return self.operand(vals[0], typ)
+            fin = torch.finfo(torch.float32)
+            nan = kwargs.get("nan", args[1] if len(args) > 1 else None)
+            posinf = kwargs.get("posinf", args[2] if len(args) > 2 else None)
+            neginf = kwargs.get("neginf", args[3] if len(args) > 3 else None)
+            consts = [Const(F32, _convert(0.0 if nan is None else nan, None, F32), scalar=True),
+                      Const(F32, _convert(fin.max if posinf is None else posinf, None, F32),
+                            scalar=True),
+                      Const(F32, _convert(fin.min if neginf is None else neginf, None, F32),
+                            scalar=True)]
+            return self.emit("NAN2NUM", F32, (self.operand(vals[0], F32), *consts))
+        raise Refused(f"aten.{name} is outside the op set")
+
+    def binary(self, packet, name, vals, kwargs, typ):
+        if kwargs.get("alpha", 1) != 1:
+            raise Refused(f"{name} with alpha")
+        a, b = vals[0], vals[1]
+        op = "SUB" if packet is _aten.rsub else _BINARY[packet]
+        if packet is _aten.rsub:
+            a, b = b, a
+        if op == "POW" and (isinstance(b, _Py) or isinstance(a, _Py)):
+            raise Refused("pow by a Python scalar")  # torch special-cases its exponents
+        if op == "DIV":
+            mode = kwargs.get("rounding_mode")
+            if mode == "trunc" and typ == F32:
+                q = self.emit("DIV", F32, (self.operand(a, F32), self.operand(b, F32)))
+                return self.emit("TRUNC", F32, (q,))
+            if mode == "floor":
+                op = "FLOORDIV"
+            # the integer DIV truncates; a true division of integers gives f32
+        if typ == BOOL:
+            if op not in ("ADD", "MUL", "MAX", "MIN", "AND", "OR", "XOR"):
+                raise Refused(f"{name} of booleans")
+            op = {"ADD": "OR", "MUL": "AND"}.get(op, op)  # torch's bool sum and product
+        return self.emit(op, typ, (self.operand(a, typ), self.operand(b, typ)))
+
+    def fold(self, func, args, kwargs, out):
+        """An op of constants, computed on the CPU with the same aten op on
+        tensors of one element and the same dimensions (so the same type
+        promotion)."""
+        def concrete(a):
+            if isinstance(a, torch.Tensor):
+                c = self.vals[id(a)]
+                return torch.full((1,) * a.dim(), c.value, dtype=a.dtype)
+            return a
+
+        got = func(*[concrete(a) for a in args], **kwargs)
+        typ = _TYPE_OF[out.dtype]
+        return Const(typ, got.reshape(-1)[0].to(DTYPES[typ]).item())
+
+
+# ---- lowering --------------------------------------------------------------
+
+
+def _uses_atomics(shader: ast.Shader) -> bool:
+    found = False
+
+    def walk(node):
+        nonlocal found
+        if found:
+            return
+        if isinstance(node, (list, tuple)):
+            for item in node:
+                walk(item)
+            return
+        if not hasattr(node, "__dataclass_fields__"):
+            return
+        if isinstance(node, ast.Call) and (node.name in ATOMIC_FUNCS
+                                           or node.name in IMAGE_ATOMIC_FUNCS):
+            found = True
+            return
+        for field in node.__dataclass_fields__:
+            walk(getattr(node, field))
+
+    for fn in shader.functions.values():
+        walk(fn.body)
+    return found
+
+
+def _gate(spec, params: dict) -> None:
+    """Refused where a kernel spec has no op list before it runs."""
+    shader = getattr(spec, "glsl", None)
+    if shader is None:
+        raise Refused("not a GLSL shader")
+    if _uses_atomics(shader):
+        raise Refused("atomics")
+    if shader.ssbos or spec.ssbos_in or spec.ssbos_out:
+        raise Refused("storage buffers")
+    if shader.shared:
+        raise Refused("shared arrays")
+    halo = spec.halo_for(params)
+    if halo is None:
+        raise Refused("halo None: the shader reads images at computed coordinates (a gather)")
+    if halo > 0:
+        raise Refused(f"halo {halo}: a neighbourhood read (a conv or stencil stage's, not a "
+                      "point stage's)")
+    if spec.mc_block_ok is not None and not spec.mc_block_ok(params):
+        raise Refused("not mc_block_ok (per-lane array indexing)")
+    if not spec.images_in:
+        raise Refused("no input image")
+    if len(spec.images_in) > 2:
+        raise Refused("more than two input images (a point stage reads two)")
+
+
+def lower_point(spec, params: dict, width: int, height: int,
+                out_desc: str = "output_image") -> Union[PointProgram, str]:
+    """The PointProgram of the GLSL point shader ``spec`` with ``params``
+    at ``width`` x ``height`` writing ``out_desc``, or the reason it has
+    none."""
+    rec = _Recorder(height, width)
+    try:
+        _gate(spec, params)
+        meta = torch.device("meta")
+        images = {}
+        for k, name in enumerate(spec.images_in):
+            img = torch.empty((4, height, width), dtype=torch.float32, device=meta)
+            rec.bind(img, _Img(k))
+            images[name] = img
+        t = torch.empty((), dtype=torch.float32, device=meta)
+        rec.bind(t, rec.emit("TIME", F32))
+        with rec:
+            outputs = Interp(spec.glsl, height, width, images, dict(params), time=t,
+                             device=meta, abstract=False).run_main()
+        return _allocate(rec, _output_items(rec, outputs, out_desc), spec.images_in)
+    except Refused as e:
+        return rec.refused or str(e)
+    except Exception as e:  # the interpreter's own error on these inputs
+        return rec.refused or f"the interpreter failed: {e}"
+
+
+def _output_items(rec: _Recorder, outputs: dict, out_desc: str) -> tuple:
+    """The four channels of ``out_desc``, each a node or a Const."""
+    if out_desc not in outputs:
+        return (Const(F32, 0.0),) * 4  # an unwritten output reads zeros
+    out = rec.vals.get(id(outputs[out_desc]), _Bad("an output from outside the shader"))
+    if isinstance(out, _Bad):
+        raise Refused(out.reason)
+    if not isinstance(out, _Vec) or len(out.items) != 4:
+        raise Refused("an output that is not four channels")
+    for item in out.items:
+        if isinstance(item, _Bad):
+            raise Refused(item.reason)
+        if isinstance(item, int) and out_type(*rec.nodes[item][:2]) != F32:
+            raise Refused("a non-float output channel")
+        if not isinstance(item, (int, Const)):
+            raise Refused("an output channel that is not a per-pixel value")
+    return out.items
+
+
+def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
+    """The live nodes in order, with registers assigned by liveness in two
+    files, floats and integers (a register frees after its value's last
+    read, so an op's result may take an operand's register; the outputs
+    stay live to the end), and a deduplicated constant table."""
+    nodes = rec.nodes
+    load, leaves = K["LOAD"], {K[name] for name in _LEAVES}
+
+    def operands(i: int) -> tuple:
+        return () if nodes[i][0] == load else nodes[i][2]
+
+    live = set()
+    stack = [o for o in outputs if isinstance(o, int)]
+    while stack:
+        i = stack.pop()
+        if i in live:
+            continue
+        live.add(i)
+        stack += [a for a in operands(i) if isinstance(a, int)]
+    order = sorted(live)
+    last = {}
+    for j, i in enumerate(order):
+        for a in operands(i):
+            if isinstance(a, int):
+                last[a] = j
+    for o in outputs:
+        if isinstance(o, int):
+            last[o] = len(order)
+    consts: list[Const] = []
+    const_of: dict[tuple, int] = {}
+
+    def ref(a) -> int:
+        if isinstance(a, Const):
+            key = (a.typ, _register_bits(a.typ, a.value), a.scalar)
+            if key not in const_of:
+                const_of[key] = len(consts)
+                consts.append(a)
+            return -1 - const_of[key]
+        return reg_of[a]
+
+    def is_f(i: int) -> bool:
+        return out_type(*nodes[i][:2]) == F32
+
+    reg_of: dict[int, int] = {}
+    free: dict[bool, set] = {True: set(), False: set()}
+    n = {True: 0, False: 0}
+    ops = []
+    for j, i in enumerate(order):
+        op, typ, args = nodes[i]
+        refs = args if op == load else tuple(ref(a) for a in args)
+        for a in set(operands(i)):
+            if isinstance(a, int) and last[a] == j:
+                free[is_f(a)].add(reg_of[a])
+        f = is_f(i)
+        if free[f]:
+            dst = min(free[f])
+            free[f].discard(dst)
+        else:
+            dst = n[f] if f else I_BASE + n[f]
+            n[f] += 1
+        reg_of[i] = dst
+        ops.append((op, typ, dst, refs))
+    out_refs = tuple(ref(o) for o in outputs)
+    n_fk = sum(c.typ == F32 for c in consts)
+    if n[True] + n_fk > MAX_F or n[False] + len(consts) - n_fk > MAX_I:
+        raise Refused(f"{n[True]} float registers and {n_fk} constants, {n[False]} integer "
+                      f"registers and {len(consts) - n_fk} constants (the kernel's files hold "
+                      f"{MAX_F} and {MAX_I})")
+    used = {op for op, *_ in ops} & leaves
+    read = sorted({refs[0] for op, _t, _d, refs in ops if op == load})
+    return PointProgram(
+        ops=tuple(ops), consts=tuple(consts), outputs=out_refs, n_f=n[True], n_i=n[False],
+        images=tuple(image_names[k] for k in read),
+        reads_coords=bool(used & {K["COORD_X"], K["COORD_Y"]}), reads_time=K["TIME"] in used,
+    )
+
+
+# ---- the plain version -----------------------------------------------------
+
+
+def _tensor(x, typ: int, like):
+    """A Python scalar as a 0-d tensor of ``typ`` (for functions that take
+    no scalar)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    device = like.device if isinstance(like, torch.Tensor) else "cpu"
+    return torch.tensor(x, dtype=DTYPES[typ], device=device)
+
+
+def _pair(fn):
+    """``fn`` of two operands that takes no Python scalar."""
+    return lambda typ, a, b: fn(_tensor(a, typ, b), _tensor(b, typ, a))
+
+
+def _unary(fn):
+    return lambda typ, a: fn(a)
+
+
+def _clamp(typ, a, lo, hi):
+    if isinstance(lo, torch.Tensor) != isinstance(hi, torch.Tensor):
+        lo, hi = _tensor(lo, typ, a), _tensor(hi, typ, a)
+    return torch.clamp(a, lo, hi)
+
+
+# Each op's torch function, as the interpreter calls it, by its name
+# without the type prefix: (typ, operands...) -> value.
+_PLAIN = {
+    "ADD": lambda typ, a, b: a + b,
+    "SUB": lambda typ, a, b: a - b,
+    "MUL": lambda typ, a, b: a * b,
+    "DIV": lambda typ, a, b: a / b if typ == F32 else torch.div(a, b, rounding_mode="trunc"),
+    "FLOORDIV": lambda typ, a, b: torch.div(a, b, rounding_mode="floor"),
+    "REM": lambda typ, a, b: torch.remainder(a, b),
+    "FMOD": lambda typ, a, b: torch.fmod(a, b),
+    "MAX": _pair(torch.maximum), "MIN": _pair(torch.minimum), "ATAN2": _pair(torch.atan2),
+    "POW": lambda typ, a, b: torch.pow(a, b),
+    "AND": lambda typ, a, b: a & b,
+    "OR": lambda typ, a, b: a | b,
+    "XOR": lambda typ, a, b: a ^ b,
+    **{name: (lambda fn: lambda typ, a, b: fn(_tensor(a, typ, b), b))(fn) for name, fn in (
+        ("EQ", torch.eq), ("NE", torch.ne), ("LT", torch.lt), ("LE", torch.le),
+        ("GT", torch.gt), ("GE", torch.ge))},
+    **{name: _unary(getattr(torch, name.lower())) for name in (
+        "NEG", "ABS", "SIGN", "FLOOR", "CEIL", "TRUNC", "ROUND", "EXP", "EXP2", "LOG", "LOG2",
+        "SQRT", "SIN", "COS", "TAN", "ASIN", "ACOS", "ATAN", "SINH", "COSH", "TANH", "ISNAN")},
+    "RECIP": _unary(torch.reciprocal),
+    "NOT": _unary(torch.bitwise_not), "LNOT": _unary(torch.bitwise_not),
+    "WHERE": lambda typ, c, a, b: torch.where(c, a, b),
+    "CLAMP": _clamp,
+    "NAN2NUM": lambda typ, a, nan, posinf, neginf: torch.nan_to_num(
+        a, nan=nan, posinf=posinf, neginf=neginf),
+}
+
+
+def point_program_plain(prog: PointProgram, ins, gy: torch.Tensor, gx: torch.Tensor,
+                        t) -> torch.Tensor:
+    """The op list over whole images: ``ins`` the input images ((4, H, W)
+    f32, in the spec's order), ``gy``/``gx`` the int64 coordinate planes
+    (broadcastable to (H, W)), ``t`` the frame time; returns (4, H, W)
+    f32."""
+    device = gx.device
+    hw = (gy.shape[0], gx.shape[-1])
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), float(t), dtype=torch.float32, device=device)
+    leaves = {K["COORD_X"]: gx, K["COORD_Y"]: gy, K["TIME"]: t}
+    regs: dict[int, Any] = {}
+
+    def arg(o):
+        if o >= 0:
+            return regs[o]
+        k = prog.consts[-1 - o]
+        if k.scalar:
+            return k.value
+        return torch.tensor(k.value, dtype=DTYPES[k.typ], device=device)
+
+    for op, typ, dst, refs in prog.ops:
+        if op == K["LOAD"]:
+            v = ins[refs[0]][refs[1]]
+        elif op in leaves:
+            v = leaves[op]
+        elif op in _CAST_OPS:
+            v = arg(refs[0]).to(DTYPES[typ])
+        else:
+            v = _PLAIN[KERNEL_OPS[op][1:]](typ, *(arg(r) for r in refs))
+        regs[dst] = v
+
+    def plane(o):
+        v = arg(o)
+        if not isinstance(v, torch.Tensor):
+            v = torch.tensor(v, dtype=torch.float32, device=device)
+        return torch.broadcast_to(v, hw)
+
+    return torch.stack([plane(o) for o in prog.outputs], dim=0)

@@ -8,9 +8,11 @@ Execution modes:
       - single: every conv reads the input and every other node is
         channel-local; the whole graph in one ``graph_strip`` kernel.
       - mc: convs of any image, small-radius stencils (sharpen, sobel,
-        emboss, median3), channel-mixing point nodes and GLSL shaders whose
-        body is an affine tap-sum (glsl/affine.py); the whole graph in one
-        ``graph_strip_mc`` kernel.
+        emboss, median3), channel-mixing point nodes, GLSL shaders whose
+        body is an affine tap-sum (glsl/affine.py) and GLSL point shaders
+        that lower to an op list (glsl/lower.py); the whole graph in one
+        ``graph_strip_mc`` kernel, its border mode ("edge" or "zero") the
+        plan's.
       - segments: neither takes the whole graph, so the maximal contiguous
         node ranges that one of them takes run as child programs (one
         kernel each) and the nodes between them run per node.
@@ -46,6 +48,7 @@ import torch
 
 from ..config import FILE_INPUT, FINAL_OUTPUT
 from ..glsl.affine import ConvSynth, StencilSynth, compose, synthesize_conv
+from ..glsl.lower import PointProgram, lower_point, point_program_plain
 from ..kernels import cuda_ops
 from ..kernels.base import KernelContext, quantize_rgba8
 from ..kernels.ops import X3_MIN_TAPS
@@ -79,6 +82,10 @@ _NODE_CHECKS: dict[tuple, tuple] = {}  # node key -> (spec, its meta outputs)
 _NODE_CHECKS_MAX = 512
 _PROGRAMS: dict[tuple, tuple] = {}  # program key -> (specs, _HostBuild)
 _PROGRAMS_MAX = 64
+# GLSL point shaders' op lists (glsl/lower.py), keyed by source text,
+# params, frame and output: a PointProgram, or the reason there is none.
+_POINT_PROGRAMS: dict[tuple, Any] = {}
+_POINT_PROGRAMS_MAX = 256
 
 
 def _node_key(node: PipelineNode, graph: BuiltGraph, width: int, height: int, fmt: str) -> tuple:
@@ -416,13 +423,21 @@ class GraphProgram:
         optionally after a node-internal pre-map such as bloom's mask),
         stencils of radius 1..16 with one input, and point nodes of halo
         0.  Every builtin node needs an ``mc_op`` whose kind matches its
-        class; a GLSL node needs a synthesized affine tap-sum
-        (``_glsl_synth``).  The plan needs at least one conv or stencil.  Each resource is
-        computed over the tile plus the extent its consumers read around
-        it (a reverse-topological lift, exact); pool slots are reused by
-        linear scan."""
+        class.  A GLSL node of halo >= 1 needs a synthesized affine tap-sum
+        (``_glsl_synth``), a conv or stencil stage; one of halo 0 an op list
+        (``_glsl_point``: ``mc_block_ok`` and a lowering that succeeds), a
+        point stage, as the reference evaluates its interpreter on the
+        kernel's blocks.  The plan needs at least one conv or stencil.
+        Each resource is computed over the tile plus the extent its
+        consumers read around it (a reverse-topological lift, exact); pool
+        slots are reused by linear scan.  The border mode is whole-plan
+        (the reference's rule, program.py:921-961): every conv and stencil
+        shares one, and "zero" (a GLSL shader that reads out of bounds as
+        zero) only where no conv or stencil reads an intermediate; else
+        None, and the segments tier gives each conv a child of its own."""
         nodes: list = []
         synth_of: dict[str, Any] = {}  # GLSL node -> its ConvSynth / StencilSynth
+        point_of: dict[str, PointProgram] = {}  # GLSL point node -> its op list
         n_heavy = 0
         for layer in self.graph.layers:
             for node in layer:
@@ -430,11 +445,16 @@ class GraphProgram:
                 if len(node.outputs) != 1 or spec.ssbos_in or spec.ssbos_out:
                     return None
                 if spec.source_hash is not None:
-                    # A GLSL node: only an affine tap-sum (halo >= 1, one
-                    # input) has a device form here.  A point shader has
-                    # none (the reference traces the interpreter into its
-                    # kernel; a CUDA kernel takes no closure), so its graph
-                    # runs per node.
+                    # A GLSL node: a point shader's op list, or an affine
+                    # tap-sum (halo >= 1, one input); else no device form,
+                    # and the graph takes another tier.
+                    if spec.halo_for(node.params) == 0:
+                        point = self._glsl_point(node)
+                        if point is None:
+                            return None
+                        point_of[node.name] = point
+                        nodes.append(("point", node, None))
+                        continue
                     got = self._glsl_synth(node)
                     if got is None:
                         return None
@@ -507,6 +527,11 @@ class GraphProgram:
             if synth is not None:
                 specs += self._synth_specs(node, kind, extra, synth, in_res[0], out_res, eh, ew)
                 continue
+            point = point_of.get(node.name)
+            if point is not None:
+                specs.append(dict(kind="point", node=node, op=cuda_ops.McOp(cuda_ops.MC_GLSL),
+                                  out=out_res, ins=in_res, x=None, extra=None, point=point))
+                continue
             op = node.spec.mc_op(node.params)
             if cuda_ops.mc_kind(op.code) != _MC_KINDS[kind]:
                 return None
@@ -562,19 +587,46 @@ class GraphProgram:
         stages = [self._mc_stage(ss, slot_of, eh, ew) for ss in specs]
         if len(stages) > cuda_ops.MC_MAX_STAGES:
             return None
+        halo_borders = {synth_of[node.name].border if node.name in synth_of else "edge"
+                        for kind, node, _extra in nodes if kind in ("conv", "stencil")}
+        mode = "edge"
+        if "zero" in halo_borders:
+            # A slot's outside cells hold the clamped values, where GL's
+            # robust access reads a stored image out of bounds as zeros.
+            hazard = any(st.kind in (cuda_ops.MC_CONV, cuda_ops.MC_STENCIL)
+                         and any(ref[0] != cuda_ops.MC_INPUT for ref in st.ins) for st in stages)
+            if halo_borders != {"zero"} or hazard:
+                return None
+            mode = "zero"
         prog = cuda_ops.McProgram(
             stages=stages, n_slots=n_slots, rh_in=eh[FILE_INPUT], ew_in=ew[FILE_INPUT],
-            width=self.width, height=self.height, fmt=self.fmt,
+            width=self.width, height=self.height, fmt=self.fmt, mode=mode,
         )
         if prog.tile() is None:
             return None  # no shared-memory tile holds this plan: run per node
         return prog
 
+    def _glsl_point(self, node) -> Optional[PointProgram]:
+        """The op list of a GLSL point shader with inputs and
+        ``mc_block_ok`` (glsl/lower.py), or None: lowered once per source
+        text, params, frame and output in the process (``_POINT_PROGRAMS``),
+        so a warm reload lowers nothing."""
+        spec, params = node.spec, node.params
+        if not node.inputs or spec.mc_block_ok is None or not spec.mc_block_ok(params):
+            return None
+        out_desc = node.outputs[0][1]
+        key = (spec.source_hash, tuple(sorted(params.items())), self.width, self.height, out_desc)
+        got = _POINT_PROGRAMS.get(key)
+        if got is None:
+            got = lower_point(spec, params, self.width, self.height, out_desc)
+            remember(_POINT_PROGRAMS, _POINT_PROGRAMS_MAX, key, got)
+        return got if isinstance(got, PointProgram) else None
+
     def _glsl_synth(self, node):
-        """The affine tap-sum of a one-input GLSL node of halo >= 1 with an
-        edge border that fits the mc tier (glsl/affine.py), or None.  A
-        wide frame's conv-idiom shader that cannot join warns, as in the
-        reference (program.py:478-496 there)."""
+        """The affine tap-sum of a one-input GLSL node of halo >= 1 that
+        fits the mc tier (glsl/affine.py), or None; its border ("edge" or
+        "zero") joins the plan's.  A wide frame's conv-idiom shader that
+        cannot join warns, as in the reference (program.py:478-496 there)."""
         spec, params = node.spec, node.params
         halo = spec.halo_for(params) or 0
         got = None
@@ -584,8 +636,6 @@ class GraphProgram:
             got = None
         if isinstance(got, StencilSynth) and (got.radius > MC_MAX_RADIUS or got.scale[3] != 0.0):
             got = None  # the stencil stage sums the colour channels only
-        if got is not None and got.border != "edge":
-            got = None  # the port has no zero-border plans
         if got is None and self.width >= 1920 and halo >= 2:
             warnln(
                 f"GLSL node '{node.name}' ({spec.name}) is a conv-idiom shader (radius "
@@ -677,6 +727,17 @@ class GraphProgram:
 
         common = dict(op=ss["op"], ins=tuple(ref(r) for r in ss["ins"]), out=slot_of[ss["out"]],
                       eh=eh[ss["out"]], ew=ew[ss["out"]])
+        point = ss.get("point")
+        if point is not None:
+            def glsl_plain(ctx, ins):
+                device = ins[0].device
+                gy = torch.arange(self.height, dtype=torch.int64, device=device).view(-1, 1)
+                gx = torch.arange(self.width, dtype=torch.int64, device=device).view(1, -1)
+                hw = (self.height, self.width)
+                return point_program_plain(point, ins, gy.expand(hw), gx.expand(hw), ctx.time)
+
+            return cuda_ops.McStage(kind=cuda_ops.MC_POINT, taps=(point.packed(),),
+                                    plain=glsl_plain, **common)
         synth = ss.get("synth")
         if synth is not None:
             store = ss.get("store", True)

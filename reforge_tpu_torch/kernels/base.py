@@ -150,10 +150,13 @@ class KernelSpec:
     mc_op: Optional[Callable[..., Any]] = None
     # File-loaded (GLSL) kernels: mc_block_ok(params) is the reference's
     # eligibility for evaluating the shader on blocks inside its mc kernel
-    # (pointwise, no per-lane local-array gathers); the port's mc tier has
-    # no GLSL point stages, and keeps it for reflection parity.  None for
-    # builtins.
+    # (pointwise, no per-lane local-array gathers); the mc planner takes
+    # such a shader of halo 0 as a point stage when it also lowers to an
+    # op list (glsl/lower.py).  None for builtins.
     mc_block_ok: Optional[Callable[[Mapping[str, Any]], bool]] = None
+    # The parsed shader (glsl.ast.Shader) of a GLSL kernel, which the
+    # point-stage lowering runs through the interpreter.
+    glsl: Optional[Any] = None
     # SHA-256 of a GLSL kernel's source: the conv-synthesis cache key.
     source_hash: Optional[str] = None
 

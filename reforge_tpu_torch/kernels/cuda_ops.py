@@ -164,7 +164,7 @@ def _load_locked() -> None:
         lib.rf_stencil_r1.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]
         lib.rf_stencil_r1.restype = _I
         lib.rf_graph_strip_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _P,
+            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P,
         ]
         lib.rf_graph_strip_mc.restype = _I
         lib.rf_stencil_reduce.argtypes = [
@@ -1018,6 +1018,10 @@ MC_HUE_SAT = MC_SEPIA + 1  # rgb: hue matrix (table 0, 3x3) then saturation p0, 
 # A GLSL shader's affine mix (glsl/affine.py), all channels: s_c in0 + p_c
 # in1 + b_c, (s_c, p_c, b_c) row c of table 0 (affine_table).
 MC_AFFINE = MC_HUE_SAT + 1
+# A GLSL point shader, all channels: its op list (glsl/lower.py
+# PointProgram.packed) as the int words of tap list 0 (floats unused),
+# evaluated at each pixel by the kernel's glsl form.
+MC_GLSL = MC_AFFINE + 1
 # Conv epilogues, given the blur and the stage's x source:
 MC_CONV_IDENTITY = 32  # blur
 MC_CONV_UNSHARP = 33  # rgb: x + p0 * (x - blur)
@@ -1112,9 +1116,10 @@ class McStage:
     computed over.  The stage computes its output over the tile plus
     (eh, ew) into slot ``out`` (or MC_OUTPUT), rounding to storage when
     ``store``.  ``taps`` are the conv's (wh, ww) or the stencil's (or
-    point op's) tables; ``plain`` computes the stage in PyTorch over whole images
-    from the builtin's own forms: point ``plain(ctx, ins)``, stencil
-    ``plain(ctx, tap)``, conv ``plain(ctx, x, blur)``."""
+    point op's) tables, or an MC_GLSL stage's op list (its int words);
+    ``plain`` computes the stage in PyTorch over whole images from the
+    node's own forms: point ``plain(ctx, ins)``, stencil ``plain(ctx,
+    tap)``, conv ``plain(ctx, x, blur)``."""
 
     kind: int
     op: McOp
@@ -1168,8 +1173,9 @@ def synth_stencil_plain(synth, tap) -> torch.Tensor:
 class McProgram:
     """A multi-stage graph for graph_strip_mc, built once per program: the
     stages in topological order, the number of pool slots, the input's
-    extent (``rh_in`` rows, ``ew_in`` columns), the frame and the storage
-    format."""
+    extent (``rh_in`` rows, ``ew_in`` columns), the frame, the storage
+    format and the whole plan's border mode (``"edge"`` or ``"zero"``:
+    what the input block and a conv's windows read outside the image)."""
 
     stages: list
     n_slots: int
@@ -1178,9 +1184,11 @@ class McProgram:
     width: int
     height: int
     fmt: str
+    mode: str = "edge"
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
+        _check_mode(self.mode)
         if len(self.stages) > MC_MAX_STAGES:
             raise ValueError(f"graph_strip_mc takes at most {MC_MAX_STAGES} stages")
         ws, idxs, self._lists = [], [], []
@@ -1191,6 +1199,9 @@ class McProgram:
             if st.kind == MC_CONV:
                 wh, ww = (np.asarray(v, np.float32) for v in st.taps)
                 parts = [(wh, np.zeros(len(wh), np.int32)), (ww, np.zeros(len(ww), np.int32))]
+            elif st.op.code == MC_GLSL:
+                words = np.asarray(st.taps[0], np.int32)
+                parts = [(np.zeros(len(words), np.float32), words)]
             else:
                 parts = [_term_arrays(wsum(tab).terms) for tab in st.taps]
             lists = []
@@ -1283,9 +1294,20 @@ class McProgram:
             elif st.kind == MC_STENCIL:
                 terms = sum(int(np.count_nonzero(t)) for t in st.taps) or 19
                 work += area(st.eh, st.ew) * 3 * 2 * terms
+            elif st.op.code == MC_GLSL:
+                work += area(st.eh, st.ew) * 10 * int(st.taps[0][0])  # ~10 an op
             else:
                 work += area(st.eh, st.ew) * 20
         return work / (th * tw)
+
+    def halo_work(self) -> tuple[float, float]:
+        """(work, halo): ``_work`` at the chosen tile, and the part of it
+        that the halo adds (its excess over the limit as the tile grows):
+        the recompute a fused plan pays where per-node execution pays a
+        store and a load at each node."""
+        th, tw, _smem = self.tile()
+        work = self._work(th, tw)
+        return work, work - self._work(1 << 20, 1 << 20)
 
     def _choice(self):
         """(TH, TW, window buffers, bytes) of ``tile``, or None."""
@@ -1365,7 +1387,8 @@ class McProgram:
 def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     """The plain version of ``graph_strip_mc``, and the mc tier's CPU path:
     the stage list over whole images (convs and stencils with clamped
-    taps), rounding each node's output to storage."""
+    taps, or zeros outside the image in zero mode), rounding each node's
+    output to storage."""
     ctx = KernelContext(width=prog.width, height=prog.height, time=t, fmt=prog.fmt,
                         device=x.device)
     h, w = x.shape[-2], x.shape[-1]
@@ -1373,10 +1396,10 @@ def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram) -> torch.Te
     for st in prog.stages:
         ins = [vals[slot] for slot, _eh, _ew in st.ins]
         if st.kind == MC_CONV:
-            blur = sep_conv_plain(ins[0], [st.taps], "edge")[0]
+            blur = sep_conv_plain(ins[0], [st.taps], prog.mode)[0]
             v = st.plain(ctx, vals[st.x[0]] if st.x is not None else None, blur)
         elif st.kind == MC_STENCIL:
-            xp = _padded(ins[0], st.r, st.r, "edge")
+            xp = _padded(ins[0], st.r, st.r, prog.mode)
             v = st.plain(ctx, lambda dy, dx, _xp=xp: _xp[:, dy : dy + h, dx : dx + w])
         else:
             v = st.plain(ctx, ins)
@@ -1399,8 +1422,13 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     a border block fills the outside cells of each slot it writes with
     the clamped values, so that every stage reads shared memory unclamped
     and the tier reproduces per-node execution's edge padding of every
-    intermediate without computing outside the image.  The tile is the
-    one of least estimated work (halo recompute and load) that leaves
+    intermediate without computing outside the image.  In a plan of zero
+    mode (``McProgram.mode``) the input block and the windows read zeros
+    outside the image instead.  A GLSL point shader's stage (MC_GLSL)
+    evaluates its op list at each pixel; such plans, and those of zero
+    mode, run the kernel's glsl form, the only one with register files in
+    local memory.  The tile is
+    the one of least estimated work (halo recompute and load) that leaves
     two blocks an SM (``McProgram.tile``).
 
     Bound on the card: issue slots, mostly the conv FMAs, which the
@@ -1432,7 +1460,7 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
         int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), prog.height, prog.width,
         th, tw, geo.ctypes.data, stage_i.ctypes.data, stage_f.ctypes.data, len(prog.stages),
         taps.data_ptr(), term_idx.data_ptr(), len(prog.taps), STORE_MODES[prog.fmt], float(t),
-        int(vec), smem, torch.cuda.current_stream(x.device).cuda_stream,
+        int(vec), int(prog.mode == "zero"), smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "graph_strip_mc")
     LAUNCHES["graph_strip_mc"] += 1

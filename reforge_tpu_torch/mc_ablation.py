@@ -14,16 +14,21 @@ anything.  A variant whose anchors a source lacks is skipped.
 ``--kernel`` picks the source and its variants:
 
   mc     csrc/graph_strip_mc.cu (demo rgba32f and rgba16f, chain3, edges,
-         neon edges, glsl-blur and glsl-blur-sharpen rgba32f and rgba16f):
+         neon edges, glsl-blur, glsl-blur-sharpen and glsl-chain rgba32f
+         and rgba16f):
          load_only (return once the input block is in shared memory),
-         no_conv, no_stencil (skip those stages), conv_one_tap (each conv
+         no_conv, no_stencil (skip those stages), no_glsl (a GLSL point
+         stage's op list not evaluated: the stage passes its input on, its
+         loads and stores stay; glsl-chain's tonemap.comp), conv_one_tap (each conv
          pass cut to one tap: its loads, phases and stores stay),
          no_border (border blocks skip their own work: the fill of a
          slot's outside cells, or, in the parent's source, the clamped
          conv path; wrong at the image's edges, but timed),
          one_window (a design choice: the conv's per-channel windows of
          the input in one buffer on every graph, at the tile the chooser
-         picks; edits kernels/cuda_ops.py);
+         picks; edits kernels/cuda_ops.py), pair_load (an op's two words
+         as one 8-byte load: right only where the op list starts on an
+         even word, as glsl-chain's does);
   strip  csrc/graph_strip.cuh (the flagship, rgba32f and rgba16f):
          load_only, h_only (the H passes, no W pass, no epilogue, no
          store), no_w (the W passes cut to one tap: their loads and
@@ -91,7 +96,8 @@ loop (cuobjdump of the built library).
 
 ``--parent`` is an A/B run instead: the package of another checkout (an
 unpacked parent commit, say) against this one, parent, this, this,
-parent, each a copy with this file in it, over every row above.  It
+parent, each a copy with this file in it, over every row above and the
+whole frames of the mc graphs (demo, chain3, edges: ``frame`` rows).  It
 prints the max abs difference between the two sides' outputs of every
 row.  Needs a CUDA card and nvcc.
 """
@@ -238,6 +244,12 @@ _MC_GLOBAL_ROWS = [
     *_MC_RUN_NO_STORE,
 ]
 _MC_GENERAL = "csrc/stencil_mc.cu"
+# graph_strip_mc.cu: an op's two words read one at a time, and the same
+# two as one 8-byte load (a misaligned address where the list starts on an
+# odd word; glsl-chain's starts on an even one).
+_MC_OP_WORDS = "    const unsigned w0 = ops[2 * n], w1 = ops[2 * n + 1];\n"
+_MC_OP_PAIR = ("    const uint2 w = reinterpret_cast<const uint2*>(ops)[n];\n"
+               "    const unsigned w0 = w.x, w1 = w.y;\n")
 # Anchors in the sources before the redesign (PR 5's graph_strip.cu and
 # sep_conv.cu).
 _OLD_STRIP_LOOP = "  for (int k = 0; k < n_plans; ++k) {\n    const int rw = meta[4 * k + 1];\n"
@@ -263,6 +275,8 @@ KERNELS = {
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
+        "no_glsl": [[("glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);",
+                      "for (int c = 0; c < 4; ++c) o[c] = a[c];")]],
         "conv_one_tap": [
             [("nh = 2 * rh + 1, nw = 2 * rw + 1;", "nh = 1, nw = 1;")],
             [("nh = 2 * st.rh + 1, nw = 2 * st.rw + 1;", "nh = 1, nw = 1;")],
@@ -271,6 +285,7 @@ KERNELS = {
                       [(_MC_INTERIOR, "      if (true) {\n"), (_MC_PUT, _MC_PUT + _MC_PUT_GUARD)]],
         "one_window": [[("MC_WINDOW_BUFFERS = (2, 1)", "MC_WINDOW_BUFFERS = (1,)",
                          "kernels/cuda_ops.py")]],
+        "pair_load": [[(_MC_OP_WORDS, _MC_OP_PAIR)]],
     }),
     "strip": (("csrc/graph_strip.cuh", "csrc/graph_strip.cu"), {
         "full": [[]],
@@ -516,7 +531,7 @@ def _rows(which: str, tiles: dict):
         graphs = [(n, getattr(benchmarks, c), f, None) for n, c, f in MC_GRAPHS]
         graphs.append(("neon_edges", benchmarks.LIBRARY_GRAPHS["neon_edges"], "rgba32f", None))
         graphs += [(name, benchmarks.GLSL_GRAPHS[name], fmt, benchmarks.SHADER_DIR)
-                   for name in ("glsl_blur", "glsl_blur_sharpen")
+                   for name in ("glsl_blur", "glsl_blur_sharpen", "glsl_chain")
                    for fmt in ("rgba32f", "rgba16f")]
         for name, config, fmt, shaders in graphs:
             prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
@@ -530,6 +545,13 @@ def _rows(which: str, tiles: dict):
                 [int(geometry(*mc.tile()[:2])[7])] if geometry else [])
             rows.append((f"graph_strip_mc {name} {fmt}",
                          lambda m=mc, v=xin: cuda_ops.graph_strip_mc(v, 0.5, m)))
+    if which == "ab":
+        # Whole frames of the builtins' mc graphs (the program's dispatch
+        # and its one kernel), as chip_smoke.py times their frames.
+        for name, config, fmt in MC_GRAPHS:
+            prog = benchmarks.build_program(getattr(benchmarks, config), 3840, 2160, fmt)
+            rows.append((f"frame {name} {fmt}",
+                         lambda p=prog, v=x.to(prog.storage_dtype): p._forward(v, 0.5)))
     if which in ("stencil", "ab"):
         y = luma(x)[None].contiguous()
         stencils = (("sharpen", x, cuda_ops.wsum(library.SHARPEN_TAPS)),

@@ -301,6 +301,37 @@ def test_glsl_graphs_on_graph_strip_mc(graph, fmt, hw):
     assert float((got.float() - per_node.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("hw", [(37, 71), (200, 300)])
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("graph", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
+                                   "blur_sharpen_blend", "bloom_glow", "zero_border",
+                                   "mixed_border"])
+def test_point_graphs_on_graph_strip_mc(graph, fmt, hw):
+    """GLSL point shaders as op-list stages (the kernel's glsl form; in
+    tonemap_sharpen the op list starts on an odd word) and nblur.comp's
+    zero mode: the mc plan (the mixed graph's zero-mode segment) against
+    its plain version, the frame against per node."""
+    from reforge_tpu_torch import benchmarks
+
+    h, w = hw
+    config, shader_dir = benchmarks.point_graphs()[graph]
+    prog = benchmarks.build_program(config, w, h, fmt, device="cuda", shader_path=shader_dir)
+    plan = prog._strip_plan
+    if plan[0] == "segments":
+        plan = plan[1][0][1]._strip_plan
+    assert plan[0] == "mc" and (plan[1].mode == "zero") == graph.endswith("border")
+    x = _image((4, h, w), 23).to(prog.storage_dtype)
+    before = cuda_ops.LAUNCHES["graph_strip_mc"]
+    got = cuda_ops.graph_strip_mc(x, 0.5, plan[1])
+    want = cuda_ops.graph_strip_mc_plain(x, 0.5, plan[1])
+    frame, per_node = prog._forward(x, 0.5), prog._forward_nostrip(x, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + 2
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((frame.float() - per_node.float()).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f", "rgba8"])
 @pytest.mark.parametrize("graph", ["demo", "neon_edges"])
 def test_mc_interior_and_border_blocks(graph, fmt):

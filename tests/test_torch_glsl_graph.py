@@ -105,37 +105,41 @@ def test_point_shader_and_loops_are_not_synthesized():
 
 
 def _plan(name, fmt):
-    """The program whose mc plan holds the graph's shaders (the graph's own,
-    or its segment's child where tonemap.comp runs per node) and that
-    plan's stages."""
+    """The program of a GLSL graph and its mc plan's stages: (kind, opcode,
+    taps) of each, a GLSL point stage with its op count in place of taps."""
     prog = build_program(GLSL_GRAPHS[name], W, H, fmt, device="cpu", shader_path=SHADER_DIR)
     plan = prog._strip_plan
     if plan is None:
         return prog, None
-    if plan[0] == "segments":
-        assert plan[1][-1][0] == "node" and plan[1][-1][1].name == "tm"
-        prog = plan[1][0][1]
-        plan = prog._strip_plan
-    return prog, [(st.kind, st.op.code, len(st.taps[0]) + len(st.taps[1])
-                   if st.kind == cuda_ops.MC_CONV else np.size(st.taps[0])) for st in plan[1].stages]
+    assert plan[0] == "mc"
+
+    def size(st):
+        if st.kind == cuda_ops.MC_CONV:
+            return len(st.taps[0]) + len(st.taps[1])
+        if st.op.code == cuda_ops.MC_GLSL:
+            return int(st.taps[0][0])
+        return np.size(st.taps[0])
+
+    return prog, [(st.kind, st.op.code, size(st)) for st in plan[1].stages]
 
 
 # (kind, opcode, taps) of each mc stage: a synthesized conv is an identity
 # conv (f32) then an MC_AFFINE point stage with its input (gaussian's alpha
-# passes through); sharpen.comp's sum is exactly an emboss-form stencil.
+# passes through); sharpen.comp's sum is exactly an emboss-form stencil;
+# tonemap.comp is an MC_GLSL point stage of 37 ops (glsl/lower.py).
 # In rgba32f gaussian_h -> gaussian_v composes into one 13+13-tap conv;
 # where storage rounds between nodes it stays two (1+13 and 13+1 taps).
 MIX = (cuda_ops.MC_POINT, cuda_ops.MC_AFFINE, 15)
 CONV = (cuda_ops.MC_CONV, cuda_ops.MC_CONV_IDENTITY)
 STENCIL = (cuda_ops.MC_STENCIL, cuda_ops.MC_EMBOSS, 9)
+TONEMAP = (cuda_ops.MC_POINT, cuda_ops.MC_GLSL, 37)
 PLANS = {
     ("glsl_blur", "rgba32f"): [CONV + (26,), MIX],
     ("glsl_blur", "rgba16f"): [CONV + (14,), MIX, CONV + (14,), MIX],
     ("glsl_blur_sharpen", "rgba32f"): [CONV + (26,), MIX, STENCIL],
     ("glsl_blur_sharpen", "rgba8"): [CONV + (14,), MIX, CONV + (14,), MIX, STENCIL],
-    # tonemap.comp: a point shader, no device form; the segment before it
-    ("glsl_chain", "rgba32f"): [CONV + (26,), MIX],
-    ("glsl_sharpen", "rgba32f"): [STENCIL],
+    ("glsl_chain", "rgba32f"): [CONV + (26,), MIX, TONEMAP],
+    ("glsl_sharpen", "rgba32f"): [STENCIL, TONEMAP],
 }
 
 

@@ -1,0 +1,465 @@
+"""GLSL point shaders and zero-border GLSL convs on the mc tier of the
+PyTorch port, on the CPU.
+
+A point shader becomes an op list (``glsl/lower.py``), lowered from the
+port's interpreter; its plain version is held bit-equal to the
+interpreter for every shipped shader that lowers, and every other shader
+is refused with a reason.  The graphs that plan the mc tier with such a
+stage (the reference's ``TestGlslMegakernel`` cases, tests/test_graph.py,
+and the examples with the shipped shaders) and the zero-border graphs (its
+``test_zero_border_glsl_conv_fuses`` and
+``test_mixed_borders_fall_to_segments``) run here on their plans, every
+kernel in its plain version, against the JAX package per node.
+"""
+
+import glob
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reforge_tpu import utils as jutils
+from reforge_tpu.config import parse_file as jparse_file
+from reforge_tpu.graph import build_graph as jbuild
+from reforge_tpu.graph.program import GraphProgram as JProgram
+from reforge_tpu_torch import utils as tutils
+from reforge_tpu_torch.benchmarks import (
+    EXAMPLES_DIR, PORT_SHADER_DIR, REPO_DIR, SHADER_DIR, build_program, plan_steps, point_graphs,
+)
+from reforge_tpu_torch.glsl import affine, lower, translate_shader
+from reforge_tpu_torch.graph import program as tprogram
+from reforge_tpu_torch.kernels import cuda_ops
+from reforge_tpu_torch.kernels.base import KernelContext
+
+from test_torch_glsl_graph import _check as _engine_check
+from test_torch_glsl_graph import _render_both, _u8
+
+H, W = 48, 128
+T = 0.3
+SHADERS = sorted(glob.glob(os.path.join(SHADER_DIR, "*")) +
+                 glob.glob(os.path.join(PORT_SHADER_DIR, "*")))
+# The shipped shaders that must lower, and the refusals pinned with the
+# word their reason holds.
+MUST_LOWER = {"invert", "sepia", "tonemap", "blend", "vignette", "passthrough"}
+REFUSED = {"mandelbrot": "data-dependent loop", "crt": "gather", "histogram": "atomics",
+           "kuwahara": "halo", "gamma_curve": "storage buffers", "gaussian_h": "halo"}
+
+# The op set beyond the shipped shaders: the frame time, uint arithmetic
+# that wraps, int division and remainder, casts, a per-pixel branch, a
+# counted loop, transcendentals, comparisons and selects.
+OPS_PROBE = """#version 450
+layout (local_size_x = 16, local_size_y = 16) in;
+layout (binding = 0, rgba32f) uniform readonly image2D input_image;
+layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
+layout (binding = 2) uniform UBO { float gain; int levels; float _rf_time; };
+void main() {
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    ivec2 size = imageSize(input_image);
+    vec4 c = imageLoad(input_image, pos);
+    uint h = uint(pos.x) * 2654435761u + uint(pos.y) * 40503u;
+    float noise = float(h % 1024u) / 1023.0;
+    int q = pos.x / 3 - pos.y % 5 - 7;
+    float t = fract(_rf_time * 0.37 + float(q) * 0.01);
+    vec3 v = c.rgb * gain;
+    if (c.r > 0.5) {
+        v = sqrt(v) + vec3(sin(t), cos(t), exp2(-t));
+    } else {
+        v = pow(v, vec3(2.2)) * abs(sign(c.g - 0.5)) + atan(c.b, 0.5 - t);
+    }
+    for (int i = 0; i < 3; i++) {
+        v += 0.01 * float(i) * v;
+    }
+    float m = mod(float(pos.x) + _rf_time, 7.0);
+    v = clamp(mix(v, vec3(noise), 0.1), 0.0, 1.0) + step(3.5, m) * 0.05;
+    float lv = floor(v.r * float(levels)) / float(levels);
+    bool edge = pos.x == 0 || pos.y == size.y - 1;
+    int iq = int(lv * 255.0) / -2;
+    imageStore(output_image, pos,
+               vec4(edge ? 1.0 : lv, log(1.0 + v.g) + float(iq) * 1e-3,
+                    max(v.b, min(t, 0.5)), c.a * inversesqrt(1.0 + c.a)));
+}
+"""
+# A right shift is outside the op set.
+SHIFT_PROBE = OPS_PROBE.replace("uint(pos.y) * 40503u", "(uint(pos.y) >> 1u)")
+
+
+@pytest.fixture(autouse=True)
+def _quiet_and_fresh(tmp_path, monkeypatch):
+    tutils.print_warnings = False
+    jutils.print_warnings = False
+    monkeypatch.setattr(affine, "CACHE_DIR", tmp_path / "convsynth")
+    affine._SYNTH_CACHE.clear()
+    yield
+    affine._SYNTH_CACHE.clear()
+
+
+def _spec(path):
+    with open(path) as f:
+        src = f.read()
+    return translate_shader(src, os.path.basename(path).split(".")[0], path=path)
+
+
+def _param_sets(spec):
+    """The defaults, and a second set of every declared param."""
+    other = {}
+    for name, decl in spec.params.items():
+        kind = decl.kind.name
+        other[name] = {"FLOAT": 0.7, "INT": 3, "BOOL": True}[kind]
+    return [spec.resolve_params({}), spec.resolve_params(other)]
+
+
+def _interp_and_plain(spec, params, prog, t=T, seed=3):
+    rng = np.random.default_rng(seed)
+    ins = [torch.from_numpy(rng.random((4, H, W), dtype=np.float32)) for _ in spec.images_in]
+    ctx = KernelContext(width=W, height=H, time=t, device="cpu")
+    want = spec(ctx, dict(zip(spec.images_in, ins)), params)["output_image"]
+    gy = torch.arange(H).view(-1, 1).expand(H, W)
+    gx = torch.arange(W).view(1, -1).expand(H, W)
+    return lower.point_program_plain(prog, ins, gy, gx, t), want
+
+
+@pytest.mark.parametrize("path", SHADERS, ids=lambda p: os.path.basename(p))
+def test_every_shader_lowers_or_is_refused(path):
+    """(a) Each shipped shader either lowers, and then the op list's plain
+    version is bit-equal to the port's interpreter at 48x128 in f32 (with
+    the coordinates, and two parameter sets), or is refused with a
+    reason."""
+    stem = os.path.basename(path).split(".")[0]
+    spec = _spec(path)
+    for params in _param_sets(spec):
+        got = lower.lower_point(spec, params, W, H)
+        if isinstance(got, str):
+            assert got and stem not in MUST_LOWER, (stem, got)
+            if stem in REFUSED:
+                assert REFUSED[stem] in got, (stem, got)
+            continue
+        assert stem not in REFUSED
+        assert got.n_f <= lower.MAX_F and got.n_i <= lower.MAX_I
+        assert got.images == spec.images_in
+        plain, want = _interp_and_plain(spec, params, got)
+        np.testing.assert_array_equal(plain.numpy(), want.numpy())
+    if stem in MUST_LOWER:
+        got = lower.lower_point(spec, spec.resolve_params({}), W, H)
+        assert isinstance(got, lower.PointProgram)
+
+
+def test_vignette_reads_coordinates_and_tonemap_not():
+    vig = lower.lower_point(_spec(os.path.join(SHADER_DIR, "vignette.comp")), {}, W, H)
+    tm = lower.lower_point(_spec(os.path.join(SHADER_DIR, "tonemap.comp")), {}, W, H)
+    assert vig.reads_coords and not vig.reads_time
+    assert not tm.reads_coords and not tm.reads_time
+    # imageSize folds in: the same shader lowers to other constants elsewhere.
+    vig2 = lower.lower_point(_spec(os.path.join(SHADER_DIR, "vignette.comp")), {}, W + 8, H)
+    assert vig2.consts != vig.consts
+
+
+@pytest.mark.parametrize("t", [0.0, 0.3, 17.25])
+@pytest.mark.parametrize("params", [{"gain": 1.3, "levels": 7}, {"gain": 0.4, "levels": 2}])
+def test_op_probe_is_bit_equal(tmp_path, params, t):
+    """The op set beyond the shipped shaders (time, wrapping uint, int
+    division, casts, a branch, a counted loop, transcendentals), bit-equal
+    to the interpreter; the op list reads the time and the coordinates."""
+    path = tmp_path / "probe.comp"
+    path.write_text(OPS_PROBE)
+    spec = _spec(str(path))
+    params = spec.resolve_params(params)
+    prog = lower.lower_point(spec, params, W, H)
+    assert isinstance(prog, lower.PointProgram), prog
+    assert prog.reads_time and prog.reads_coords
+    names = {lower.KERNEL_OPS[op[0]] for op in prog.ops}
+    for name in ("F2I", "I2F", "L2I", "IDIV", "IFMOD", "FWHERE", "FSIN", "FPOW", "FATAN2",
+                 "FFLOOR", "FCLAMP", "FLOG", "ILNOT"):
+        assert name in names, name
+    assert any(op[1] == lower.I64 for op in prog.ops)  # uint arithmetic in int64
+    plain, want = _interp_and_plain(spec, params, prog, t=t)
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
+
+
+def test_shift_is_refused(tmp_path):
+    path = tmp_path / "shift.comp"
+    path.write_text(SHIFT_PROBE)
+    spec = _spec(str(path))
+    got = lower.lower_point(spec, spec.resolve_params({}), W, H)
+    assert isinstance(got, str) and "rshift" in got
+
+
+def test_packed_program_layout():
+    """The words the kernel reads: the header, the float constants' bits,
+    the integer constants' two words, then two words an op, each operand
+    its index in its file (constants after the live registers)."""
+    prog = lower.lower_point(_spec(os.path.join(SHADER_DIR, "vignette.comp")), {}, W, H)
+    words = prog.packed().astype(np.int64) & 0xFFFFFFFF
+    fk = [c for c in prog.consts if c.typ == lower.F32]
+    ik = [c for c in prog.consts if c.typ != lower.F32]
+    assert fk and ik and prog.n_i > 0
+    assert list(words[:5]) == [prog.n_ops, prog.n_f, prog.n_i, len(fk), len(ik)]
+    head = lower.HEAD_INTS
+    assert [int(w) for w in words[head:head + len(fk)]] == \
+        [lower._register_bits(lower.F32, c.value) for c in fk]
+    ints = words[head + len(fk):head + len(fk) + 2 * len(ik)]
+    assert [int(lo) | int(hi) << 32 for lo, hi in zip(ints[0::2], ints[1::2])] == \
+        [lower._register_bits(c.typ, c.value) for c in ik]
+    ops = words[head + len(fk) + 2 * len(ik):]
+    assert len(ops) == 2 * prog.n_ops
+    slot = prog._slots()
+    for (op, typ, dst, refs), w0, w1 in zip(prog.ops, ops[0::2], ops[1::2]):
+        assert w0 & 255 == op
+        assert (w0 >> 8) & 255 == (dst - lower.I_BASE if dst >= lower.I_BASE else dst)
+        assert (w1 >> 16) & 1 == (typ == lower.I32)
+        fields = [(w0 >> 16) & 255, w0 >> 24, w1 & 255, (w1 >> 8) & 255]
+        if op == lower.K["LOAD"]:
+            assert fields[:2] == list(refs)
+            continue
+        for a, got in zip(refs, fields):
+            want = slot[-1 - a] if a < 0 else (a - lower.I_BASE if a >= lower.I_BASE else a)
+            assert got == want
+    outs = [slot[-1 - o] if o < 0 else o for o in prog.outputs]
+    assert list(words[5:9]) == outs
+
+
+def test_kernel_opcodes_match_the_kernel_source():
+    """glsl/lower.py KERNEL_OPS and the kernel's GlslKop enum: the same
+    names in the same order (the packed opcodes index both)."""
+    src = (REPO_DIR / "reforge_tpu_torch" / "csrc" / "graph_strip_mc.cu").read_text()
+    body = src.split("enum GlslKop : int {")[1].split("};")[0]
+    names = [item.strip().split("=")[0].strip() for item in body.split(",") if item.strip()]
+    assert names == [f"K_{name}" for name in lower.KERNEL_OPS]
+    assert f"kGlslF = {lower.MAX_F}, kGlslI = {lower.MAX_I}, kGlslHead = {lower.HEAD_INTS}" in src
+
+
+# ---- the mc tier -----------------------------------------------------------------
+
+# The reference's TestGlslMegakernel.CASES (tests/test_graph.py:1137-1166).
+MEGAKERNEL_CASES = {
+    "pair_compose": (
+        "input -> gh -> gv -> tm -> output\n"
+        "gh: gaussian_h { sigma: 2.0 }\ngv: gaussian_v { sigma: 2.0 }\n"
+        "tm: tonemap { exposure: 1.1 }"
+    ),
+    "stencil_synth": (
+        "input -> sh -> tm -> output\n"
+        "sh: sharpen { amount: 0.7 }\ntm: tonemap { exposure: 1.0 }"
+    ),
+    "conv_point": "input -> gh -> sep -> output\ngh: gaussian_h { sigma: 3.0 }\nsep: sepia {}",
+    "glsl_point_builtin_conv": (
+        "input -> tm -> b -> output\n"
+        "tm: tonemap { exposure: 1.2 }\nb: blur { sigma: 2.0 }"
+    ),
+    "single_1d": "input -> gv -> tm -> output\ngv: gaussian_v { sigma: 2.0 }\ntm: tonemap {}",
+}
+FORMATS = ("rgba32f", "rgba16f", "rgba8")
+
+
+def _jax_per_node(config, shader_dir, fmt, x, t=T):
+    jprog = JProgram(jbuild(jparse_file(config, True, shader_dir)), W, H, fmt)
+    return np.asarray(jprog._forward_nostrip(jnp.asarray(x), jnp.float32(t)).astype(jnp.float32))
+
+
+def _input(fmt, seed=5):
+    x = np.random.default_rng(seed).random((4, H, W), dtype=np.float32)
+    if fmt == "rgba16f":
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    return x
+
+
+def _within_tier(fmt, got, want, what, codes=2):
+    """PERF.md's tier bounds against per node: rgba32f 1e-5 (here the
+    reference test's 5e-5 where it says so), rgba16f 2e-2, rgba8 a few
+    codes (a rounding that flips a bucket before a store, carried on)."""
+    d = float(np.abs(np.asarray(got, np.float64) - want).max())
+    bound = {"rgba16f": 2e-2, "rgba8": codes / 255.0 + 1e-6}[fmt]
+    assert d <= bound, (what, d)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("name", sorted(MEGAKERNEL_CASES))
+def test_glsl_megakernel_cases(name, fmt):
+    """(b) Each case plans the mc tier with a GLSL point or synthesized
+    stage and matches the JAX package per node: within the reference
+    test's 5e-5 in rgba32f, within the tier's bounds in rgba16f and rgba8
+    (sharpen.comp at 0.7 amplifies a flipped code up to 1 + 8 * 0.7)."""
+    config = MEGAKERNEL_CASES[name]
+    prog = build_program(config, W, H, fmt, device="cpu", shader_path=SHADER_DIR)
+    plan = prog._strip_plan
+    assert plan is not None and plan[0] == "mc" and plan[1].mode == "edge"
+    codes = [st.op.code for st in plan[1].stages]
+    assert cuda_ops.MC_GLSL in codes  # tonemap.comp or sepia.comp
+    x = _input(fmt)
+    got = prog._forward(torch.from_numpy(x.copy()), T).float().numpy()
+    want = _jax_per_node(config, SHADER_DIR, fmt, x)
+    if fmt == "rgba32f":
+        np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+    else:
+        _within_tier(fmt, got, want, name, codes=7 if name == "stencil_synth" else 2)
+
+
+@pytest.mark.parametrize("name", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
+                                  "blur_sharpen_blend", "bloom_glow"])
+def test_point_graphs_plan_mc_with_no_per_node_step(name):
+    """glsl-chain, glsl-sharpen, tonemap.comp before sharpen.comp,
+    blur_sharpen_blend and bloom_glow with the shipped shaders: the mc
+    tier, a GLSL point stage each, at 48x128 and at 4K (planning only)."""
+    config, shader_dir = point_graphs()[name]
+    for w, h in ((W, H), (3840, 2160)):
+        prog = build_program(config, w, h, device="cpu", shader_path=shader_dir)
+        assert plan_steps(prog)[0][0] == "mc", (name, w)
+        assert cuda_ops.MC_GLSL in [st.op.code for st in prog._strip_plan[1].stages]
+        assert prog._strip_plan[1].tile() is not None
+
+
+def _op_list_word(mc, stage: int) -> int:
+    """The shared-memory word (a float's index) where the kernel finds the
+    ops of MC_GLSL stage ``stage``: past the float taps, the list's start
+    in the int words, the header and the constants."""
+    th, tw, _smem = mc.tile()
+    stage_i, _f, _scratch, taps_off = mc.packed(th, tw)
+    words = np.asarray(mc.stages[stage].taps[0])
+    return (taps_off + len(mc.taps) + int(stage_i[stage][17]) + lower.HEAD_INTS
+            + int(words[3]) + 2 * int(words[4]))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_point_stage_before_an_odd_length_stencil(fmt):
+    """tonemap.comp before sharpen.comp: the stencil's tap lists after the
+    op list put its ops on an odd word of shared memory (the kernel reads
+    them a word at a time); against the JAX package per node, within
+    PERF.md's tier bounds (sharpen.comp at 0.7 amplifies a flipped code up
+    to 1 + 8 * 0.7)."""
+    config, shader_dir = point_graphs()["tonemap_sharpen"]
+    prog = build_program(config, W, H, fmt, device="cpu", shader_path=shader_dir)
+    plan = prog._strip_plan
+    assert plan is not None and plan[0] == "mc"
+    mc = plan[1]
+    codes = [st.op.code for st in mc.stages]
+    assert _op_list_word(mc, codes.index(cuda_ops.MC_GLSL)) % 2 == 1
+    x = _input(fmt, seed=13)
+    got = prog._forward(torch.from_numpy(x.copy()), T).float().numpy()
+    want = _jax_per_node(config, shader_dir, fmt, x)
+    if fmt == "rgba32f":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    else:
+        _within_tier(fmt, got, want, "tonemap_sharpen", codes=7)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_zero_border_glsl_conv_fuses(fmt):
+    """(c) nblur.comp (zeros out of bounds) before the builtin tonemap: the
+    mc tier in zero mode, within 5e-6 of the JAX package per node in
+    rgba32f, borders included."""
+    config, shader_dir = point_graphs()["zero_border"]
+    prog = build_program(config, W, H, fmt, device="cpu", shader_path=shader_dir)
+    plan = prog._strip_plan
+    assert plan is not None and plan[0] == "mc" and plan[1].mode == "zero"
+    x = _input(fmt, seed=11)
+    got = prog._forward(torch.from_numpy(x.copy()), 0.0).float().numpy()
+    want = _jax_per_node(config, shader_dir, fmt, x, t=0.0)
+    if fmt == "rgba32f":
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
+        # the borders read zeros: the first column misses two taps' weight
+        zero_pad = want[:3, :, 0]
+        assert np.abs(got[:3, :, 0] - zero_pad).max() <= 5e-6
+    else:
+        _within_tier(fmt, got, want, "zero_border")
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_mixed_borders_fall_to_segments(fmt):
+    """(d) nblur.comp (zero) before the builtin gaussian (edge): no whole
+    plan; segments, nblur a child in zero mode, gs per node; against the
+    JAX package per node."""
+    config, shader_dir = point_graphs()["mixed_border"]
+    prog = build_program(config, W, H, fmt, device="cpu", shader_path=shader_dir)
+    assert prog._plan_strip_mc() is None
+    plan = prog._strip_plan
+    assert plan is not None and plan[0] == "segments"
+    kinds = [(s[0], s[1].name if s[0] == "node" else [n.name for n in s[4]]) for s in plan[1]]
+    assert kinds == [("seg", ["nblur"]), ("node", "gs")], kinds
+    assert plan[1][0][1]._strip_plan[1].mode == "zero"
+    x = _input(fmt, seed=12)
+    got = prog._forward(torch.from_numpy(x.copy()), T).float().numpy()
+    want = _jax_per_node(config, shader_dir, fmt, x)
+    if fmt == "rgba32f":
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
+    else:
+        _within_tier(fmt, got, want, "mixed_border")
+
+
+def test_zero_mode_reading_an_intermediate_is_refused():
+    """Zero mode holds only where no conv or stencil reads an intermediate:
+    nblur.comp after a builtin point node plans no whole mc plan."""
+    config = "input -> tm -> nblur -> output\ntm: tonemap {}\n"
+    prog = build_program(config, W, H, device="cpu", shader_path=PORT_SHADER_DIR)
+    assert prog._plan_strip_mc() is None
+    assert plan_steps(prog) == [("node", ["tm"]), ("seg mc", ["nblur"])]
+
+
+def test_point_only_graph_plans_no_mc_tier():
+    """A graph of point stages only keeps no mc plan (nothing of halo work
+    to share), as in the reference."""
+    config = "input -> tm -> inv -> output\ntm: tonemap {}\ninv: invert {}\n"
+    prog = build_program(config, W, H, device="cpu", shader_path=SHADER_DIR)
+    assert prog._plan_strip_mc() is None
+
+
+def test_refused_point_shader_keeps_its_old_plan():
+    """mandelbrot.comp (a data-dependent loop) after a conv: no mc plan,
+    segments as before this slice (the conv a segment, the shader per
+    node)."""
+    config = "input -> gv -> mb -> output\ngv: gaussian_v { sigma: 2.0 }\nmb: mandelbrot {}\n"
+    prog = build_program(config, W, H, device="cpu", shader_path=SHADER_DIR)
+    assert plan_steps(prog) == [("seg mc", ["gv"]), ("node", ["mb"])]
+
+
+def test_warm_rebuild_lowers_nothing(monkeypatch):
+    """The op list is cached by source, params, frame and output: a second
+    program of the same graph, and a graph that shares the node, lower
+    nothing; a param edit lowers again."""
+    monkeypatch.setattr(tprogram, "_POINT_PROGRAMS", {})
+    monkeypatch.setattr(tprogram, "_PROGRAMS", {})
+    calls = []
+    real = tprogram.lower_point
+    monkeypatch.setattr(tprogram, "lower_point",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    config, shader_dir = point_graphs()["glsl_chain"]
+    build_program(config, W, H, device="cpu", shader_path=shader_dir)._strip_plan
+    assert len(calls) == 1
+    tprogram._PROGRAMS.clear()
+    build_program(config, W, H, device="cpu", shader_path=shader_dir)._strip_plan
+    assert len(calls) == 1
+    edited = config.replace("exposure: 1.1", "exposure: 1.3")
+    build_program(edited, W, H, device="cpu", shader_path=shader_dir)._strip_plan
+    assert len(calls) == 2 and calls[-1]["exposure"] == 1.3
+
+
+def test_glsl_stage_packs_its_words_into_the_tap_lists():
+    config, shader_dir = point_graphs()["glsl_chain"]
+    prog = build_program(config, W, H, device="cpu", shader_path=shader_dir)
+    mc = prog._strip_plan[1]
+    i = [st.op.code for st in mc.stages].index(cuda_ops.MC_GLSL)
+    st = mc.stages[i]
+    off, n = mc._lists[i][:2]
+    np.testing.assert_array_equal(mc.term_idx[off:off + n], st.taps[0])
+    assert not mc.taps[off:off + n].any()
+    assert cuda_ops.mc_kind(cuda_ops.MC_GLSL) == cuda_ops.MC_POINT
+    with pytest.raises(ValueError, match="border mode"):
+        cuda_ops.McProgram(stages=mc.stages, n_slots=mc.n_slots, rh_in=0, ew_in=0, width=W,
+                           height=H, fmt="rgba32f", mode="wrap")
+
+
+@pytest.mark.parametrize("example", ["blur_sharpen_blend", "bloom_glow"])
+def test_examples_render_through_engine_like_jax(example, tmp_path, monkeypatch):
+    """(e) The examples through the port's Engine from the repository root
+    (the default shader path, shaders/) on the mc tier with a GLSL point
+    stage, against the JAX Engine per node within PARITY.md's graph
+    bound."""
+    monkeypatch.chdir(REPO_DIR)
+    path = tmp_path / f"{example}.rf"
+    path.write_text((EXAMPLES_DIR / f"{example}.rf").read_text())
+    engine, frame, per_node, want = _render_both(str(path), "rgba32f", _u8(4))
+    plan = engine.program._strip_plan
+    assert plan is not None and plan[0] == "mc"
+    assert cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
+    _engine_check("rgba32f", frame, want, example)
+    assert float(np.abs(frame - per_node).max()) <= 1e-5

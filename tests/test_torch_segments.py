@@ -4,8 +4,8 @@
 The reference triggers its segments at test sizes by monkeypatching its
 wide-frame conv gate; the port has no such gate, so its segments come from
 what its planners see: a node with no device form (a gather such as
-pixelate, a GLSL point shader, a ``.py`` kernel) between nodes that the
-single or mc tier takes.  Each segment graph renders on its plan (the
+pixelate or pixelate.comp, a ``.py`` kernel) between nodes that the single
+or mc tier takes.  Each segment graph renders on its plan (the
 children's kernels run their plain versions on the CPU) against the JAX
 package's per-node path (``_forward_nostrip``), in three formats.
 """
@@ -50,7 +50,13 @@ HEADS_TAILS = (
     "edge: sobel {}\ntm2: tonemap {}\n"
 )
 LONE_STENCIL = "input -> edge -> px -> output\nedge: sobel {}\npx: pixelate { size: 4 }\n"
-LONE_GLSL_CONV = "input -> gv -> tm -> output\ngv: gaussian_v { sigma: 2.0 }\ntm: tonemap {}\n"
+LONE_GLSL_CONV = "input -> gv -> px -> output\ngv: gaussian_v { sigma: 2.0 }\npx: pixelate { size: 4 }\n"
+# The reference's GLSL graphs with pixelate.comp (a gather) after them: the
+# graph and its point shader (tonemap.comp, an op-list stage) a segment.
+GLSL_CHAIN_PX = GLSL_GRAPHS["glsl_chain"].replace("tm -> output", "tm -> px -> output") + \
+    "px: pixelate { size: 4 }\n"
+GLSL_SHARPEN_PX = GLSL_GRAPHS["glsl_sharpen"].replace("tm -> output", "tm -> px -> output") + \
+    "px: pixelate { size: 4 }\n"
 # A .py kernel at the head, written once for each package.
 PY_GRAPH = (
     "input -> dbl -> gs -> edge -> tone -> output\n"
@@ -72,11 +78,11 @@ SEGMENT_GRAPHS = {
     "heads_tails": (HEADS_TAILS, None,
                     [("seg mc", ["tm", "gs"]), ("node", ["px"]), ("seg mc", ["edge", "tm2"])]),
     "lone_stencil": (LONE_STENCIL, None, [("seg mc", ["edge"]), ("node", ["px"])]),
-    "glsl_chain": (GLSL_GRAPHS["glsl_chain"], SHADER_DIR,
-                   [("seg mc", ["gh", "gv"]), ("node", ["tm"])]),
-    "glsl_sharpen": (GLSL_GRAPHS["glsl_sharpen"], SHADER_DIR,
-                     [("seg mc", ["sh"]), ("node", ["tm"])]),
-    "lone_glsl_conv": (LONE_GLSL_CONV, SHADER_DIR, [("seg mc", ["gv"]), ("node", ["tm"])]),
+    "glsl_chain": (GLSL_CHAIN_PX, SHADER_DIR,
+                   [("seg mc", ["gh", "gv", "tm"]), ("node", ["px"])]),
+    "glsl_sharpen": (GLSL_SHARPEN_PX, SHADER_DIR,
+                     [("seg mc", ["sh", "tm"]), ("node", ["px"])]),
+    "lone_glsl_conv": (LONE_GLSL_CONV, SHADER_DIR, [("seg mc", ["gv"]), ("node", ["px"])]),
     "py_head": (PY_GRAPH, "py", [("node", ["dbl"]), ("seg mc", ["gs", "edge", "tone"])]),
 }
 
