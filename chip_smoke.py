@@ -8,7 +8,7 @@ Run from the root of a checkout.  It builds the CUDA kernels from
 holds each kernel against its plain PyTorch version on the card, and
 drives the main paths at 3840x2160 through ``Engine`` and the command
 line, each with the launch counters set to 0 just before it and read just
-after (ten main paths, A-J):
+after (eleven main paths, A-K):
 
   A. the flagship graph in rgba32f and rgba16f on both tiers (one-shot
      per node with conv bundles, and the graph_strip tier);
@@ -71,7 +71,19 @@ after (ten main paths, A-J):
      against its plain version, each frame through Engine against the
      same program per node, then ms a frame on the mc tier against the
      segments plan without GLSL point stages (and per node), the kernel
-     alone against its bound, and the device's busy share.
+     alone against its bound, and the device's busy share.  bloom_glow
+     and the op probe run per node (the tier rule against halo
+     recompute); their refused mc plans are checked and timed;
+  K. parallel/: graph_strip and graph_strip_mc on a slab extended by the
+     plan's halo with a global row offset, against their plain versions;
+     HaloShardedProgram on 4 slabs of cuda:0 (the flagship on the single
+     tier, the demo on mc, chain3 with its edge hazard, a GLSL point
+     shader reading its row, equalize and pixelate gathering, box_blur
+     r300 on 8 slabs, a radius past a slab) in three formats against the
+     unsharded program; PipelineStagedProgram's render_stream and a
+     BatchProgram of 8 frames; ``python -m reforge_tpu_torch --shard 1``
+     and ``--shard 4``; on distinct cards where there are two or more;
+     ms a frame unsharded against 4 slabs, and the exchange alone.
 
 Paths A-D use an empty shader path, so the builtins they measure are not
 replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
@@ -122,7 +134,7 @@ def _f32_tol(plans) -> float:
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.float() - b.to(a.device).float()).abs().max())
 
 
 def _tier(prog) -> str:
@@ -1317,17 +1329,38 @@ OP_PROBE_GRAPH = ("input -> probe -> gs -> output\nprobe: probe { gain: 1.3, lev
                   "gs: gaussian { sigma: 2.0 }\n")
 
 
+def _unruled_mc(prog):
+    """The mc plan of ``prog``'s graph with the tier rule's bound on halo
+    work lifted (the plan the rule refuses), planned apart from the
+    program caches; None where the mc tier has no plan."""
+    from reforge_tpu_torch.graph import program as program_module
+
+    saved = program_module.MC_MAX_HALO_WORK
+    program_module.MC_MAX_HALO_WORK = float("inf")
+    try:
+        return prog._plan_strip_mc()
+    finally:
+        program_module.MC_MAX_HALO_WORK = saved
+
+
 def _mc_plan_text(prog, cuda_ops) -> str:
     """The mc plan's mode, tile and stages (kind, opcode; a GLSL stage's
-    op, register and constant counts), or a segment child's."""
+    op, register and constant counts), or a segment child's, or the plan
+    the tier rule refused."""
     plan = prog._strip_plan
     if plan is None:
-        return "no strip plan"
+        mc = _unruled_mc(prog)
+        if mc is None:
+            return "no strip plan"
+        return f"per node; the mc plan the tier rule refuses: {_mc_text(mc, cuda_ops)}"
     if plan[0] == "segments":
         return "; ".join(_mc_plan_text(step[1], cuda_ops) for step in plan[1] if step[0] == "seg")
     if plan[0] != "mc":
         return plan[0]
-    mc = plan[1]
+    return _mc_text(plan[1], cuda_ops)
+
+
+def _mc_text(mc, cuda_ops) -> str:
     names = {cuda_ops.MC_CONV: "conv", cuda_ops.MC_STENCIL: "stencil", cuda_ops.MC_POINT: "point"}
     stages = []
     for st in mc.stages:
@@ -1343,8 +1376,11 @@ def _mc_plan_text(prog, cuda_ops) -> str:
 
 
 def _mc_of(prog):
-    """The mc plan of a program, or of its first segment child."""
+    """The mc plan of a program, or of its first segment child, or the one
+    the tier rule refused."""
     plan = prog._strip_plan
+    if plan is None:
+        return _unruled_mc(prog)
     if plan[0] == "segments":
         plan = next(step[1] for step in plan[1] if step[0] == "seg")._strip_plan
     return plan[1]
@@ -1384,7 +1420,9 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
     # stencil (a tap-sum) round apart by one code.
     flips8 = {"tonemap_sharpen": 1e-2}
     graphs = dict(point_graphs(), op_probe=(OP_PROBE_GRAPH, probe_dir))
-    tiers = {"mixed_border": "segments"}
+    # bloom_glow and the op probe run per node: the tier rule against halo
+    # recompute refuses their mc plans, which the kernel checks still run.
+    tiers = {"mixed_border": "segments", "bloom_glow": None, "op_probe": None}
     chain_err = None
     for name, (config, shader_dir) in graphs.items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
@@ -1428,7 +1466,7 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             before = dict(cuda_ops.LAUNCHES)
             frame = engine.render_frame_blocking(0.5)
             per_frame = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
-            if per_frame.get("graph_strip_mc") != 1:
+            if per_frame.get("graph_strip_mc", 0) != (1 if tiers.get(name, "mc") else 0):
                 raise AssertionError(f"J {name} {fmt}: launches a frame {per_frame}")
             seq = prog.render_sequence(xf, 0.5, 0.016, 4, stack=True)
             per_node = prog._forward_nostrip(xf, 0.5)
@@ -1509,9 +1547,10 @@ def time_path_j(driven: dict, smi: str, n_sms: int, max_sm_mhz: float) -> dict:
             _engine, _prog, x = driven[("bloom_glow", fmt)]
             prog = build_program(point_graphs()["bloom_glow"][0], WIDTH, HEIGHT, fmt,
                                  device="cuda", shader_path=empty)
-            mc, xs = prog._strip_plan[1], x.to(prog.storage_dtype)
-            print(f"J bloom_glow {fmt} 4K with the builtin tonemap: {_tier(prog)}, "
-                  f"graph_strip_mc {_time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 10):.3f}"
+            mc, xs = _mc_of(prog), x.to(prog.storage_dtype)
+            print(f"J bloom_glow {fmt} 4K with the builtin tonemap: {_tier(prog)}, the refused "
+                  f"plan's graph_strip_mc "
+                  f"{_time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 10):.3f}"
                   f" ms (tile {mc.tile()[:2]}), per node "
                   f"{_time_ms(lambda: prog._forward_nostrip(x, 0.5), 5):.3f} [{smi}]", flush=True)
     for engine, _prog, _x in driven.values():
@@ -1547,6 +1586,269 @@ def profile_path_j(smi: str) -> None:
                 text += (f"; segments without point stages: busy {busy_s:.1%}, device ms a frame "
                          f"{sum(ms for _, ms in rows_s):.3f}")
             print(f"{text} [{smi}]", flush=True)
+
+
+# ---- path K: parallel/ --------------------------------------------------------------
+
+# A GLSL point shader reading gl_GlobalInvocationID.y and imageSize: on the
+# mc tier an op list whose K_COORD_Y must read the image's row on a slab.
+K_YSHADE = """#version 450
+layout (local_size_x = 16, local_size_y = 16) in;
+layout (binding = 0, rgba32f) uniform readonly  image2D input_image;
+layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
+void main() {
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    ivec2 size = imageSize(input_image);
+    vec4 c = imageLoad(input_image, pos);
+    float f = float(pos.y) / float(size.y) + 0.25 * float(pos.y % 3);
+    imageStore(output_image, pos, vec4(c.rgb * f, c.a));
+}
+"""
+K_FORMATS = ("rgba32f", "rgba16f", "rgba8")
+
+
+def _k_graphs(kdir: str, empty: str) -> dict:
+    """Path K's graphs: name -> (config, shader path, slabs)."""
+    from reforge_tpu_torch.benchmarks import (
+        CHAIN3_CONFIG, DEMO_CONFIG, FLAGSHIP_CONFIG, SHADER_DIR, example_config,
+    )
+
+    return {
+        "flagship": (FLAGSHIP_CONFIG, empty, 4),  # single tier, vignette's plane a slab
+        "demo": (DEMO_CONFIG, empty, 4),  # mc tier
+        "chain3": (CHAIN3_CONFIG, empty, 4),  # mc, edge hazard: top / mid / bottom slabs
+        "yshade": ("input -> gs -> ys -> output\ngs: gaussian { sigma: 1.5 }\n", kdir, 4),
+        "equalize": (example_config("equalize"), SHADER_DIR, 4),  # buffers: a gather
+        "pixelate": ("input -> px -> output\npx: pixelate { size: 8 }\n", empty, 4),  # gather
+        # per node, a radius past the 270-row slab: two hops of neighbour rows
+        "box_blur_r300": ("input -> bb -> output\nbb: box_blur { radius: 300 }\n", empty, 8),
+    }
+
+
+def _k_sharded(graphs: dict, x: torch.Tensor, devices_for, label: str, smi: str) -> dict:
+    """Each graph of ``graphs`` in three formats through HaloShardedProgram on
+    ``devices_for(slabs)``, against the unsharded program on cuda:0:
+    bit-equal, or within the format's bound (rgba8 one code).  Returns the
+    rgba32f programs of the flagship and the demo for the timings."""
+    from reforge_tpu_torch.benchmarks import build_program
+    from reforge_tpu_torch.kernels import cuda_ops
+    from reforge_tpu_torch.parallel import HaloShardedProgram, make_row_mesh
+
+    kept = {}
+    for name, (config, shader_dir, n) in graphs.items():
+        for fmt in K_FORMATS:
+            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_dir)
+            devices = devices_for(n)
+            sharded = HaloShardedProgram(prog, make_row_mesh(len(devices), devices))
+            before = dict(cuda_ops.LAUNCHES)
+            got = sharded(sharded.shard_input(x), 0.5)
+            per_frame = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
+            want = prog._forward(x, 0.5)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (4, HEIGHT, WIDTH) or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K {name} {fmt}: bad shape or non-finite values")
+            err = _max_err(got, want)
+            what = f"K {name} {fmt} 4K on {len(devices)} slabs of {label} vs unsharded"
+            if err == 0.0:
+                print(f"check {what}: bit-equal")
+            else:
+                print(f"K {name} {fmt}: NOT bit-equal to the unsharded program")
+                _check_fmt(what, fmt, got, want, rgba8_steps=1)
+            print(f"K {name} {fmt} plan per slab ({label}): {sharded.slab_plans}; launches a "
+                  f"frame {json.dumps(per_frame)} [{smi}]", flush=True)
+            if fmt == "rgba32f" and name in ("flagship", "demo"):
+                kept[name] = (prog, sharded)
+            del got, want
+    return kept
+
+
+def path_k(tmp: str, smi: str) -> tuple[dict, dict]:
+    """Path K: parallel/ on the card.  Kernel checks first (not counted):
+    graph_strip (the flagship, its hoisted plane built for the slab) and
+    graph_strip_mc (the demo; a GLSL point shader, the glsl form) on slab 1
+    of 4 extended by the plan's input halo, row0 != 0, against their plain
+    versions.  Then, counted: (1) HaloShardedProgram on 4 slabs of cuda:0
+    (8 for box_blur r300, radius past a slab) in three formats, each
+    against the unsharded program; (2) PipelineStagedProgram over cuda:0
+    twice, render_stream of 8 frames of the flagship and the demo against
+    the program per node; (3) BatchProgram over 8 frames on 4 shares of
+    cuda:0; (4) ``python -m reforge_tpu_torch --shard 1`` and ``--shard
+    4``; then, where there are two cards or more, (1)-(3) on distinct
+    cards.  Returns the launch counts and the programs ``time_path_k``
+    times."""
+    from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG, build_program
+    from reforge_tpu_torch.io import encode
+    from reforge_tpu_torch.kernels import cuda_ops
+    from reforge_tpu_torch.parallel import (
+        BatchProgram, HaloShardedProgram, PipelineStagedProgram, make_batch_mesh, make_row_mesh,
+    )
+
+    kdir = os.path.join(tmp, "k")
+    empty = os.path.join(tmp, "k_empty")
+    os.makedirs(kdir)
+    os.makedirs(empty)
+    with open(os.path.join(kdir, "ys.comp"), "w") as f:
+        f.write(K_YSHADE)
+    graphs = _k_graphs(kdir, empty)
+    x = torch.from_numpy(np.random.default_rng(SEED + 17).random(
+        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
+    one_card = lambda n: ["cuda:0"] * n  # noqa: E731
+
+    for name in ("flagship", "demo", "yshade"):
+        config, shader_dir, n = graphs[name]
+        prog = build_program(config, WIDTH, HEIGHT, device="cuda", shader_path=shader_dir)
+        sharded = HaloShardedProgram(prog, make_row_mesh(n, one_card(n)))
+        _route, rh, _mode = sharded._slab_route(1)
+        h = sharded.h_local
+        slab = x[:, h - rh:2 * h + rh].contiguous()
+        plan = prog._strip_plan
+        if plan[0] == "mc":
+            got = cuda_ops.graph_strip_mc(slab, 0.5, plan[1], h - rh)
+            want = cuda_ops.graph_strip_mc_plain(slab, 0.5, plan[1], h - rh)
+        else:
+            strip = prog._strip_program_for(slab.device, h - rh, h + 2 * rh)
+            got = cuda_ops.graph_strip(slab, 0.5, strip, h - rh, HEIGHT)
+            want = cuda_ops.graph_strip_plain(slab, 0.5, strip, h - rh, HEIGHT)
+        frame = prog._forward(x, 0.5)
+        torch.cuda.synchronize()
+        _check(f"K {plan[0]} kernel on {name}'s slab 1 of 4 (rows {h - rh}..{2 * h + rh}, row0 "
+               f"{h - rh}) vs its plain version", _max_err(got, want), 1e-5)
+        _check(f"K {name} slab 1 of 4 cropped vs the kernel's frame rows",
+               _max_err(got[:, rh:rh + h], frame[:, h:2 * h]), 0.0)
+        del got, want, frame
+
+    cuda_ops.reset_launches()
+    kept = _k_sharded(graphs, x, one_card, "cuda:0", smi)
+    frames = [x * (1.0 - 0.05 * i) for i in range(8)]
+    times = [i / 60.0 for i in range(8)]
+
+    def pipeline_and_batch(stage_devices, batch_devices, label):
+        for name in ("flagship", "demo"):
+            prog = kept[name][0]
+            staged = PipelineStagedProgram(prog, devices=stage_devices)
+            outs = list(staged.render_stream(frames, times))
+            err = max(_max_err(o, prog.run_unfused(f, t)) for o, f, t in zip(outs, frames, times))
+            _check(f"K {name} rgba32f pipeline {len(staged.devices)} stages on {label}, "
+                   f"render_stream of 8 frames vs per node", err, 0.0)
+            print(f"K {name} pipeline stages ({label}): "
+                  f"{[[n.name for layer in g for n in layer] for g in staged.stage_layers]}")
+            del outs
+        prog = kept["flagship"][0]
+        bp = BatchProgram(prog, make_batch_mesh(len(batch_devices), batch_devices))
+        batch, n = bp.pad_batch(torch.stack(frames))
+        out = bp(bp.shard_input(batch), torch.tensor(times))[:n]
+        err = max(_max_err(out[i], prog._forward(frames[i], times[i])) for i in range(n))
+        _check(f"K flagship rgba32f batch of {n} frames on {bp.mesh.size} shares of {label} vs "
+               f"frame by frame", err, 0.0)
+        del out, batch
+
+    pipeline_and_batch(one_card(2), one_card(4), "cuda:0")
+
+    # (4) the command line, in child processes from the checkout's root
+    root = os.path.dirname(os.path.abspath(__file__))
+    png, cfg = os.path.join(kdir, "in.png"), os.path.join(kdir, "flagship.rf")
+    encode(png, np.random.default_rng(SEED + 18).integers(0, 256, (288, 512, 4), np.uint8))
+    with open(cfg, "w") as f:
+        f.write(FLAGSHIP_CONFIG)
+    for shard in (1, 4):
+        outp = os.path.join(kdir, f"shard{shard}.png")
+        proc = subprocess.run([sys.executable, "-m", "reforge_tpu_torch", "-i", png, "-o", outp,
+                               "--config", cfg, "--shader-path", empty, "--shard", str(shard)],
+                              capture_output=True, text=True, cwd=root, timeout=300)
+        cards = torch.cuda.device_count()
+        if shard <= cards:
+            if proc.returncode != 0 or not os.path.exists(outp):
+                raise AssertionError(f"K --shard {shard}: rc {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            print(f"K python -m reforge_tpu_torch --shard {shard}: rendered ({cards} card(s))")
+        elif proc.returncode != 1 or f"requested {shard} devices, have {cards}" not in proc.stderr \
+                or os.path.exists(outp):
+            raise AssertionError(f"K --shard {shard} on {cards} card(s): rc {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        else:
+            print(f"K python -m reforge_tpu_torch --shard {shard}: exit 1 on {cards} card(s): "
+                  f"{proc.stderr.strip().splitlines()[-1]}")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devs = [f"cuda:{i}" for i in range(min(4, cards))]
+        print(f"K cross-card branch: ran on {devs}; peer access 0 -> 1: "
+              f"{torch.cuda.can_device_access_peer(0, 1)}")
+        kept.update({f"{k} on {len(devs)} cards": v for k, v in
+                     _k_sharded(graphs, x, lambda n: devs, ",".join(devs), smi).items()})
+        pipeline_and_batch(devs[:2], devs, ",".join(devs))
+    else:
+        print(f"K cross-card branch: did not run ({cards} card)")
+    return dict(cuda_ops.LAUNCHES), kept
+
+
+def _time_cards_ms(fn, devices, reps: int) -> float:
+    """ms a call of ``fn`` on the host clock, every card of ``devices``
+    synchronized before and after ``reps`` calls (CUDA events time one
+    card's stream only)."""
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    for _ in range(2):
+        fn()
+    sync()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - start) * 1e3 / reps
+
+
+def time_path_k(kept: dict, smi: str) -> None:
+    """ms a 4K frame (rgba32f) of the flagship and the demo: unsharded, on
+    4 slabs of one card (CUDA events) and on distinct cards where path K ran
+    them (the host clock, every card synchronized), the slabs' exchange
+    alone, and the output slabs without the final gather."""
+    from reforge_tpu_torch.parallel import halo_pad
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 17).random(
+        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
+    for name, (prog, sharded) in kept.items():
+        slabs = sharded.shard_input(x)
+        _route, rh, mode = sharded._slab_route(1)
+        cards = {str(d) for d in sharded.devices}
+        timer = _time_ms if len(cards) == 1 else (
+            lambda fn, reps: _time_cards_ms(fn, sharded.devices, reps))
+        unsharded_ms = timer(lambda: prog._forward(x, 0.5), 20)
+        frame_ms = timer(lambda: sharded(slabs, 0.5), 20)
+        slabs_ms = timer(lambda: sharded.forward_slabs(slabs, 0.5), 20)
+        split_ms = timer(lambda: sharded.shard_input(x), 20)
+        exchange_ms = timer(lambda: [halo_pad(slabs, rh, i, mode) for i in range(sharded.n)], 20)
+        devices = ",".join(str(d) for d in sharded.devices)
+        print(f"K {name} rgba32f 4K: unsharded {unsharded_ms:.3f} ms a frame; {sharded.n} slabs "
+              f"on {devices} {frame_ms:.3f} (output slabs without the gather {slabs_ms:.3f}); "
+              f"exchange of {rh} rows a side {exchange_ms:.3f}; splitting the frame "
+              f"{split_ms:.3f} [{smi}]", flush=True)
+
+
+def path_k_alone() -> int:
+    """``python3 chip_smoke.py --path-k``: path K and its timings alone
+    (the cross-card branch runs where there are two cards or more)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    count = torch.cuda.device_count()
+    peers = [(i, j) for i in range(count) for j in range(count)
+             if i != j and torch.cuda.can_device_access_peer(i, j)]
+    print(f"cards: {' | '.join(smi)}; peer access: {peers}")
+    cuda_ops.load_library()
+    with tempfile.TemporaryDirectory(prefix="rf_chip_smoke_k_") as tmp:
+        counts, kept = path_k(tmp, smi[0])
+        print(f"main path K launches: {json.dumps(counts)}")
+        time_path_k(kept, smi[0])
+    return 0
 
 
 def main() -> int:
@@ -2595,6 +2897,13 @@ def main() -> int:
     del driven_i
     chain_row = time_path_j(driven_j, smi, n_sms, max_sm_mhz)
     del driven_j
+    counts_k, kept_k = path_k(tmp, smi)
+    print(f"main path K (parallel/: row slabs, pipeline stages, batch shares, --shard) launches: "
+          f"{json.dumps(counts_k)}")
+    if counts_k["graph_strip"] == 0 or counts_k["graph_strip_mc"] == 0:
+        raise AssertionError("main path K never launched graph_strip or graph_strip_mc")
+    time_path_k(kept_k, smi)
+    del kept_k
     print(f"graph_strip_mc glsl-chain rgba32f 4K: kernel {chain_row[0]:.3f} ms, plain "
           f"{chain_row[1]:.3f} ms, bound {chain_row[2]:.4f} ms ({chain_row[3]}), max abs error "
           f"{chain_err:.3g} [{smi}]")
@@ -2622,14 +2931,14 @@ def main() -> int:
         "stencil_apply_mc": "reforge_tpu/kernels/pallas_ops.py:2082",
     }
     # Each kernel's launches come from the main path it belongs to, plus
-    # paths I's and J's; stencil_apply_mc's from path E, where nothing calls
-    # it (0).
+    # paths I's, J's and K's; stencil_apply_mc's from path E, where nothing
+    # calls it (0).
     path_of = {"sep_conv_fused": counts_a, "sep_conv_fused_multi": counts_a,
                "sep_conv_fused_mxu": counts_a, "graph_strip": counts_a,
                "stencil_reduce_mc": counts_c, "conv1d_h": counts_d, "conv1d_w": counts_d,
                "stencil_apply_mc": counts_e}
     launches = {name: path_of.get(name, counts_b)[name] + counts_i[name] + counts_j[name]
-                for name in replaces}
+                + counts_k[name] for name in replaces}
     kernels = [
         {
             "name": name, "route": "cuda",
@@ -2657,4 +2966,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile-path-j"]:  # path J's child process
         profile_path_j(sys.argv[2])
         sys.exit(0)
+    if sys.argv[1:2] == ["--path-k"]:  # path K alone, e.g. on four cards
+        sys.exit(path_k_alone())
     sys.exit(main())

@@ -8,8 +8,12 @@ plus the JAX package's extensions (--frames benchmark cap, --timing,
 
 The program runs on the card: ``--backend auto`` (the default) and
 ``cuda`` need a CUDA device and exit 1 without one; ``cpu`` runs every
-kernel's plain PyTorch version on the host.  Multi-device execution
-(``--shard N`` > 1, ``--pipeline S`` > 0) is not ported.
+kernel's plain PyTorch version on the host.  ``--shard N`` row-shards
+each frame over N cards with halo exchange (``--shard 1``: the one-slab
+sharded program), ``--pipeline S`` stages the graph over S cards (and
+``--shard`` is then ignored), and batch mode with ``--shard N`` shares the
+frames out over N cards (parallel/).  Asking for more cards than there are,
+or a frame height that N does not divide, exits 1.
 
 Headless mode (an --output-file given) runs one frame and encodes it
 (main.rs:220-224); otherwise the live loop previews frames, polling config
@@ -30,6 +34,8 @@ import torch
 from . import utils
 from .engine import Engine, RenderInfo
 from .io import ImageFileDecoder, ImageFileError, encode
+from .parallel import BatchProgram, make_batch_mesh
+from .parallel.mesh import available_devices
 from .utils import TERM_CLEAR, warnln
 
 
@@ -121,14 +127,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--shard",
         type=int,
         default=0,
-        help="Row-shard the graph across N devices (not ported: 0 or 1 only)",
+        help="Row-shard the graph across N devices (0 = single device)",
     )
     p.add_argument(
         "--pipeline",
         type=int,
         default=0,
         metavar="S",
-        help="Stage graph layers across S devices (not ported: 0 only)",
+        help="Stage graph layers across S devices (pipeline parallelism)",
     )
     p.add_argument(
         "--backend",
@@ -206,11 +212,6 @@ def main(argv: Optional[list[str]] = None) -> int:
         warnln("Cannot specify both a config and shader file")
         return 1
 
-    if args.shard > 1 or args.pipeline > 0:
-        print("Error: multi-device execution is not ported to the PyTorch engine "
-              "(--shard N > 1, --pipeline S > 0)", file=sys.stderr)
-        return 1
-
     device = _device(args)
     if device is None:
         return 1
@@ -223,10 +224,13 @@ def main(argv: Optional[list[str]] = None) -> int:
     # conv bundles, then exit; strip planning pays off only across frames
     # (the reference renders its headless frame right after per-node
     # shader compiles, src/main.rs:220-224).
-    one_shot = headless and not is_video_path(args.output_file)
+    # Sharded and pipelined renders keep the frame path: their executors
+    # take the frames.
+    one_shot = (headless and not is_video_path(args.output_file) and not args.shard
+                and not args.pipeline)
 
-    # Batch mode: a glob or directory input processes every matched image
-    # in turn on the one device.
+    # Batch mode: a glob or directory input processes every matched image,
+    # in turn on the one device or shared out over --shard N devices.
     if args.input_file:
         inputs = _expand_inputs(args.input_file)
         if len(inputs) > 1:
@@ -269,6 +273,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         async_compile=not headless,
         one_shot=one_shot,
         debug_nans=args.debug_nans,
+        shard=args.shard,
+        pipeline_stages=args.pipeline,
     )
 
     try:
@@ -306,7 +312,12 @@ def main(argv: Optional[list[str]] = None) -> int:
                 return _run_animate(engine, args, width, height)
             if video_out:
                 return _run_video(engine, decoder, args, width, height)
-            out_u8 = _with_compile_status(lambda: engine.render_one_shot(rgba))
+            if one_shot:
+                out_u8 = _with_compile_status(lambda: engine.render_one_shot(rgba))
+            else:
+                # A sharded or pipelined render: the frame path.
+                out = _with_compile_status(engine.render_frame_blocking)
+                out_u8 = engine.read_output(out)
             try:
                 encode(args.output_file, out_u8)
             except ImageFileError as e:
@@ -409,8 +420,9 @@ def _batch_output_path(pattern: str, input_path: str) -> str:
 
 
 def _run_batch(args, inputs: list[str], device: str) -> int:
-    """Decode N images, run ``engine.program`` on each in turn on the one
-    device (the strip tier where the graph has one), encode N."""
+    """Decode N images, run ``engine.program`` over them (the strip tier
+    where the graph has one): in turn on the one device, or with ``--shard
+    N`` as a BatchProgram sharing them out over N devices; encode N."""
     try:
         first = ImageFileDecoder(inputs[0])
     except ImageFileError as e:
@@ -450,8 +462,18 @@ def _run_batch(args, inputs: list[str], device: str) -> int:
               f"{utils.get_elapsed_ms(t0):.0f}ms", file=sys.stderr)
 
         rgba = []
-        for frame in frames:
-            out = engine.program(engine.decode_to_planar(frame), 0.0)
+        if args.shard:
+            try:
+                bp = BatchProgram(engine.program, make_batch_mesh(
+                    args.shard, available_devices(device)))
+            except ValueError as e:
+                print(f"Error: {e}", file=sys.stderr)
+                return 1
+            planar, n = bp.pad_batch(torch.stack([engine.decode_to_planar(f) for f in frames]))
+            outs = list(bp(bp.shard_input(planar), 0.0)[:n])
+        else:
+            outs = (engine.program(engine.decode_to_planar(f), 0.0) for f in frames)
+        for out in outs:
             engine.check_nans(out)
             rgba.append(engine.read_output(out))
         for path, image in zip(inputs, rgba):

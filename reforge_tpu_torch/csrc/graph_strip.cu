@@ -7,9 +7,9 @@ namespace rf {
 int launch_strip_f32(int channel_ops, int n_plans, const void* x, void* out, const float* aux,
                      int C, int H, int W, const float* taps, const int* meta, int n_taps, int RH,
                      int RW, int TH, int TW, int align, int out_slot, int store, float time,
-                     int smem, cudaStream_t s, const StripOps& ops) {
+                     int row0, int Hg, int smem, cudaStream_t s, const StripOps& ops) {
   return launch_strip<float>(channel_ops, n_plans, x, out, aux, C, H, W, taps, meta, n_taps, RH,
-                             RW, TH, TW, align, out_slot, store, time, smem, s, ops);
+                             RW, TH, TW, align, out_slot, store, time, row0, Hg, smem, s, ops);
 }
 
 }  // namespace rf
@@ -20,12 +20,15 @@ int launch_strip_f32(int channel_ops, int n_plans, const void* x, void* out, con
 // arrays.  Slots 0..n_plans are the input and the conv results; the
 // caller keeps every slot index below rf::kMaxSlots, n_plans in
 // 1..rf::kMaxPlans and n_ops up to rf::kMaxOps.  align and smem are
-// cuda_ops.conv_layout's for the tile.
+// cuda_ops.conv_layout's for the tile.  x is a slab of H rows of an image
+// of Hg rows whose first row is image row row0 (0 and H for a whole frame):
+// the epilogue's coordinates are image rows, its clamped reads the slab's.
 extern "C" int rf_graph_strip(int bf16, int channel_ops, const void* x, void* out,
                               const float* aux, int C, int H, int W, const float* taps,
                               const int* meta, int n_plans, int n_taps, int RH, int RW, int TH,
                               int TW, int align, const int* op_i, const float* op_f, int n_ops,
-                              int out_slot, int store, float time, int smem, void* stream) {
+                              int out_slot, int store, float time, int row0, int Hg, int smem,
+                              void* stream) {
   if (out_slot < 0 || out_slot >= rf::kMaxSlots || n_ops < 0 || n_ops > rf::kMaxOps ||
       n_plans < 1 || n_plans > rf::kMaxPlans || TH % rf::kConvRun != 0 ||
       rf::kThreads % TH != 0 || TW % rf::kConvRun != 0 ||
@@ -42,7 +45,7 @@ extern "C" int rf_graph_strip(int bf16, int channel_ops, const void* x, void* ou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto launcher) {
     return launcher(channel_ops, n_plans, x, out, aux, C, H, W, taps, meta, n_taps, RH, RW, TH,
-                    TW, align, out_slot, store, time, smem, s, ops);
+                    TW, align, out_slot, store, time, row0, Hg, smem, s, ops);
   };
   return bf16 ? go(rf::launch_strip_bf16) : go(rf::launch_strip_f32);
 }

@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(kStripThreads, 2)
 graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ aux,
                    int C, int H, int W, const float* __restrict__ taps,
                    const int* __restrict__ meta, int n_taps, int RH, int RW, int TH, int TW,
-                   int align, int out_slot, int store, float time, int vec,
+                   int align, int out_slot, int store, float time, int vec, int row0, int Hg,
                    const __grid_constant__ StripOps ops) {
   extern __shared__ __align__(16) float smem[];
   const RunTile t =
@@ -234,6 +234,7 @@ graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __
     const int c0 = q * kConvRun + g * kGroup % kConvRun;  // tile column of the group
     const int gy = t.y0 + r, gx = t.x0 + c0;
     if (q >= n_q || gy >= H || gx >= W) continue;
+    const int yy = row0 + gy;  // the image row of the slab's row gy
     Slots v;
     const float* xc = win + (RH + r) * t.wp + t.lo + RW + c0;
 #pragma unroll
@@ -249,7 +250,7 @@ graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __
       const int code = o.code, in0 = o.in0, in1 = o.in1, to = o.out, pl = o.plane;
       const float* p = o.p;
 #define RF_OP(CODE, PV) \
-  op_group<CODE, kChannelOps>(v, in0, in1, to, c, p, PV, gy, gx, H, W, store)
+  op_group<CODE, kChannelOps>(v, in0, in1, to, c, p, PV, yy, gx, Hg, W, store)
 #define RF_CH(K) \
   case OP_CH0 + K: RF_OP(OP_CH0 + K, zeros); break;
       static_assert(CH_COUNT == 14, "one case per channel op");
@@ -295,8 +296,8 @@ graph_strip_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __
 template <typename T, bool kChannelOps, int kPlans>
 static int launch(const void* x, void* out, const float* aux, int C, int H, int W,
                   const float* taps, const int* meta, int n_taps, int RH, int RW, int TH, int TW,
-                  int align, int out_slot, int store, float time, int smem, cudaStream_t stream,
-                  const StripOps& ops) {
+                  int align, int out_slot, int store, float time, int row0, int Hg, int smem,
+                  cudaStream_t stream, const StripOps& ops) {
   auto kernel = graph_strip_kernel<T, kChannelOps, kPlans>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -308,7 +309,8 @@ static int launch(const void* x, void* out, const float* aux, int C, int H, int 
   dim3 grid(C, (W + TW - 1) / TW, (H + TH - 1) / TH);
   kernel<<<grid, kStripThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out),
                                                 aux, C, H, W, taps, meta, n_taps, RH, RW, TH, TW,
-                                                align, out_slot, store, time, vec, ops);
+                                                align, out_slot, store, time, vec, row0, Hg,
+                                                ops);
   return (int)cudaGetLastError();
 }
 
@@ -318,12 +320,12 @@ static int launch(const void* x, void* out, const float* aux, int C, int H, int 
 template <typename T>
 int launch_strip(int channel_ops, int n_plans, const void* x, void* out, const float* aux, int C,
                  int H, int W, const float* taps, const int* meta, int n_taps, int RH, int RW,
-                 int TH, int TW, int align, int out_slot, int store, float time, int smem,
-                 cudaStream_t s, const StripOps& ops) {
+                 int TH, int TW, int align, int out_slot, int store, float time, int row0,
+                 int Hg, int smem, cudaStream_t s, const StripOps& ops) {
   static_assert(kMaxPlans == 3, "one case per plan count");
   auto go = [&](auto launcher) {
     return launcher(x, out, aux, C, H, W, taps, meta, n_taps, RH, RW, TH, TW, align, out_slot,
-                    store, time, smem, s, ops);
+                    store, time, row0, Hg, smem, s, ops);
   };
   const int form = 2 * (n_plans - 1) + (channel_ops != 0);
   switch (form) {
@@ -340,10 +342,10 @@ int launch_strip(int channel_ops, int n_plans, const void* x, void* out, const f
 int launch_strip_f32(int channel_ops, int n_plans, const void* x, void* out, const float* aux,
                      int C, int H, int W, const float* taps, const int* meta, int n_taps, int RH,
                      int RW, int TH, int TW, int align, int out_slot, int store, float time,
-                     int smem, cudaStream_t s, const StripOps& ops);
+                     int row0, int Hg, int smem, cudaStream_t s, const StripOps& ops);
 int launch_strip_bf16(int channel_ops, int n_plans, const void* x, void* out, const float* aux,
                       int C, int H, int W, const float* taps, const int* meta, int n_taps, int RH,
                       int RW, int TH, int TW, int align, int out_slot, int store, float time,
-                      int smem, cudaStream_t s, const StripOps& ops);
+                      int row0, int Hg, int smem, cudaStream_t s, const StripOps& ops);
 
 }  // namespace rf

@@ -148,10 +148,14 @@ struct McArgs {
   int in_eh, in_ew, in_used, win_off, win_floats, n_win;
   McStage st[kMcMaxStages];
   int zero;  // border mode: zeros outside the image (else the clamped pixel's value)
+  // The input is a slab of the image: its row 0 is image row row0, and the
+  // image has height rows (0 and the input's rows for a whole frame).
+  // Coordinates are the image's; clamped reads stop at the slab's edge.
+  int row0, height;
 };
 
 struct McGeo {
-  int H, W, TH, TW, y0, x0;
+  int H, W, TH, TW, y0, x0;  // H: the image's rows (coordinate math)
   int in_lo, in_wp;  // the input block's first column and pitch
 };
 
@@ -683,7 +687,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   __shared__ float dense[kMcMaxStages][kDense];
   const int y0 = (int)blockIdx.y * TH, x0 = (int)blockIdx.x * TW;
   const RunTile in_t = run_tile(H, W, args.in_eh, args.in_ew, TH, TW, y0, x0, kAlign);
-  const McGeo g{H, W, TH, TW, y0, x0, in_t.lo, in_t.wp};
+  const McGeo g{args.height, W, TH, TW, y0, x0, in_t.lo, in_t.wp};
   const size_t plane = (size_t)H * W;
   float* scratch = sm + args.scratch_off;
   float* taps = sm + args.taps_off;
@@ -849,13 +853,14 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
             a[c] = in0.p[c * in0.plane + at0];
             b[c] = st.n_in > 1 ? in1.p[c * in1.plane + at1] : 0.f;
           }
+          const int yy = gy + args.row0;  // the image row
           if constexpr (kGlsl) {
             if (st.code == MC_GLSL)
-              glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);
+              glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);
             else
-              point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+              point_op<kAffine>(st, a, b, m, q4, g, yy, gx, o);
           } else {
-            point_op<kAffine>(st, a, b, m, q4, g, gy, gx, o);
+            point_op<kAffine>(st, a, b, m, q4, g, yy, gx, o);
           }
         }
 #pragma unroll
@@ -924,12 +929,13 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
 // in_ew, in_used, win_off, win_floats, n_win: cuda_ops.McProgram.geometry);
 // taps / idx lie on the device.  bf16 selects bf16 storage for input and
 // output (else f32).  vec: the input's rows start on 16-byte boundaries;
-// zero: the plan's border mode is "zero".
+// zero: the plan's border mode is "zero".  x is a slab of H rows whose first
+// row is image row row0 of an image of height rows (0 and H for a frame).
 extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int W, int TH, int TW,
                                  const int* geo, const int* stage_i, const float* stage_f,
                                  int n_stages, const float* taps, const int* idx, int n_taps,
-                                 int store, float time, int vec, int zero, int smem,
-                                 void* stream) {
+                                 int store, float time, int vec, int zero, int row0, int height,
+                                 int smem, void* stream) {
   if (n_stages < 1 || n_stages > rf::kMcMaxStages) return (int)cudaErrorInvalidValue;
   rf::McArgs args{};
   args.n_stages = n_stages;
@@ -943,6 +949,8 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   args.n_win = geo[7];
   args.n_taps = n_taps;
   args.zero = zero;
+  args.row0 = row0;
+  args.height = height;
   for (int s = 0; s < n_stages; ++s) {
     const int* v = stage_i + s * rf::kMcStageInts;
     rf::McStage& st = args.st[s];

@@ -18,7 +18,14 @@ before), and the first use's nvcc build of the kernels.  There is no
 compile per program: the kernels are built once a process.  With
 ``async_compile`` all of it runs on a build thread while the old program
 keeps rendering; the new program is adopted on a later poll, the last edit
-winning.  Sharding and pipelining are not ported.
+winning.
+
+``RenderInfo.shard`` row-shards each frame over that many devices with
+halo exchange, ``pipeline_stages`` stages the graph's layers over devices
+(parallel/): the program keeps its single-device form for per-node timing,
+and ``program.sharded`` takes the frames.  A graph that cannot be sharded
+as asked raises (at construction) or keeps the last good program (a
+rebuild): nothing runs unsharded in its place.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from .config import FINAL_OUTPUT, Config, parse_file, single_shader_parse
 from .graph import GraphProgram, build_graph, make_program
 from .io import decode_image_to_planar, encode_planar_to_image
 from .kernels import cuda_ops
+from .parallel import HaloShardedProgram, PipelineStagedProgram, make_row_mesh
+from .parallel.mesh import available_devices
 from .utils import warnln
 
 DEFAULT_CONFIG = "input -> passthrough -> output"
@@ -66,6 +75,15 @@ class RenderInfo:
     # Raise on a NaN in a frame's output (and in each node's output when
     # timed per node), naming the node (the CLI's --debug-nans).
     debug_nans: bool = False
+    # Row-shard each frame across N devices with explicit halo exchange
+    # (0: one device; 1: the one-slab sharded program).
+    shard: int = 0
+    # Stage graph layers across S devices (pipeline parallelism); --shard
+    # is ignored when given.
+    pipeline_stages: int = 0
+    # The devices of the mesh or the stages, which may repeat one device
+    # (default: every card, or the CPU with device "cpu").
+    devices: Optional[tuple] = None
 
 
 class Engine:
@@ -129,16 +147,30 @@ class Engine:
         width, height = self._target_size()
         if self.device.type == "cuda":
             cuda_ops.load_library()
+        info = self.info
+        one_shot = info.one_shot and not info.shard and not info.pipeline_stages
         program = make_program(
-            graph, width, height, self.info.fmt,
-            plan_strips=not self.info.one_shot, device=self.device,
+            graph, width, height, info.fmt, plan_strips=not one_shot, device=self.device,
         )
         if program is None:
             return None
-        if self.info.one_shot:
+        if one_shot:
             program._use_unfused = True
         else:
             program._strip_plan  # noqa: B018  (plans now, not in the first frame)
+        devices = info.devices or available_devices(self.device.type)
+        if info.pipeline_stages:
+            if info.shard:
+                warnln("--shard is ignored when --pipeline is given; running pipeline-staged only")
+            # Stages balance on measured per-node times (a few frames at build).
+            program.sharded = PipelineStagedProgram(
+                program, devices=list(devices), n_stages=info.pipeline_stages, measure=True)
+        elif info.shard:
+            try:
+                program.sharded = HaloShardedProgram(program, make_row_mesh(info.shard, devices))
+            except ValueError as e:
+                raise RuntimeError(f"Cannot shard graph: {e}") from e
+            program.sharded.compile()  # each slab's planes and taps, before any frame
         return program
 
     def _kernel_mtimes(self) -> dict[str, int]:
@@ -366,7 +398,11 @@ class Engine:
             self.last_gpu_times = times
         else:
             start = _time.perf_counter()
-            out = self.program(self._file_input(), t)
+            sharded = self.program.sharded
+            if sharded is not None:
+                out = sharded(self._file_input(), t)
+            else:
+                out = self.program(self._file_input(), t)
             self.check_nans(out)
             if self.device.type == "cuda":
                 done = torch.cuda.Event()

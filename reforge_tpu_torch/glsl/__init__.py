@@ -375,13 +375,14 @@ def translate_shader(
         t = ctx.time
         if not isinstance(t, torch.Tensor):
             t = torch.full((), float(t), dtype=torch.float32, device=device)
-        interp = Interp(shader, ctx.height, ctx.width, images, params, time=t, device=device,
-                        buffers_in=buffers)
+        interp = Interp(shader, ctx.block_height, ctx.width, images, params, time=t,
+                        device=device, buffers_in=buffers, row_offset=ctx.row_offset,
+                        global_height=ctx.height)
         outputs = interp.run_main()
         for out_name in bindings["images_out"]:
             if out_name not in outputs:
                 # An unwritten output passes through zeros.
-                outputs[out_name] = torch.zeros((4, ctx.height, ctx.width),
+                outputs[out_name] = torch.zeros((4,) + ctx.local_shape,
                                                 dtype=torch.float32, device=device)
         for out_name in bindings["ssbos_out"]:
             outputs[out_name] = interp.buffers[out_name]

@@ -209,11 +209,14 @@ class Interp:
         device: Any = "cpu",
         buffers_in: Optional[dict[str, Any]] = None,  # block name -> (N,) f32
         abstract: Optional[bool] = None,
+        row_offset: int = 0,  # global row of local row 0 (a row-sharded slab)
+        global_height: Optional[int] = None,  # imageSize's extent
     ):
         self.shader = shader
-        self.h = height
+        self.h = height  # the local block's rows (array shapes)
         self.w = width
-        self.global_h = height
+        self.row_offset = row_offset
+        self.global_h = global_height if global_height is not None else height
         self.global_w = width
         self.device = torch.device(device)
         self.abstract = self.device.type == "meta" if abstract is None else abstract
@@ -333,9 +336,16 @@ class Interp:
             self._iota_cache[axis] = got
         return got
 
+    def _global_rows(self) -> Any:
+        """The block's global row plane: the local iota plus the slab's
+        row offset.  Origin tags stay local: shifted loads index the
+        block."""
+        ys = self._iota("y")
+        return ys + self.row_offset if self.row_offset != 0 else ys
+
     def _install_builtin_idents(self) -> None:
         gx = Val("uint", self._iota("x"), Origin("x", 0))
-        gy = Val("uint", self._iota("y"), Origin("y", 0))
+        gy = Val("uint", self._global_rows(), Origin("y", 0))
         gz = Val("uint", 0)
         self.globals["gl_GlobalInvocationID"] = Val("uvec3", [gx.data, gy.data, gz.data])
         self._gid_comps = [gx, gy, gz]
@@ -3153,7 +3163,7 @@ class Interp:
             raise GlslError("imageStore coordinate must be ivec2", line)
         self.stats["gather"] = True
         xs = self._as_array(coord.data[0], "int")
-        ys = self._as_array(coord.data[1], "int")
+        ys = self._as_array(coord.data[1], "int") - self.row_offset
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
         mask = self._effective_mask(scope)
         keep = inb if mask is None else land(inb, mask)
@@ -3224,7 +3234,7 @@ class Interp:
         if self._gids is None:
             lsx, lsy, _ = self.shader.local_size
             groups_x = -(-self.global_w // lsx)
-            self._gids = (self._iota("y") // lsy) * groups_x + self._iota("x") // lsx
+            self._gids = (self._global_rows() // lsy) * groups_x + self._iota("x") // lsx
         return self._gids
 
     def _lane_index(self, idx: Val):
@@ -3441,7 +3451,7 @@ class Interp:
         vals = [self.eval_expr(a, scope) for a in arg_exprs[2:]]
         self.stats["gather"] = True
         xs = self._as_array(coord.data[0], "int").to(torch.int64)
-        ys = self._as_array(coord.data[1], "int").to(torch.int64)
+        ys = self._as_array(coord.data[1], "int").to(torch.int64) - self.row_offset
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
         mask = self._effective_mask(scope)
         keep = inb if mask is None else land(inb, mask)

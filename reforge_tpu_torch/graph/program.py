@@ -12,7 +12,8 @@ Execution modes:
         body is an affine tap-sum (glsl/affine.py) and GLSL point shaders
         that lower to an op list (glsl/lower.py); the whole graph in one
         ``graph_strip_mc`` kernel, its border mode ("edge" or "zero") the
-        plan's.
+        plan's; refused where its halo recompute passes MC_MAX_HALO_WORK
+        a stage.
       - segments: neither takes the whole graph, so the maximal contiguous
         node ranges that one of them takes run as child programs (one
         kernel each) and the nodes between them run per node.
@@ -63,7 +64,25 @@ class GraphTraceError(Exception):
 # Structural gates of the mc tier: conv taps (H + W) and stencil radius.
 MC_MAX_TAPS = 200
 MC_MAX_RADIUS = cuda_ops.STENCIL_MAX_RADIUS
+# The tier rule against halo recompute: an mc plan (a segment's child too)
+# whose estimated halo work a stage (``McProgram.halo_work``, per output
+# pixel) passes this bound is refused.  From ms a 4K frame in rgba32f on an
+# H100 80GB HBM3 at 700 W (chip_smoke paths D and J): neon edges, 62.4 a
+# stage, wins on mc, 2.912 against 3.462 per node, as blur_sharpen_blend,
+# 57.2, does, 1.369 against 1.888 on segments; bloom_glow, 477.5, loses,
+# 8.710 against 2.929 per node (6.811 against 1.985 with the builtin
+# tonemap).  The bound sits between the two sides, near the middle on a
+# log scale; no graph between them has been timed.
+MC_MAX_HALO_WORK = 200.0
 _MC_KINDS = {"conv": cuda_ops.MC_CONV, "stencil": cuda_ops.MC_STENCIL, "point": cuda_ops.MC_POINT}
+
+
+def _device_name(device) -> str:
+    """A device's name with its index ("cuda" names the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
 
 
 def _sync(device: torch.device) -> None:
@@ -106,13 +125,17 @@ def _node_key(node: PipelineNode, graph: BuiltGraph, width: int, height: int, fm
 
 class _HostBuild:
     """What a program builds on the host: its strip plan and, on the single
-    tier, its StripProgram.  Programs of one graph signature share one."""
+    tier, its StripProgram (and those of slabs and other devices).  Programs
+    of one graph signature share one."""
 
     def __init__(self, planned: bool):
         self.lock = threading.Lock()
         self.planned = planned
         self.plan = None
         self.strip_program: Optional[cuda_ops.StripProgram] = None
+        # StripPrograms of other devices and of row slabs, by (device, row0,
+        # rows).
+        self.strip_blocks: dict[tuple, cuda_ops.StripProgram] = {}
 
 
 class GraphProgram:
@@ -157,6 +180,9 @@ class GraphProgram:
         # and how many nodes its shape check ran.
         self.from_cache = False
         self.nodes_checked = 0
+        # The Engine's multi-device form of this program, which takes its
+        # frames (parallel/: HaloShardedProgram or PipelineStagedProgram).
+        self.sharded = None
 
     # ---- planning -------------------------------------------------------
 
@@ -434,7 +460,9 @@ class GraphProgram:
         (the reference's rule, program.py:921-961): every conv and stencil
         shares one, and "zero" (a GLSL shader that reads out of bounds as
         zero) only where no conv or stencil reads an intermediate; else
-        None, and the segments tier gives each conv a child of its own."""
+        None, and the segments tier gives each conv a child of its own.  A
+        plan whose estimated halo work a stage passes ``MC_MAX_HALO_WORK``
+        is refused (the tier rule against halo recompute)."""
         nodes: list = []
         synth_of: dict[str, Any] = {}  # GLSL node -> its ConvSynth / StencilSynth
         point_of: dict[str, PointProgram] = {}  # GLSL point node -> its op list
@@ -589,21 +617,20 @@ class GraphProgram:
             return None
         halo_borders = {synth_of[node.name].border if node.name in synth_of else "edge"
                         for kind, node, _extra in nodes if kind in ("conv", "stencil")}
-        mode = "edge"
+        prog = cuda_ops.McProgram(
+            stages=stages, n_slots=n_slots, rh_in=eh[FILE_INPUT], ew_in=ew[FILE_INPUT],
+            width=self.width, height=self.height, fmt=self.fmt,
+        )
         if "zero" in halo_borders:
             # A slot's outside cells hold the clamped values, where GL's
             # robust access reads a stored image out of bounds as zeros.
-            hazard = any(st.kind in (cuda_ops.MC_CONV, cuda_ops.MC_STENCIL)
-                         and any(ref[0] != cuda_ops.MC_INPUT for ref in st.ins) for st in stages)
-            if halo_borders != {"zero"} or hazard:
+            if halo_borders != {"zero"} or prog.edge_hazard:
                 return None
-            mode = "zero"
-        prog = cuda_ops.McProgram(
-            stages=stages, n_slots=n_slots, rh_in=eh[FILE_INPUT], ew_in=ew[FILE_INPUT],
-            width=self.width, height=self.height, fmt=self.fmt, mode=mode,
-        )
+            prog.mode = "zero"
         if prog.tile() is None:
             return None  # no shared-memory tile holds this plan: run per node
+        if prog.halo_work()[1] / len(prog.stages) > MC_MAX_HALO_WORK:
+            return None  # halo recompute past the bound: per node wins
         return prog
 
     def _glsl_point(self, node) -> Optional[PointProgram]:
@@ -731,9 +758,10 @@ class GraphProgram:
         if point is not None:
             def glsl_plain(ctx, ins):
                 device = ins[0].device
-                gy = torch.arange(self.height, dtype=torch.int64, device=device).view(-1, 1)
+                h = ctx.block_height
+                gy = torch.arange(h, dtype=torch.int64, device=device).view(-1, 1) + ctx.row_offset
                 gx = torch.arange(self.width, dtype=torch.int64, device=device).view(1, -1)
-                hw = (self.height, self.width)
+                hw = (h, self.width)
                 return point_program_plain(point, ins, gy.expand(hw), gx.expand(hw), ctx.time)
 
             return cuda_ops.McStage(kind=cuda_ops.MC_POINT, taps=(point.packed(),),
@@ -773,26 +801,28 @@ class GraphProgram:
             kind=cuda_ops.MC_POINT, taps=ss["op"].tables,
             plain=lambda ctx, ins: spec(ctx, dict(zip(descs, ins)), params)[out_desc], **common)
 
-    def _build_strip_program(self) -> cuda_ops.StripProgram:
+    def _build_strip_program(self, device=None, row0: int = 0,
+                             rows: Optional[int] = None) -> cuda_ops.StripProgram:
         """The single plan's op list, conv plans and coordinate planes, built
-        once per program: the device form of the reference's traced
-        epilogue (program.py:1245-1266 there), keyed by the graph's
-        structure and static params."""
+        once per program, device and slab: the device form of the
+        reference's traced epilogue (program.py:1245-1266 there), keyed by
+        the graph's structure and static params.  The hoisted planes hold
+        ``rows`` rows from image row ``row0`` (default: the frame) on
+        ``device`` (default: the program's)."""
         _tag, conv_items, pointwise = self._strip_plan
-        device = self.device
-
-        def ctx_at(t):
-            return self._ctx(t, device)
+        device = self.device if device is None else torch.device(device)
 
         # Coordinate-plane hoist: data- and time-independent factors of
-        # pointwise nodes (vignette's fade) are built once, here.
+        # pointwise nodes (vignette's fade) are built once, here, for the
+        # block's global rows.
         plane_nodes = [
             n for n in pointwise
             if n.spec.cw_coord_plane is not None and n.spec.cw_plane_fn is not None
         ]
         aux = None
         if plane_nodes:
-            ctx0 = ctx_at(0.0)
+            ctx0 = KernelContext(width=self.width, height=self.height, fmt=self.fmt, device=device,
+                                 row_offset=row0, local_height=rows)
             aux = torch.stack(
                 [n.spec.cw_coord_plane(ctx0, n.params).to(torch.float32) for n in plane_nodes]
             ).contiguous()
@@ -803,8 +833,8 @@ class GraphProgram:
         for k, (node, _plan) in enumerate(conv_items):
             code, params = node.spec.cw_op(node.params, False)
 
-            def plain(ci, t, ins, plane, _node=node):
-                return _node.spec.conv_epilogue_cw(ctx_at(t), ci, ins[0], ins[1], _node.params)
+            def plain(ctx, ci, ins, plane, _node=node):
+                return _node.spec.conv_epilogue_cw(ctx, ci, ins[0], ins[1], _node.params)
 
             ops.append(cuda_ops.StripOp(code, *slots[k], tuple(params), -1, plain))
         for node, (ins, out) in zip(pointwise, slots[len(conv_items):]):
@@ -812,11 +842,11 @@ class GraphProgram:
             code, params = node.spec.cw_op(node.params, plane >= 0)
             descs = node.spec.images_in
 
-            def plain(ci, t, vals, plane_v, _node=node, _descs=descs, _hoisted=plane >= 0):
+            def plain(ctx, ci, vals, plane_v, _node=node, _descs=descs, _hoisted=plane >= 0):
                 named = dict(zip(_descs, vals))
                 if _hoisted:
-                    return _node.spec.cw_plane_fn(ctx_at(t), ci, named, _node.params, plane_v)
-                return _node.spec.cw_fn(ctx_at(t), ci, named, _node.params)
+                    return _node.spec.cw_plane_fn(ctx, ci, named, _node.params, plane_v)
+                return _node.spec.cw_fn(ctx, ci, named, _node.params)
 
             ops.append(cuda_ops.StripOp(code, ins, out, tuple(params), plane, plain))
         return cuda_ops.StripProgram(
@@ -827,18 +857,41 @@ class GraphProgram:
             aux=aux,
         )
 
-    def _strip_fused_forward(self, file_input, t):
+    def _strip_program_for(self, device, row0: int, rows: int) -> cuda_ops.StripProgram:
+        """The StripProgram of a block on ``device``: the program's own for
+        its frame on its device, else one built once per (device, block)
+        and kept with the program's host build (a slab or a batch share on
+        another card needs its planes there)."""
+        device = _device_name(device)
+        if device == _device_name(self.device) and row0 == 0 and rows == self.height:
+            if self._strip_program is None:
+                self._strip_program = self._build_strip_program()
+            return self._strip_program
+        key = (device, row0, rows)
+        host = self._host
+        with host.lock:
+            strip = host.strip_blocks.get(key)
+        if strip is None:
+            strip = self._build_strip_program(device, row0, rows)
+            with host.lock:
+                strip = host.strip_blocks.setdefault(key, strip)
+        return strip
+
+    def _strip_fused_forward(self, file_input, t, row0_base: Optional[int] = None):
         """Run the whole graph as one graph_strip or graph_strip_mc kernel,
         or return None when the graph has no whole-graph strip plan.
-        ``file_input`` is in storage type."""
+        ``file_input`` is in storage type: the frame, or (``row0_base``) a
+        slab of its rows whose first row is image row ``row0_base`` (the
+        halo-sharded executor's, parallel/halo.py)."""
         plan = self._strip_plan
         if plan is None or plan[0] == "segments":
             return None
+        row0 = 0 if row0_base is None else int(row0_base)
         if plan[0] == "mc":
-            return cuda_ops.graph_strip_mc(file_input, t, plan[1])
-        if self._strip_program is None:
-            self._strip_program = self._build_strip_program()
-        return cuda_ops.graph_strip(file_input, t, self._strip_program)
+            return cuda_ops.graph_strip_mc(file_input, t, plan[1], row0)
+        rows = int(file_input.shape[1])
+        strip = self._strip_program_for(file_input.device, row0, rows)
+        return cuda_ops.graph_strip(file_input, t, strip, row0, self.height)
 
     def _segments_forward(self, x: torch.Tensor, t) -> torch.Tensor:
         """Run a ``("segments", steps)`` plan: each segment's child kernel
@@ -896,7 +949,7 @@ class GraphProgram:
                     )
                 written[res] = value.to(torch.float32)
                 continue
-            expected = (4, self.height, self.width)
+            expected = (4,) + ctx.local_shape
             if tuple(value.shape) != expected:
                 raise GraphTraceError(
                     f"kernel '{node.spec.name}' output '{desc}' has shape "

@@ -71,10 +71,16 @@ class ParamDecl:
 class KernelContext:
     """Execution context passed to every kernel.
 
-    ``width``/``height`` are the image extent that coordinate math uses;
-    ``device`` is where coordinate planes are built (the card unless the
-    caller names the CPU).  The reference's row/column offsets of sharded
-    blocks wait for the sharded tiers.
+    ``width``/``height`` are the global image extent that coordinate math
+    uses (vignette centres, ``imageSize``, checkerboard cells).  Under row
+    sharding (parallel/halo.py) a kernel sees a horizontal slab of the
+    image: ``local_height`` rows starting at global row ``row_offset``
+    (negative on a slab extended past the image's top edge).  On one
+    device ``local_height`` is None (the whole height) and ``row_offset``
+    0.  Kernels take coordinates from ``ops.grid_coords(ctx)`` and shapes
+    from ``ctx.local_shape``.  ``device`` is where coordinate planes are
+    built (the card unless the caller names the CPU).  Columns are never
+    sharded: the port's tiles clamp their own columns.
     """
 
     width: int
@@ -82,6 +88,16 @@ class KernelContext:
     time: Any = 0.0  # f32 seconds since start (``_rf_time``)
     fmt: str = "rgba32f"  # "rgba8" | "rgba16f" | "rgba32f"
     device: Any = "cuda"
+    row_offset: int = 0  # global row of local row 0
+    local_height: Optional[int] = None  # rows in the local block
+
+    @property
+    def block_height(self) -> int:
+        return self.local_height if self.local_height is not None else self.height
+
+    @property
+    def local_shape(self) -> tuple[int, int]:
+        return (self.block_height, self.width)
 
 
 @dataclasses.dataclass

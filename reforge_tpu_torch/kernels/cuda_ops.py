@@ -154,7 +154,7 @@ def _load_locked() -> None:
         lib.rf_sep_conv_multi.restype = _I
         lib.rf_graph_strip.argtypes = [
             _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _I, _I, _I, _F, _I, _P,
+            _P, _P, _I, _I, _I, _F, _I, _I, _I, _P,
         ]
         lib.rf_graph_strip.restype = _I
         lib.rf_stencil_apply.argtypes = [
@@ -164,7 +164,8 @@ def _load_locked() -> None:
         lib.rf_stencil_r1.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]
         lib.rf_stencil_r1.restype = _I
         lib.rf_graph_strip_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P,
+            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
+            _P,
         ]
         lib.rf_graph_strip_mc.restype = _I
         lib.rf_stencil_reduce.argtypes = [
@@ -190,6 +191,14 @@ def _load_locked() -> None:
         lib.rf_strip_limits.argtypes = [_I]
         lib.rf_strip_limits.restype = _I
         _lib = lib
+
+
+def _launch(x: torch.Tensor, fn, *args) -> int:
+    """Call the binding ``fn`` with the card of ``x`` current: a binding
+    launches on the current device (the stream it is given is that card's),
+    and a slab or stage may lie on another card than the current one."""
+    with torch.cuda.device(x.get_device()):
+        return fn(*args)
 
 
 def _check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
@@ -439,7 +448,8 @@ def _launch_sep_conv(x: torch.Tensor, plans, mode: str) -> list[torch.Tensor]:
     align, smem = conv_layout(th, tw, rh, rw, taps.numel())
     c, h, w = x.shape
     out = torch.empty((len(plans), c, h, w), dtype=torch.float32, device=x.device)
-    rc = lib.rf_sep_conv_multi(
+    rc = _launch(
+        x, lib.rf_sep_conv_multi,
         int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), c, h, w,
         taps.data_ptr(), meta.data_ptr(), len(plans), taps.numel(), rh, rw,
         int(mode == "zero"), th, tw, align, smem, torch.cuda.current_stream(x.device).cuda_stream,
@@ -648,8 +658,9 @@ class StripOp:
     """One node of the graph_strip epilogue.
 
     ``code``/``ins``/``out``/``params``/``plane`` are what the kernel
-    evaluates; ``plain(ci, t, ins, plane)`` computes the same node in
-    PyTorch from the builtin's channel form (the plain version's body)."""
+    evaluates; ``plain(ctx, ci, ins, plane)`` computes the same node in
+    PyTorch from the builtin's channel form (the plain version's body),
+    ``ctx`` the block's KernelContext."""
 
     code: int
     ins: tuple[int, int]
@@ -708,25 +719,42 @@ def _store(v: torch.Tensor, fmt: str) -> torch.Tensor:
     return v
 
 
-def graph_strip_plain(x: torch.Tensor, t: float, strip: StripProgram) -> torch.Tensor:
+def _slab_ctx(x: torch.Tensor, t: float, fmt: str, width: int, height: Optional[int],
+              row0: int) -> KernelContext:
+    """The context of a (C, h, W) input that is rows row0.. of an image of
+    ``height`` rows (None: the input is the whole image)."""
+    h = x.shape[-2]
+    return KernelContext(width=width, height=h if height is None else height, time=t, fmt=fmt,
+                         device=x.device, row_offset=row0, local_height=h)
+
+
+def graph_strip_plain(x: torch.Tensor, t: float, strip: StripProgram, row0: int = 0,
+                      height: Optional[int] = None) -> torch.Tensor:
     """The plain version of ``graph_strip``: the convs, then each op's
     channel form over whole planes (``ci`` is a (C, 1, 1) channel index),
-    rounding every node's output to storage."""
+    rounding every node's output to storage.  ``row0`` and ``height`` as in
+    ``graph_strip``."""
+    ctx = _slab_ctx(x, t, strip.fmt, x.shape[-1], height, row0)
     slots: dict[int, Any] = {0: x.to(torch.float32)}
     for k, blur in enumerate(sep_conv_plain(x, strip.plans, "edge")):
         slots[1 + k] = blur
     ci = torch.arange(x.shape[0], device=x.device).view(-1, 1, 1)
     for op in strip.ops:
         plane = strip.aux[op.plane] if op.plane >= 0 else None
-        v = op.plain(ci, t, [slots[i] for i in op.ins], plane)
+        v = op.plain(ctx, ci, [slots[i] for i in op.ins], plane)
         slots[op.out] = _store(v, strip.fmt)
     return slots[strip.out_slot].to(x.dtype)
 
 
-def graph_strip(x: torch.Tensor, t: float, strip: StripProgram) -> torch.Tensor:
+def graph_strip(x: torch.Tensor, t: float, strip: StripProgram, row0: int = 0,
+                height: Optional[int] = None) -> torch.Tensor:
     """A whole single-tier graph (N edge-clamped convs of the input, then a
     channel-local epilogue) in one kernel; returns the final output in the
-    storage type.
+    storage type.  ``x`` may be a slab of a row-sharded image of ``height``
+    rows whose first row is image row ``row0`` (the counterpart of the TPU
+    kernel's ``row0_base``): coordinates are the image's, the convs clamp
+    at the slab's edge, and ``strip.aux`` holds the slab's rows.  The
+    defaults are a whole frame.
 
     Replaces ``pallas_ops.graph_strip_fused`` (pallas_ops.py:1396).  The TPU
     kernel took the epilogue as a traced Python closure and ran rgba16f
@@ -744,7 +772,7 @@ def graph_strip(x: torch.Tensor, t: float, strip: StripProgram) -> torch.Tensor:
     dtype = torch.bfloat16 if strip.fmt == "rgba16f" else torch.float32
     _check_image(x, (dtype,), "graph_strip")
     if not _on_cuda(x):
-        return graph_strip_plain(x, t, strip)
+        return graph_strip_plain(x, t, strip, row0, height)
     lib = load_library()
     if (MAX_SLOTS, MAX_PLANS, MAX_OPS) != tuple(lib.rf_strip_limits(k) for k in range(3)):
         raise RuntimeError("MAX_SLOTS, MAX_PLANS or MAX_OPS disagrees with the built kernel")
@@ -762,12 +790,13 @@ def graph_strip(x: torch.Tensor, t: float, strip: StripProgram) -> torch.Tensor:
     align, smem = conv_layout(th, tw, rh, rw, taps.numel())
     out = torch.empty_like(x)
     channel_ops = any(op.code >= OP_CH0 for op in strip.ops)
-    rc = lib.rf_graph_strip(
+    rc = _launch(
+        x, lib.rf_graph_strip,
         int(dtype == torch.bfloat16), int(channel_ops), x.data_ptr(), out.data_ptr(),
         0 if aux is None else aux.data_ptr(), c, h, w, taps.data_ptr(), meta.data_ptr(),
         len(strip.plans), taps.numel(), rh, rw, th, tw, align, op_i.ctypes.data, op_f.ctypes.data,
-        len(strip.ops), strip.out_slot, STORE_MODES[strip.fmt], float(t), smem,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        len(strip.ops), strip.out_slot, STORE_MODES[strip.fmt], float(t), int(row0),
+        h if height is None else int(height), smem, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "graph_strip")
     LAUNCHES["graph_strip"] += 1
@@ -977,7 +1006,8 @@ def stencil_apply(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
     out = torch.empty_like(x)
     if choose_stencil_form(rh, rw, op) == "r1":
         w9, mask = _r1_taps(op.terms)
-        rc = lib.rf_stencil_r1(
+        rc = _launch(
+            x, lib.rf_stencil_r1,
             x.data_ptr(), out.data_ptr(), c, h, w, int(mode == "zero"), _STENCIL_KINDS[op.kind],
             w9.ctypes.data, mask, int(_vec(x, out)), _stream(x),
         )
@@ -986,7 +1016,8 @@ def stencil_apply(x: torch.Tensor, rh: int, rw: int, op: StencilOp,
         return out
     terms_w, terms_idx = _device_terms(op.terms, x.device)
     th, tw, smem = choose_stencil_tile(rh, rw, len(op.terms))
-    rc = lib.rf_stencil_apply(
+    rc = _launch(
+        x, lib.rf_stencil_apply,
         x.data_ptr(), out.data_ptr(), c, h, w, rh, rw, int(mode == "zero"), th, tw,
         _STENCIL_KINDS[op.kind], terms_w.data_ptr(), terms_idx.data_ptr(), len(op.terms),
         smem, _stream(x),
@@ -1300,6 +1331,23 @@ class McProgram:
                 work += area(st.eh, st.ew) * 20
         return work / (th * tw)
 
+    @property
+    def input_halo(self) -> int:
+        """Rows of the graph input that the whole plan reads around a tile
+        (at least 1): the halo a row-sharded slab exchanges once before the
+        kernel runs on it (parallel/halo.py)."""
+        return max(self.rh_in, 1)
+
+    @property
+    def edge_hazard(self) -> bool:
+        """Whether a conv or stencil stage reads an intermediate.  The
+        kernel clamps an intermediate at the edge of the block it runs on,
+        so on a slab extended by replicated rows such a plan differs from
+        the unsharded one near the image's edge; the slab executor then
+        runs the edge slabs on blocks that end at the image's edge."""
+        return any(st.kind in (MC_CONV, MC_STENCIL) and st.ins[0][0] != MC_INPUT
+                   for st in self.stages)
+
     def halo_work(self) -> tuple[float, float]:
         """(work, halo): ``_work`` at the chosen tile, and the part of it
         that the halo adds (its excess over the limit as the tile grows):
@@ -1384,13 +1432,13 @@ class McProgram:
         return self._cache[key]
 
 
-def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
+def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram,
+                         row0: int = 0) -> torch.Tensor:
     """The plain version of ``graph_strip_mc``, and the mc tier's CPU path:
     the stage list over whole images (convs and stencils with clamped
     taps, or zeros outside the image in zero mode), rounding each node's
-    output to storage."""
-    ctx = KernelContext(width=prog.width, height=prog.height, time=t, fmt=prog.fmt,
-                        device=x.device)
+    output to storage.  ``row0`` as in ``graph_strip_mc``."""
+    ctx = _slab_ctx(x, t, prog.fmt, prog.width, prog.height, row0)
     h, w = x.shape[-2], x.shape[-1]
     vals: dict[int, torch.Tensor] = {MC_INPUT: x.to(torch.float32)}
     for st in prog.stages:
@@ -1407,9 +1455,13 @@ def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram) -> torch.Te
     return vals[MC_OUTPUT].to(x.dtype)
 
 
-def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
+def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) -> torch.Tensor:
     """A whole multi-stage graph in one kernel; returns the final output in
-    the storage type.
+    the storage type.  ``x`` may be a slab of rows of the program's frame
+    (a row-sharded image, extended by its halo) whose first row is image
+    row ``row0`` (the counterpart of the TPU kernel's ``row0_base``): the
+    point stages' coordinates are the image's, every read clamps (or reads
+    zeros) at the slab's edge.
 
     Replaces ``pallas_ops.graph_strip_fused_mc`` (pallas_ops.py:2955),
     which streamed channel-full whole-width strips through VMEM with a
@@ -1439,11 +1491,11 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     --parent``) and the ablation are in PERF.md."""
     dtype = torch.bfloat16 if prog.fmt == "rgba16f" else torch.float32
     _check_image(x, (dtype,), "graph_strip_mc")
-    if tuple(x.shape) != (4, prog.height, prog.width):
-        raise ValueError(f"graph_strip_mc: expected (4, {prog.height}, {prog.width}), "
-                         f"got {tuple(x.shape)}")
+    if x.dim() != 3 or x.shape[0] != 4 or x.shape[2] != prog.width:
+        raise ValueError(f"graph_strip_mc: expected (4, {prog.height}, {prog.width}) or a slab "
+                         f"of its rows, got {tuple(x.shape)}")
     if not _on_cuda(x):
-        return graph_strip_mc_plain(x, t, prog)
+        return graph_strip_mc_plain(x, t, prog, row0)
     lib = load_library()
     if (lib.rf_mc_limits(0), lib.rf_mc_limits(1)) != (MC_MAX_STAGES, MC_STAGE_INTS):
         raise RuntimeError("MC_MAX_STAGES/MC_STAGE_INTS disagree with the built kernel")
@@ -1456,11 +1508,13 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram) -> torch.Tensor:
     taps, term_idx = prog.device_taps(x.device)
     out = torch.empty_like(x)
     vec = prog.width % CONV_ALIGN == 0 and x.data_ptr() % 16 == 0
-    rc = lib.rf_graph_strip_mc(
-        int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), prog.height, prog.width,
+    rc = _launch(
+        x, lib.rf_graph_strip_mc,
+        int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), x.shape[1], prog.width,
         th, tw, geo.ctypes.data, stage_i.ctypes.data, stage_f.ctypes.data, len(prog.stages),
         taps.data_ptr(), term_idx.data_ptr(), len(prog.taps), STORE_MODES[prog.fmt], float(t),
-        int(vec), int(prog.mode == "zero"), smem, torch.cuda.current_stream(x.device).cuda_stream,
+        int(vec), int(prog.mode == "zero"), int(row0), prog.height, smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "graph_strip_mc")
     LAUNCHES["graph_strip_mc"] += 1
@@ -1650,7 +1704,8 @@ def stencil_reduce_mc(x: torch.Tensor, rh: int, rw: int, op: ReduceOp,
     out = torch.empty((3, h, w), dtype=torch.float32, device=x.device)
     if form == "run":
         weights, rows, dense = _device_reduce_run_taps(op.taps, rh, x.device)
-        rc = lib.rf_stencil_reduce_run(
+        rc = _launch(
+            x, lib.rf_stencil_reduce_run,
             x.data_ptr(), out.data_ptr(), h, w, rh, int(mode == "zero"), int(_vec(x, out)),
             int(dense), weights.data_ptr(), rows.data_ptr(), float(op.inv2sr), smem,
             _sm_count(x.device), _stream(x),
@@ -1659,7 +1714,8 @@ def stencil_reduce_mc(x: torch.Tensor, rh: int, rw: int, op: ReduceOp,
         LAUNCHES["stencil_reduce_mc"] += 1
         return out
     weights, pos = _device_reduce_taps(op.taps, x.device)
-    rc = lib.rf_stencil_reduce(
+    rc = _launch(
+        x, lib.rf_stencil_reduce,
         x.data_ptr(), out.data_ptr(), h, w, rh, rw, int(mode == "zero"), th, tw,
         _REDUCE_KINDS[op.kind], weights.data_ptr(), pos.data_ptr(), len(op.taps),
         float(op.inv2sr), smem, _stream(x),
@@ -1738,7 +1794,8 @@ def _conv1d(x: torch.Tensor, weights, mode: str, along_h: bool) -> torch.Tensor:
     th, tw, smem = tile if tile is not None else (*CONV1D_GLOBAL_TILE[along_h], 0)
     out = torch.empty_like(x)
     vec = w % 4 == 0 and x.data_ptr() % 16 == 0
-    rc = lib.rf_conv1d(
+    rc = _launch(
+        x, lib.rf_conv1d,
         int(along_h), x.data_ptr(), out.data_ptr(), c, h, w, r, int(mode == "zero"), th, tw,
         taps.data_ptr(), pos.data_ptr(), taps.numel(), smem, int(vec), int(box and smem > 0),
         _stream(x),
@@ -1984,7 +2041,8 @@ def stencil_apply_mc(x: torch.Tensor, op: LinearStencilOp, mode: str = "edge") -
         general, run = op.device_terms(x.device), (None, None)
     ptrs = [None if t is None else t.data_ptr() for t in (*general, *run)]
     vec = out.data_ptr() % 16 == 0 and (w * out.element_size()) % 16 == 0
-    rc = lib.rf_stencil_apply_mc(
+    rc = _launch(
+        x, lib.rf_stencil_apply_mc,
         int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), op.c_in, op.c_out, h, w,
         op.rh, op.rw, int(mode == "zero"), th, tw, int(form != "global"), *ptrs[:3], op.n_terms,
         _STENCIL_MC_FORMS[form], *ptrs[3:], op.nonempty, int(vec), smem, _stream(x),

@@ -427,9 +427,13 @@ levels.mc_op = lambda p, pre=False: co.McOp(
 def noise(ctx, input_image, *, amount=0.1, seed=0, animate=False):
     """Uniform grain in [-amount/2, amount/2), the reference's
     ``jax.random.uniform`` bits (kernels/prng.py); ``animate`` folds the
-    frame clock, ``int32(f32(t) * 1000)``, into the key."""
+    frame clock, ``int32(f32(t) * 1000)``, into the key.  A slab's
+    context draws the slab's shape with the same key, as the reference
+    does, so a slab would repeat the grain of the image's first rows (a
+    reference gap, inherited; the sharded executors gather noise, whose
+    halo is None)."""
     fold = int(np.float32(ctx.time) * np.float32(1000.0)) if animate else None
-    grain = prng.uniform(int(seed), (1, ctx.height, ctx.width), -0.5, 0.5, fold=fold,
+    grain = prng.uniform(int(seed), (1,) + ctx.local_shape, -0.5, 0.5, fold=fold,
                          device=ctx.device)
     return map_rgb(input_image, lambda rgb: rgb + amount * grain)
 
@@ -927,6 +931,6 @@ def checkerboard(ctx, *, size=32):
 
 @kernel("solid", images_in=(), doc="Generator: constant color.")
 def solid(ctx, *, red=0.0, green=0.0, blue=0.0, alpha=1.0):
-    shape = (ctx.height, ctx.width)
+    shape = ctx.local_shape
     return torch.stack([torch.full(shape, c, dtype=torch.float32, device=ctx.device)
                         for c in (red, green, blue, alpha)], dim=0)

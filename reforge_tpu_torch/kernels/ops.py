@@ -165,8 +165,14 @@ def pixel_coords(h: int, w: int, device="cuda") -> tuple[torch.Tensor, torch.Ten
 
 
 def grid_coords(ctx) -> tuple[torch.Tensor, torch.Tensor]:
-    """Image (y, x) coordinate planes for ``ctx``'s frame on its device."""
-    return pixel_coords(ctx.height, ctx.width, ctx.device)
+    """Global (y, x) coordinate planes of ``ctx``'s block on its device:
+    shapes follow the block (``ctx.local_shape``), values the image (a
+    slab's rows start at ``ctx.row_offset``)."""
+    h, w = ctx.local_shape
+    ys, xs = pixel_coords(h, w, ctx.device)
+    if ctx.row_offset != 0:
+        ys = ys + ctx.row_offset
+    return ys, xs
 
 
 def sample_nearest(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

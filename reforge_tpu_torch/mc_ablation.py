@@ -275,7 +275,9 @@ KERNELS = {
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
-        "no_glsl": [[("glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);",
+        "no_glsl": [[("glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);",
+                      "for (int c = 0; c < 4; ++c) o[c] = a[c];")],
+                    [("glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);",
                       "for (int c = 0; c < 4; ++c) o[c] = a[c];")]],
         "conv_one_tap": [
             [("nh = 2 * rh + 1, nw = 2 * rw + 1;", "nh = 1, nw = 1;")],

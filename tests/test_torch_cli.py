@@ -136,14 +136,25 @@ def test_positional_conflicts():
     assert main(["a.png", "out.png", "-o", "z.png", "--backend", "cpu"]) == 1
 
 
-@pytest.mark.parametrize("flags,rc", [(["--shard", "2"], 1), (["--pipeline", "2"], 1),
+@pytest.mark.parametrize("flags,rc", [(["--shard", "2"], 1), (["--shard", "3"], 1),
                                       (["--shard", "1"], 0), (["--shard", "0"], 0)])
 def test_multi_device_is_not_ported(tmp_path, capsys, flags, rc):
+    """``--shard N`` past the devices (the CPU is one) exits 1 with the
+    reference's message and writes nothing: nothing runs unsharded in its
+    place; ``--shard 1`` renders the one-slab sharded program, equal to the
+    unsharded render."""
     _image(tmp_path / "in.png", 8, 8, seed=8)
-    argv = ["-i", str(tmp_path / "in.png"), "-o", str(tmp_path / "o.png"), "--backend", "cpu"]
+    outp = tmp_path / "o.png"
+    argv = ["-i", str(tmp_path / "in.png"), "-o", str(outp), "--backend", "cpu"]
     assert main(argv + flags) == rc
     if rc:
-        assert "multi-device execution is not ported" in capsys.readouterr().err
+        n = flags[1]
+        assert f"requested {n} devices, have 1" in capsys.readouterr().err
+        assert not outp.exists()
+    else:
+        plain = tmp_path / "plain.png"
+        assert main(["-i", str(tmp_path / "in.png"), "-o", str(plain), "--backend", "cpu"]) == 0
+        assert outp.read_bytes() == plain.read_bytes()
 
 
 @pytest.mark.parametrize("backend", ["auto", "cuda"])

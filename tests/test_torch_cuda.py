@@ -306,17 +306,24 @@ def test_glsl_graphs_on_graph_strip_mc(graph, fmt, hw):
 @pytest.mark.parametrize("graph", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
                                    "blur_sharpen_blend", "bloom_glow", "zero_border",
                                    "mixed_border"])
-def test_point_graphs_on_graph_strip_mc(graph, fmt, hw):
+def test_point_graphs_on_graph_strip_mc(graph, fmt, hw, monkeypatch):
     """GLSL point shaders as op-list stages (the kernel's glsl form; in
     tonemap_sharpen the op list starts on an odd word) and nblur.comp's
     zero mode: the mc plan (the mixed graph's zero-mode segment) against
-    its plain version, the frame against per node."""
+    its plain version, the frame against per node.  bloom_glow runs per
+    node (the tier rule against halo recompute); its mc plan, planned with
+    the bound lifted, still runs on the card."""
     from reforge_tpu_torch import benchmarks
+    from reforge_tpu_torch.graph import program as program_module
 
     h, w = hw
     config, shader_dir = benchmarks.point_graphs()[graph]
     prog = benchmarks.build_program(config, w, h, fmt, device="cuda", shader_path=shader_dir)
     plan = prog._strip_plan
+    if graph == "bloom_glow":
+        assert plan is None
+        monkeypatch.setattr(program_module, "MC_MAX_HALO_WORK", float("inf"))
+        plan = ("mc", prog._plan_strip_mc())
     if plan[0] == "segments":
         plan = plan[1][0][1]._strip_plan
     assert plan[0] == "mc" and (plan[1].mode == "zero") == graph.endswith("border")
@@ -326,10 +333,71 @@ def test_point_graphs_on_graph_strip_mc(graph, fmt, hw):
     want = cuda_ops.graph_strip_mc_plain(x, 0.5, plan[1])
     frame, per_node = prog._forward(x, 0.5), prog._forward_nostrip(x, 0.5)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + 2
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + (1 if graph == "bloom_glow" else 2)
     tol = 1e-5 if fmt == "rgba32f" else 2e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert float((frame.float() - per_node.float()).abs().max()) <= tol
+
+
+YSHADE = """#version 450
+layout (local_size_x = 16, local_size_y = 16) in;
+layout (binding = 0, rgba32f) uniform readonly  image2D input_image;
+layout (binding = 1, rgba32f) uniform writeonly image2D output_image;
+void main() {
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    ivec2 size = imageSize(input_image);
+    vec4 c = imageLoad(input_image, pos);
+    float f = float(pos.y) / float(size.y) + 0.25 * float(pos.y % 3);
+    imageStore(output_image, pos, vec4(c.rgb * f, c.a));
+}
+"""
+ROW_GRAPHS = {
+    # graph_strip: vignette's hoisted plane; dither and scanlines read the row
+    "flagship": None,
+    "dither": ("input -> gs -> d -> s -> output\ngs: gaussian { sigma: 1.0 }\n"
+               "d: dither { levels: 4 }\ns: scanlines { period: 3 }\n"),
+    # graph_strip_mc: vignette's point op (builtins' form), a GLSL point
+    # shader's K_COORD_Y (glsl form)
+    "mc_vignette": ("input -> gs -> edge -> v -> output\ngs: gaussian { sigma: 1.0 }\n"
+                    "edge: sharpen {}\nv: vignette { strength: 0.8 }\n"),
+    "yshade": "input -> gs -> ys -> output\ngs: gaussian { sigma: 1.5 }\n",
+}
+
+
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("graph", sorted(ROW_GRAPHS))
+def test_strip_kernels_take_a_row_offset(graph, fmt, tmp_path):
+    """graph_strip and graph_strip_mc on rows 61 - r .. 141 + r of a
+    200x300 frame, extended by the plan's halo r, with row0 = 61 - r: the
+    kernel against its plain version at the same row0, and its cropped rows
+    bit-equal to the kernel's rows 61..141 of the whole frame (a pixel's
+    arithmetic does not depend on where its tile falls)."""
+    from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG, build_program
+
+    (tmp_path / "ys.comp").write_text(YSHADE)
+    config = ROW_GRAPHS[graph] or FLAGSHIP_CONFIG
+    h, w, a, b = 200, 300, 61, 141
+    prog = build_program(config, w, h, fmt, device="cuda", shader_path=str(tmp_path))
+    tier, plan = prog._strip_plan[0], prog._strip_plan[1]
+    x = _image((4, h, w), 29).to(prog.storage_dtype)
+    frame = prog._forward(x, 0.5)
+    if tier == "mc":
+        r = plan.input_halo
+        slab = x[:, a - r:b + r].contiguous()
+        got = cuda_ops.graph_strip_mc(slab, 0.5, plan, a - r)
+        want = cuda_ops.graph_strip_mc_plain(slab, 0.5, plan, a - r)
+    else:
+        r = max((len(wh) - 1) // 2 for _, (wh, _ww) in plan)
+        slab = x[:, a - r:b + r].contiguous()
+        strip = prog._strip_program_for(x.device, a - r, b - a + 2 * r)
+        assert strip.aux is not None
+        got = cuda_ops.graph_strip(slab, 0.5, strip, a - r, h)
+        want = cuda_ops.graph_strip_plain(slab, 0.5, strip, a - r, h)
+    torch.cuda.synchronize()
+    assert tier == ("mc" if graph in ("mc_vignette", "yshade") else "single")
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(got[:, r:r + b - a], frame[:, a:b])
 
 
 @pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f", "rgba8"])

@@ -297,13 +297,23 @@ def test_glsl_megakernel_cases(name, fmt):
 
 @pytest.mark.parametrize("name", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
                                   "blur_sharpen_blend", "bloom_glow"])
-def test_point_graphs_plan_mc_with_no_per_node_step(name):
-    """glsl-chain, glsl-sharpen, tonemap.comp before sharpen.comp,
-    blur_sharpen_blend and bloom_glow with the shipped shaders: the mc
-    tier, a GLSL point stage each, at 48x128 and at 4K (planning only)."""
+def test_point_graphs_plan_mc_with_no_per_node_step(name, monkeypatch):
+    """glsl-chain, glsl-sharpen, tonemap.comp before sharpen.comp and
+    blur_sharpen_blend with the shipped shaders: the mc tier, a GLSL point
+    stage each, at 48x128 and at 4K (planning only).  bloom_glow's mc plan
+    (a GLSL point stage too) passes the tier rule's bound on halo work a
+    stage, so the graph runs per node (no segment takes a node of it)."""
     config, shader_dir = point_graphs()[name]
     for w, h in ((W, H), (3840, 2160)):
         prog = build_program(config, w, h, device="cpu", shader_path=shader_dir)
+        if name == "bloom_glow":
+            assert prog._strip_plan is None and plan_steps(prog)[0][0] == "per-node", w
+            with monkeypatch.context() as m:
+                m.setattr(tprogram, "MC_MAX_HALO_WORK", float("inf"))
+                mc = prog._plan_strip_mc()
+            assert cuda_ops.MC_GLSL in [st.op.code for st in mc.stages]
+            assert mc.halo_work()[1] / len(mc.stages) > tprogram.MC_MAX_HALO_WORK
+            continue
         assert plan_steps(prog)[0][0] == "mc", (name, w)
         assert cuda_ops.MC_GLSL in [st.op.code for st in prog._strip_plan[1].stages]
         assert prog._strip_plan[1].tile() is not None
@@ -451,15 +461,19 @@ def test_glsl_stage_packs_its_words_into_the_tap_lists():
 @pytest.mark.parametrize("example", ["blur_sharpen_blend", "bloom_glow"])
 def test_examples_render_through_engine_like_jax(example, tmp_path, monkeypatch):
     """(e) The examples through the port's Engine from the repository root
-    (the default shader path, shaders/) on the mc tier with a GLSL point
-    stage, against the JAX Engine per node within PARITY.md's graph
-    bound."""
+    (the default shader path, shaders/) against the JAX Engine per node
+    within PARITY.md's graph bound: blur_sharpen_blend on the mc tier with
+    a GLSL point stage, bloom_glow per node (the tier rule against halo
+    recompute refuses its mc plan)."""
     monkeypatch.chdir(REPO_DIR)
     path = tmp_path / f"{example}.rf"
     path.write_text((EXAMPLES_DIR / f"{example}.rf").read_text())
     engine, frame, per_node, want = _render_both(str(path), "rgba32f", _u8(4))
     plan = engine.program._strip_plan
-    assert plan is not None and plan[0] == "mc"
-    assert cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
+    if example == "bloom_glow":
+        assert plan is None
+    else:
+        assert plan is not None and plan[0] == "mc"
+        assert cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
     _engine_check("rgba32f", frame, want, example)
     assert float(np.abs(frame - per_node).max()) <= 1e-5

@@ -249,8 +249,13 @@ def test_mc_plain_counts_nothing_and_checks_shapes():
     assert set(cuda_ops.LAUNCHES.values()) == {0}
     with pytest.raises(TypeError):
         cuda_ops.graph_strip_mc(x.to(torch.bfloat16), T, mc)
+    # A slab of the frame's rows is an input (a row-sharded slab, with its
+    # row0); another width or channel count is not.
     with pytest.raises(ValueError):
-        cuda_ops.graph_strip_mc(x[:, :-1], T, mc)
+        cuda_ops.graph_strip_mc(x[:, :, :-1], T, mc)
+    with pytest.raises(ValueError):
+        cuda_ops.graph_strip_mc(x[:3], T, mc)
+    assert cuda_ops.graph_strip_mc(x[:, 2:-3], T, mc, 2).shape == x[:, 2:-3].shape
     stage_i, stage_f, _scratch, _taps = mc.packed(*mc.tile()[:2])
     assert stage_i.shape == (len(mc.stages), cuda_ops.MC_STAGE_INTS)
     assert stage_f.shape == (len(mc.stages), 4)
