@@ -381,43 +381,54 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # Forms of the register-blocked kernels ptxas must compile with no stack
 # frame and no spills: graph_strip per storage type, channel-op form and
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
-# storage type and affine form (its glsl form, GLSL_FORM, keeps an op
-# list's register file in a stack frame: no spills there), conv1d per axis and form (shared memory
-# with and without premultiplied box taps, or global), stencil_apply's
-# radius-1 form per kind (wsum, median9), stencil_reduce_mc's run form
-# per radius (1..8) and tap list (full, or with a mask), and
-# stencil_apply_mc's run forms per storage type, W radius (1..3), output
-# channels (1..4) and table (full, or with a mask).
+# storage type and form (builtins, affine, and the glsl forms, GLSL_FORM,
+# two or four pixels a thread, without or with the trig ops, whose op
+# lists' register files lie in shared memory), conv1d per axis and form (shared memory with and
+# without premultiplied box taps, or global), stencil_apply's radius-1
+# form per kind (wsum, median9), stencil_reduce_mc's run form per radius
+# (1..8) and tap list (full, or with a mask), and stencil_apply_mc's run
+# forms per storage type, W radius (1..3), output channels (1..4) and
+# table (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
-                  "graph_strip_mc_kernel": 4, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
+                  "graph_strip_mc_kernel": 12, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
                   "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
-# graph_strip_mc_kernel<T, kAffine = true, kGlsl = true>, mangled.
-GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELb1EE")
+# graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig>, mangled.
+GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb[01]EE")
+# Its trig forms (kTrig, for op lists that call sinf, cosf or tanf) keep
+# one stack frame: the three's argument reduction for |x| > 105615 (CUDA's
+# math library) indexes seven words at run time.
+TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb1EE")
+TRIG_STACK = "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
 
 def _check_no_stack(log: str) -> None:
     """Every form of NO_STACK_FORMS in ptxas's output: 0 bytes stack
-    frame, 0 bytes spill stores and loads."""
-    props, entry = {}, None
+    frame (graph_strip_mc's trig forms: TRIG_STACK), 0 bytes spill stores
+    and loads; the glsl forms' registers and stack."""
+    props, regs, entry = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "bytes stack frame" in line and entry is not None:
             props.setdefault(entry, line.strip())  # the entry's own, first after it
-    glsl = {k: v for k, v in props.items() if GLSL_FORM.search(k)}
-    if len(glsl) != 2 or any(not v.endswith("0 bytes spill stores, 0 bytes spill loads")
-                             for v in glsl.values()):
-        raise AssertionError(f"ptxas: graph_strip_mc's glsl forms: {glsl}")
-    print(f"check ptxas: 2 glsl forms of graph_strip_mc_kernel, no spills: "
-          f"{sorted(set(v.split(',')[0] for v in glsl.values()))}")
+        elif "Used" in line and "registers" in line and entry is not None:
+            regs.setdefault(entry, line.split("Used")[1].split(",")[0].strip())
     for kernel, forms in NO_STACK_FORMS.items():
-        found = {k: v for k, v in props.items() if kernel in k and k not in glsl}
+        found = {k: v for k, v in props.items() if kernel in k}
         if len(found) != forms:
             raise AssertionError(f"ptxas: {len(found)} forms of {kernel}, expected {forms}")
         for name, line in found.items():
-            if line != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads":
+            if line != (TRIG_STACK if TRIG_FORM.search(name) else NO_STACK):
                 raise AssertionError(f"ptxas: {name}: {line}")
-        print(f"check ptxas: {forms} forms of {kernel}, each 0 bytes stack frame, no spills")
+        trig = " (the 4 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
+        print(f"check ptxas: {forms} forms of {kernel}, each 0 bytes stack frame{trig}, no spills")
+    glsl = {GLSL_FORM.search(k).group(0)[22:]: f"{regs[k]}, {props[k].split(',')[0]}"
+            for k in props if GLSL_FORM.search(k)}
+    if len(glsl) != 8:
+        raise AssertionError(f"ptxas: {len(glsl)} glsl forms of graph_strip_mc_kernel")
+    print(f"check ptxas: graph_strip_mc's glsl forms (f32, bf16; 2 and 4 pixels a thread; "
+          f"without and with the trig ops): {sorted(glsl.items())}")
 
 
 def _card_state() -> str:
@@ -1454,8 +1465,10 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
 
     cuda_ops.reset_launches()
     driven = {}
+    glsl_form = 0  # graph_strip_mc's launches on its glsl form (an op list, or zero mode)
     for name, (config, shader_dir) in point_graphs().items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            before_mc = cuda_ops.LAUNCHES["graph_strip_mc"]
             cfg = os.path.join(jdir, f"{name}_{fmt}.rf")
             with open(cfg, "w") as f:
                 f.write(config)
@@ -1478,12 +1491,75 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             _check_fmt(f"J {name} {fmt} {_tier(prog)} vs per node 4K", fmt, frame, per_node,
                        rgba8_steps=steps8.get(name, 2), rgba8_flips=flips8.get(name, 1e-3))
             print(f"J {name} {fmt} 4K: launches a frame {json.dumps(per_frame)} [{smi}]")
+            mc = _mc_of(prog)
+            if mc.mode == "zero" or cuda_ops.MC_GLSL in [st.op.code for st in mc.stages]:
+                glsl_form += cuda_ops.LAUNCHES["graph_strip_mc"] - before_mc
             if fmt != "rgba8":
                 driven[(name, fmt)] = (engine, prog, xf)
             else:
                 engine.close()
             del frame, seq, per_node
+    print(f"J graph_strip_mc launches on its glsl form: {glsl_form} of "
+          f"{cuda_ops.LAUNCHES['graph_strip_mc']}")
     return dict(cuda_ops.LAUNCHES), driven, chain_err
+
+
+# Path J's op-count sweep: a point shader of 4 + 6 reps ops (four loads,
+# then a multiply and an add a colour channel a step) after a gaussian.
+OP_SWEEP_REPS = (1, 6, 13, 26)  # 10, 40, 82 and 160 ops
+OP_SWEEP_GRAPH = "input -> gs -> sweep -> output\ngs: gaussian { sigma: 2.0 }\nsweep: sweep {}\n"
+
+
+def _op_sweep_shader(reps: int) -> str:
+    steps = "".join(f"    v = v * {1.0 + (k + 1) / 1024.0} + {(k + 1) / 4096.0};\n"
+                    for k in range(reps))
+    return ("#version 450\nlayout (local_size_x = 16, local_size_y = 16) in;\n"
+            "layout (binding = 0, rgba32f) uniform readonly image2D input_image;\n"
+            "layout (binding = 1, rgba32f) uniform writeonly image2D output_image;\n"
+            "void main() {\n    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);\n"
+            "    vec4 c = imageLoad(input_image, pos);\n    vec3 v = c.rgb;\n" + steps
+            + "    imageStore(output_image, pos, vec4(v, c.a));\n}\n")
+
+
+def time_op_sweep(tmp: str, smi: str, n_sms: int, max_sm_mhz: float) -> list:
+    """Path J's op-count sweep at 4K in rgba32f: OP_SWEEP_GRAPH with a
+    shader of each OP_SWEEP_REPS (a point stage after a conv adds no halo
+    recompute, so the mc plan is kept), graph_strip_mc against its plain
+    version, then its ms (CUDA events), the ms an op over the shortest
+    list's, and the issue bound.  Returns [(ops, ms)]."""
+    from reforge_tpu_torch.benchmarks import build_program, plan_steps
+    from reforge_tpu_torch.kernels import cuda_ops
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 17).random(
+        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
+    rows = []
+    for reps in OP_SWEEP_REPS:
+        sdir = os.path.join(tmp, "j", f"sweep_{reps}")
+        os.makedirs(sdir)
+        with open(os.path.join(sdir, "sweep.comp"), "w") as f:
+            f.write(_op_sweep_shader(reps))
+        prog = build_program(OP_SWEEP_GRAPH, WIDTH, HEIGHT, "rgba32f", device="cuda",
+                             shader_path=sdir)
+        if plan_steps(prog) != [("mc", ["gs", "sweep"])]:
+            raise AssertionError(f"J op sweep {reps}: plan {plan_steps(prog)}")
+        mc = prog._strip_plan[1]
+        n_ops = int(next(st.taps[0][0] for st in mc.stages if st.op.code == cuda_ops.MC_GLSL))
+        got = cuda_ops.graph_strip_mc(x, 0.5, mc)
+        want = cuda_ops.graph_strip_mc_plain(x, 0.5, mc)
+        torch.cuda.synchronize()
+        _check_fmt(f"J graph_strip_mc op sweep, {n_ops} ops, 4K rgba32f vs its plain version",
+                   "rgba32f", got, want)
+        del got, want
+        ms = _time_ms(lambda: cuda_ops.graph_strip_mc(x, 0.5, mc), 20)
+        bound_ms, bound_by = _issue_bound(2 * 4 * HEIGHT * WIDTH * 4,
+                                          HEIGHT * WIDTH * _mc_ops_per_pixel(mc, cuda_ops),
+                                          n_sms, max_sm_mhz)
+        over = (f"{(ms - rows[0][1]) / (n_ops - rows[0][0]):.5f} ms/op over the "
+                f"{rows[0][0]}-op list" if rows else f"{ms / n_ops:.5f} ms/op of the whole kernel")
+        print(f"J glsl ops {n_ops}: {ms:.4f} ms, {over} (gaussian sigma 2 before it, tile "
+              f"{mc.tile()[:2]}; bound {bound_ms:.4f} ms, {bound_by}) [{smi}]", flush=True)
+        rows.append((n_ops, ms))
+    return rows
 
 
 def _segments_without_point_stages(prog):
@@ -2897,6 +2973,7 @@ def main() -> int:
     del driven_i
     chain_row = time_path_j(driven_j, smi, n_sms, max_sm_mhz)
     del driven_j
+    time_op_sweep(tmp, smi, n_sms, max_sm_mhz)
     counts_k, kept_k = path_k(tmp, smi)
     print(f"main path K (parallel/: row slabs, pipeline stages, batch shares, --shard) launches: "
           f"{json.dumps(counts_k)}")

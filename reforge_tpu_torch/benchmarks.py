@@ -344,7 +344,8 @@ GLSL_SHARPEN_CONFIG = (
     "tm: tonemap { exposure: 1.1 }\n"
 )
 # tonemap.comp's op list before sharpen.comp's stencil, whose tap lists
-# (five terms) put the op list on an odd word of the kernel's shared memory.
+# (five terms) leave the taps an odd count: McProgram pads the positions
+# after them, and with them the op list, to an even word of shared memory.
 TONEMAP_SHARPEN_CONFIG = (
     "input -> tm -> sh -> output\n"
     "tm: tonemap { exposure: 1.1 }\n"

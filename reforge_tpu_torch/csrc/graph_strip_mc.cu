@@ -44,8 +44,9 @@
 //     s_c v_c + p_c x_c + b_c of the conv or stencil stage before it (v,
 //     f32) and that stage's input (x), its twelve floats as tap list 0;
 //     and a GLSL point shader's op list (glsl/lower.py PointProgram, the
-//     int words of tap list 0), evaluated at each pixel over per-thread
-//     register files (MC_GLSL, the kernel's glsl form only).
+//     int words of tap list 0), evaluated for several pixels a thread over
+//     register files in shared memory (MC_GLSL, the kernel's glsl form
+//     only; glsl_cells).
 //   * Border mode, whole-plan.  "edge" (every builtin, and GLSL shaders
 //     that clamp their reads) or "zero" (a synthesized GLSL conv or
 //     stencil that reads out of bounds as zero, GL's robust access): the
@@ -73,8 +74,6 @@
 // PERF.md).
 //
 // Grid: (ceil(W / TW), ceil(H / TH)).
-
-#include <type_traits>
 
 #include "conv_tile.cuh"
 #include "pixel_ops.cuh"
@@ -123,6 +122,12 @@ constexpr int kMcNone = -1, kMcGlobal = -2, kMcInputBlock = -3;
 
 __device__ __forceinline__ int pitch(int cols) { return cols | 1; }
 
+// The kernel's lambdas are inlined by force: left to NVVM's heuristics, two
+// of them (a conv's W pass, a point stage's cell) stayed calls in every
+// form, their closures in a 776-byte stack frame, once the glsl form's
+// op list was compiled beside them.
+#define RF_INLINE __attribute__((always_inline))
+
 // Outputs a thread computes along a conv pass: a full run takes
 // conv_tile.cuh's run_conv, a run cut by the block's edge conv_run below.
 constexpr int kRun = kConvRun;
@@ -152,6 +157,8 @@ struct McArgs {
   // image has height rows (0 and the input's rows for a whole frame).
   // Coordinates are the image's; clamped reads stop at the slab's edge.
   int row0, height;
+  int glsl_pix;   // an op list's pixels a thread: 2 or 4
+  int glsl_trig;  // an op list calls sinf, cosf or tanf
 };
 
 struct McGeo {
@@ -310,11 +317,7 @@ __device__ __forceinline__ void point_op(const McStage& st, const float* a, cons
 // KERNEL_OPS, in this order), so the kernel dispatches once an op.  Two
 // register files, floats and integers (i32, i64 -- the interpreter's
 // uint, int64 masked to 32 bits -- and bool as 0 or 1, all in 64 bits,
-// i32 sign-extended), each holding the program's live values and then its
-// constants, loaded once a stage.  The files are arrays indexed at run
-// time, so they live in local memory (register arrays need constant
-// indices); the form that holds them compiles apart from the builtins'
-// and affine forms, which keep their registers.
+// i32 sign-extended), each sized to the program's live registers.
 enum GlslKop : int {
   K_LOAD = 0, K_COORD_X, K_COORD_Y, K_TIME, K_FADD, K_FSUB, K_FMUL, K_FDIV, K_FREM, K_FFMOD,
   K_FMAX, K_FMIN, K_FPOW, K_FATAN2, K_FEQ, K_FNE, K_FLT, K_FLE, K_FGT, K_FGE, K_FNEG, K_FABS,
@@ -325,25 +328,80 @@ enum GlslKop : int {
   K_INEG, K_IABS, K_ISIGN, K_INOT, K_ILNOT, K_IWHERE, K_ICLAMP, K_F2I, K_F2L, K_F2B, K_I2F, K_L2F,
   K_B2F, K_L2I, K_I2B, K_ICOPY,
 };
-// File sizes (glsl/lower.py MAX_F, MAX_I) and the header's ints: ops, the
-// files' live registers, the float and integer constants, the four
-// output channels' float registers.
-constexpr int kGlslF = 64, kGlslI = 32, kGlslHead = 9;
+// The packed program's header ints (glsl/lower.py HEAD_INTS: ops, the
+// files' live registers, the float and integer constants, the four output
+// channels' operands, flags) and the bit of an operand field that names a
+// constant (CONST).  P below: the pixels a thread evaluates together, 2
+// or 4, the plan's choice (cuda_ops.MC_GLSL_PIXELS, McProgram.tile); a
+// register's plane holds one value a lane, P lanes a thread.
+constexpr int kGlslHead = 10, kGlslConst = 0x80;
 
-struct GlslFile {
-  float f[kGlslF];
-  long long i[kGlslI];
+// Design (H100).  An op list indexes its registers at run time, and
+// register arrays need constant indices, so the files live in shared
+// memory, register-major with the lanes consecutive (plane r, lane p *
+// kThreads + thread): a warp's access to one register of one pixel is 32
+// consecutive words, conflict-free.  The region overlays the conv windows
+// and H-pass scratch, which no point stage touches (cuda_ops.McProgram
+// ._layout), so a plan with a conv pays for the files only past that
+// span.  Constants stay in the program's own table in the block's idx
+// copy, read as a broadcast (never copied into a file).  Each thread runs
+// the list for P cells of the block at once: an op is read (one
+// 8-byte load; the lists start on even words) and dispatched once for
+// P independent chains, whose shared-memory latencies overlap.
+
+// An operand for the P pixels: a register's plane at this thread's
+// first lane (step kThreads to the next pixel's), or a constant (step 0).
+template <typename V>
+struct GlslSrc {
+  const V* p;
+  int step;
+  __device__ __forceinline__ V operator[](int k) const { return p[k * step]; }
 };
 
-// The constants of a program into its files, after the live registers.
-__device__ __forceinline__ void glsl_constants(const int* __restrict__ prog, GlslFile& r) {
-  const int n_f = prog[1], n_i = prog[2], k_f = prog[3], k_i = prog[4];
-  const int* c = prog + kGlslHead;
-  for (int k = 0; k < k_f; ++k) r.f[n_f + k] = __int_as_float(c[k]);
-  c += k_f;
-  for (int k = 0; k < k_i; ++k)
-    r.i[n_i + k] = (long long)(((unsigned long long)(unsigned)c[2 * k + 1] << 32) |
-                               (unsigned)c[2 * k]);
+template <int P>
+struct GlslFiles {
+  static constexpr int kLanes = kThreads * P;
+  float* f;             // float register 0 at this thread's first lane
+  long long* i;         // integer register 0 there
+  const float* cf;      // the float constants
+  const long long* ci;  // the integer constants
+  __device__ __forceinline__ GlslSrc<float> fs(int a) const {
+    return a & kGlslConst ? GlslSrc<float>{cf + (a & (kGlslConst - 1)), 0}
+                          : GlslSrc<float>{f + a * kLanes, kThreads};
+  }
+  __device__ __forceinline__ GlslSrc<long long> is(int a) const {
+    return a & kGlslConst ? GlslSrc<long long>{ci + (a & (kGlslConst - 1)), 0}
+                          : GlslSrc<long long>{i + a * kLanes, kThreads};
+  }
+};
+
+// dst[pixel k] = fn(k) for the P pixels: every pixel's operands
+// read before any result is stored (a store may alias a later read, so
+// the compiler keeps the order written: loads, ops, stores), so that the
+// chains' shared-memory latencies overlap.
+template <int P, typename V, typename Fn>
+__device__ __forceinline__ void glsl_each(V* dst, Fn fn) {
+  V v[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[k] = fn(k);
+#pragma unroll
+  for (int k = 0; k < P; ++k) dst[k * kThreads] = v[k];
+}
+
+// The same, one pixel after another in a loop kept rolled: for the ops
+// whose code is long (transcendentals, remainders, 64-bit division), so
+// that the list's code stays small; their own latency covers the chain.
+template <int P, typename V, typename Fn>
+__device__ __forceinline__ void glsl_each_rolled(V* dst, Fn fn) {
+#pragma unroll 1
+  for (int k = 0; k < P; ++k) dst[k * kThreads] = fn(k);
+}
+
+// dst = fn(a, b) of two float operands, for the P pixels.
+template <int P, typename Fn>
+__device__ __forceinline__ void glsl_ff(const GlslFiles<P>& R, float* dst, int x, int y, Fn fn) {
+  const GlslSrc<float> X = R.fs(x), Y = R.fs(y);
+  glsl_each<P>(dst, [&](int k) RF_INLINE { return fn(X[k], Y[k]); });
 }
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -351,157 +409,285 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
   return w ? (long long)(int)v : v;
 }
 
-// The op list at one pixel: a, b the two inputs' channels, (gy, gx) the
-// image pixel; o the four output channels.  Float ops round once each,
-// with the CUDA math functions that torch's CUDA kernels call for the
-// interpreter's ops (expf for torch.exp, sinf for torch.sin, ...), a
-// correctly rounded square root and reciprocal, round half to even;
-// maximum and minimum propagate NaN (torch's rule); remainder takes the
-// divisor's sign, fmod the dividend's.  Integer ops wrap in their width
-// (the op's wrap flag: i32); division truncates (IDIV) or floors
+// The op list for P pixels: in0/in1 the stage's input views, at0 /
+// at1 each pixel's offset in them, (gy, gx) its image pixel.  Float ops
+// round once each, with the CUDA math functions that torch's CUDA kernels
+// call for the interpreter's ops (expf for torch.exp, sinf for torch.sin,
+// ...), a correctly rounded square root and reciprocal, round half to
+// even; maximum and minimum propagate NaN (torch's rule); remainder takes
+// the divisor's sign, fmod the dividend's.  Integer ops wrap in their
+// width (the op's wrap flag: i32); division truncates (IDIV) or floors
 // (IFLOORDIV).  Casts convert as torch does: float to integer truncates
 // toward zero, i64 to i32 wraps, anything nonzero (NaN too) is true.
-__device__ __forceinline__ void glsl_point(const int* __restrict__ prog, GlslFile& r,
-                                           const float* a, const float* b, int gy, int gx,
-                                           float time, float* o) {
-  const int n_ops = prog[0];
-  // Two words an op, read one at a time: the list may start on any word.
-  const int* ops = prog + kGlslHead + prog[3] + 2 * prog[4];
-  float* F = r.f;
-  long long* I = r.i;
+// The plain float arithmetic (FMUL, FADD, FSUB) is tested first, a
+// compare each: the compiler lowers the switch of the other ops to a
+// search tree some seven branches deep.  (Keeping the last op's results
+// in registers for the next op, forwarded past shared memory, ran
+// glsl-chain 12% slower on the card.)
+template <int P, bool kTrig>
+__device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const GlslFiles<P>& R,
+                                         const View& in0, const View& in1, const int (&at0)[P],
+                                         const int (&at1)[P], const int (&gy)[P],
+                                         const int (&gx)[P], float time) {
+  const int n_ops = prog[0], k_f = prog[3];
+  const int2* ops = reinterpret_cast<const int2*>(prog + kGlslHead + k_f + (k_f & 1) + 2 * prog[4]);
+  int2 next = n_ops > 0 ? ops[0] : int2{0, 0};
   for (int n = 0; n < n_ops; ++n) {
-    const unsigned w0 = ops[2 * n], w1 = ops[2 * n + 1];
-    const int d = (w0 >> 8) & 255, x = (w0 >> 16) & 255, y = w0 >> 24;
+    // The next op's words load before this op's stores (which the compiler
+    // may not move them past: both lie in shared memory).
+    const unsigned w0 = next.x, w1 = next.y;
+    if (n + 1 < n_ops) next = ops[n + 1];
+    const int op = w0 & 255, d = (w0 >> 8) & 255, x = (w0 >> 16) & 255, y = w0 >> 24;
     const int z = w1 & 255, u = (w1 >> 8) & 255;
     const bool wr = (w1 >> 16) & 1;
-    switch (w0 & 255) {
-      case K_LOAD: F[d] = x == 0 ? a[y] : b[y]; break;
-      case K_COORD_X: I[d] = gx; break;
-      case K_COORD_Y: I[d] = gy; break;
-      case K_TIME: F[d] = time; break;
-      case K_FADD: F[d] = __fadd_rn(F[x], F[y]); break;
-      case K_FSUB: F[d] = __fsub_rn(F[x], F[y]); break;
-      case K_FMUL: F[d] = __fmul_rn(F[x], F[y]); break;
-      case K_FDIV: F[d] = __fdiv_rn(F[x], F[y]); break;
-      case K_FREM: {
-        float m = fmodf(F[x], F[y]);
-        if (m != 0.f && ((F[y] < 0.f) != (m < 0.f))) m = __fadd_rn(m, F[y]);
-        F[d] = m;
+    float* const F = R.f + d * R.kLanes;
+    long long* const I = R.i + d * R.kLanes;
+    if (op == K_FMUL) {
+      glsl_ff<P>(R, F, x, y, [](float a, float b) RF_INLINE { return __fmul_rn(a, b); });
+      continue;
+    }
+    if (op == K_FADD) {
+      glsl_ff<P>(R, F, x, y, [](float a, float b) RF_INLINE { return __fadd_rn(a, b); });
+      continue;
+    }
+    if (op == K_FSUB) {
+      glsl_ff<P>(R, F, x, y, [](float a, float b) RF_INLINE { return __fsub_rn(a, b); });
+      continue;
+    }
+    switch (op) {
+      case K_LOAD: {  // channel y of input x, straight from its view
+        const bool first = x == 0;
+        const float* src = first ? in0.p + y * in0.plane : in1.p + y * in1.plane;
+        glsl_each<P>(F, [&](int k) RF_INLINE { return src[first ? at0[k] : at1[k]]; });
         break;
       }
-      case K_FFMOD: F[d] = fmodf(F[x], F[y]); break;
-      case K_FMAX: F[d] = F[x] != F[x] || F[y] != F[y] ? nan_f() : fmaxf(F[x], F[y]); break;
-      case K_FMIN: F[d] = F[x] != F[x] || F[y] != F[y] ? nan_f() : fminf(F[x], F[y]); break;
-      case K_FPOW: F[d] = powf(F[x], F[y]); break;
-      case K_FATAN2: F[d] = atan2f(F[x], F[y]); break;
-      case K_FEQ: I[d] = F[x] == F[y]; break;
-      case K_FNE: I[d] = F[x] != F[y]; break;
-      case K_FLT: I[d] = F[x] < F[y]; break;
-      case K_FLE: I[d] = F[x] <= F[y]; break;
-      case K_FGT: I[d] = F[x] > F[y]; break;
-      case K_FGE: I[d] = F[x] >= F[y]; break;
-      case K_FNEG: F[d] = -F[x]; break;
-      case K_FABS: F[d] = fabsf(F[x]); break;
-      case K_FSIGN: F[d] = (float)((0.f < F[x]) - (F[x] < 0.f)); break;
-      case K_FFLOOR: F[d] = floorf(F[x]); break;
-      case K_FCEIL: F[d] = ceilf(F[x]); break;
-      case K_FTRUNC: F[d] = truncf(F[x]); break;
-      case K_FROUND: F[d] = rintf(F[x]); break;
-      case K_FEXP: F[d] = expf(F[x]); break;
-      case K_FEXP2: F[d] = exp2f(F[x]); break;
-      case K_FLOG: F[d] = logf(F[x]); break;
-      case K_FLOG2: F[d] = log2f(F[x]); break;
-      case K_FSQRT: F[d] = __fsqrt_rn(F[x]); break;
-      case K_FRECIP: F[d] = __fdiv_rn(1.f, F[x]); break;
-      case K_FSIN: F[d] = sinf(F[x]); break;
-      case K_FCOS: F[d] = cosf(F[x]); break;
-      case K_FTAN: F[d] = tanf(F[x]); break;
-      case K_FASIN: F[d] = asinf(F[x]); break;
-      case K_FACOS: F[d] = acosf(F[x]); break;
-      case K_FATAN: F[d] = atanf(F[x]); break;
-      case K_FSINH: F[d] = sinhf(F[x]); break;
-      case K_FCOSH: F[d] = coshf(F[x]); break;
-      case K_FTANH: F[d] = tanhf(F[x]); break;
-      case K_FISNAN: I[d] = F[x] != F[x]; break;
-      case K_FWHERE: F[d] = I[x] ? F[y] : F[z]; break;
-      case K_FCLAMP:
-        F[d] = F[x] != F[x] ? F[x] : fminf(fmaxf(F[x], F[y]), F[z]);
+      case K_COORD_X: glsl_each<P>(I, [&](int k) RF_INLINE { return (long long)gx[k]; }); break;
+      case K_COORD_Y: glsl_each<P>(I, [&](int k) RF_INLINE { return (long long)gy[k]; }); break;
+      case K_TIME: glsl_each<P>(F, [&](int) RF_INLINE { return time; }); break;
+#define GLSL_F2(each, dst, expr)                                 \
+  {                                                              \
+    const GlslSrc<float> X = R.fs(x), Y = R.fs(y);               \
+    each(dst, [&](int k) RF_INLINE { const float a = X[k], b = Y[k]; return (expr); }); \
+  }                                                              \
+  break
+#define GLSL_F1(each, dst, expr)                                 \
+  {                                                              \
+    const GlslSrc<float> X = R.fs(x);                            \
+    each(dst, [&](int k) RF_INLINE { const float a = X[k]; return (expr); }); \
+  }                                                              \
+  break
+#define GLSL_I2(each, expr)                                      \
+  {                                                              \
+    const GlslSrc<long long> X = R.is(x), Y = R.is(y);           \
+    each(I, [&](int k) RF_INLINE {                               \
+      const long long a = X[k], b = Y[k];                        \
+      return (long long)(expr);                                  \
+    });                                                          \
+  }                                                              \
+  break
+#define GLSL_I1(dst, expr)                                       \
+  {                                                              \
+    const GlslSrc<long long> X = R.is(x);                        \
+    glsl_each<P>(dst, [&](int k) RF_INLINE { const long long a = X[k]; return (expr); }); \
+  }                                                              \
+  break
+      case K_FDIV: GLSL_F2(glsl_each<P>, F, __fdiv_rn(a, b));
+      case K_FREM: GLSL_F2(glsl_each_rolled<P>, F, [&] {
+        float m = fmodf(a, b);
+        if (m != 0.f && ((b < 0.f) != (m < 0.f))) m = __fadd_rn(m, b);
+        return m;
+      }());
+      case K_FFMOD: GLSL_F2(glsl_each_rolled<P>, F, fmodf(a, b));
+      case K_FMAX: GLSL_F2(glsl_each<P>, F, a != a || b != b ? nan_f() : fmaxf(a, b));
+      case K_FMIN: GLSL_F2(glsl_each<P>, F, a != a || b != b ? nan_f() : fminf(a, b));
+      case K_FPOW: GLSL_F2(glsl_each_rolled<P>, F, powf(a, b));
+      case K_FATAN2: GLSL_F2(glsl_each_rolled<P>, F, atan2f(a, b));
+      case K_FEQ: GLSL_F2(glsl_each<P>, I, (long long)(a == b));
+      case K_FNE: GLSL_F2(glsl_each<P>, I, (long long)(a != b));
+      case K_FLT: GLSL_F2(glsl_each<P>, I, (long long)(a < b));
+      case K_FLE: GLSL_F2(glsl_each<P>, I, (long long)(a <= b));
+      case K_FGT: GLSL_F2(glsl_each<P>, I, (long long)(a > b));
+      case K_FGE: GLSL_F2(glsl_each<P>, I, (long long)(a >= b));
+      case K_FNEG: GLSL_F1(glsl_each<P>, F, -a);
+      case K_FABS: GLSL_F1(glsl_each<P>, F, fabsf(a));
+      case K_FSIGN: GLSL_F1(glsl_each<P>, F, (float)((0.f < a) - (a < 0.f)));
+      case K_FFLOOR: GLSL_F1(glsl_each<P>, F, floorf(a));
+      case K_FCEIL: GLSL_F1(glsl_each<P>, F, ceilf(a));
+      case K_FTRUNC: GLSL_F1(glsl_each<P>, F, truncf(a));
+      case K_FROUND: GLSL_F1(glsl_each<P>, F, rintf(a));
+      case K_FEXP: GLSL_F1(glsl_each_rolled<P>, F, expf(a));
+      case K_FEXP2: GLSL_F1(glsl_each_rolled<P>, F, exp2f(a));
+      case K_FLOG: GLSL_F1(glsl_each_rolled<P>, F, logf(a));
+      case K_FLOG2: GLSL_F1(glsl_each_rolled<P>, F, log2f(a));
+      case K_FSQRT: GLSL_F1(glsl_each<P>, F, __fsqrt_rn(a));
+      case K_FRECIP: GLSL_F1(glsl_each<P>, F, __fdiv_rn(1.f, a));
+// Only the trig forms (a list whose header flags sinf, cosf or tanf) carry
+// the three: their argument reduction for |x| > 105615 indexes seven words
+// at run time, a 32-byte stack frame the other forms do without.
+#define GLSL_TRIG(fn)                                            \
+  if constexpr (kTrig) {                                         \
+    const GlslSrc<float> X = R.fs(x);                            \
+    glsl_each_rolled<P>(F, [&](int k) RF_INLINE { return fn(X[k]); }); \
+  } else {                                                       \
+    glsl_each<P>(F, [&](int) RF_INLINE { return nan_f(); });     \
+  }                                                              \
+  break
+      case K_FSIN: GLSL_TRIG(sinf);
+      case K_FCOS: GLSL_TRIG(cosf);
+      case K_FTAN: GLSL_TRIG(tanf);
+      case K_FASIN: GLSL_F1(glsl_each_rolled<P>, F, asinf(a));
+      case K_FACOS: GLSL_F1(glsl_each_rolled<P>, F, acosf(a));
+      case K_FATAN: GLSL_F1(glsl_each_rolled<P>, F, atanf(a));
+      case K_FSINH: GLSL_F1(glsl_each_rolled<P>, F, sinhf(a));
+      case K_FCOSH: GLSL_F1(glsl_each_rolled<P>, F, coshf(a));
+      case K_FTANH: GLSL_F1(glsl_each_rolled<P>, F, tanhf(a));
+      case K_FISNAN: GLSL_F1(glsl_each<P>, I, (long long)(a != a));
+      case K_FWHERE: {
+        const GlslSrc<long long> C = R.is(x);
+        const GlslSrc<float> A = R.fs(y), B = R.fs(z);
+        glsl_each<P>(F, [&](int k) RF_INLINE { return C[k] ? A[k] : B[k]; });
         break;
-      case K_FNAN2NUM:
-        F[d] = F[x] != F[x] ? F[y] : isinf(F[x]) ? (F[x] > 0.f ? F[z] : F[u]) : F[x];
+      }
+      case K_FCLAMP: {
+        const GlslSrc<float> A = R.fs(x), L = R.fs(y), U = R.fs(z);
+        glsl_each<P>(F, [&](int k) RF_INLINE {
+          const float a = A[k];
+          return a != a ? a : fminf(fmaxf(a, L[k]), U[k]);
+        });
         break;
+      }
+      case K_FNAN2NUM: {
+        const GlslSrc<float> A = R.fs(x), N = R.fs(y), Pos = R.fs(z), Neg = R.fs(u);
+        glsl_each<P>(F, [&](int k) RF_INLINE {
+          const float a = A[k];
+          return a != a ? N[k] : isinf(a) ? (a > 0.f ? Pos[k] : Neg[k]) : a;
+        });
+        break;
+      }
       case K_IADD:
-        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] + (unsigned long long)I[y]));
-        break;
+        GLSL_I2(glsl_each<P>, wrap32(wr, (long long)((unsigned long long)a + (unsigned long long)b)));
       case K_ISUB:
-        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] - (unsigned long long)I[y]));
-        break;
+        GLSL_I2(glsl_each<P>, wrap32(wr, (long long)((unsigned long long)a - (unsigned long long)b)));
       case K_IMUL:
-        I[d] = wrap32(wr, (long long)((unsigned long long)I[x] * (unsigned long long)I[y]));
-        break;
+        GLSL_I2(glsl_each<P>, wrap32(wr, (long long)((unsigned long long)a * (unsigned long long)b)));
       case K_IDIV:
-        I[d] = I[y] == 0 ? 0
-             : I[y] == -1 ? wrap32(wr, (long long)(0ull - (unsigned long long)I[x]))
-                          : I[x] / I[y];
-        break;
-      case K_IFLOORDIV: {
-        const long long p = I[x], q = I[y];
+        GLSL_I2(glsl_each_rolled<P>,
+                b == 0 ? 0 : b == -1 ? wrap32(wr, (long long)(0ull - (unsigned long long)a)) : a / b);
+      case K_IFLOORDIV: GLSL_I2(glsl_each_rolled<P>, [&] {
         long long v = 0;
-        if (q == -1) {
-          v = wrap32(wr, (long long)(0ull - (unsigned long long)p));
-        } else if (q != 0) {
-          v = p / q;
-          if (p % q != 0 && ((p < 0) != (q < 0))) --v;
+        if (b == -1) {
+          v = wrap32(wr, (long long)(0ull - (unsigned long long)a));
+        } else if (b != 0) {
+          v = a / b;
+          if (a % b != 0 && ((a < 0) != (b < 0))) --v;
         }
-        I[d] = v;
-        break;
-      }
-      case K_IREM: {
-        const long long q = I[y];
-        long long v = q == 0 || q == -1 ? 0 : I[x] % q;
-        if (v != 0 && ((v < 0) != (q < 0))) v += q;
-        I[d] = v;
-        break;
-      }
-      case K_IFMOD: I[d] = I[y] == 0 || I[y] == -1 ? 0 : I[x] % I[y]; break;
-      case K_IMAX: I[d] = I[x] > I[y] ? I[x] : I[y]; break;
-      case K_IMIN: I[d] = I[x] < I[y] ? I[x] : I[y]; break;
-      case K_IAND: I[d] = I[x] & I[y]; break;
-      case K_IOR: I[d] = I[x] | I[y]; break;
-      case K_IXOR: I[d] = I[x] ^ I[y]; break;
-      case K_IEQ: I[d] = I[x] == I[y]; break;
-      case K_INE: I[d] = I[x] != I[y]; break;
-      case K_ILT: I[d] = I[x] < I[y]; break;
-      case K_ILE: I[d] = I[x] <= I[y]; break;
-      case K_IGT: I[d] = I[x] > I[y]; break;
-      case K_IGE: I[d] = I[x] >= I[y]; break;
-      case K_INEG: I[d] = wrap32(wr, (long long)(0ull - (unsigned long long)I[x])); break;
+        return v;
+      }());
+      case K_IREM: GLSL_I2(glsl_each_rolled<P>, [&] {
+        long long v = b == 0 || b == -1 ? 0 : a % b;
+        if (v != 0 && ((v < 0) != (b < 0))) v += b;
+        return v;
+      }());
+      case K_IFMOD: GLSL_I2(glsl_each_rolled<P>, b == 0 || b == -1 ? 0 : a % b);
+      case K_IMAX: GLSL_I2(glsl_each<P>, a > b ? a : b);
+      case K_IMIN: GLSL_I2(glsl_each<P>, a < b ? a : b);
+      case K_IAND: GLSL_I2(glsl_each<P>, a & b);
+      case K_IOR: GLSL_I2(glsl_each<P>, a | b);
+      case K_IXOR: GLSL_I2(glsl_each<P>, a ^ b);
+      case K_IEQ: GLSL_I2(glsl_each<P>, a == b);
+      case K_INE: GLSL_I2(glsl_each<P>, a != b);
+      case K_ILT: GLSL_I2(glsl_each<P>, a < b);
+      case K_ILE: GLSL_I2(glsl_each<P>, a <= b);
+      case K_IGT: GLSL_I2(glsl_each<P>, a > b);
+      case K_IGE: GLSL_I2(glsl_each<P>, a >= b);
+      case K_INEG: GLSL_I1(I, wrap32(wr, (long long)(0ull - (unsigned long long)a)));
       case K_IABS:
-        I[d] = wrap32(wr, I[x] < 0 ? (long long)(0ull - (unsigned long long)I[x]) : I[x]);
-        break;
-      case K_ISIGN: I[d] = (I[x] > 0) - (I[x] < 0); break;
-      case K_INOT: I[d] = wrap32(wr, ~I[x]); break;
-      case K_ILNOT: I[d] = I[x] == 0; break;
-      case K_IWHERE: I[d] = I[x] ? I[y] : I[z]; break;
-      case K_ICLAMP: {
-        const long long v = I[x] < I[y] ? I[y] : I[x];
-        I[d] = v > I[z] ? I[z] : v;
+        GLSL_I1(I, wrap32(wr, a < 0 ? (long long)(0ull - (unsigned long long)a) : a));
+      case K_ISIGN: GLSL_I1(I, (long long)((a > 0) - (a < 0)));
+      case K_INOT: GLSL_I1(I, wrap32(wr, ~a));
+      case K_ILNOT: GLSL_I1(I, (long long)(a == 0));
+      case K_IWHERE: {
+        const GlslSrc<long long> C = R.is(x), A = R.is(y), B = R.is(z);
+        glsl_each<P>(I, [&](int k) RF_INLINE { return C[k] ? A[k] : B[k]; });
         break;
       }
-      case K_F2I: I[d] = __float2int_rz(F[x]); break;
-      case K_F2L: I[d] = __float2ll_rz(F[x]); break;
-      case K_F2B: I[d] = F[x] != 0.f; break;
-      case K_I2F: F[d] = __int2float_rn((int)I[x]); break;
-      case K_L2F: F[d] = __ll2float_rn(I[x]); break;
-      case K_B2F: F[d] = I[x] ? 1.f : 0.f; break;
-      case K_L2I: I[d] = (long long)(int)I[x]; break;
-      case K_I2B: I[d] = I[x] != 0; break;
-      case K_ICOPY: I[d] = I[x]; break;
-      default: F[d] = nan_f();  // an opcode this kernel lacks
+      case K_ICLAMP: {
+        const GlslSrc<long long> A = R.is(x), L = R.is(y), U = R.is(z);
+        glsl_each<P>(I, [&](int k) RF_INLINE {
+          const long long v = A[k] < L[k] ? L[k] : A[k];
+          return v > U[k] ? U[k] : v;
+        });
+        break;
+      }
+      case K_F2I: GLSL_F1(glsl_each<P>, I, (long long)__float2int_rz(a));
+      case K_F2L: GLSL_F1(glsl_each<P>, I, __float2ll_rz(a));
+      case K_F2B: GLSL_F1(glsl_each<P>, I, (long long)(a != 0.f));
+      case K_I2F: GLSL_I1(F, __int2float_rn((int)a));
+      case K_L2F: GLSL_I1(F, __ll2float_rn(a));
+      case K_B2F: GLSL_I1(F, a ? 1.f : 0.f);
+      case K_L2I: GLSL_I1(I, (long long)(int)a);
+      case K_I2B: GLSL_I1(I, (long long)(a != 0));
+      case K_ICOPY: GLSL_I1(I, a);
+#undef GLSL_F2
+#undef GLSL_F1
+#undef GLSL_I2
+#undef GLSL_I1
+#undef GLSL_TRIG
+      default: glsl_each<P>(F, [&](int) RF_INLINE { return nan_f(); });  // an opcode this kernel lacks
     }
   }
+}
+
+// An MC_GLSL stage over a rows x cols block whose pixel (0, 0) is image
+// pixel (by, bx) of the slab (its row 0 the image's row0): for_each_cell's
+// cells, P of them a thread at once (items threadIdx.x + (k + j P)
+// blockDim.x).  A cell past the block or outside the image runs
+// the list on the view's first pixel and stores nothing.  prog: the packed
+// program in the block's idx copy (an even word); files: the register
+// files' region (8-byte aligned).
+template <int P, bool kTrig, typename Put>
+__device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* files,
+                                           const View& in0, const View& in1, int rows, int cols,
+                                           int by, int bx, int H, int W, int row0, float time,
+                                           Put put) {
+  const int n = rows * cols, k_f = prog[3];
+  GlslFiles<P> R;
+  R.i = reinterpret_cast<long long*>(files) + threadIdx.x;
+  R.f = files + 2 * prog[2] * R.kLanes + threadIdx.x;
+  R.cf = reinterpret_cast<const float*>(prog + kGlslHead);
+  R.ci = reinterpret_cast<const long long*>(prog + kGlslHead + k_f + (k_f & 1));
+  const int dr = blockDim.x / cols, dc = blockDim.x - dr * cols;
+  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+  for (int i = threadIdx.x; i < n; i += P * blockDim.x) {
+    int cr[P], cc[P], at0[P], at1[P], gy[P], gx[P];
+    bool ok[P];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) o[c] = F[prog[5 + c]];
+    for (int k = 0; k < P; ++k) {
+      const bool in_block = i + k * (int)blockDim.x < n;
+      cr[k] = r;
+      cc[k] = c;
+      gy[k] = by + r;
+      gx[k] = bx + c;
+      ok[k] = in_block && gy[k] >= 0 && gy[k] < H && gx[k] >= 0 && gx[k] < W;
+      at0[k] = in_block ? r * in0.pitch + c : 0;
+      at1[k] = in_block ? r * in1.pitch + c : 0;
+      gy[k] += row0;  // the image row
+      r += dr;
+      c += dc;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+    glsl_ops<P, kTrig>(prog, R, in0, in1, at0, at1, gy, gx, time);
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      const GlslSrc<float> S = R.fs(prog[5 + ch]);
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (ok[k]) put(ch, cr[k], cc[k], S[k]);
+    }
+  }
 }
 
 __device__ __forceinline__ float conv_epilogue(int code, int c, float blur, float x, const float* p) {
@@ -673,12 +859,13 @@ __device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
 }
 
 // kAffine: the plan has MC_AFFINE stages (synthesized GLSL convs and
-// stencils); kGlsl: it has MC_GLSL stages (point shaders, with the affine
-// ones), whose register files live in local memory, or reads in zero
-// mode (launch_form).  The builtins' and affine forms keep the edge
-// mode's code alone (a runtime zero flag cost the affine form 1.5% on
-// glsl-blur-sharpen, PERF.md).
-template <typename T, bool kAffine, bool kGlsl>
+// stencils); kGlsl > 0: it has MC_GLSL stages (point shaders, with the
+// affine ones), evaluated kGlsl (2 or 4) pixels a thread, or reads in
+// zero mode; kTrig: an op list calls sinf, cosf or tanf (launch_form).
+// The builtins' and affine forms keep the edge mode's code alone (a
+// runtime zero flag cost the affine form 1.5% on glsl-blur-sharpen,
+// PERF.md).
+template <typename T, bool kAffine, int kGlsl, bool kTrig>
 __global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int vec, int store, float time, const float* __restrict__ taps_g,
@@ -693,7 +880,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   float* taps = sm + args.taps_off;
   int* idx = reinterpret_cast<int*>(taps + args.n_taps);
   float* win = sm + args.win_off;
-  const bool zero = kGlsl && args.zero != 0;
+  const bool zero = kGlsl > 0 && args.zero != 0;
 
   if (args.in_used) {
     const int in_plane = in_t.wrows() * in_t.wp;
@@ -706,7 +893,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
     const int s = i / kDense, k = i - s * kDense;
     const McStage& st = args.st[s];
     float v = 0.f;
-    if (st.kind == MC_POINT && !(kGlsl && st.code == MC_GLSL))
+    if (st.kind == MC_POINT && !(kGlsl > 0 && st.code == MC_GLSL))
       for (int t = 0; t < st.n0; ++t) {
         const int pos = idx_g[st.t0 + t];
         if ((pos >> 6) * 3 + (pos & 63) == k) v = taps_g[st.t0 + t];
@@ -722,7 +909,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
     const int by = y0 - st.eh, bx = x0 - st.ew;  // image pixel of block (0, 0)
     const int dpitch = pitch(cols), dplane = rows * dpitch;
     // Block pixel (r, cc), in the image, channel c.
-    auto put = [&](int c, int r, int cc, float v) {
+    auto put = [&](int c, int r, int cc, float v) RF_INLINE {
       if (st.store) v = store_round(v, store);
       if (st.out_off < 0)
         out[c * plane + (size_t)(by + r) * W + bx + cc] = from_f32<T>(v);
@@ -752,7 +939,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
       const int n_w = rows * ((cols + kRun - 1) / kRun);
       // kRun rows of one column of channel c's H pass (lanes on
       // consecutive columns) into scratch half c & 1.
-      auto h_item = [&](int c, int i) {
+      auto h_item = [&](int c, int i) RF_INLINE {
         float acc[kRun];
         const int rr = i / tcols, cc = i - rr * tcols, r0 = rr * kRun, nv = min(kRun, rows - r0);
         const int sc = windowed ? (two ? c & 1 : 0) : c;
@@ -768,7 +955,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
       };
       // kRun columns of one row of channel c's W pass (lanes on consecutive
       // rows) from scratch half c & 1, through the epilogue.
-      auto w_item = [&](int c, int k) {
+      auto w_item = [&](int c, int k) RF_INLINE {
         float acc[kRun];
         const int r = k % rows, c0 = k / rows * kRun, nv = min(kRun, cols - c0);
         const float* s0 = scratch + (c & 1) * rows * sp + r * sp + c0;
@@ -832,12 +1019,16 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
         l0 = terms9(taps, idx, st.t0, st.n0, in0.pitch);
         l1 = terms9(taps, idx, st.t1, st.n1, in0.pitch);
       }
-      // A GLSL stage's register files, its constants loaded once a stage.
-      std::conditional_t<kGlsl, GlslFile, char> file;
-      if constexpr (kGlsl) {
-        if (st.code == MC_GLSL) glsl_constants(idx + st.t0, file);
+      // A GLSL point shader's op list (the glsl form only): its register
+      // files overlay the conv windows and scratch.
+      bool glsl = false;
+      if constexpr (kGlsl > 0) {
+        glsl = st.code == MC_GLSL;
+        if (glsl)
+          glsl_cells<kGlsl, kTrig>(idx + st.t0, win, in0, in1, rows, cols, by, bx, H, W,
+                                   args.row0, time, put);
       }
-      for_each_cell(rows, cols, [&](int r, int cc) {
+      if (!glsl) for_each_cell(rows, cols, [&](int r, int cc) RF_INLINE {
         const int gy = by + r, gx = bx + cc;
         if (gy < 0 || gy >= H || gx < 0 || gx >= W) return;
         float o[4];
@@ -853,15 +1044,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
             a[c] = in0.p[c * in0.plane + at0];
             b[c] = st.n_in > 1 ? in1.p[c * in1.plane + at1] : 0.f;
           }
-          const int yy = gy + args.row0;  // the image row
-          if constexpr (kGlsl) {
-            if (st.code == MC_GLSL)
-              glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);
-            else
-              point_op<kAffine>(st, a, b, m, q4, g, yy, gx, o);
-          } else {
-            point_op<kAffine>(st, a, b, m, q4, g, yy, gx, o);
-          }
+          point_op<kAffine>(st, a, b, m, q4, g, gy + args.row0, gx, o);
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) put(c, r, cc, o[c]);
@@ -872,7 +1055,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
     if (st.out_off >= 0 && (by < 0 || bx < 0 || by + rows > H || bx + cols > W)) {
       __syncthreads();
       float* d = sm + st.out_off;
-      for_each_cell(rows, cols, [&](int r, int cc) {
+      for_each_cell(rows, cols, [&](int r, int cc) RF_INLINE {
         const int gy = by + r, gx = bx + cc;
         const int cy = min(max(gy, 0), H - 1), cx = min(max(gx, 0), W - 1);
         if (cy == gy && cx == gx) return;
@@ -885,11 +1068,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   }
 }
 
-template <typename T, bool kAffine, bool kGlsl>
+template <typename T, bool kAffine, int kGlsl, bool kTrig = false>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                   const McArgs& args, const float* taps, const int* idx, int store, float time,
                   int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl>;
+  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -900,9 +1083,10 @@ static int launch(const void* x, void* out, int H, int W, int TH, int TW, int ve
 }
 
 // The kernel form of a plan, chosen here only: the glsl form where a stage
-// is MC_GLSL, and for zero mode, which rides on it (the other forms read
-// the edge mode only); else the affine form where a stage is MC_AFFINE;
-// else the builtins'.
+// is MC_GLSL, at the plan's pixels a thread (4, else 2), with the trig ops
+// where an op list calls them, and for zero mode, which rides on it (the
+// other forms read the edge mode only); else the affine form where a
+// stage is MC_AFFINE; else the builtins'.
 template <typename T>
 static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                        const McArgs& args, const float* taps, const int* idx, int store,
@@ -912,21 +1096,32 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
     glsl = glsl || args.st[s].code == MC_GLSL;
     affine = affine || args.st[s].code == MC_AFFINE;
   }
+  const bool four = args.glsl_pix == 4, trig = args.glsl_trig != 0;
+  if (glsl && four && trig)
+    return launch<T, true, 4, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
+                                    smem, stream);
+  if (glsl && four)
+    return launch<T, true, 4>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                              stream);
+  if (glsl && trig)
+    return launch<T, true, 2, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
+                                    smem, stream);
   if (glsl)
-    return launch<T, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
-                                 stream);
+    return launch<T, true, 2>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                              stream);
   if (affine)
-    return launch<T, true, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
-                                  stream);
-  return launch<T, false, false>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
-                                 stream);
+    return launch<T, true, 0>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                              stream);
+  return launch<T, false, 0>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+                             stream);
 }
 
 }  // namespace rf
 
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
-// stage); geo the layout's eight ints (scratch_off, taps_off, in_eh,
-// in_ew, in_used, win_off, win_floats, n_win: cuda_ops.McProgram.geometry);
+// stage); geo the layout's ten ints (scratch_off, taps_off, in_eh,
+// in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_trig:
+// cuda_ops.McProgram.geometry);
 // taps / idx lie on the device.  bf16 selects bf16 storage for input and
 // output (else f32).  vec: the input's rows start on 16-byte boundaries;
 // zero: the plan's border mode is "zero".  x is a slab of H rows whose first
@@ -947,6 +1142,8 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   args.win_off = geo[5];
   args.win_floats = geo[6];
   args.n_win = geo[7];
+  args.glsl_pix = geo[8];
+  args.glsl_trig = geo[9];
   args.n_taps = n_taps;
   args.zero = zero;
   args.row0 = row0;

@@ -26,9 +26,12 @@ The interpreter runs with ``abstract=False``: counted loops unroll as on
 a real frame, and a data-dependent loop's first host read of its live
 mask refuses the lowering.  So do an op outside the op set, a gather, an
 in-place update, storage buffers, atomics and ``shared`` arrays, more
-than two input images and more registers and constants than the kernel's
-files hold: each raises ``Refused``, whose reason ``lower_point`` returns, and
-such a node runs per node (or between segments), as before.
+than two input images and more registers or constants than an op word's
+fields address: each raises ``Refused``, whose reason ``lower_point``
+returns, and such a node runs per node (or between segments), as before.
+Whether a program's register files fit the kernel's shared memory beside
+the rest of its plan is the mc planner's question
+(``cuda_ops.McProgram.tile``).
 
 ``point_program_plain`` is the plain version: the ops in order, each with
 the torch function the interpreter called and the same operand forms (a
@@ -55,14 +58,19 @@ _TYPE_OF = {torch.float32: F32, torch.int32: I32, torch.int64: I64, torch.bool: 
 DTYPES = {v: k for k, v in _TYPE_OF.items()}
 
 # The kernel's two register files, float (f32) and integer (i32, i64 and
-# bool, in 64 bits): each holds a program's live values of its class and
-# then its constants (csrc kGlslF, kGlslI).  Integer registers of an op
-# list are numbered from I_BASE.  The ints of the packed program's header
+# bool, in 64 bits), each sized to a program's live registers of its
+# class (csrc/graph_strip_mc.cu: planes in shared memory, a lane each).
+# Integer registers of an op list are numbered from I_BASE.  An operand
+# field of an op word has 8 bits: a register's index, or CONST | k, the
+# k-th constant of the operand's class, read from the program's own
+# constant table (MAX_F, MAX_I: the registers a field can name, and the
+# constants of a class).  The ints of the packed program's header
 # (``PointProgram.packed``); each op packs into two words.
-MAX_F = 64
-MAX_I = 32
+MAX_F = 128
+MAX_I = 128
+CONST = 0x80
 I_BASE = 128
-HEAD_INTS = 9
+HEAD_INTS = 10
 
 # The opcodes, one list for the recorder, the plain version and the kernel
 # (csrc/graph_strip_mc.cu GlslKop, in this order).  An op of a name with
@@ -90,6 +98,9 @@ _CASTS = {(F32, I32): "F2I", (F32, I64): "F2L", (F32, BOOL): "F2B", (I32, F32): 
           (I64, F32): "L2F", (BOOL, F32): "B2F", (I64, I32): "L2I", (I32, BOOL): "I2B",
           (I64, BOOL): "I2B", (I32, I64): "ICOPY", (BOOL, I32): "ICOPY", (BOOL, I64): "ICOPY"}
 _CAST_OPS = {K[name] for name in _CASTS.values()}
+# The ops of a list that only the kernel's trig forms evaluate (the
+# header's flags).
+_TRIG_OPS = {K["FSIN"], K["FCOS"], K["FTAN"]}
 # Ops that compute in their type and give bool.
 _BOOL_OUT = {K[p + n] for p in "FI" for n in ("EQ", "NE", "LT", "LE", "GT", "GE")} | {K["FISNAN"]}
 
@@ -181,35 +192,41 @@ class PointProgram:
         return len(self.ops)
 
     def _slots(self) -> dict:
-        """Each constant's index in its register file: after the file's
-        live registers, floats and integers apart."""
-        slot, n = {}, {True: self.n_f, False: self.n_i}
+        """Each constant's index in its class's constant table: floats and
+        integers apart, in the order of ``consts``."""
+        slot, n = {}, {True: 0, False: 0}
         for k, c in enumerate(self.consts):
             slot[k] = n[c.typ == F32]
             n[c.typ == F32] += 1
         return slot
 
     def packed(self) -> np.ndarray:
-        """The program as the kernel reads it (int32): the header (ops, the
-        float and integer registers in use, the float and integer constants'
-        counts, the four output channels' float registers); the float
-        constants' bits; the integer constants, the low and high words of
-        their 64-bit form; then two words an op: its opcode | dst << 8 | a
-        << 16 | b << 24 and c | d << 8 | (i32: wraps to 32 bits) << 16,
-        each operand its index in its file (a LOAD's a and b the image and
-        the channel)."""
+        """The program as the kernel reads it (int32), every part on an
+        even word, so that the integer constants and each op read as one
+        8-byte load where the list itself starts on an even word: the
+        header (ops, the float and integer registers in use, the float and
+        integer constants' counts, the four output channels' operands,
+        flags: 1 where the list calls sinf, cosf or tanf, whose argument
+        reduction keeps an array the kernel's other forms need not carry);
+        the float constants' bits, and a zero where their count is
+        odd; the integer constants, the low and high words of their 64-bit
+        form; then two words an op: its opcode | dst << 8 | a << 16 | b <<
+        24 and c | d << 8 | (i32: wraps to 32 bits) << 16.  An operand is
+        a register's index in its file, or CONST | k for the k-th constant
+        of its class (a LOAD's a and b: the image and the channel)."""
         slot = self._slots()
 
         def at(ref: int) -> int:
             if ref < 0:
-                return slot[-1 - ref]
+                return CONST | slot[-1 - ref]
             return ref - I_BASE if ref >= I_BASE else ref
 
         fk = [k for k, c in enumerate(self.consts) if c.typ == F32]
         ik = [k for k, c in enumerate(self.consts) if c.typ != F32]
+        trig = any(op in _TRIG_OPS for op, *_ in self.ops)
         words = [len(self.ops), self.n_f, self.n_i, len(fk), len(ik),
-                 *(at(o) for o in self.outputs)]
-        words += [_register_bits(F32, self.consts[k].value) for k in fk]
+                 *(at(o) for o in self.outputs), int(trig)]
+        words += [_register_bits(F32, self.consts[k].value) for k in fk] + [0] * (len(fk) % 2)
         for k in ik:
             bits = _register_bits(self.consts[k].typ, self.consts[k].value)
             words += [bits & 0xFFFFFFFF, bits >> 32]
@@ -663,10 +680,11 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
         ops.append((op, typ, dst, refs))
     out_refs = tuple(ref(o) for o in outputs)
     n_fk = sum(c.typ == F32 for c in consts)
-    if n[True] + n_fk > MAX_F or n[False] + len(consts) - n_fk > MAX_I:
+    if (n[True] > MAX_F or n[False] > MAX_I or n_fk > CONST
+            or len(consts) - n_fk > CONST):
         raise Refused(f"{n[True]} float registers and {n_fk} constants, {n[False]} integer "
-                      f"registers and {len(consts) - n_fk} constants (the kernel's files hold "
-                      f"{MAX_F} and {MAX_I})")
+                      f"registers and {len(consts) - n_fk} constants (an op's fields name "
+                      f"{MAX_F} float and {MAX_I} integer registers, {CONST} constants of each)")
     used = {op for op, *_ in ops} & leaves
     read = sorted({refs[0] for op, _t, _d, refs in ops if op == load})
     return PointProgram(

@@ -628,6 +628,10 @@ class GraphProgram:
                 return None
             prog.mode = "zero"
         if prog.tile() is None:
+            if point_of:
+                warnln(f"GLSL point shader node(s) {', '.join(point_of)} cannot join the fused "
+                       f"megakernel at {self.width}x{self.height}: {prog.refusal()}; the graph "
+                       "takes another tier")
             return None  # no shared-memory tile holds this plan: run per node
         if prog.halo_work()[1] / len(prog.stages) > MC_MAX_HALO_WORK:
             return None  # halo recompute past the bound: per node wins

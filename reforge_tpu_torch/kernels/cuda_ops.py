@@ -1121,6 +1121,14 @@ MC_SMEM_LIMIT = SMEM_LIMIT - 4096
 # ran glsl-blur rgba16f 0.9% and glsl-blur-sharpen rgba16f 3.4% faster
 # than one (mc_ablation one_window; PERF.md).
 MC_WINDOW_BUFFERS = (2, 1)
+# The glsl form's op list (csrc graph_strip_mc.cu glsl_cells): the pixels a
+# thread it is compiled for, so that a register file's plane holds 256 x
+# pixels values, one a pixel of each of the block's 256 threads.  A plan
+# takes the first where its tile is chosen, and a later one where its
+# files fit beside that same tile (McProgram.tile).  Four pixels ran
+# glsl-chain's op list at 0.61 the time of two, but at a smaller tile
+# glsl-chain rgba16f 1.38x slower (mc_ablation; PERF.md).
+MC_GLSL_PIXELS = (2, 4)
 # Buffer markers of a packed stage (csrc graph_strip_mc.cu McBuf): none,
 # the kernel input in device memory (a conv's per-channel windows), the
 # input block.
@@ -1163,6 +1171,14 @@ class McStage:
     r: int = 0
     taps: tuple = ()
     store: bool = True
+
+
+def glsl_file_floats(words, pixels: int) -> int:
+    """Shared-memory floats of an MC_GLSL stage's register files at
+    ``pixels`` a thread, from its packed program's header (glsl/lower.py
+    PointProgram.packed): a plane of 256 x pixels floats for each live
+    float register, two floats wide for each integer one."""
+    return (int(words[1]) + 2 * int(words[2])) * 256 * pixels
 
 
 def affine_table(synth) -> np.ndarray:
@@ -1235,6 +1251,11 @@ class McProgram:
                 parts = [(np.zeros(len(words), np.float32), words)]
             else:
                 parts = [_term_arrays(wsum(tab).terms) for tab in st.taps]
+            if st.op.code == MC_GLSL and off % 2:
+                # the kernel reads an op list's words in pairs: an even start
+                ws.append(np.zeros(1, np.float32))
+                idxs.append(np.zeros(1, np.int32))
+                off += 1
             lists = []
             for w, idx in parts:
                 lists += [off, len(w)]
@@ -1242,6 +1263,15 @@ class McProgram:
                 idxs.append(idx)
                 off += len(w)
             self._lists.append((lists + [0, 0, 0, 0])[:4])
+        self._glsl = [st.taps[0] for st in self.stages if st.op.code == MC_GLSL]
+        # an op list calls sinf, cosf or tanf (its header's flags): the
+        # kernel's trig forms
+        self._trig = any(int(w[9]) & 1 for w in self._glsl)
+        if self._glsl and off % 2:
+            # an even count, so that the positions (the op lists) start on
+            # an even word of shared memory after them
+            ws.append(np.zeros(1, np.float32))
+            idxs.append(np.zeros(1, np.int32))
         self.taps = np.concatenate(ws) if ws else np.zeros(0, np.float32)
         self.term_idx = np.concatenate(idxs) if idxs else np.zeros(0, np.int32)
 
@@ -1262,17 +1292,28 @@ class McProgram:
     def _windowed(self, st: McStage) -> bool:
         return st.kind == MC_CONV and st.ins[0][0] == MC_INPUT
 
-    def _layout(self, th: int, tw: int, n_win: int = 2):
+    def _files(self, pixels: int) -> int:
+        """Floats of the largest MC_GLSL stage's register files (0 where
+        the plan has none)."""
+        return max((glsl_file_floats(w, pixels) for w in self._glsl), default=0)
+
+    def _layout(self, th: int, tw: int, n_win: int = 2, pixels: int = MC_GLSL_PIXELS[0]):
         """(slot float offsets, bytes, geometry) of the shared-memory layout
         for a (th, tw) tile: the input block (conv_tile.cuh's window
         layout, rows from a multiple of CONV_ALIGN columns), the pool slots
         (each sized for the largest resource it holds, rows of odd pitch,
         csrc graph_strip_mc.cu ``pitch``), two buffers for the largest
         per-channel window of a conv of the input (``n_win`` of them), the
-        conv H-pass scratch (two halves), the taps and their positions.  The
-        geometry is the kernel's eight ints: scratch offset, taps offset,
+        conv H-pass scratch (two halves), the taps and their positions.
+        The register files of the plan's MC_GLSL stages (the largest,
+        ``glsl_file_floats`` at ``pixels`` a thread) overlay the windows
+        and the scratch, which no point stage touches: they add bytes only
+        past that span, and a plan with no op list adds none.  In a plan with an op list the
+        taps start on an even word (the lists' 8-byte reads).  The
+        geometry is the kernel's ten ints: scratch offset, taps offset,
         the input block's extent and whether a stage reads it, the windows'
-        offset, size and count."""
+        offset, size and count, the op lists' pixels a thread and whether
+        one calls sinf, cosf or tanf."""
         def block(eh, ew):
             return 4 * (th + 2 * eh) * ((tw + 2 * ew) | 1)
 
@@ -1297,9 +1338,11 @@ class McProgram:
             off += c
         win_off = -(-off // CONV_ALIGN) * CONV_ALIGN  # 16-byte aligned for cp.async
         scratch_off = win_off + n_win * win
-        taps_off = scratch_off + scratch
-        geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win],
-                       np.int32)
+        taps_off = max(scratch_off + scratch, win_off + self._files(pixels))
+        if self._glsl:
+            taps_off += taps_off % 2
+        geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win,
+                        pixels, int(self._trig)], np.int32)
         return slot_off, 4 * (taps_off + 2 * len(self.taps)), geo
 
     def _work(self, th: int, tw: int) -> float:
@@ -1358,7 +1401,8 @@ class McProgram:
         return work, work - self._work(1 << 20, 1 << 20)
 
     def _choice(self):
-        """(TH, TW, window buffers, bytes) of ``tile``, or None."""
+        """(TH, TW, window buffers, bytes, pixels a thread) of ``tile``, or
+        None."""
         if "tile" not in self._cache:
             self._cache["tile"] = None
             n_wins = MC_WINDOW_BUFFERS if any(map(self._windowed, self.stages)) else (2,)
@@ -1368,25 +1412,48 @@ class McProgram:
                 fits = [k for k in layouts if layouts[k] <= budget]
                 if fits:
                     best = min(fits, key=lambda k: self._work(k[0], k[1]))
-                    self._cache["tile"] = (*best, layouts[best])
+                    choice = (*best, layouts[best], MC_GLSL_PIXELS[0])
+                    for pixels in MC_GLSL_PIXELS[1:] if self._glsl else ():
+                        nbytes = self._layout(*best, pixels)[1]
+                        if nbytes <= budget:
+                            choice = (*best, nbytes, pixels)
+                    self._cache["tile"] = choice
                     break
         return self._cache["tile"]
 
     def tile(self) -> Optional[tuple[int, int, int]]:
         """(TH, TW, shared-memory bytes): of the MC_TILES whose layout (with
-        two window buffers, or one: MC_WINDOW_BUFFERS) fits MC_SMEM_SOFT
-        (two blocks an SM), else MC_SMEM_LIMIT, the one of least estimated
-        work (``_work``: halo recompute and load against the tile's size;
-        two buffers first where the work ties); None where none fits (the
-        planner then refuses the plan)."""
+        two window buffers, or one: MC_WINDOW_BUFFERS; op lists' files at
+        MC_GLSL_PIXELS[0] pixels a thread) fits MC_SMEM_SOFT (two blocks an
+        SM), else MC_SMEM_LIMIT, the one of least estimated work (``_work``:
+        halo recompute and load against the tile's size; two buffers first
+        where the work ties); then the op lists take the last of
+        MC_GLSL_PIXELS whose files fit beside that tile in the same budget.
+        None where none fits (the planner then refuses the plan)."""
         choice = self._choice()
         return None if choice is None else (choice[0], choice[1], choice[3])
 
+    def refusal(self) -> Optional[str]:
+        """Why ``tile`` finds no tile (None where it finds one): the
+        smallest layout's bytes, and the op lists' register files among
+        them."""
+        if self.tile() is not None:
+            return None
+        need = min(self._layout(th, tw, n)[1] for th, tw in MC_TILES for n in MC_WINDOW_BUFFERS)
+        reason = (f"the smallest tile's layout takes {need} bytes of shared memory, past "
+                  f"{MC_SMEM_LIMIT}")
+        if self._glsl:
+            regs = ", ".join(f"{int(w[1])} float and {int(w[2])} integer" for w in self._glsl)
+            reason += (f"; {4 * self._files(MC_GLSL_PIXELS[0])} of them the GLSL op lists' "
+                       f"register files ({regs} registers, {MC_GLSL_PIXELS[0]} pixels a thread)")
+        return reason
+
     def geometry(self, th: int, tw: int) -> np.ndarray:
-        """The layout's eight ints for the kernel (``_layout``), with the
-        window buffers ``tile`` chose."""
+        """The layout's ten ints for the kernel (``_layout``), with the
+        window buffers and pixels a thread ``tile`` chose."""
         choice = self._choice()
-        return self._layout(th, tw, choice[2] if choice else 2)[2]
+        n_win, pixels = (choice[2], choice[4]) if choice else (2, MC_GLSL_PIXELS[0])
+        return self._layout(th, tw, n_win, pixels)[2]
 
     def packed(self, th: int, tw: int):
         """(stage ints, stage floats, scratch offset, taps offset) for the
@@ -1396,7 +1463,7 @@ class McProgram:
         input (its windows), MC_BUF_NONE."""
         key = ("packed", th, tw)
         if key not in self._cache:
-            slot_off, _bytes, geo = self._layout(th, tw, self.geometry(th, tw)[7])
+            slot_off, _bytes, geo = self._layout(th, tw, *self.geometry(th, tw)[[7, 8]])
             in_block = [MC_BUF_INPUT_BLOCK, int(geo[2]), int(geo[3])]
 
             def buf(ref, windowed=False):
@@ -1477,9 +1544,9 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) ->
     intermediate without computing outside the image.  In a plan of zero
     mode (``McProgram.mode``) the input block and the windows read zeros
     outside the image instead.  A GLSL point shader's stage (MC_GLSL)
-    evaluates its op list at each pixel; such plans, and those of zero
-    mode, run the kernel's glsl form, the only one with register files in
-    local memory.  The tile is
+    evaluates its op list, several pixels a thread, over register files in
+    shared memory; such plans, and those of zero mode, run the kernel's
+    glsl form.  The tile is
     the one of least estimated work (halo recompute and load) that leaves
     two blocks an SM (``McProgram.tile``).
 

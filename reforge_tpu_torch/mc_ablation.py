@@ -15,20 +15,27 @@ anything.  A variant whose anchors a source lacks is skipped.
 
   mc     csrc/graph_strip_mc.cu (demo rgba32f and rgba16f, chain3, edges,
          neon edges, glsl-blur, glsl-blur-sharpen and glsl-chain rgba32f
-         and rgba16f):
+         and rgba16f; glsl-sharpen, tonemap.comp before sharpen.comp,
+         blur_sharpen_blend and zero_border rgba32f):
          load_only (return once the input block is in shared memory),
          no_conv, no_stencil (skip those stages), no_glsl (a GLSL point
          stage's op list not evaluated: the stage passes its input on, its
-         loads and stores stay; glsl-chain's tonemap.comp), conv_one_tap (each conv
+         loads and stores stay; tonemap.comp, blend.comp), conv_one_tap (each conv
          pass cut to one tap: its loads, phases and stores stay),
          no_border (border blocks skip their own work: the fill of a
          slot's outside cells, or, in the parent's source, the clamped
          conv path; wrong at the image's edges, but timed),
          one_window (a design choice: the conv's per-channel windows of
          the input in one buffer on every graph, at the tile the chooser
-         picks; edits kernels/cuda_ops.py), pair_load (an op's two words
-         as one 8-byte load: right only where the op list starts on an
-         even word, as glsl-chain's does);
+         picks; edits kernels/cuda_ops.py); and the glsl form's design
+         choices: one_pixel, two_pixels and four_pixels (the op list for
+         one, two or four cells a thread at once on every plan, not four
+         where their files fit beside the tile two leave, else two; edits
+         kernels/cuda_ops.py, whose layout sizes the register files),
+         const_files (the
+         program's constants copied into each thread's register files
+         once a stage, as the form before its redesign did, and read
+         there, not from the program's own table);
   strip  csrc/graph_strip.cuh (the flagship, rgba32f and rgba16f):
          load_only, h_only (the H passes, no W pass, no epilogue, no
          store), no_w (the W passes cut to one tap: their loads and
@@ -96,10 +103,14 @@ loop (cuobjdump of the built library).
 
 ``--parent`` is an A/B run instead: the package of another checkout (an
 unpacked parent commit, say) against this one, parent, this, this,
-parent, each a copy with this file in it, over every row above and the
-whole frames of the mc graphs (demo, chain3, edges: ``frame`` rows).  It
-prints the max abs difference between the two sides' outputs of every
-row.  Needs a CUDA card and nvcc.
+parent, each a copy with this file in it, over every row above, the
+whole frames of the mc graphs (demo, chain3, edges: ``frame`` rows), and
+graph_strip_mc on every plan of ``benchmarks.point_graphs()`` and
+chip_smoke.py's op probe (the plans the tier rule refuses included) in
+rgba32f, rgba16f and rgba8, and on chip_smoke.py's point shader that
+reads its row, on a slab of 600 rows at image row 528 (``J`` and ``K``
+rows).  It prints the max abs difference between the two sides' outputs
+of every row.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -244,12 +255,40 @@ _MC_GLOBAL_ROWS = [
     *_MC_RUN_NO_STORE,
 ]
 _MC_GENERAL = "csrc/stencil_mc.cu"
-# graph_strip_mc.cu: an op's two words read one at a time, and the same
-# two as one 8-byte load (a misaligned address where the list starts on an
-# odd word; glsl-chain's starts on an even one).
-_MC_OP_WORDS = "    const unsigned w0 = ops[2 * n], w1 = ops[2 * n + 1];\n"
-_MC_OP_PAIR = ("    const uint2 w = reinterpret_cast<const uint2*>(ops)[n];\n"
-               "    const unsigned w0 = w.x, w1 = w.y;\n")
+# graph_strip_mc.cu's glsl form: the op list's call and each output's
+# value (no_glsl; then the source before its redesign); the pixels a
+# thread; the constants' operands, the files' layout and their sizes on
+# the host (const_files).
+_MC_GLSL_CALL = "    glsl_ops<P, kTrig>(prog, R, in0, in1, at0, at1, gy, gx, time);\n"
+_MC_GLSL_PUT = "if (ok[k]) put(ch, cr[k], cc[k], S[k]);"
+_MC_PIX = "MC_GLSL_PIXELS = (2, 4)\n"
+_MC_PIX_FORM = ("    return launch<T, true, 2>(", "    return launch<T, true, 2, true>(")
+_MC_CONST_FILES = [
+    ("  const long long* ci;  // the integer constants\n",
+     "  const long long* ci;  // the integer constants\n  int nf, ni;\n"),
+    ("    return a & kGlslConst ? GlslSrc<float>{cf + (a & (kGlslConst - 1)), 0}\n"
+     "                          : GlslSrc<float>{f + a * kLanes, kThreads};\n",
+     "    return GlslSrc<float>{f + (a & kGlslConst ? nf + (a & (kGlslConst - 1)) : a) * kLanes,"
+     " kThreads};\n"),
+    ("    return a & kGlslConst ? GlslSrc<long long>{ci + (a & (kGlslConst - 1)), 0}\n"
+     "                          : GlslSrc<long long>{i + a * kLanes, kThreads};\n",
+     "    return GlslSrc<long long>{i + (a & kGlslConst ? ni + (a & (kGlslConst - 1)) : a) * "
+     "kLanes, kThreads};\n"),
+    ("  R.f = files + 2 * prog[2] * R.kLanes + threadIdx.x;\n",
+     "  R.f = files + 2 * (prog[2] + prog[4]) * R.kLanes + threadIdx.x;\n"),
+    ("  const int dr = blockDim.x / cols, dc = blockDim.x - dr * cols;\n  int r = threadIdx.x / cols, "
+     "c = threadIdx.x - r * cols;\n  for (int i = threadIdx.x; i < n; i += P * blockDim.x) {",
+     "  R.nf = prog[1];\n  R.ni = prog[2];\n"
+     "  for (int q = 0; q < k_f; ++q)\n    for (int k = 0; k < P; ++k)\n"
+     "      R.f[(R.nf + q) * R.kLanes + k * kThreads] = R.cf[q];\n"
+     "  for (int q = 0; q < prog[4]; ++q)\n    for (int k = 0; k < P; ++k)\n"
+     "      R.i[(R.ni + q) * R.kLanes + k * kThreads] = R.ci[q];\n"
+     "  const int dr = blockDim.x / cols, dc = blockDim.x - dr * cols;\n  int r = threadIdx.x / cols, "
+     "c = threadIdx.x - r * cols;\n  for (int i = threadIdx.x; i < n; i += P * blockDim.x) {"),
+    ("    return (int(words[1]) + 2 * int(words[2])) * 256 * pixels\n",
+     "    return (int(words[1]) + int(words[3]) + 2 * (int(words[2]) + int(words[4]))) * 256 * "
+     "pixels\n", "kernels/cuda_ops.py"),
+]
 # Anchors in the sources before the redesign (PR 5's graph_strip.cu and
 # sep_conv.cu).
 _OLD_STRIP_LOOP = "  for (int k = 0; k < n_plans; ++k) {\n    const int rw = meta[4 * k + 1];\n"
@@ -275,7 +314,9 @@ KERNELS = {
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
-        "no_glsl": [[("glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);",
+        "no_glsl": [[(_MC_GLSL_CALL, ""),
+                     (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
+                    [("glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);",
                       "for (int c = 0; c < 4; ++c) o[c] = a[c];")],
                     [("glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);",
                       "for (int c = 0; c < 4; ++c) o[c] = a[c];")]],
@@ -287,7 +328,11 @@ KERNELS = {
                       [(_MC_INTERIOR, "      if (true) {\n"), (_MC_PUT, _MC_PUT + _MC_PUT_GUARD)]],
         "one_window": [[("MC_WINDOW_BUFFERS = (2, 1)", "MC_WINDOW_BUFFERS = (1,)",
                          "kernels/cuda_ops.py")]],
-        "pair_load": [[(_MC_OP_WORDS, _MC_OP_PAIR)]],
+        "one_pixel": [[*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM),
+                       (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")]],
+        "two_pixels": [[(_MC_PIX, "MC_GLSL_PIXELS = (2,)\n", "kernels/cuda_ops.py")]],
+        "four_pixels": [[(_MC_PIX, "MC_GLSL_PIXELS = (4,)\n", "kernels/cuda_ops.py")]],
+        "const_files": [_MC_CONST_FILES],
     }),
     "strip": (("csrc/graph_strip.cuh", "csrc/graph_strip.cu"), {
         "full": [[]],
@@ -465,6 +510,43 @@ def _stencil_mc_rows(x):
             ("4->3 r24 f32 960x540", crop, table(3, 4, 24, 24))]
 
 
+def _point_rows(x):
+    """[(label, fn)] of graph_strip_mc on the mc plans of path J's graphs
+    (``benchmarks.point_graphs()`` and chip_smoke.py's op probe; the plan
+    the tier rule refuses, or a segment child's, where the graph has no
+    whole mc plan) in three formats, and on path K's point shader reading
+    its row after a gaussian, on a slab of 600 rows at image row 528."""
+    import os
+    import tempfile
+
+    import chip_smoke
+    from . import benchmarks
+    from .kernels import cuda_ops
+
+    tmp = tempfile.mkdtemp(prefix="rf_ablation_")
+    for name, text in (("probe", chip_smoke.OP_PROBE), ("ys", chip_smoke.K_YSHADE)):
+        os.makedirs(os.path.join(tmp, name))
+        with open(os.path.join(tmp, name, f"{name}.comp"), "w") as f:
+            f.write(text)
+    graphs = dict(benchmarks.point_graphs(),
+                  op_probe=(chip_smoke.OP_PROBE_GRAPH, os.path.join(tmp, "probe")))
+    rows = []
+    for name, (config, shaders) in graphs.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
+            rows.append((f"graph_strip_mc J {name} {fmt}",
+                         lambda m=chip_smoke._mc_of(prog), v=x.to(prog.storage_dtype):
+                         cuda_ops.graph_strip_mc(v, 0.5, m)))
+    config = "input -> gs -> ys -> output\ngs: gaussian { sigma: 1.5 }\n"
+    for fmt in ("rgba32f", "rgba16f", "rgba8"):
+        prog = benchmarks.build_program(config, 3840, 2160, fmt,
+                                        shader_path=os.path.join(tmp, "ys"))
+        slab = x[:, 528:1128].to(prog.storage_dtype).contiguous()
+        rows.append((f"graph_strip_mc K yshade slab row0 528 {fmt}",
+                     lambda m=prog._strip_plan[1], v=slab: cuda_ops.graph_strip_mc(v, 0.5, m, 528)))
+    return rows
+
+
 def _apply(package: pathlib.Path, source: pathlib.Path, alternatives: list) -> bool:
     """Apply the first alternative whose anchors all occur once in their
     files (``source``, or a file of ``package``); False where none does."""
@@ -488,8 +570,12 @@ def _copy(label: str, package: pathlib.Path, kernel: str = "",
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(package, root / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(__file__, root / PACKAGE.name / "mc_ablation.py")
-    # the shipped shaders, where the copy's benchmarks.SHADER_DIR looks (glsl-blur)
+    # the shipped shaders, where the copy's benchmarks.SHADER_DIR looks (glsl-blur),
+    # the examples (point_graphs' blur_sharpen_blend) and chip_smoke.py's
+    # shaders (the J and K rows)
     shutil.copytree(PACKAGE.parent / "shaders", root / "shaders")
+    shutil.copytree(PACKAGE.parent / "examples", root / "examples")
+    shutil.copy(PACKAGE.parent / "chip_smoke.py", root / "chip_smoke.py")
     if kernel and variant != "full":
         sources, variants = KERNELS[kernel]
         path = next(p for p in (root / PACKAGE.name / s for s in sources) if p.exists())
@@ -535,6 +621,11 @@ def _rows(which: str, tiles: dict):
         graphs += [(name, benchmarks.GLSL_GRAPHS[name], fmt, benchmarks.SHADER_DIR)
                    for name in ("glsl_blur", "glsl_blur_sharpen", "glsl_chain")
                    for fmt in ("rgba32f", "rgba16f")]
+        if which == "mc":
+            graphs += [(name, *benchmarks.point_graphs()[name][:1], "rgba32f",
+                        benchmarks.point_graphs()[name][1])
+                       for name in ("glsl_sharpen", "tonemap_sharpen", "blur_sharpen_blend",
+                                    "zero_border")]
         for name, config, fmt, shaders in graphs:
             prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
             if prog._strip_plan is None or prog._strip_plan[0] != "mc":
@@ -544,7 +635,7 @@ def _rows(which: str, tiles: dict):
             # the tile, and its window buffers where the source has them
             geometry = getattr(mc, "geometry", None)
             tiles[f"graph_strip_mc {name} {fmt}"] = [*mc.tile()[:2]] + (
-                [int(geometry(*mc.tile()[:2])[7])] if geometry else [])
+                [int(v) for v in geometry(*mc.tile()[:2])[7:9]] if geometry else [])
             rows.append((f"graph_strip_mc {name} {fmt}",
                          lambda m=mc, v=xin: cuda_ops.graph_strip_mc(v, 0.5, m)))
     if which == "ab":
@@ -554,6 +645,7 @@ def _rows(which: str, tiles: dict):
             prog = benchmarks.build_program(getattr(benchmarks, config), 3840, 2160, fmt)
             rows.append((f"frame {name} {fmt}",
                          lambda p=prog, v=x.to(prog.storage_dtype): p._forward(v, 0.5)))
+        rows += _point_rows(x)
     if which in ("stencil", "ab"):
         y = luma(x)[None].contiguous()
         stencils = (("sharpen", x, cuda_ops.wsum(library.SHARPEN_TAPS)),

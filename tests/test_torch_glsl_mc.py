@@ -14,6 +14,8 @@ kernel in its plain version, against the JAX package per node.
 
 import glob
 import os
+import re
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,8 @@ from reforge_tpu.graph import build_graph as jbuild
 from reforge_tpu.graph.program import GraphProgram as JProgram
 from reforge_tpu_torch import utils as tutils
 from reforge_tpu_torch.benchmarks import (
-    EXAMPLES_DIR, PORT_SHADER_DIR, REPO_DIR, SHADER_DIR, build_program, plan_steps, point_graphs,
+    DEMO_CONFIG, EXAMPLES_DIR, PORT_SHADER_DIR, REPO_DIR, SHADER_DIR, build_program, plan_steps,
+    point_graphs,
 )
 from reforge_tpu_torch.glsl import affine, lower, translate_shader
 from reforge_tpu_torch.graph import program as tprogram
@@ -93,6 +96,11 @@ def _quiet_and_fresh(tmp_path, monkeypatch):
     affine._SYNTH_CACHE.clear()
     yield
     affine._SYNTH_CACHE.clear()
+
+
+def tmp_empty():
+    """An empty shader path: the builtins under their own names."""
+    return tempfile.TemporaryDirectory(prefix="rf_empty_")
 
 
 def _spec(path):
@@ -173,6 +181,8 @@ def test_op_probe_is_bit_equal(tmp_path, params, t):
                  "FFLOOR", "FCLAMP", "FLOG", "ILNOT"):
         assert name in names, name
     assert any(op[1] == lower.I64 for op in prog.ops)  # uint arithmetic in int64
+    # sin and cos: the header flags the list for the kernel's trig forms
+    assert prog.packed()[lower.HEAD_INTS - 1] == 1
     plain, want = _interp_and_plain(spec, params, prog, t=t)
     np.testing.assert_array_equal(plain.numpy(), want.numpy())
 
@@ -185,10 +195,21 @@ def test_shift_is_refused(tmp_path):
     assert isinstance(got, str) and "rshift" in got
 
 
+def _ops_at(words) -> int:
+    """Where a packed program's ops start within it: past the header, the
+    float constants (padded to an even count) and the integer constants'
+    two words each."""
+    k_f, k_i = int(words[3]), int(words[4])
+    return lower.HEAD_INTS + k_f + k_f % 2 + 2 * k_i
+
+
 def test_packed_program_layout():
-    """The words the kernel reads: the header, the float constants' bits,
-    the integer constants' two words, then two words an op, each operand
-    its index in its file (constants after the live registers)."""
+    """The words the kernel reads: the header (ending in a zero pad), the
+    float constants' bits (a zero after them where their count is odd), the
+    integer constants' two words, then two words an op, the ops on an even
+    word of the list; each operand its register's index in its file, or
+    CONST | k for the k-th constant of its class, which the constant
+    tables hold at k (no constant is a register any more)."""
     prog = lower.lower_point(_spec(os.path.join(SHADER_DIR, "vignette.comp")), {}, W, H)
     words = prog.packed().astype(np.int64) & 0xFFFFFFFF
     fk = [c for c in prog.consts if c.typ == lower.F32]
@@ -196,14 +217,32 @@ def test_packed_program_layout():
     assert fk and ik and prog.n_i > 0
     assert list(words[:5]) == [prog.n_ops, prog.n_f, prog.n_i, len(fk), len(ik)]
     head = lower.HEAD_INTS
-    assert [int(w) for w in words[head:head + len(fk)]] == \
-        [lower._register_bits(lower.F32, c.value) for c in fk]
-    ints = words[head + len(fk):head + len(fk) + 2 * len(ik)]
-    assert [int(lo) | int(hi) << 32 for lo, hi in zip(ints[0::2], ints[1::2])] == \
-        [lower._register_bits(c.typ, c.value) for c in ik]
-    ops = words[head + len(fk) + 2 * len(ik):]
+    assert head % 2 == 0 and words[head - 1] == 0  # flags: no sinf, cosf or tanf
+    ftab = [int(w) for w in words[head:head + len(fk)]]
+    assert ftab == [lower._register_bits(lower.F32, c.value) for c in fk]
+    at_i = head + len(fk) + len(fk) % 2
+    assert at_i % 2 == 0 and (len(fk) % 2 == 0 or words[at_i - 1] == 0)
+    ints = words[at_i:at_i + 2 * len(ik)]
+    itab = [int(lo) | int(hi) << 32 for lo, hi in zip(ints[0::2], ints[1::2])]
+    assert itab == [lower._register_bits(c.typ, c.value) for c in ik]
+    start = _ops_at(words)
+    assert start == at_i + 2 * len(ik) and start % 2 == 0
+    ops = words[start:]
     assert len(ops) == 2 * prog.n_ops
-    slot = prog._slots()
+
+    def field_value(field, is_float):
+        """The constant a CONST field names, from the tables, else None."""
+        if not field & lower.CONST:
+            return None
+        k = field & (lower.CONST - 1)
+        return ftab[k] if is_float else itab[k]
+
+    def want_field(ref):
+        if ref >= 0:
+            return ref - lower.I_BASE if ref >= lower.I_BASE else ref
+        return lower.CONST | prog._slots()[-1 - ref]
+
+    n_const = 0
     for (op, typ, dst, refs), w0, w1 in zip(prog.ops, ops[0::2], ops[1::2]):
         assert w0 & 255 == op
         assert (w0 >> 8) & 255 == (dst - lower.I_BASE if dst >= lower.I_BASE else dst)
@@ -213,10 +252,15 @@ def test_packed_program_layout():
             assert fields[:2] == list(refs)
             continue
         for a, got in zip(refs, fields):
-            want = slot[-1 - a] if a < 0 else (a - lower.I_BASE if a >= lower.I_BASE else a)
-            assert got == want
-    outs = [slot[-1 - o] if o < 0 else o for o in prog.outputs]
-    assert list(words[5:9]) == outs
+            assert got == want_field(a)
+            if a < 0:
+                n_const += 1
+                c = prog.consts[-1 - a]
+                assert field_value(got, c.typ == lower.F32) == lower._register_bits(c.typ, c.value)
+            else:
+                assert not got & lower.CONST
+    assert n_const > 0
+    assert list(words[5:9]) == [want_field(o) for o in prog.outputs]
 
 
 def test_kernel_opcodes_match_the_kernel_source():
@@ -226,7 +270,13 @@ def test_kernel_opcodes_match_the_kernel_source():
     body = src.split("enum GlslKop : int {")[1].split("};")[0]
     names = [item.strip().split("=")[0].strip() for item in body.split(",") if item.strip()]
     assert names == [f"K_{name}" for name in lower.KERNEL_OPS]
-    assert f"kGlslF = {lower.MAX_F}, kGlslI = {lower.MAX_I}, kGlslHead = {lower.HEAD_INTS}" in src
+    assert f"kGlslHead = {lower.HEAD_INTS}, kGlslConst = {lower.CONST:#x};" in src
+    # the glsl form is compiled for each of the pixels a thread a plan may
+    # take, without and with the trig ops
+    forms = set(re.findall(r"launch<T, true, (\d)(, true)?>", src)) - {("0", "")}
+    assert forms == {(str(p), t) for p in cuda_ops.MC_GLSL_PIXELS for t in ("", ", true")}
+    assert "constexpr int kThreads = 256;" in (
+        REPO_DIR / "reforge_tpu_torch" / "csrc" / "conv_tile.cuh").read_text()
 
 
 # ---- the mc tier -----------------------------------------------------------------
@@ -326,15 +376,15 @@ def _op_list_word(mc, stage: int) -> int:
     th, tw, _smem = mc.tile()
     stage_i, _f, _scratch, taps_off = mc.packed(th, tw)
     words = np.asarray(mc.stages[stage].taps[0])
-    return (taps_off + len(mc.taps) + int(stage_i[stage][17]) + lower.HEAD_INTS
-            + int(words[3]) + 2 * int(words[4]))
+    return taps_off + len(mc.taps) + int(stage_i[stage][17]) + _ops_at(words)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_point_stage_before_an_odd_length_stencil(fmt):
-    """tonemap.comp before sharpen.comp: the stencil's tap lists after the
-    op list put its ops on an odd word of shared memory (the kernel reads
-    them a word at a time); against the JAX package per node, within
+    """tonemap.comp before sharpen.comp: the stencil's tap lists leave the
+    taps an odd count, and the planner pads them, so the op list's ops
+    still start on an even word of shared memory (the kernel reads an op
+    as one 8-byte load); against the JAX package per node, within
     PERF.md's tier bounds (sharpen.comp at 0.7 amplifies a flipped code up
     to 1 + 8 * 0.7)."""
     config, shader_dir = point_graphs()["tonemap_sharpen"]
@@ -343,7 +393,9 @@ def test_point_stage_before_an_odd_length_stencil(fmt):
     assert plan is not None and plan[0] == "mc"
     mc = plan[1]
     codes = [st.op.code for st in mc.stages]
-    assert _op_list_word(mc, codes.index(cuda_ops.MC_GLSL)) % 2 == 1
+    assert sum(mc._lists[i][1] + mc._lists[i][3] for i, c in enumerate(codes)
+               if c != cuda_ops.MC_GLSL) % 2 == 1  # the stencil's terms: an odd count
+    assert _op_list_word(mc, codes.index(cuda_ops.MC_GLSL)) % 2 == 0
     x = _input(fmt, seed=13)
     got = prog._forward(torch.from_numpy(x.copy()), T).float().numpy()
     want = _jax_per_node(config, shader_dir, fmt, x)
@@ -351,6 +403,36 @@ def test_point_stage_before_an_odd_length_stencil(fmt):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     else:
         _within_tier(fmt, got, want, "tonemap_sharpen", codes=7)
+
+
+@pytest.mark.parametrize("size", [(W, H), (3840, 2160)], ids=["48x128", "4K"])
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("name", sorted(point_graphs()))
+def test_every_glsl_stage_starts_its_ops_on_an_even_word(name, fmt, size, monkeypatch):
+    """Every MC_GLSL stage of every point_graphs() mc plan (bloom_glow's
+    the plan the tier rule refuses): its list starts on an even word of
+    the tap lists, the taps' count is even and the taps start on an even
+    word of shared memory, so each op is one aligned 8-byte read; plans
+    with no op list (the border graphs) keep their tap lists unpadded."""
+    config, shader_dir = point_graphs()[name]
+    prog = build_program(config, *size, fmt, device="cpu", shader_path=shader_dir)
+    with monkeypatch.context() as m:
+        m.setattr(tprogram, "MC_MAX_HALO_WORK", float("inf"))
+        mc = prog._plan_strip_mc()
+    if mc is None:  # mixed_border: the segment child's plan
+        mc = next(step[1] for step in prog._strip_plan[1] if step[0] == "seg")._strip_plan[1]
+    codes = [st.op.code for st in mc.stages]
+    th, tw, _smem = mc.tile()
+    _i, _f, _scratch, taps_off = mc.packed(th, tw)
+    if cuda_ops.MC_GLSL not in codes:
+        assert name in ("zero_border", "mixed_border")
+        assert len(mc.taps) == sum(n for lists in mc._lists for n in lists[1::2])
+        return
+    assert len(mc.taps) % 2 == 0 and taps_off % 2 == 0
+    for i, code in enumerate(codes):
+        if code == cuda_ops.MC_GLSL:
+            assert mc._lists[i][0] % 2 == 0
+            assert _op_list_word(mc, i) % 2 == 0
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -450,12 +532,127 @@ def test_glsl_stage_packs_its_words_into_the_tap_lists():
     i = [st.op.code for st in mc.stages].index(cuda_ops.MC_GLSL)
     st = mc.stages[i]
     off, n = mc._lists[i][:2]
+    assert off % 2 == 0 and len(mc.taps) % 2 == 0  # the kernel's 8-byte reads
     np.testing.assert_array_equal(mc.term_idx[off:off + n], st.taps[0])
     assert not mc.taps[off:off + n].any()
     assert cuda_ops.mc_kind(cuda_ops.MC_GLSL) == cuda_ops.MC_POINT
     with pytest.raises(ValueError, match="border mode"):
         cuda_ops.McProgram(stages=mc.stages, n_slots=mc.n_slots, rh_in=0, ew_in=0, width=W,
                            height=H, fmt="rgba32f", mode="wrap")
+
+
+def _without_files(mc, monkeypatch):
+    """``mc``'s stages planned again with register files of no bytes."""
+    with monkeypatch.context() as m:
+        m.setattr(cuda_ops, "glsl_file_floats", lambda words, pixels: 0)
+        return cuda_ops.McProgram(stages=mc.stages, n_slots=mc.n_slots, rh_in=mc.rh_in,
+                                  ew_in=mc.ew_in, width=mc.width, height=mc.height, fmt=mc.fmt,
+                                  mode=mc.mode)
+
+
+@pytest.mark.parametrize("name", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
+                                  "blur_sharpen_blend", "zero_border", "demo"])
+def test_tile_model_adds_the_files_only_for_op_lists(name, monkeypatch):
+    """At 4K (planning only): a plan with an MC_GLSL stage adds its largest
+    register files (a plane of 256 x pixels floats a float register, two
+    floats wide an integer one) to the shared-memory layout only past the
+    conv windows and scratch they overlay; it takes four pixels a thread
+    only where those files fit beside the tile two pixels leave, in the
+    same budget.  A plan with no op list (zero mode's nblur.comp before the
+    builtin tonemap, the demo) adds nothing and keeps its tile and bytes."""
+    if name == "demo":
+        with tmp_empty() as empty:
+            prog = build_program(DEMO_CONFIG, 3840, 2160, device="cpu", shader_path=empty)
+    else:
+        config, shader_dir = point_graphs()[name]
+        prog = build_program(config, 3840, 2160, device="cpu", shader_path=shader_dir)
+    mc = prog._strip_plan[1]
+    bare = _without_files(mc, monkeypatch)
+    glsl = [st.taps[0] for st in mc.stages if st.op.code == cuda_ops.MC_GLSL]
+    for pixels in cuda_ops.MC_GLSL_PIXELS:
+        files = max(((int(w[1]) + 2 * int(w[2])) * 256 * pixels for w in glsl), default=0)
+        assert mc._files(pixels) == files
+        for th, tw in cuda_ops.MC_TILES:
+            for n_win in cuda_ops.MC_WINDOW_BUFFERS:
+                _slots, nbytes, geo = mc._layout(th, tw, n_win, pixels)
+                _slots0, bare_bytes, bare_geo = bare._layout(th, tw, n_win, pixels)
+                assert list(geo[[0, 2, 3, 4, 5, 6, 7, 8, 9]]) == \
+                    list(bare_geo[[0, 2, 3, 4, 5, 6, 7, 8, 9]])
+                if not glsl:
+                    assert nbytes == bare_bytes
+                    continue
+                span_end = int(bare_geo[1])  # windows and scratch end where the taps start
+                files_end = int(geo[5]) + files
+                extra = max(0, files_end + files_end % 2 - span_end - span_end % 2)
+                assert nbytes == bare_bytes + 4 * extra + 4 * (span_end % 2)
+    th, tw, nbytes = mc.tile()
+    pixels = int(mc.geometry(th, tw)[8])
+    assert mc.tile()[:2] == bare.tile()[:2] or glsl
+    if not glsl:
+        assert mc.tile() == bare.tile() and mc.refusal() is None
+        assert pixels == cuda_ops.MC_GLSL_PIXELS[0]
+        return
+    # the tile is the one the files at the fewest pixels leave; more pixels
+    # only where their files fit beside it in the same budget
+    first = cuda_ops.MC_GLSL_PIXELS[0]
+    n_win = int(mc.geometry(th, tw)[7])
+    budget = (cuda_ops.MC_SMEM_SOFT if mc._layout(th, tw, n_win, first)[1] <= cuda_ops.MC_SMEM_SOFT
+              else cuda_ops.MC_SMEM_LIMIT)
+    fitting = [p for p in cuda_ops.MC_GLSL_PIXELS if mc._layout(th, tw, n_win, p)[1] <= budget]
+    assert pixels == fitting[-1] and nbytes == mc._layout(th, tw, n_win, pixels)[1]
+
+
+def test_files_that_fit_no_tile_are_refused_with_a_reason(tmp_path, monkeypatch):
+    """A point shader with 120 live float registers after a gaussian: its
+    op list lowers, but its register files fit no tile, so the mc planner
+    refuses the plan while planning, warns with the reason, and the graph
+    keeps the plan it has when the shader has no op list (per node)."""
+    body = "".join(f"    float v{k} = c.r * {1.0 + k / 128.0};\n" for k in range(118))
+    total = " + ".join(f"v{k}" for k in range(118))
+    (tmp_path / "wide.comp").write_text(
+        "#version 450\nlayout (local_size_x = 16, local_size_y = 16) in;\n"
+        "layout (binding = 0, rgba32f) uniform readonly image2D input_image;\n"
+        "layout (binding = 1, rgba32f) uniform writeonly image2D output_image;\n"
+        "void main() {\n    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);\n"
+        "    vec4 c = imageLoad(input_image, pos);\n" + body
+        + f"    imageStore(output_image, pos, vec4({total}, c.g, c.b, c.a));\n}}\n")
+    config = "input -> gs -> wide -> output\ngs: gaussian { sigma: 2.0 }\nwide: wide {}\n"
+    prog = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
+    point = prog._glsl_point(next(n for n in prog.graph.ordered_nodes if n.name == "wide"))
+    assert isinstance(point, lower.PointProgram) and point.n_f > 100
+    tutils.clear_warnings()
+    assert prog._plan_strip_mc() is None
+    said = [w for w in tutils.recent_warnings() if "wide" in w]
+    assert said and "register files" in said[0] and "118 float" not in said[0], said
+    steps = plan_steps(prog)
+    with monkeypatch.context() as m:
+        m.setattr(tprogram, "_PROGRAMS", {})
+        m.setattr(tprogram.GraphProgram, "_glsl_point", lambda self, node: None)
+        plain = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
+        assert plan_steps(plain) == steps == [("per-node", ["gs", "wide"])]
+
+
+SHIPPED_POINT = {"invert": "", "sepia": "", "tonemap": "", "vignette": "", "passthrough": "",
+                 "blend": "input -> s:input_image2\n"}
+
+
+@pytest.mark.parametrize("size", [(W, H), (3840, 2160)], ids=["48x128", "4K"])
+@pytest.mark.parametrize("stem", sorted(SHIPPED_POINT))
+def test_every_shipped_point_shader_plans_the_mc_tier(stem, size):
+    """Each shipped point shader that lowers, after a builtin gaussian (a
+    point stage after a conv adds no halo recompute), plans the mc tier
+    with its MC_GLSL stage, its register files inside the tile's layout."""
+    config = ("input -> gs -> s -> output\n" + SHIPPED_POINT[stem]
+              + f"gs: gaussian {{ sigma: 2.0 }}\ns: {stem} {{}}\n")
+    prog = build_program(config, *size, device="cpu", shader_path=SHADER_DIR)
+    assert plan_steps(prog) == [("mc", ["gs", "s"])], stem
+    mc = prog._strip_plan[1]
+    assert cuda_ops.MC_GLSL in [st.op.code for st in mc.stages]
+    th, tw, nbytes = mc.tile()
+    geo = mc.geometry(th, tw)
+    files = mc._files(int(geo[8]))
+    assert nbytes <= cuda_ops.MC_SMEM_LIMIT and files > 0
+    assert int(geo[5]) + files <= int(geo[1])
 
 
 @pytest.mark.parametrize("example", ["blur_sharpen_blend", "bloom_glow"])

@@ -311,9 +311,11 @@ def test_mc_layout_fits_and_buffers_do_not_overlap(name, h, w, tmp_path, monkeyp
                 <= cuda_ops.MC_SMEM_SOFT]
         assert nbytes <= cuda_ops.MC_SMEM_SOFT or not soft
         geo = mc.geometry(th, tw)
-        slot_off, layout_bytes, _geo = mc._layout(th, tw, int(geo[7]))
+        slot_off, layout_bytes, _geo = mc._layout(th, tw, int(geo[7]), int(geo[8]))
         assert layout_bytes == nbytes and list(_geo) == list(geo)
-        scratch_off, taps_off, in_eh, in_ew, in_used, win_off, win, n_win = (int(v) for v in geo)
+        scratch_off, taps_off, in_eh, in_ew, in_used, win_off, win, n_win, pixels, trig = (
+            int(v) for v in geo)
+        assert pixels in cuda_ops.MC_GLSL_PIXELS and trig in (0, 1)
         # [start, end) of each buffer in floats
         spans = []
         if in_used:
