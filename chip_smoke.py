@@ -166,8 +166,27 @@ def _rgba8_check(name: str, a: torch.Tensor, b: torch.Tensor, steps: int = 2,
     return err
 
 
+def _share_check(name: str, fmt: str, got: torch.Tensor, want: torch.Tensor,
+                 share: float) -> float:
+    # A shader whose output jumps where its input crosses a threshold (a
+    # loop's trip count, a quantized code): one rounding apart in its input
+    # (a conv's FMA against a multiply and an add) moves a few values by a
+    # step, so at most ``share`` of the values may lie past the format's
+    # bound.
+    tol = {"rgba32f": 1e-5, "rgba16f": 2e-2, "rgba8": 1.0 / 255.0 + 1e-6}[fmt]
+    d = (got.float() - want.to(got.device).float()).abs()
+    frac = float((d > tol).float().mean())
+    if frac > share:
+        raise AssertionError(f"{name}: {frac} of the values past {tol} (at most {share})")
+    print(f"check {name}: {frac:.3g} of the values past {tol:.3g} (at most {share:.3g}), "
+          f"max abs error {float(d.max()):.3g}")
+    return float(d.max())
+
+
 def _check_fmt(name: str, fmt: str, got: torch.Tensor, want: torch.Tensor,
-               rgba8_steps: int = 2, rgba8_flips: float = 1e-3) -> float:
+               rgba8_steps: int = 2, rgba8_flips: float = 1e-3, share: float = 0.0) -> float:
+    if share:
+        return _share_check(name, fmt, got, want, share)
     if fmt == "rgba8":
         return _rgba8_check(name, got, want, rgba8_steps, rgba8_flips)
     err = _max_err(got, want)
@@ -390,14 +409,15 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # forms per storage type, W radius (1..3), output channels (1..4) and
 # table (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
-                  "graph_strip_mc_kernel": 12, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
+                  "graph_strip_mc_kernel": 20, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
                   "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
-# graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig>, mangled.
-GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb[01]EE")
+# graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig, kExt>,
+# mangled.
+GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb[01]ELb[01]EE")
 # Its trig forms (kTrig, for op lists that call sinf, cosf or tanf) keep
 # one stack frame: the three's argument reduction for |x| > 105615 (CUDA's
 # math library) indexes seven words at run time.
-TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb1EE")
+TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb1ELb[01]EE")
 TRIG_STACK = "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
@@ -421,14 +441,15 @@ def _check_no_stack(log: str) -> None:
         for name, line in found.items():
             if line != (TRIG_STACK if TRIG_FORM.search(name) else NO_STACK):
                 raise AssertionError(f"ptxas: {name}: {line}")
-        trig = " (the 4 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
+        trig = " (the 8 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
         print(f"check ptxas: {forms} forms of {kernel}, each 0 bytes stack frame{trig}, no spills")
     glsl = {GLSL_FORM.search(k).group(0)[22:]: f"{regs[k]}, {props[k].split(',')[0]}"
             for k in props if GLSL_FORM.search(k)}
-    if len(glsl) != 8:
+    if len(glsl) != 16:
         raise AssertionError(f"ptxas: {len(glsl)} glsl forms of graph_strip_mc_kernel")
     print(f"check ptxas: graph_strip_mc's glsl forms (f32, bf16; 2 and 4 pixels a thread; "
-          f"without and with the trig ops): {sorted(glsl.items())}")
+          f"without and with the trig ops; without and with loops and shifts): "
+          f"{sorted(glsl.items())}")
 
 
 def _card_state() -> str:
@@ -1340,6 +1361,15 @@ OP_PROBE_GRAPH = ("input -> probe -> gs -> output\nprobe: probe { gain: 1.3, lev
                   "gs: gaussian { sigma: 2.0 }\n")
 
 
+def _shader_first(config: str) -> str:
+    """``input -> blur -> shader -> output`` as ``input -> shader -> blur
+    -> output``: the loop graphs' shader reading the input, before the
+    blur, so that a kernel check holds its op list on the input itself."""
+    lines = config.splitlines()
+    blur, shader = lines[0].split(" -> ")[1:3]
+    return "\n".join([f"input -> {shader} -> {blur} -> output"] + lines[1:]) + "\n"
+
+
 def _unruled_mc(prog):
     """The mc plan of ``prog``'s graph with the tier rule's bound on halo
     work lifted (the plan the rule refuses), planned apart from the
@@ -1372,6 +1402,8 @@ def _mc_plan_text(prog, cuda_ops) -> str:
 
 
 def _mc_text(mc, cuda_ops) -> str:
+    from reforge_tpu_torch.glsl import lower
+
     names = {cuda_ops.MC_CONV: "conv", cuda_ops.MC_STENCIL: "stencil", cuda_ops.MC_POINT: "point"}
     stages = []
     for st in mc.stages:
@@ -1379,7 +1411,8 @@ def _mc_text(mc, cuda_ops) -> str:
         if st.op.code == cuda_ops.MC_GLSL:
             words = st.taps[0]
             text += (f" (GLSL: {int(words[0])} ops, {int(words[1])} float and {int(words[2])} "
-                     f"integer registers, {int(words[3]) + int(words[4])} constants)")
+                     f"integer registers, {int(words[3]) + int(words[4])} constants, "
+                     f"{lower.packed_work(words)} ops a pixel at the loops' trip bounds)")
         stages.append(text)
     work, halo = mc.halo_work()
     return (f"mode {mc.mode}, tile {mc.tile()[:2]}, estimated work a pixel {work:.1f}, halo "
@@ -1399,16 +1432,20 @@ def _mc_of(prog):
 
 def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
     """Path J: GLSL point shaders (op-list stages, MC_GLSL) and zero-border
-    GLSL convs on the mc tier at 4K.  Kernel checks first (not counted):
-    the plan of each graph of point_graphs() and of OP_PROBE_GRAPH in
-    rgba32f, rgba16f and rgba8, and graph_strip_mc against its plain
-    version on the card.  Then, counted, each graph of point_graphs() through
+    GLSL convs on the mc tier at 4K, the loop and shift graphs among them
+    (benchmarks.LOOP_GRAPHS: op lists with loop regions and shift ops).
+    Kernel checks first (not counted): the plan of each graph of
+    point_graphs(), of OP_PROBE_GRAPH and of iterate.comp and bits.comp
+    before their blur (``_shader_first``) in rgba32f,
+    rgba16f and rgba8, and graph_strip_mc against its plain version on
+    the card.  Then, counted, each graph of point_graphs() through
     Engine in the three formats: one frame on its tier against the same
     program per node, a sequence of 4, the launches of a frame.  Returns
-    the launch counts, the driven programs (``time_path_j`` times them) and
+    the launch counts, the driven programs (``time_path_j`` times them: the
+    rgba32f and rgba16f ones, and the loop graphs' rgba8 too) and
     glsl-chain's kernel error in rgba32f."""
     from reforge_tpu_torch.benchmarks import (
-        DEMO_CONFIG, LIBRARY_GRAPHS, build_program, plan_steps, point_graphs,
+        DEMO_CONFIG, LIBRARY_GRAPHS, LOOP_GRAPHS, build_program, plan_steps, point_graphs,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
     from reforge_tpu_torch.kernels import cuda_ops
@@ -1430,10 +1467,21 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
     # mod 10, and there per node (the interpreter's order) and the mc
     # stencil (a tap-sum) round apart by one code.
     flips8 = {"tonemap_sharpen": 1e-2}
-    graphs = dict(point_graphs(), op_probe=(OP_PROBE_GRAPH, probe_dir))
-    # bloom_glow and the op probe run per node: the tier rule against halo
-    # recompute refuses their mc plans, which the kernel checks still run.
-    tiers = {"mixed_border": "segments", "bloom_glow": None, "op_probe": None}
+    # iterate.comp's trip counts and bits.comp's codes jump where their
+    # blurred input crosses a threshold: the share of values a rounding of
+    # the conv may move.
+    shares = {"iterate_after_blur": 1e-3, "bits_after_blur": 1e-3}
+    first = {}  # mandelbrot.comp ignores its input: its checks hold bit for bit after the blur
+    for name in ("iterate_after_blur", "bits_after_blur"):
+        config, shader_dir = point_graphs()[name]
+        first[f"{name}_first"] = (_shader_first(config), shader_dir)
+    graphs = dict(point_graphs(), op_probe=(OP_PROBE_GRAPH, probe_dir), **first)
+    # bloom_glow, the op probe and the loop and shift shaders before a
+    # gaussian run per node: the tier rule against halo recompute refuses
+    # their mc plans, which the kernel checks still run (the op list reads
+    # the input, so its checks hold bit for bit where the conv follows it).
+    tiers = {"mixed_border": "segments", "bloom_glow": None, "op_probe": None,
+             **{name: None for name in first}}
     chain_err = None
     for name, (config, shader_dir) in graphs.items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
@@ -1450,7 +1498,8 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             want = cuda_ops.graph_strip_mc_plain(xin, 0.5, mc)
             torch.cuda.synchronize()
             err = _check_fmt(f"J graph_strip_mc {name} {fmt} 4K ({mc.mode}) vs its plain version",
-                             fmt, got, want, rgba8_steps=steps8.get(name, 2))
+                             fmt, got, want, rgba8_steps=steps8.get(name, 2),
+                             share=shares.get(name, 0.0))
             if (name, fmt) == ("glsl_chain", "rgba32f"):
                 chain_err = err
             del got, want
@@ -1489,12 +1538,13 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             _check(f"J {name} {fmt} render_sequence frame 0 vs render_frame",
                    _max_err(seq[0], frame), 0.0)
             _check_fmt(f"J {name} {fmt} {_tier(prog)} vs per node 4K", fmt, frame, per_node,
-                       rgba8_steps=steps8.get(name, 2), rgba8_flips=flips8.get(name, 1e-3))
+                       rgba8_steps=steps8.get(name, 2), rgba8_flips=flips8.get(name, 1e-3),
+                       share=shares.get(name, 0.0))
             print(f"J {name} {fmt} 4K: launches a frame {json.dumps(per_frame)} [{smi}]")
             mc = _mc_of(prog)
             if mc.mode == "zero" or cuda_ops.MC_GLSL in [st.op.code for st in mc.stages]:
                 glsl_form += cuda_ops.LAUNCHES["graph_strip_mc"] - before_mc
-            if fmt != "rgba8":
+            if fmt != "rgba8" or name in LOOP_GRAPHS:
                 driven[(name, fmt)] = (engine, prog, xf)
             else:
                 engine.close()
@@ -1580,9 +1630,10 @@ def _segments_without_point_stages(prog):
 
 def time_path_j(driven: dict, smi: str, n_sms: int, max_sm_mhz: float) -> dict:
     """Path J's timings, after path I's: ms a frame (CUDA events) on the mc
-    tier against the segments plan without GLSL point stages (the four
-    point graphs; the two border graphs ran per node before zero-border
-    plans) and per node; the kernel alone against its plain version and
+    tier against the segments plan without GLSL point stages (the point
+    graphs, the loop graphs in three formats: the parent's route, the
+    shader per node; the two border graphs ran per node before
+    zero-border plans) and per node; the kernel alone against its plain version and
     its bound; bloom_glow with the builtin tonemap; then the device busy
     share on each tier (``profile_path_j``, a child process).  Returns
     glsl-chain's rgba32f kernel row (ms, plain ms, bound ms, bound by)."""

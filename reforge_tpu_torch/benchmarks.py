@@ -384,6 +384,29 @@ LUT1D_CONFIG = (
 # child, gs per node.
 ZERO_BORDER_CONFIG = "input -> nblur -> tm -> output\ntm: tonemap {}\n"
 MIXED_BORDER_CONFIG = "input -> nblur -> gs -> output\ngs: gaussian { sigma: 2.0 }\n"
+# Point shaders with data-dependent loops and integer shifts after a
+# blur, each an op list with loop regions or shift ops on the mc tier:
+# mandelbrot.comp at examples/mandelzoom.rf's parameters (it ignores its
+# input), the port's iterate.comp (loops whose trips follow the picture: a
+# break, a function's loop with a valued return) and bits.comp (<<, >>,
+# bitCount, findMSB, findLSB).
+MANDELBROT_AFTER_BLUR_CONFIG = (
+    "input -> gv -> mb -> output\n"
+    "gv: gaussian_v { sigma: 2.0 }\n"
+    "mb: mandelbrot { zoom: 1.0, center_x: -0.7435, center_y: 0.1314, max_iter: 128.0,"
+    " speed: 0.35 }\n"
+)
+ITERATE_AFTER_BLUR_CONFIG = (
+    "input -> gs -> it -> output\n"
+    "gs: gaussian { sigma: 2.0 }\n"
+    "it: iterate { a: 1.08, b: 0.01, lim: 1.5, x: 1.3, max_n: 24 }\n"
+)
+BITS_AFTER_BLUR_CONFIG = (
+    "input -> gs -> bt -> output\n"
+    "gs: gaussian { sigma: 2.0 }\n"
+    "bt: bits { bits: 3, spin: 5 }\n"
+)
+LOOP_GRAPHS = ("mandelbrot_after_blur", "iterate_after_blur", "bits_after_blur")
 
 
 def example_config(name: str) -> str:
@@ -393,8 +416,9 @@ def example_config(name: str) -> str:
 
 def point_graphs() -> dict[str, tuple[str, str]]:
     """The graphs whose GLSL point shaders run as op-list stages of the mc
-    tier (MC_GLSL), and the two border graphs: name -> (config, shader
-    path).  Two are examples, read from the checkout when called."""
+    tier (MC_GLSL), the two border graphs, and the LOOP_GRAPHS (loops and
+    shifts in an op list): name -> (config, shader path).  Two are
+    examples, read from the checkout when called."""
     return {
         "glsl_chain": (GLSL_CHAIN_CONFIG, SHADER_DIR),
         "glsl_sharpen": (GLSL_SHARPEN_CONFIG, SHADER_DIR),
@@ -403,6 +427,9 @@ def point_graphs() -> dict[str, tuple[str, str]]:
         "bloom_glow": (example_config("bloom_glow"), SHADER_DIR),
         "zero_border": (ZERO_BORDER_CONFIG, PORT_SHADER_DIR),
         "mixed_border": (MIXED_BORDER_CONFIG, PORT_SHADER_DIR),
+        "mandelbrot_after_blur": (MANDELBROT_AFTER_BLUR_CONFIG, SHADER_DIR),
+        "iterate_after_blur": (ITERATE_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
+        "bits_after_blur": (BITS_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
     }
 
 

@@ -157,8 +157,8 @@ struct McArgs {
   // image has height rows (0 and the input's rows for a whole frame).
   // Coordinates are the image's; clamped reads stop at the slab's edge.
   int row0, height;
-  int glsl_pix;   // an op list's pixels a thread: 2 or 4
-  int glsl_trig;  // an op list calls sinf, cosf or tanf
+  int glsl_pix;    // an op list's pixels a thread: 2 or 4
+  int glsl_flags;  // 1: an op list calls sinf, cosf or tanf; 2: it has loops or shifts
 };
 
 struct McGeo {
@@ -326,7 +326,7 @@ enum GlslKop : int {
   K_FISNAN, K_FWHERE, K_FCLAMP, K_FNAN2NUM, K_IADD, K_ISUB, K_IMUL, K_IDIV, K_IFLOORDIV, K_IREM,
   K_IFMOD, K_IMAX, K_IMIN, K_IAND, K_IOR, K_IXOR, K_IEQ, K_INE, K_ILT, K_ILE, K_IGT, K_IGE,
   K_INEG, K_IABS, K_ISIGN, K_INOT, K_ILNOT, K_IWHERE, K_ICLAMP, K_F2I, K_F2L, K_F2B, K_I2F, K_L2F,
-  K_B2F, K_L2I, K_I2B, K_ICOPY,
+  K_B2F, K_L2I, K_I2B, K_ICOPY, K_FMOV, K_IMOV, K_ISHL, K_ISHR, K_LOOP,
 };
 // The packed program's header ints (glsl/lower.py HEAD_INTS: ops, the
 // files' live registers, the float and integer constants, the four output
@@ -410,7 +410,11 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
 }
 
 // The op list for P pixels: in0/in1 the stage's input views, at0 /
-// at1 each pixel's offset in them, (gy, gx) its image pixel.  Float ops
+// at1 each pixel's offset in them, (gy, gx) its image pixel.  A loop
+// region ends in a LOOP op that jumps back to the region's first op (the
+// next op's words then load from there), so a warp's threads run a loop
+// as many rounds as the slowest of their pixels; no __syncthreads() in
+// here (a block's warps leave a loop at different rounds).  Float ops
 // round once each, with the CUDA math functions that torch's CUDA kernels
 // call for the interpreter's ops (expf for torch.exp, sinf for torch.sin,
 // ...), a correctly rounded square root and reciprocal, round half to
@@ -424,7 +428,7 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
 // search tree some seven branches deep.  (Keeping the last op's results
 // in registers for the next op, forwarded past shared memory, ran
 // glsl-chain 12% slower on the card.)
-template <int P, bool kTrig>
+template <int P, bool kTrig, bool kExt>
 __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const GlslFiles<P>& R,
                                          const View& in0, const View& in1, const int (&at0)[P],
                                          const int (&at1)[P], const int (&gy)[P],
@@ -453,6 +457,64 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const Gls
     if (op == K_FSUB) {
       glsl_ff<P>(R, F, x, y, [](float a, float b) RF_INLINE { return __fsub_rn(a, b); });
       continue;
+    }
+    if constexpr (kExt) {
+      // The ops of loops and shifts, the last opcodes, only in the forms
+      // for lists that have them (the header's flags): the other forms'
+      // switch stays as it was without them.
+      if (op >= K_FMOV) {
+        const GlslSrc<long long> X = R.is(x), Y = R.is(y);
+        switch (op) {
+          case K_FMOV: {
+            const GlslSrc<float> A = R.fs(x);
+            glsl_each<P>(F, [&](int k) RF_INLINE { return A[k]; });
+            break;
+          }
+          case K_IMOV: glsl_each<P>(I, [&](int k) RF_INLINE { return X[k]; }); break;
+          // Shifts as torch does them: << on the unsigned type (a wrap is
+          // defined), a count outside [0, width) gives 0; >> arithmetic, a
+          // count outside [0, width - 1) gives the sign.
+          case K_ISHL:
+            glsl_each<P>(I, [&](int k) RF_INLINE {
+              const long long a = X[k], b = Y[k];
+              return b < 0 || b >= (wr ? 32 : 64)
+                         ? 0ll
+                         : wrap32(wr, (long long)((unsigned long long)a << b));
+            });
+            break;
+          case K_ISHR:
+            glsl_each<P>(I, [&](int k) RF_INLINE {
+              const long long a = X[k], b = Y[k], top = wr ? 31 : 63;
+              return a >> (b < 0 || b > top ? top : b);
+            });
+            break;
+          case K_LOOP: {
+            // A loop's back-edge (after the moves of the body's results
+            // into the carried registers): the round counter d counts this
+            // round; the warp's threads, P pixels each, go back together to
+            // the body's first op while any of their pixels is active (x)
+            // and the count is below the cap (y), as the interpreter's
+            // rounds do for the whole image (a pixel past its exit runs the
+            // body masked, which changes nothing).  Together, so that the
+            // warp's threads stay at one op: a thread that left the loop
+            // alone would run the rest of the list beside the others, every
+            // op dispatched once a group.  The counter is the same for the P
+            // pixels: pixel 0's.
+            const long long rounds = I[0] + 1;
+            bool any = false;
+#pragma unroll
+            for (int k = 0; k < P; ++k) any |= X[k] != 0;
+            I[0] = rounds;
+            any = __any_sync(__activemask(), any);
+            if (any && rounds < Y[0]) {
+              n = (int)(w1 & 0xffff) - 1;
+              next = ops[n + 1];
+            }
+            break;
+          }
+        }
+        continue;
+      }
     }
     switch (op) {
       case K_LOAD: {  // channel y of input x, straight from its view
@@ -645,7 +707,7 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const Gls
 // the list on the view's first pixel and stores nothing.  prog: the packed
 // program in the block's idx copy (an even word); files: the register
 // files' region (8-byte aligned).
-template <int P, bool kTrig, typename Put>
+template <int P, bool kTrig, bool kExt, typename Put>
 __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* files,
                                            const View& in0, const View& in1, int rows, int cols,
                                            int by, int bx, int H, int W, int row0, float time,
@@ -679,7 +741,7 @@ __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* 
         ++r;
       }
     }
-    glsl_ops<P, kTrig>(prog, R, in0, in1, at0, at1, gy, gx, time);
+    glsl_ops<P, kTrig, kExt>(prog, R, in0, in1, at0, at1, gy, gx, time);
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
       const GlslSrc<float> S = R.fs(prog[5 + ch]);
@@ -861,11 +923,12 @@ __device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
 // kAffine: the plan has MC_AFFINE stages (synthesized GLSL convs and
 // stencils); kGlsl > 0: it has MC_GLSL stages (point shaders, with the
 // affine ones), evaluated kGlsl (2 or 4) pixels a thread, or reads in
-// zero mode; kTrig: an op list calls sinf, cosf or tanf (launch_form).
+// zero mode; kTrig: an op list calls sinf, cosf or tanf; kExt: it has
+// loops or shifts (launch_form).
 // The builtins' and affine forms keep the edge mode's code alone (a
 // runtime zero flag cost the affine form 1.5% on glsl-blur-sharpen,
 // PERF.md).
-template <typename T, bool kAffine, int kGlsl, bool kTrig>
+template <typename T, bool kAffine, int kGlsl, bool kTrig, bool kExt>
 __global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int vec, int store, float time, const float* __restrict__ taps_g,
@@ -1025,7 +1088,7 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
       if constexpr (kGlsl > 0) {
         glsl = st.code == MC_GLSL;
         if (glsl)
-          glsl_cells<kGlsl, kTrig>(idx + st.t0, win, in0, in1, rows, cols, by, bx, H, W,
+          glsl_cells<kGlsl, kTrig, kExt>(idx + st.t0, win, in0, in1, rows, cols, by, bx, H, W,
                                    args.row0, time, put);
       }
       if (!glsl) for_each_cell(rows, cols, [&](int r, int cc) RF_INLINE {
@@ -1068,11 +1131,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
   }
 }
 
-template <typename T, bool kAffine, int kGlsl, bool kTrig = false>
+template <typename T, bool kAffine, int kGlsl, bool kTrig = false, bool kExt = false>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                   const McArgs& args, const float* taps, const int* idx, int store, float time,
                   int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig>;
+  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig, kExt>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1084,7 +1147,8 @@ static int launch(const void* x, void* out, int H, int W, int TH, int TW, int ve
 
 // The kernel form of a plan, chosen here only: the glsl form where a stage
 // is MC_GLSL, at the plan's pixels a thread (4, else 2), with the trig ops
-// where an op list calls them, and for zero mode, which rides on it (the
+// where an op list calls them and the loop and shift ops where one has
+// them (the flags of the packed header), and for zero mode, which rides on it (the
 // other forms read the edge mode only); else the affine form where a
 // stage is MC_AFFINE; else the builtins'.
 template <typename T>
@@ -1096,19 +1160,31 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
     glsl = glsl || args.st[s].code == MC_GLSL;
     affine = affine || args.st[s].code == MC_AFFINE;
   }
-  const bool four = args.glsl_pix == 4, trig = args.glsl_trig != 0;
+  const bool four = args.glsl_pix == 4, trig = args.glsl_flags & 1, ext = args.glsl_flags & 2;
+  if (glsl && four && trig && ext)
+    return launch<T, true, 4, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                          time, smem, stream);
   if (glsl && four && trig)
-    return launch<T, true, 4, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
-                                    smem, stream);
+    return launch<T, true, 4, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                    time, smem, stream);
+  if (glsl && four && ext)
+    return launch<T, true, 4, false, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                           time, smem, stream);
   if (glsl && four)
-    return launch<T, true, 4>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
-                              stream);
+    return launch<T, true, 4>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                              time, smem, stream);
+  if (glsl && trig && ext)
+    return launch<T, true, 2, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                          time, smem, stream);
   if (glsl && trig)
-    return launch<T, true, 2, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
-                                    smem, stream);
+    return launch<T, true, 2, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                    time, smem, stream);
+  if (glsl && ext)
+    return launch<T, true, 2, false, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                                           time, smem, stream);
   if (glsl)
-    return launch<T, true, 2>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
-                              stream);
+    return launch<T, true, 2>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+                              time, smem, stream);
   if (affine)
     return launch<T, true, 0>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
                               stream);
@@ -1120,7 +1196,7 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
 
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
 // stage); geo the layout's ten ints (scratch_off, taps_off, in_eh,
-// in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_trig:
+// in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_flags:
 // cuda_ops.McProgram.geometry);
 // taps / idx lie on the device.  bf16 selects bf16 storage for input and
 // output (else f32).  vec: the input's rows start on 16-byte boundaries;
@@ -1143,7 +1219,7 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   args.win_floats = geo[6];
   args.n_win = geo[7];
   args.glsl_pix = geo[8];
-  args.glsl_trig = geo[9];
+  args.glsl_flags = geo[9];
   args.n_taps = n_taps;
   args.zero = zero;
   args.row0 = row0;

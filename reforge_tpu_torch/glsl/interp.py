@@ -211,8 +211,10 @@ class Interp:
         abstract: Optional[bool] = None,
         row_offset: int = 0,  # global row of local row 0 (a row-sharded slab)
         global_height: Optional[int] = None,  # imageSize's extent
+        lower_loop: Optional[Any] = None,  # glsl/lower.py's recorder: loops run once
     ):
         self.shader = shader
+        self.lower_loop = lower_loop
         self.h = height  # the local block's rows (array shapes)
         self.w = width
         self.row_offset = row_offset
@@ -941,7 +943,9 @@ class Interp:
         predicated on the mask; the loop ends when no lane is active (one
         host read a round), or after _WHILE_CAP rounds.  A loop inside
         non-uniform control flow starts with the enclosing mask folded into
-        its active lanes.  Under abstract evaluation the body runs once."""
+        its active lanes.  Under abstract evaluation the body runs once;
+        under ``lower_loop`` (glsl/lower.py) it runs once on the recorder's
+        carry, which becomes a loop region of the op list."""
         enclosing = self.mask
         live = loop_scope.activation.live_mask()
         if live is not None:
@@ -1120,6 +1124,11 @@ class Interp:
         carry["_returned"] = torch.zeros(hw, dtype=torch.bool, device=self.device)
         if self.abstract:
             carry = body_fn(carry)
+        elif self.lower_loop is not None:
+            # Lowering to an op list (glsl/lower.py): the recorder runs the
+            # body once on its own carry and returns the carry after the
+            # loop; a valued return's carry starts as zeros.
+            carry = self.lower_loop(carry, body_fn, self._zeros_tree)
         else:
             rounds = 0
             while rounds < self._WHILE_CAP and bool(carry["_active"].any()):
@@ -3021,7 +3030,13 @@ class Interp:
     def _texture(self, arg_exprs: list, scope, line: int) -> Val:
         """texture(sampler2D, vec2 uv): bilinear sample at normalized
         coordinates with clamp-to-edge (the reference's one sampler is
-        linear/clamp -- vkutils.rs:359-370)."""
+        linear/clamp -- vkutils.rs:359-370), except at the top and left
+        edges: an inherited reference fault, kept bit for bit.  ``y1`` (and
+        ``x1``) is taken from the clamped ``y0``, and the weight ``ty`` from
+        the unclamped floor, so a sample inside the first row's outer half
+        texel blends row 0 with row 1 where clamp-to-edge reads row 0.
+        Fixing it moves four goldens and is a change of the contract
+        (tests/test_torch_texture.py pins it)."""
         if len(arg_exprs) != 2:
             raise GlslError("texture(sampler, vec2)", line)
         name = self._get_image(arg_exprs[0], line)

@@ -23,25 +23,37 @@ masked to 32 bits -- or bool) and a cast precedes any operand of another
 type, with torch's conversions.
 
 The interpreter runs with ``abstract=False``: counted loops unroll as on
-a real frame, and a data-dependent loop's first host read of its live
-mask refuses the lowering.  So do an op outside the op set, a gather, an
-in-place update, storage buffers, atomics and ``shared`` arrays, more
-than two input images and more registers or constants than an op word's
-fields address: each raises ``Refused``, whose reason ``lower_point``
-returns, and such a node runs per node (or between segments), as before.
+a real frame.  A data-dependent loop (the interpreter's vectorized
+rounds, ``Interp._exec_loop_vectorized``) hands its body to the recorder
+(``lower_loop``), which records it once as a loop region: moves of the
+carried values into registers of their own, the body, and a back-edge
+(LOOP) that repeats it while the carried ``_active`` holds, at most the
+interpreter's ``_WHILE_CAP`` rounds.  Running a lane past its own exit
+changes nothing (the body's merges are masked), so the region run a
+pixel at a time is bit-equal to the interpreter's whole-image rounds.
+Integer shifts are ops of their own (ISHL, ISHR, with torch's rule for a
+count outside the width).  A host read of a per-pixel value elsewhere
+refuses the lowering, and so do an op outside the op set, a gather, a
+bit cast, an in-place update, storage buffers, atomics and ``shared``
+arrays, more than two input images and more registers or constants than
+an op word's fields address: each raises ``Refused``, whose reason
+``lower_point`` returns, and such a node runs per node (or between
+segments), as before.
 Whether a program's register files fit the kernel's shared memory beside
 the rest of its plan is the mc planner's question
 (``cuda_ops.McProgram.tile``).
 
-``point_program_plain`` is the plain version: the ops in order, each with
-the torch function the interpreter called and the same operand forms (a
-Python scalar where the interpreter passed one), so that on the CPU it is
+``point_program_plain`` is the plain version: the ops in order (a taken
+back-edge jumps back while any pixel is active), each with the torch
+function the interpreter called and the same operand forms (a Python
+scalar where the interpreter passed one), so that on the CPU it is
 bit-equal to the interpreter.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 from typing import Any, Optional, Union
 
@@ -91,9 +103,13 @@ KERNEL_OPS = (
     "INEG", "IABS", "ISIGN", "INOT", "ILNOT",
     "IWHERE", "ICLAMP",
     "F2I", "F2L", "F2B", "I2F", "L2F", "B2F", "L2I", "I2B", "ICOPY",
+    "FMOV", "IMOV", "ISHL", "ISHR", "LOOP",
 )
 K = {name: k for k, name in enumerate(KERNEL_OPS)}
 _LEAVES = ("LOAD", "COORD_X", "COORD_Y", "TIME")
+# Ops whose name takes no type prefix.
+_UNTYPED = _LEAVES + ("LOOP",)
+_MOVES = {K["FMOV"], K["IMOV"]}
 _CASTS = {(F32, I32): "F2I", (F32, I64): "F2L", (F32, BOOL): "F2B", (I32, F32): "I2F",
           (I64, F32): "L2F", (BOOL, F32): "B2F", (I64, I32): "L2I", (I32, BOOL): "I2B",
           (I64, BOOL): "I2B", (I32, I64): "ICOPY", (BOOL, I32): "ICOPY", (BOOL, I64): "ICOPY"}
@@ -101,6 +117,9 @@ _CAST_OPS = {K[name] for name in _CASTS.values()}
 # The ops of a list that only the kernel's trig forms evaluate (the
 # header's flags).
 _TRIG_OPS = {K["FSIN"], K["FCOS"], K["FTAN"]}
+# The ops of loops and shifts, the last opcodes: only the kernel's forms
+# for lists that have them (the header's flags) evaluate them.
+_EXT_OPS = set(range(K["FMOV"], len(KERNEL_OPS)))
 # Ops that compute in their type and give bool.
 _BOOL_OUT = {K[p + n] for p in "FI" for n in ("EQ", "NE", "LT", "LE", "GT", "GE")} | {K["FISNAN"]}
 
@@ -111,6 +130,8 @@ _BINARY = {
     _aten.bitwise_and: "AND", _aten.bitwise_or: "OR", _aten.bitwise_xor: "XOR",
     _aten.logical_and: "AND", _aten.logical_or: "OR", _aten.logical_xor: "XOR",
     _aten.floor_divide: "FLOORDIV", _aten.pow: "POW", _aten.fmod: "FMOD",
+    _aten.__lshift__: "SHL", _aten.bitwise_left_shift: "SHL",
+    _aten.__rshift__: "SHR", _aten.bitwise_right_shift: "SHR",
 }
 _COMPARE = {_aten.eq: "EQ", _aten.ne: "NE", _aten.lt: "LT", _aten.le: "LE", _aten.gt: "GT",
             _aten.ge: "GE"}
@@ -142,7 +163,7 @@ def _opcode(name: str, typ: int, src: Optional[int] = None) -> int:
     operand type); Refused where the kernel has none."""
     if name == "CAST":
         name = _CASTS.get((src, typ), "")
-    elif name not in _LEAVES:
+    elif name not in _UNTYPED:
         name = ("F" if typ == F32 else "I") + name
     if name not in K:
         raise Refused(f"no op {name or 'cast'} of type {DTYPES[typ]} (src {src})")
@@ -173,7 +194,13 @@ class PointProgram:
     ``ops`` are ``(op, typ, dst, refs)``: the opcode (an index of
     KERNEL_OPS), the type it computes in (a cast's: its result's), the
     result's register and the operands, each a register or constant ``-1
-    - k`` (a LOAD's: the image and the channel).  Float registers count
+    - k`` (a LOAD's: the image and the channel; a LOOP's: the carried
+    ``_active``, the round cap, the index of the loop body's first op and
+    the trip bound, its ``dst`` the round counter).  A loop region is the
+    ops from a LOOP's first op to the LOOP: the body, then moves of its
+    results into the carried registers (FMOV, IMOV); LOOP adds one to the
+    counter and goes back while any lane's ``_active`` holds and the
+    count is below the cap.  Float registers count
     from 0 (``n_f`` of them), integer ones from I_BASE (``n_i``).
     ``outputs`` are the four channels' operands (f32).  ``images`` are the
     input images read, by name, in the kernel spec's order."""
@@ -207,13 +234,17 @@ class PointProgram:
         header (ops, the float and integer registers in use, the float and
         integer constants' counts, the four output channels' operands,
         flags: 1 where the list calls sinf, cosf or tanf, whose argument
-        reduction keeps an array the kernel's other forms need not carry);
+        reduction keeps an array the kernel's other forms need not carry, 2
+        where it has loops or shifts, which the kernel's forms for them
+        evaluate);
         the float constants' bits, and a zero where their count is
         odd; the integer constants, the low and high words of their 64-bit
         form; then two words an op: its opcode | dst << 8 | a << 16 | b <<
         24 and c | d << 8 | (i32: wraps to 32 bits) << 16.  An operand is
         a register's index in its file, or CONST | k for the k-th constant
-        of its class (a LOAD's a and b: the image and the channel)."""
+        of its class (a LOAD's a and b: the image and the channel).  A
+        LOOP (a back-edge) is LOOP | counter << 8 | active << 16 | cap << 24
+        and the index of its body's first op | (trip bound - 1) << 16."""
         slot = self._slots()
 
         def at(ref: int) -> int:
@@ -224,17 +255,39 @@ class PointProgram:
         fk = [k for k, c in enumerate(self.consts) if c.typ == F32]
         ik = [k for k, c in enumerate(self.consts) if c.typ != F32]
         trig = any(op in _TRIG_OPS for op, *_ in self.ops)
+        ext = any(op in _EXT_OPS for op, *_ in self.ops)
         words = [len(self.ops), self.n_f, self.n_i, len(fk), len(ik),
-                 *(at(o) for o in self.outputs), int(trig)]
+                 *(at(o) for o in self.outputs), int(trig) | int(ext) << 1]
         words += [_register_bits(F32, self.consts[k].value) for k in fk] + [0] * (len(fk) % 2)
         for k in ik:
             bits = _register_bits(self.consts[k].typ, self.consts[k].value)
             words += [bits & 0xFFFFFFFF, bits >> 32]
         for op, typ, dst, refs in self.ops:
+            if op == K["LOOP"]:
+                active, cap, target, trips = refs
+                words += [op | at(dst) << 8 | at(active) << 16 | at(cap) << 24,
+                          target | (min(trips, 1 << 16) - 1) << 16]
+                continue
             f = (list(refs) if op == K["LOAD"] else [at(r) for r in refs]) + [0] * (4 - len(refs))
             words += [op | at(dst) << 8 | f[0] << 16 | f[1] << 24,
                       f[2] | f[3] << 8 | int(typ == I32) << 16]
         return np.asarray([_i32(w) for w in words], np.int32)
+
+
+def packed_work(words) -> int:
+    """The ops a pixel runs of a packed program (``PointProgram.packed``):
+    each op once, an op of a loop region times the trip bound its
+    back-edge carries (nested regions multiply), so that the mc planner's
+    work model counts a loop by its rounds and not by one trip."""
+    words = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    n, k_f, k_i = int(words[0]), int(words[3]), int(words[4])
+    at = HEAD_INTS + k_f + k_f % 2 + 2 * k_i
+    ops = words[at:at + 2 * n].reshape(-1, 2)
+    weight = np.ones(n, np.float64)
+    for e in np.flatnonzero((ops[:, 0] & 255) == K["LOOP"]):
+        w1 = int(ops[e, 1])
+        weight[w1 & 0xFFFF:e + 1] *= (w1 >> 16) + 1
+    return int(weight.sum())
 
 
 def _i32(u: int) -> int:
@@ -303,6 +356,17 @@ class _Recorder(TorchDispatchMode):
         self.nodes: list[tuple] = []  # (op, typ, operands); a LOAD's operands (image, channel)
         self.loads: dict[tuple, int] = {}
         self.refused: Optional[str] = None
+        # Loop regions: (the body's first node, the back-edge node); a
+        # back-edge move's or back-edge's node -> the node whose register
+        # it writes (a carried value, the round counter); a carried node ->
+        # those writers; a back-edge move -> its back-edge; the back-edge's
+        # trip bound; a carried value that leaves the loop with no op list.
+        self.regions: list[tuple[int, int]] = []
+        self.into: dict[int, int] = {}
+        self.writers: dict[int, list] = {}
+        self.loop_of: dict[int, int] = {}
+        self.trips: dict[int, int] = {}
+        self.bad: dict[int, str] = {}
 
     # -- bookkeeping
 
@@ -343,15 +407,161 @@ class _Recorder(TorchDispatchMode):
             return v
         return self.emit("CAST", typ, (v,), src)
 
+    # -- loop regions (Interp's ``lower_loop``)
+
+    def loop(self, carry: dict, body_fn, zeros_tree) -> dict:
+        """A data-dependent loop as a region of the op list: a move of each
+        carried value into a register of its own and a round counter set to
+        0, the body's ops (``body_fn`` run once on those registers), then
+        the back-edge: moves of the body's results into the carried
+        registers and LOOP, which repeats the body while the carried
+        ``_active`` holds and the round count is below the interpreter's
+        cap.  Returns the carry after the loop: the carried registers.  A
+        valued return's carry, which the interpreter starts at zeros after
+        the first round, is recorded from the start (the body is recorded a
+        second time, the first record dead)."""
+        inner, start, counter = self._carry_in(carry)
+        out = body_fn(inner)
+        late = [k for k in out if k not in inner]
+        if late:
+            carry = {**carry, **{k: zeros_tree(out[k]) for k in late}}
+            inner, start, counter = self._carry_in(carry)
+            out = body_fn(inner)
+        self._back_edge(inner, out, start, counter)
+        return inner
+
+    def _carry_in(self, carry: dict):
+        def move(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            v = self.value(t)
+            if isinstance(v, (_Img, _Vec, _Arange)):
+                self.refuse("a loop that carries a whole image")
+            if t.dtype not in _TYPE_OF:
+                self.refuse(f"a loop that carries {t.dtype}")
+            new = torch.empty_like(t)
+            if not isinstance(v, _Bad):
+                typ = _TYPE_OF[t.dtype]
+                v = self.emit("MOV", typ, (self.operand(v, typ),))
+            self.bind(new, v)
+            return new
+
+        inner = {k: _tree_map(move, tree) for k, tree in carry.items()}
+        counter = self.emit("MOV", I32, (Const(I32, 0),))
+        return inner, len(self.nodes), counter
+
+    def _back_edge(self, inner: dict, out: dict, start: int, counter: int) -> None:
+        pairs = []
+        for key, tree in inner.items():
+            ins, outs = _tree_leaves(tree), _tree_leaves(out[key])
+            if len(ins) != len(outs):
+                self.refuse("a loop carry whose structure changes in the body")
+            for a, b in zip(ins, outs):
+                if isinstance(a, torch.Tensor) and isinstance(self.value(a), int):
+                    pairs.append((self.value(a), self.value(b) if isinstance(b, torch.Tensor)
+                                  else _Py(b)))
+        carried = {p for p, _v in pairs}
+        srcs = []
+        for p, v in pairs:
+            if isinstance(v, _Bad):
+                self.bad[p] = v.reason
+                srcs.append(None)
+                continue
+            typ = out_type(*self.nodes[p][:2])
+            v = self.operand(v, typ)
+            if isinstance(v, int) and v in carried and v != p:
+                v = self.emit("MOV", typ, (v,))  # read before the moves write it
+            srcs.append(v)
+        moves = []
+        for (p, _v), v in zip(pairs, srcs):
+            if v is None or v == p:
+                continue
+            m = self.emit("MOV", out_type(*self.nodes[p][:2]), (v,))
+            self.into[m] = p
+            self.writers.setdefault(p, []).append(m)
+            moves.append(m)
+        active = self.value(_tree_leaves(inner["_active"])[0])
+        loop = len(self.nodes)
+        self.nodes.append((K["LOOP"], I32, (active, counter, Const(I32, Interp._WHILE_CAP))))
+        self.loop_of.update((m, loop) for m in moves)
+        self.into[loop] = counter
+        self.writers.setdefault(counter, []).append(loop)
+        self.regions.append((start, loop))
+        self.trips[loop] = self._trip_bound(pairs, srcs, active)
+
+    def _trip_bound(self, pairs, srcs, active: int) -> int:
+        """The most rounds the loop can take, where its condition compares
+        a carried counter stepped by a constant with a constant (a carried
+        value from a Const, its body result that value plus or minus a Const,
+        under a mask or not); else the interpreter's cap."""
+        nodes = self.nodes
+        slot = {}
+        for (p, _v), v in zip(pairs, srcs):
+            init = nodes[p][2][0]
+            if isinstance(init, Const) and v is not None:
+                slot[p] = (p, init.value)
+                if isinstance(v, int):
+                    slot[v] = (p, init.value)
+
+        def step(v, p):
+            """The constant the body adds to carried value p, or None."""
+            if not isinstance(v, int):
+                return None
+            op, _typ, args = nodes[v]
+            name = KERNEL_OPS[op][1:]
+            if name == "WHERE":
+                return step(args[1], p) if args[2] == p else None
+            if name in ("ADD", "SUB") and args[0] == p and isinstance(args[1], Const):
+                return args[1].value if name == "ADD" else -args[1].value
+            if name == "ADD" and args[1] == p and isinstance(args[0], Const):
+                return args[0].value
+            return None
+
+        out_of = {p: v for (p, _v), v in zip(pairs, srcs)}
+        best = Interp._WHILE_CAP
+        todo = [out_of.get(active)]
+        while todo:
+            v = todo.pop()
+            if not isinstance(v, int):
+                continue
+            op, _typ, args = nodes[v]
+            name = KERNEL_OPS[op]
+            if name == "IAND" or (name == "IWHERE" and isinstance(args[2], Const)
+                                  and not args[2].value):
+                todo += list(args[:2])
+                continue
+            rel = name[1:]
+            if rel not in ("LT", "LE", "GT", "GE"):
+                continue
+            x, c = args
+            if isinstance(x, Const):
+                x, c = c, x
+                rel = {"LT": "GT", "LE": "GE", "GT": "LT", "GE": "LE"}[rel]
+            while isinstance(x, int) and nodes[x][0] in _CAST_OPS:
+                x = nodes[x][2][0]
+            if not isinstance(c, Const) or x not in slot:
+                continue
+            p, i0 = slot[x]
+            s = step(out_of[p], p)
+            if s is None or not (s > 0 if rel in ("LT", "LE") else s < 0):
+                continue
+            span = (c.value - i0) / abs(s) if s > 0 else (i0 - c.value) / abs(s)
+            # rounds r >= 1 while i0 + r * s stays on the near side of c
+            n = math.ceil(span) if rel in ("LT", "GT") else math.floor(span) + 1
+            best = min(best, max(n, 1) + int(x == p))  # x == p: read before the step
+        return best
+
     # -- the dispatch
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         packet = func.overloadpacket
+        name = packet.__name__
         if packet in _HOST_READS:
-            self.refuse("data-dependent loop (a host read of a per-pixel value)")
-        if func._schema.is_mutable or packet.__name__.endswith("_"):
-            self.refuse(f"in-place update ({packet.__name__})")
+            self.refuse("a host read of a per-pixel value (a loop the interpreter runs "
+                        "unrolled, or a branch on a per-pixel value)")
+        if func._schema.is_mutable or (name.endswith("_") and not name.startswith("__")):
+            self.refuse(f"in-place update ({name})")
         out = func(*args, **kwargs)
         if isinstance(out, torch.Tensor):
             try:
@@ -390,6 +600,8 @@ class _Recorder(TorchDispatchMode):
             return Const(_TYPE_OF[out.dtype], _convert(fill, None, _TYPE_OF[out.dtype]))
         if packet in _VIEWS:
             v = vals[0]
+            if out.dtype != args[0].dtype:
+                raise Refused(f"a bit cast (a view of {args[0].dtype} as {out.dtype})")
             if isinstance(v, _Arange):
                 shape = tuple(out.shape)
                 if packet is _aten.view and shape == (1, v.n) and v.n == self.w:
@@ -497,6 +709,8 @@ class _Recorder(TorchDispatchMode):
             if mode == "floor":
                 op = "FLOORDIV"
             # the integer DIV truncates; a true division of integers gives f32
+        if op in ("SHL", "SHR") and typ not in (I32, I64):
+            raise Refused(f"a shift of {DTYPES[typ]} values ({name})")
         if typ == BOOL:
             if op not in ("ADD", "MUL", "MAX", "MIN", "AND", "OR", "XOR"):
                 raise Refused(f"{name} of booleans")
@@ -516,6 +730,24 @@ class _Recorder(TorchDispatchMode):
         got = func(*[concrete(a) for a in args], **kwargs)
         typ = _TYPE_OF[out.dtype]
         return Const(typ, got.reshape(-1)[0].to(DTYPES[typ]).item())
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of an interpreter carry tree (tuples, lists and dicts of
+    planes), in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, t) for k, t in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
 
 
 # ---- lowering --------------------------------------------------------------
@@ -589,7 +821,7 @@ def lower_point(spec, params: dict, width: int, height: int,
         rec.bind(t, rec.emit("TIME", F32))
         with rec:
             outputs = Interp(spec.glsl, height, width, images, dict(params), time=t,
-                             device=meta, abstract=False).run_main()
+                             device=meta, abstract=False, lower_loop=rec.loop).run_main()
         return _allocate(rec, _output_items(rec, outputs, out_desc), spec.images_in)
     except Refused as e:
         return rec.refused or str(e)
@@ -620,9 +852,18 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
     """The live nodes in order, with registers assigned by liveness in two
     files, floats and integers (a register frees after its value's last
     read, so an op's result may take an operand's register; the outputs
-    stay live to the end), and a deduplicated constant table."""
+    stay live to the end), and a deduplicated constant table.
+
+    A loop region lives while a value it carries does (a carried value's
+    back-edge move, and a move's back-edge, live with it).  Liveness
+    crosses the back-edge: a value defined before a region and read (or,
+    a carried register, written) inside it stays live to the region's
+    end, so that no register of the body takes it.  A back-edge move
+    writes its carried value's register, the back-edge its counter's; the
+    back-edge's operands are the carried ``_active``, the cap, the index
+    of the body's first op and the trip bound."""
     nodes = rec.nodes
-    load, leaves = K["LOAD"], {K[name] for name in _LEAVES}
+    load, loop_op, leaves = K["LOAD"], K["LOOP"], {K[name] for name in _LEAVES}
 
     def operands(i: int) -> tuple:
         return () if nodes[i][0] == load else nodes[i][2]
@@ -633,14 +874,32 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
         i = stack.pop()
         if i in live:
             continue
+        if i in rec.bad:
+            raise Refused(rec.bad[i])
         live.add(i)
         stack += [a for a in operands(i) if isinstance(a, int)]
+        stack += rec.writers.get(i, [])
+        if i in rec.loop_of:
+            stack.append(rec.loop_of[i])
     order = sorted(live)
+    if len(order) > 0xFFFF:
+        raise Refused(f"{len(order)} ops (a back-edge's field addresses 65535)")
+    pos = {i: j for j, i in enumerate(order)}
+    regions = []
+    for start, end in rec.regions:
+        if end in live:
+            regions.append((next(j for j, i in enumerate(order) if i >= start), pos[end]))
     last = {}
     for j, i in enumerate(order):
-        for a in operands(i):
-            if isinstance(a, int):
-                last[a] = j
+        reads = [a for a in operands(i) if isinstance(a, int)]
+        if i in rec.into:
+            reads.append(rec.into[i])
+        for a in reads:
+            end = j
+            for s, e in regions:
+                if s <= j <= e and pos[a] < s:
+                    end = max(end, e)
+            last[a] = max(last.get(a, -1), end)
     for o in outputs:
         if isinstance(o, int):
             last[o] = len(order)
@@ -665,17 +924,24 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
     ops = []
     for j, i in enumerate(order):
         op, typ, args = nodes[i]
-        refs = args if op == load else tuple(ref(a) for a in args)
-        for a in set(operands(i)):
+        if op == loop_op:
+            active, _counter, cap = args
+            refs = (ref(active), ref(cap), next(s for s, e in regions if e == j), rec.trips[i])
+        else:
+            refs = args if op == load else tuple(ref(a) for a in args)
+        for a in set(operands(i)) | ({rec.into[i]} if i in rec.into else set()):
             if isinstance(a, int) and last[a] == j:
                 free[is_f(a)].add(reg_of[a])
-        f = is_f(i)
-        if free[f]:
-            dst = min(free[f])
-            free[f].discard(dst)
+        if i in rec.into:
+            dst = reg_of[rec.into[i]]
         else:
-            dst = n[f] if f else I_BASE + n[f]
-            n[f] += 1
+            f = is_f(i)
+            if free[f]:
+                dst = min(free[f])
+                free[f].discard(dst)
+            else:
+                dst = n[f] if f else I_BASE + n[f]
+                n[f] += 1
         reg_of[i] = dst
         ops.append((op, typ, dst, refs))
     out_refs = tuple(ref(o) for o in outputs)
@@ -744,6 +1010,8 @@ _PLAIN = {
         "SQRT", "SIN", "COS", "TAN", "ASIN", "ACOS", "ATAN", "SINH", "COSH", "TANH", "ISNAN")},
     "RECIP": _unary(torch.reciprocal),
     "NOT": _unary(torch.bitwise_not), "LNOT": _unary(torch.bitwise_not),
+    "SHL": _pair(torch.bitwise_left_shift), "SHR": _pair(torch.bitwise_right_shift),
+    "MOV": lambda typ, a: a,
     "WHERE": lambda typ, c, a, b: torch.where(c, a, b),
     "CLAMP": _clamp,
     "NAN2NUM": lambda typ, a, nan, posinf, neginf: torch.nan_to_num(
@@ -772,7 +1040,19 @@ def point_program_plain(prog: PointProgram, ins, gy: torch.Tensor, gx: torch.Ten
             return k.value
         return torch.tensor(k.value, dtype=DTYPES[k.typ], device=device)
 
-    for op, typ, dst, refs in prog.ops:
+    pc = 0
+    while pc < len(prog.ops):
+        op, typ, dst, refs = prog.ops[pc]
+        pc += 1
+        if op == K["LOOP"]:
+            # the interpreter's rounds: the whole image while any lane is
+            # active (a lane past its exit changes nothing: the body's
+            # merges are masked)
+            active, cap, target, _trips = refs
+            regs[dst] = arg(dst) + 1
+            if bool(torch.as_tensor(arg(active)).any()) and int(regs[dst]) < int(arg(cap)):
+                pc = target
+            continue
         if op == K["LOAD"]:
             v = ins[refs[0]][refs[1]]
         elif op in leaves:

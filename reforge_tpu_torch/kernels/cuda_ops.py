@@ -1267,6 +1267,8 @@ class McProgram:
         # an op list calls sinf, cosf or tanf (its header's flags): the
         # kernel's trig forms
         self._trig = any(int(w[9]) & 1 for w in self._glsl)
+        # and loops or shifts (the forms that evaluate them)
+        self._ext = any(int(w[9]) & 2 for w in self._glsl)
         if self._glsl and off % 2:
             # an even count, so that the positions (the op lists) start on
             # an even word of shared memory after them
@@ -1312,8 +1314,9 @@ class McProgram:
         taps start on an even word (the lists' 8-byte reads).  The
         geometry is the kernel's ten ints: scratch offset, taps offset,
         the input block's extent and whether a stage reads it, the windows'
-        offset, size and count, the op lists' pixels a thread and whether
-        one calls sinf, cosf or tanf."""
+        offset, size and count, the op lists' pixels a thread and their
+        flags (1: one calls sinf, cosf or tanf; 2: one has loops or
+        shifts)."""
         def block(eh, ew):
             return 4 * (th + 2 * eh) * ((tw + 2 * ew) | 1)
 
@@ -1342,7 +1345,7 @@ class McProgram:
         if self._glsl:
             taps_off += taps_off % 2
         geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win,
-                        pixels, int(self._trig)], np.int32)
+                        pixels, int(self._trig) | int(self._ext) << 1], np.int32)
         return slot_off, 4 * (taps_off + 2 * len(self.taps)), geo
 
     def _work(self, th: int, tw: int) -> float:
@@ -1350,8 +1353,9 @@ class McProgram:
         loaded (input block and conv windows), the conv FMAs of both passes
         over each stage's extended block (the H pass also over the halo
         columns), the stencils' rounded products and sums, about 20
-        operations a point stage's pixel; so halo recompute and load per
-        output, which fall as the tile grows."""
+        operations a point stage's pixel (an op list's: about 10 an op it
+        runs, ``glsl.lower.packed_work``); so halo recompute and load per output,
+        which fall as the tile grows."""
         def area(eh, ew):
             return (th + 2 * eh) * (tw + 2 * ew)
 
@@ -1369,7 +1373,9 @@ class McProgram:
                 terms = sum(int(np.count_nonzero(t)) for t in st.taps) or 19
                 work += area(st.eh, st.ew) * 3 * 2 * terms
             elif st.op.code == MC_GLSL:
-                work += area(st.eh, st.ew) * 10 * int(st.taps[0][0])  # ~10 an op
+                from ..glsl import lower  # a loop's ops times its trip bound
+
+                work += area(st.eh, st.ew) * 10 * lower.packed_work(st.taps[0])  # ~10 an op
             else:
                 work += area(st.eh, st.ew) * 20
         return work / (th * tw)

@@ -16,7 +16,8 @@ anything.  A variant whose anchors a source lacks is skipped.
   mc     csrc/graph_strip_mc.cu (demo rgba32f and rgba16f, chain3, edges,
          neon edges, glsl-blur, glsl-blur-sharpen and glsl-chain rgba32f
          and rgba16f; glsl-sharpen, tonemap.comp before sharpen.comp,
-         blur_sharpen_blend and zero_border rgba32f):
+         blur_sharpen_blend, zero_border and the loop and shift graphs
+         (benchmarks.LOOP_GRAPHS) rgba32f):
          load_only (return once the input block is in shared memory),
          no_conv, no_stencil (skip those stages), no_glsl (a GLSL point
          stage's op list not evaluated: the stage passes its input on, its
@@ -35,7 +36,10 @@ anything.  A variant whose anchors a source lacks is skipped.
          const_files (the
          program's constants copied into each thread's register files
          once a stage, as the form before its redesign did, and read
-         there, not from the program's own table);
+         there, not from the program's own table), thread_loops (a loop's
+         back-edge taken by each thread for its own pixels, not by the
+         warp together: threads that leave a loop early run the rest of
+         the list apart from the others);
   strip  csrc/graph_strip.cuh (the flagship, rgba32f and rgba16f):
          load_only, h_only (the H passes, no W pass, no epilogue, no
          store), no_w (the W passes cut to one tap: their loads and
@@ -109,8 +113,11 @@ graph_strip_mc on every plan of ``benchmarks.point_graphs()`` and
 chip_smoke.py's op probe (the plans the tier rule refuses included) in
 rgba32f, rgba16f and rgba8, and on chip_smoke.py's point shader that
 reads its row, on a slab of 600 rows at image row 528 (``J`` and ``K``
-rows).  It prints the max abs difference between the two sides' outputs
-of every row.  Needs a CUDA card and nvcc.
+rows), and whole frames of the loop and shift graphs
+(``benchmarks.LOOP_GRAPHS``, ``frame J`` rows: the mc tier here, a
+segment and the shader per node where the other side lacks loop
+regions).  It prints the max abs difference between the two sides'
+outputs of every row.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -259,10 +266,12 @@ _MC_GENERAL = "csrc/stencil_mc.cu"
 # value (no_glsl; then the source before its redesign); the pixels a
 # thread; the constants' operands, the files' layout and their sizes on
 # the host (const_files).
-_MC_GLSL_CALL = "    glsl_ops<P, kTrig>(prog, R, in0, in1, at0, at1, gy, gx, time);\n"
+_MC_GLSL_CALL = "    glsl_ops<P, kTrig, kExt>(prog, R, in0, in1, at0, at1, gy, gx, time);\n"
 _MC_GLSL_PUT = "if (ok[k]) put(ch, cr[k], cc[k], S[k]);"
 _MC_PIX = "MC_GLSL_PIXELS = (2, 4)\n"
-_MC_PIX_FORM = ("    return launch<T, true, 2>(", "    return launch<T, true, 2, true>(")
+_MC_PIX_FORM = ("    return launch<T, true, 2>(", "    return launch<T, true, 2, true>(",
+                "    return launch<T, true, 2, false, true>(",
+                "    return launch<T, true, 2, true, true>(")
 _MC_CONST_FILES = [
     ("  const long long* ci;  // the integer constants\n",
      "  const long long* ci;  // the integer constants\n  int nf, ni;\n"),
@@ -316,6 +325,8 @@ KERNELS = {
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
         "no_glsl": [[(_MC_GLSL_CALL, ""),
                      (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
+                    [(_MC_GLSL_CALL.replace(", kExt", ""), ""),
+                     (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
                     [("glsl_point(idx + st.t0, file, a, b, yy, gx, time, o);",
                       "for (int c = 0; c < 4; ++c) o[c] = a[c];")],
                     [("glsl_point(idx + st.t0, file, a, b, gy, gx, time, o);",
@@ -329,10 +340,13 @@ KERNELS = {
         "one_window": [[("MC_WINDOW_BUFFERS = (2, 1)", "MC_WINDOW_BUFFERS = (1,)",
                          "kernels/cuda_ops.py")]],
         "one_pixel": [[*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM),
+                       (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")],
+                      [*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM[:2]),
                        (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")]],
         "two_pixels": [[(_MC_PIX, "MC_GLSL_PIXELS = (2,)\n", "kernels/cuda_ops.py")]],
         "four_pixels": [[(_MC_PIX, "MC_GLSL_PIXELS = (4,)\n", "kernels/cuda_ops.py")]],
         "const_files": [_MC_CONST_FILES],
+        "thread_loops": [[("            any = __any_sync(__activemask(), any);\n", "")]],
     }),
     "strip": (("csrc/graph_strip.cuh", "csrc/graph_strip.cu"), {
         "full": [[]],
@@ -478,7 +492,7 @@ KERNELS = {
 MC_GRAPHS = (("demo", "DEMO_CONFIG", "rgba32f"), ("demo", "DEMO_CONFIG", "rgba16f"),
              ("chain3", "CHAIN3_CONFIG", "rgba32f"), ("edges", "EDGES_CONFIG", "rgba32f"))
 # Rows whose outputs the A/B compares between its two sides.
-COMPARED = ("graph_strip", "sep_conv", "conv1d", "stencil_apply", "stencil_reduce_mc")
+COMPARED = ("graph_strip", "sep_conv", "conv1d", "stencil_apply", "stencil_reduce_mc", "frame")
 
 
 def _stencil_mc_rows(x):
@@ -537,6 +551,15 @@ def _point_rows(x):
             rows.append((f"graph_strip_mc J {name} {fmt}",
                          lambda m=chip_smoke._mc_of(prog), v=x.to(prog.storage_dtype):
                          cuda_ops.graph_strip_mc(v, 0.5, m)))
+    # The loop graphs' whole frames, on each side's own plan (a parent
+    # without loop regions runs the shader per node, after a segment):
+    # their configs and shaders as this checkout wrote them into the copy.
+    loops = json.loads(pathlib.Path("loop_graphs.json").read_text())
+    for name, (config, shaders) in loops.items():
+        for fmt in ("rgba32f", "rgba16f", "rgba8"):
+            prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
+            rows.append((f"frame J {name} {fmt}",
+                         lambda p=prog, v=x.to(prog.storage_dtype): p._forward(v, 0.5)))
     config = "input -> gs -> ys -> output\ngs: gaussian { sigma: 1.5 }\n"
     for fmt in ("rgba32f", "rgba16f", "rgba8"):
         prog = benchmarks.build_program(config, 3840, 2160, fmt,
@@ -576,6 +599,15 @@ def _copy(label: str, package: pathlib.Path, kernel: str = "",
     shutil.copytree(PACKAGE.parent / "shaders", root / "shaders")
     shutil.copytree(PACKAGE.parent / "examples", root / "examples")
     shutil.copy(PACKAGE.parent / "chip_smoke.py", root / "chip_smoke.py")
+    # this checkout's loop graphs and the port's shaders they read, for a
+    # package that lacks them (the J frame rows)
+    from . import benchmarks
+
+    shutil.copytree(PACKAGE / "shaders", root / "port_shaders")
+    loops = {name: (benchmarks.point_graphs()[name][0],
+                    "shaders" if benchmarks.point_graphs()[name][1] == benchmarks.SHADER_DIR
+                    else "port_shaders") for name in benchmarks.LOOP_GRAPHS}
+    (root / "loop_graphs.json").write_text(json.dumps(loops))
     if kernel and variant != "full":
         sources, variants = KERNELS[kernel]
         path = next(p for p in (root / PACKAGE.name / s for s in sources) if p.exists())
@@ -622,10 +654,12 @@ def _rows(which: str, tiles: dict):
                    for name in ("glsl_blur", "glsl_blur_sharpen", "glsl_chain")
                    for fmt in ("rgba32f", "rgba16f")]
         if which == "mc":
+            # the loop graphs: a thread's pixels run a loop as many rounds
+            # as the slowest of them (one_pixel, two_pixels, four_pixels)
             graphs += [(name, *benchmarks.point_graphs()[name][:1], "rgba32f",
                         benchmarks.point_graphs()[name][1])
                        for name in ("glsl_sharpen", "tonemap_sharpen", "blur_sharpen_blend",
-                                    "zero_border")]
+                                    "zero_border", *getattr(benchmarks, "LOOP_GRAPHS", ()))]
         for name, config, fmt, shaders in graphs:
             prog = benchmarks.build_program(config, 3840, 2160, fmt, shader_path=shaders)
             if prog._strip_plan is None or prog._strip_plan[0] != "mc":

@@ -339,6 +339,48 @@ def test_point_graphs_on_graph_strip_mc(graph, fmt, hw, monkeypatch):
     assert float((frame.float() - per_node.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("hw", [(37, 71), (200, 300)])
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("first", [False, True], ids=["after_blur", "first"])
+@pytest.mark.parametrize("graph", ["mandelbrot_after_blur", "iterate_after_blur",
+                                   "bits_after_blur"])
+def test_loop_graphs_on_graph_strip_mc(graph, first, fmt, hw, monkeypatch):
+    """Op lists with loop regions (mandelbrot.comp, iterate.comp) and shift
+    ops (bits.comp) on the glsl form against the plain version: after a
+    blur (the planned graph; the frame against per node too), and as the
+    first node before a gaussian (the plan the tier rule refuses, the op
+    list on the input itself).  mandelbrot.comp ignores its input and
+    holds bit for bit in either place; after a blur, iterate.comp's trip
+    counts and bits.comp's codes jump where a one-rounding difference of
+    the conv crosses a threshold, so at most 1e-3 of their values may lie
+    past the bound."""
+    from reforge_tpu_torch import benchmarks
+    from reforge_tpu_torch.graph import program as program_module
+
+    h, w = hw
+    config, shader_dir = benchmarks.point_graphs()[graph]
+    if first:
+        lines = config.splitlines()
+        blur, shader = lines[0].split(" -> ")[1:3]
+        config = "\n".join([f"input -> {shader} -> {blur} -> output"] + lines[1:]) + "\n"
+        monkeypatch.setattr(program_module, "MC_MAX_HALO_WORK", float("inf"))
+    prog = benchmarks.build_program(config, w, h, fmt, device="cuda", shader_path=shader_dir)
+    plan = prog._strip_plan
+    assert plan[0] == "mc" and cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
+    x = _image((4, h, w), 29).to(prog.storage_dtype)
+    got = cuda_ops.graph_strip_mc(x, 0.5, plan[1])
+    want = cuda_ops.graph_strip_mc_plain(x, 0.5, plan[1])
+    pairs = [(got, want)]
+    if not first:
+        pairs.append((prog._forward(x, 0.5), prog._forward_nostrip(x, 0.5)))
+    torch.cuda.synchronize()
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    share = 0.0 if first or graph == "mandelbrot_after_blur" else 1e-3
+    for a, b in pairs:
+        d = (a.float() - b.float()).abs()
+        assert float((d > tol).float().mean()) <= share, float(d.max())
+
+
 YSHADE = """#version 450
 layout (local_size_x = 16, local_size_y = 16) in;
 layout (binding = 0, rgba32f) uniform readonly  image2D input_image;

@@ -45,9 +45,10 @@ SHADERS = sorted(glob.glob(os.path.join(SHADER_DIR, "*")) +
                  glob.glob(os.path.join(PORT_SHADER_DIR, "*")))
 # The shipped shaders that must lower, and the refusals pinned with the
 # word their reason holds.
-MUST_LOWER = {"invert", "sepia", "tonemap", "blend", "vignette", "passthrough"}
-REFUSED = {"mandelbrot": "data-dependent loop", "crt": "gather", "histogram": "atomics",
-           "kuwahara": "halo", "gamma_curve": "storage buffers", "gaussian_h": "halo"}
+MUST_LOWER = {"invert", "sepia", "tonemap", "blend", "vignette", "passthrough", "mandelbrot",
+              "iterate", "bits"}
+REFUSED = {"crt": "gather", "histogram": "atomics", "kuwahara": "halo",
+           "gamma_curve": "storage buffers", "gaussian_h": "halo"}
 
 # The op set beyond the shipped shaders: the frame time, uint arithmetic
 # that wraps, int division and remainder, casts, a per-pixel branch, a
@@ -84,8 +85,24 @@ void main() {
                     max(v.b, min(t, 0.5)), c.a * inversesqrt(1.0 + c.a)));
 }
 """
-# A right shift is outside the op set.
-SHIFT_PROBE = OPS_PROBE.replace("uint(pos.y) * 40503u", "(uint(pos.y) >> 1u)")
+# Shifts of i32 and uint by counts 0, 31, 32, 33 and -1 (a count outside
+# [0, 32) shifts every bit out), of negative ints (>> keeps the sign) and
+# of uints past 2^31, with the builtins built on shifts.
+SHIFT_PROBE = OPS_PROBE.replace("uint(pos.y) * 40503u", "(uint(pos.y) >> 1u)").replace(
+    "    float m = mod(",
+    """    int k = 0;
+    if (pos.x % 5 == 1) { k = 31; } else if (pos.x % 5 == 2) { k = 32; }
+    else if (pos.x % 5 == 3) { k = 33; } else if (pos.x % 5 == 4) { k = -1; }
+    int sv = int(c.g * 4000.0) - 2000;
+    uint big = 2147483648u + uint(c.r * 2000000000.0);
+    int sl = sv << k;
+    int sr = sv >> k;
+    uint ul = big << uint(k);
+    uint ur = big >> uint(k);
+    int bc = bitCount(big) + findMSB(sv) + findLSB(big) + bitCount(ur);
+    v.g += float(sl & 1023) * 1e-4 + float(sr) * 1e-5 + float(ul >> 20u) * 1e-7
+           + float(ur >> 16u) * 1e-6 + float(bc) * 1e-3;
+    float m = mod(""")
 
 
 @pytest.fixture(autouse=True)
@@ -145,7 +162,9 @@ def test_every_shader_lowers_or_is_refused(path):
             continue
         assert stem not in REFUSED
         assert got.n_f <= lower.MAX_F and got.n_i <= lower.MAX_I
-        assert got.images == spec.images_in
+        # the images it reads, in the spec's order (mandelbrot.comp reads none)
+        assert got.images == tuple(n for n in spec.images_in if n in got.images)
+        assert got.images == spec.images_in or stem == "mandelbrot"
         plain, want = _interp_and_plain(spec, params, got)
         np.testing.assert_array_equal(plain.numpy(), want.numpy())
     if stem in MUST_LOWER:
@@ -187,12 +206,150 @@ def test_op_probe_is_bit_equal(tmp_path, params, t):
     np.testing.assert_array_equal(plain.numpy(), want.numpy())
 
 
-def test_shift_is_refused(tmp_path):
+@pytest.mark.parametrize("t", [0.0, 17.25])
+def test_shift_is_refused(tmp_path, t):
+    """Shifts lower now (ISHL, ISHR, in i32 and in the uint's int64),
+    bit-equal to the interpreter: counts 0, 31, 32, 33 and -1, negative
+    ints, uints past 2^31, bitCount, findMSB and findLSB.  A shift of
+    booleans (no GLSL shader makes one) is still refused, with that
+    reason."""
     path = tmp_path / "shift.comp"
     path.write_text(SHIFT_PROBE)
     spec = _spec(str(path))
-    got = lower.lower_point(spec, spec.resolve_params({}), W, H)
-    assert isinstance(got, str) and "rshift" in got
+    params = spec.resolve_params({"gain": 1.3, "levels": 7})
+    prog = lower.lower_point(spec, params, W, H)
+    assert isinstance(prog, lower.PointProgram), prog
+    kinds = {(lower.KERNEL_OPS[op], typ) for op, typ, *_ in prog.ops}
+    for want in (("ISHL", lower.I32), ("ISHR", lower.I32), ("ISHL", lower.I64),
+                 ("ISHR", lower.I64)):
+        assert want in kinds, want
+    assert prog.packed()[lower.HEAD_INTS - 1] == 3  # sinf and cosf, and shifts
+    plain, want = _interp_and_plain(spec, params, prog, t=t)
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
+    rec = lower._Recorder(H, W)
+    with pytest.raises(lower.Refused, match="a shift of torch.bool"):
+        rec.binary(torch.ops.aten.__lshift__, "__lshift__",
+                   [rec.emit("LOAD", lower.F32, (0, 0)), lower._Py(1)], {}, lower.BOOL)
+
+
+def test_in_place_update_is_refused_and_a_shift_is_not():
+    """An aten op that updates a per-pixel value in place is refused as
+    "in-place update"; a shift's dunder name (``__rshift__``) is no
+    in-place update (the refusal label once matched it)."""
+    rec = lower._Recorder(H, W)
+    x = torch.empty((H, W), dtype=torch.int32, device="meta")
+    rec.bind(x, rec.emit("COORD_X", lower.I64))
+    with rec:
+        y = x >> 1
+        z = torch.bitwise_left_shift(y, x)
+        with pytest.raises(lower.Refused, match=r"in-place update \(add_\)"):
+            z.add_(1)
+    assert rec.refused == "in-place update (add_)"
+    names = [lower.KERNEL_OPS[op] for op, *_ in rec.nodes]
+    assert "ISHR" in names and "ISHL" in names
+    rec = lower._Recorder(H, W)
+    x = torch.empty((H, W), dtype=torch.int32, device="meta")
+    rec.bind(x, rec.emit("COORD_X", lower.I64))
+    with rec:
+        with pytest.raises(lower.Refused, match=r"in-place update \(__irshift__\)"):
+            x.__irshift__(1)
+
+
+# Per-pixel loops: each lowers to loop regions, bit-equal to the
+# interpreter's whole-image rounds (a while, a for with a per-pixel
+# bound, a do, nested loops, break, continue, a function's loop with a
+# valued return).
+LOOP_CASES = {
+    "while": """
+    float v = c.r; int n = 0;
+    while (v < 1.3 && n < 20) { v = v * 1.2 + 0.05; n++; }
+    o = vec4(v, float(n), c.b, 1.0);""",
+    "for_per_pixel_bound": """
+    int m = int(c.g * 9.0) + pos.x % 3; float a = 0.0;
+    for (int i = 0; i < m; i++) { a += c.r * float(i) + 0.1; }
+    o = vec4(a, float(m), c.b, 1.0);""",
+    "do": """
+    float v = c.r; int n = 0;
+    do { v = v * 1.5; n += 2; } while (v < 2.0);
+    o = vec4(v, float(n), c.b, 1.0);""",
+    "nested": """
+    float s = 0.0; int i = 0;
+    while (i < int(c.r * 6.0)) {
+        int j = 0;
+        while (j < int(c.g * 5.0) + i) { s += float(j) * 0.01 + c.b; j++; }
+        i++;
+    }
+    o = vec4(s, float(i), c.b, 1.0);""",
+    "break": """
+    float v = c.r; int n = 0;
+    while (n < 30) { if (v > 1.4) { break; } v = v * 1.1 + 0.02; n++; }
+    o = vec4(v, float(n), c.b, 1.0);""",
+    "continue": """
+    float a = 0.0; int k = int(c.r * 12.0);
+    for (int i = 0; i < k; i++) { if (i % 3 == int(c.g * 3.0)) { continue; } a += float(i) * c.b; }
+    o = vec4(a, float(k), c.b, 1.0);""",
+    "function_return": """
+    o = vec4(run(c.r, 1.5), run(c.g, 0.9 + c.b), c.b, 1.0);""",
+}
+LOOP_FN = """float run(float v0, float lim) {
+    float v = v0; int n = 0;
+    while (v < lim && n < 25) {
+        if (v > 1.2) { return v * 2.0 + float(n); }
+        v = v * 1.3 + 0.05; n++;
+    }
+    return v - float(n);
+}
+"""
+
+
+def _loop_source(body: str) -> str:
+    return ("#version 450\nlayout (local_size_x = 16, local_size_y = 16) in;\n"
+            "layout (binding = 0, rgba32f) uniform readonly image2D input_image;\n"
+            "layout (binding = 1, rgba32f) uniform writeonly image2D output_image;\n"
+            + LOOP_FN + "void main() {\n    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);\n"
+            "    vec4 c = imageLoad(input_image, pos);\n    vec4 o;" + body
+            + "\n    imageStore(output_image, pos, o);\n}\n")
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_loop_lowers_bit_equal(case, tmp_path):
+    """Each loop case lowers to an op list with a loop region (two for
+    nested loops and the function called twice), whose plain version runs
+    the interpreter's rounds bit for bit at 48x128; each back-edge names
+    the body's first op, which lies before it, and the round cap."""
+    path = tmp_path / f"{case}.comp"
+    path.write_text(_loop_source(LOOP_CASES[case]))
+    spec = _spec(str(path))
+    prog = lower.lower_point(spec, {}, W, H)
+    assert isinstance(prog, lower.PointProgram), prog
+    loops = [(j, refs) for j, (op, _t, _d, refs) in enumerate(prog.ops)
+             if op == lower.K["LOOP"]]
+    assert len(loops) == (2 if case in ("nested", "function_return") else 1)
+    assert prog.packed()[lower.HEAD_INTS - 1] == 2  # the kernel's forms with loops
+    for j, (active, cap, target, trips) in loops:
+        assert 0 <= target < j and active >= lower.I_BASE
+        assert prog.consts[-1 - cap].value == lower.Interp._WHILE_CAP
+        assert 1 <= trips <= lower.Interp._WHILE_CAP
+    plain, want = _interp_and_plain(spec, {}, prog)
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
+
+
+def test_loop_trip_bounds():
+    """The back-edge's trip bound: mandelbrot's ``n < cap`` at max_iter
+    128 (its first round runs unrolled, the loop from n = 1) bounds the
+    loop at 127 rounds, iterate.comp's two loops at max_n; a loop whose
+    condition compares no stepped counter takes the interpreter's cap."""
+    mb = _spec(os.path.join(SHADER_DIR, "mandelbrot.comp"))
+    it = _spec(os.path.join(PORT_SHADER_DIR, "iterate.comp"))
+
+    def trips(spec, params):
+        prog = lower.lower_point(spec, spec.resolve_params(params), W, H)
+        return [refs[3] for op, _t, _d, refs in prog.ops if op == lower.K["LOOP"]]
+
+    assert trips(mb, {"max_iter": 128.0}) == [127]
+    assert trips(mb, {}) == [95]  # the default cap, 96
+    assert trips(it, {"max_n": 24}) == [24, 24]
+    assert trips(it, {"max_n": 7}) == [7, 7]
 
 
 def _ops_at(words) -> int:
@@ -272,9 +429,12 @@ def test_kernel_opcodes_match_the_kernel_source():
     assert names == [f"K_{name}" for name in lower.KERNEL_OPS]
     assert f"kGlslHead = {lower.HEAD_INTS}, kGlslConst = {lower.CONST:#x};" in src
     # the glsl form is compiled for each of the pixels a thread a plan may
-    # take, without and with the trig ops
-    forms = set(re.findall(r"launch<T, true, (\d)(, true)?>", src)) - {("0", "")}
-    assert forms == {(str(p), t) for p in cuda_ops.MC_GLSL_PIXELS for t in ("", ", true")}
+    # take, without and with the trig ops, without and with the ops of
+    # loops and shifts
+    forms = set(re.findall(r"launch<T, true, (\d)(, true|, false)?(, true)?>", src))
+    assert forms - {("0", "", "")} == {
+        (str(p), t, e) for p in cuda_ops.MC_GLSL_PIXELS
+        for t, e in (("", ""), (", true", ""), (", false", ", true"), (", true", ", true"))}
     assert "constexpr int kThreads = 256;" in (
         REPO_DIR / "reforge_tpu_torch" / "csrc" / "conv_tile.cuh").read_text()
 
@@ -346,11 +506,13 @@ def test_glsl_megakernel_cases(name, fmt):
 
 
 @pytest.mark.parametrize("name", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
-                                  "blur_sharpen_blend", "bloom_glow"])
+                                  "blur_sharpen_blend", "bloom_glow", "mandelbrot_after_blur",
+                                  "iterate_after_blur", "bits_after_blur"])
 def test_point_graphs_plan_mc_with_no_per_node_step(name, monkeypatch):
     """glsl-chain, glsl-sharpen, tonemap.comp before sharpen.comp and
-    blur_sharpen_blend with the shipped shaders: the mc tier, a GLSL point
-    stage each, at 48x128 and at 4K (planning only).  bloom_glow's mc plan
+    blur_sharpen_blend with the shipped shaders, and the loop and shift
+    graphs (mandelbrot.comp, iterate.comp, bits.comp after a blur): the mc
+    tier, a GLSL point stage each, at 48x128 and at 4K (planning only).  bloom_glow's mc plan
     (a GLSL point stage too) passes the tier rule's bound on halo work a
     stage, so the graph runs per node (no segment takes a node of it)."""
     config, shader_dir = point_graphs()[name]
@@ -495,13 +657,62 @@ def test_point_only_graph_plans_no_mc_tier():
     assert prog._plan_strip_mc() is None
 
 
-def test_refused_point_shader_keeps_its_old_plan():
-    """mandelbrot.comp (a data-dependent loop) after a conv: no mc plan,
-    segments as before this slice (the conv a segment, the shader per
-    node)."""
+def test_refused_point_shader_keeps_its_old_plan(tmp_path):
+    """mandelbrot.comp (a data-dependent loop, refused before loops
+    lowered) after a conv now plans the mc tier, one kernel for both
+    nodes, as the reference's mc planner does; a point shader the lowering
+    still refuses (a bit cast, floatBitsToInt) keeps the plan it had:
+    segments, the conv a segment, the shader per node."""
     config = "input -> gv -> mb -> output\ngv: gaussian_v { sigma: 2.0 }\nmb: mandelbrot {}\n"
     prog = build_program(config, W, H, device="cpu", shader_path=SHADER_DIR)
-    assert plan_steps(prog) == [("seg mc", ["gv"]), ("node", ["mb"])]
+    assert plan_steps(prog) == [("mc", ["gv", "mb"])]
+    assert [st.op.code for st in prog._strip_plan[1].stages][-1] == cuda_ops.MC_GLSL
+    jprog = JProgram(jbuild(jparse_file(config, True, SHADER_DIR)), W, H, "rgba32f")
+    assert jprog._strip_plan[0] == "mc"
+    (tmp_path / "bitcast.comp").write_text(
+        "#version 450\nlayout (local_size_x = 16, local_size_y = 16) in;\n"
+        "layout (binding = 0, rgba32f) uniform readonly image2D input_image;\n"
+        "layout (binding = 1, rgba32f) uniform writeonly image2D output_image;\n"
+        "void main() {\n    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);\n"
+        "    vec4 c = imageLoad(input_image, pos);\n"
+        "    imageStore(output_image, pos, vec4(float(floatBitsToInt(c.r) & 255), c.gba));\n}\n")
+    spec = _spec(str(tmp_path / "bitcast.comp"))
+    assert "bit cast" in lower.lower_point(spec, {}, W, H)
+    config = "input -> gv -> bc -> output\ngv: gaussian_v { sigma: 2.0 }\nbc: bitcast {}\n"
+    (tmp_path / "gaussian_v.comp").write_text(
+        open(os.path.join(SHADER_DIR, "gaussian_v.comp")).read())
+    prog = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
+    assert plan_steps(prog) == [("seg mc", ["gv"]), ("node", ["bc"])]
+
+
+def test_loop_counts_by_its_trip_bound(monkeypatch):
+    """McProgram._work counts an op of a loop region times the loop's
+    trip bound (``lower.packed_work``, the back-edge's own field):
+    mandelbrot.comp between a gaussian and a stencil that extends it by a
+    halo is refused by the tier rule (MC_MAX_HALO_WORK), which a guess of
+    one trip would pass; after the gaussian alone it plans the mc tier."""
+    mb = lower.lower_point(_spec(os.path.join(SHADER_DIR, "mandelbrot.comp")),
+                           {"max_iter": 128.0}, W, H)
+    words = mb.packed()
+    (loop_at, (_a, _c, target, trips)), = [
+        (j, op[3]) for j, op in enumerate(mb.ops) if op[0] == lower.K["LOOP"]]
+    body = loop_at + 1 - target
+    assert lower.packed_work(words) == mb.n_ops - body + body * trips
+    config = ("input -> gs -> mb -> sh -> output\ngs: gaussian { sigma: 2.0 }\n"
+              "mb: mandelbrot { max_iter: 128.0 }\nsh: sharpen { amount: 0.5 }\n")
+    prog = build_program(config, W, H, device="cpu", shader_path=SHADER_DIR)
+    assert prog._plan_strip_mc() is None
+    limit = tprogram.MC_MAX_HALO_WORK
+    with monkeypatch.context() as m:
+        m.setattr(tprogram, "MC_MAX_HALO_WORK", float("inf"))
+        mc = prog._plan_strip_mc()
+    assert mc is not None and mc.halo_work()[1] / len(mc.stages) > limit
+    with monkeypatch.context() as m:
+        m.setattr(lower, "packed_work", lambda w: int(w[0]))  # one trip
+        assert prog._plan_strip_mc() is not None
+    after = "input -> gs -> mb -> output\ngs: gaussian { sigma: 2.0 }\nmb: mandelbrot {}\n"
+    prog = build_program(after, W, H, device="cpu", shader_path=SHADER_DIR)
+    assert plan_steps(prog) == [("mc", ["gs", "mb"])]
 
 
 def test_warm_rebuild_lowers_nothing(monkeypatch):
@@ -673,4 +884,36 @@ def test_examples_render_through_engine_like_jax(example, tmp_path, monkeypatch)
         assert plan is not None and plan[0] == "mc"
         assert cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
     _engine_check("rgba32f", frame, want, example)
+    assert float(np.abs(frame - per_node).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["mandelbrot_after_blur", "iterate_after_blur",
+                                  "bits_after_blur"])
+def test_loop_graphs_render_through_engine_like_jax(name, tmp_path, monkeypatch):
+    """The loop and shift graphs through the port's Engine (the mc tier,
+    one MC_GLSL stage with its loop regions or shift ops) against the JAX
+    Engine per node, and against the port's own per-node frame within
+    1e-5.  mandelbrot.comp is held to the FMA watch item's share, as
+    tests/test_torch_goldens.py holds it: XLA:CPU contracts its
+    escape-time loop into FMAs, so at most 1% of the values may differ by
+    more than one code; the others within PARITY.md's graph bound."""
+    monkeypatch.chdir(REPO_DIR)
+    config, shader_dir = point_graphs()[name]
+    path = tmp_path / f"{name}.rf"
+    path.write_text(config)
+    engine, frame, per_node, want = _render_both(str(path), "rgba32f", _u8(6),
+                                                 shader_path=shader_dir)
+    plan = engine.program._strip_plan
+    assert plan is not None and plan[0] == "mc"
+    stages = plan[1].stages
+    assert [st.op.code for st in stages].count(cuda_ops.MC_GLSL) == 1
+    words = next(st.taps[0] for st in stages if st.op.code == cuda_ops.MC_GLSL)
+    ops = np.asarray(words)[_ops_at(words)::2] & 255
+    assert (lower.K["LOOP"] in ops) == (name != "bits_after_blur")
+    assert (lower.K["ISHL"] in ops) == (name == "bits_after_blur")
+    if name == "mandelbrot_after_blur":
+        share = float((np.abs(frame - want) > 1.0 / 255.0).mean())
+        assert share <= 0.01, share
+    else:
+        _engine_check("rgba32f", frame, want, name)
     assert float(np.abs(frame - per_node).max()) <= 1e-5
