@@ -401,23 +401,26 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # frame and no spills: graph_strip per storage type, channel-op form and
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
 # storage type and form (builtins, affine, and the glsl forms, GLSL_FORM,
-# two or four pixels a thread, without or with the trig ops, whose op
-# lists' register files lie in shared memory), conv1d per axis and form (shared memory with and
+# two or four pixels a thread, without or with the trig ops, without or
+# with the ops of loops, shifts, bit casts and inputs past the second,
+# whose op lists' register files lie in shared memory, and the wide form,
+# one pixel a thread, every op, its files in device memory),
+# conv1d per axis and form (shared memory with and
 # without premultiplied box taps, or global), stencil_apply's radius-1
 # form per kind (wsum, median9), stencil_reduce_mc's run form per radius
 # (1..8) and tap list (full, or with a mask), and stencil_apply_mc's run
 # forms per storage type, W radius (1..3), output channels (1..4) and
 # table (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
-                  "graph_strip_mc_kernel": 20, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
+                  "graph_strip_mc_kernel": 22, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
                   "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
-# graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig, kExt>,
-# mangled.
-GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb[01]ELb[01]EE")
-# Its trig forms (kTrig, for op lists that call sinf, cosf or tanf) keep
-# one stack frame: the three's argument reduction for |x| > 105615 (CUDA's
-# math library) indexes seven words at run time.
-TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[24]ELb1ELb[01]EE")
+# graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig, kExt,
+# kWide = false>, and the wide form <T, true, 1, true, true, true>, mangled.
+GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi(?:[24]ELb[01]ELb[01]ELb0|1ELb1ELb1ELb1)EE")
+# Its trig forms (kTrig, for op lists that call sinf, cosf or tanf; the
+# wide form) keep one stack frame: the three's argument reduction for
+# |x| > 105615 (CUDA's math library) indexes seven words at run time.
+TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[124]ELb1ELb[01]ELb[01]EE")
 TRIG_STACK = "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
@@ -441,15 +444,15 @@ def _check_no_stack(log: str) -> None:
         for name, line in found.items():
             if line != (TRIG_STACK if TRIG_FORM.search(name) else NO_STACK):
                 raise AssertionError(f"ptxas: {name}: {line}")
-        trig = " (the 8 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
+        trig = " (the 10 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
         print(f"check ptxas: {forms} forms of {kernel}, each 0 bytes stack frame{trig}, no spills")
     glsl = {GLSL_FORM.search(k).group(0)[22:]: f"{regs[k]}, {props[k].split(',')[0]}"
             for k in props if GLSL_FORM.search(k)}
-    if len(glsl) != 16:
+    if len(glsl) != 18:
         raise AssertionError(f"ptxas: {len(glsl)} glsl forms of graph_strip_mc_kernel")
     print(f"check ptxas: graph_strip_mc's glsl forms (f32, bf16; 2 and 4 pixels a thread; "
-          f"without and with the trig ops; without and with loops and shifts): "
-          f"{sorted(glsl.items())}")
+          f"without and with the trig ops; without and with loops, shifts, bit casts and "
+          f"inputs past the second; the wide form, 1 pixel a thread): {sorted(glsl.items())}")
 
 
 def _card_state() -> str:
@@ -1359,6 +1362,40 @@ void main() {
 """
 OP_PROBE_GRAPH = ("input -> probe -> gs -> output\nprobe: probe { gain: 1.3, levels: 7 }\n"
                   "gs: gaussian { sigma: 2.0 }\n")
+# The four bit casts on a raw image of special values (NaN payloads, both
+# infinities, denormals, -0.0), a point stage after a blur (the blur its
+# first input): each output channel a function of the raw bits alone, so
+# that the kernel's output is bit for bit its plain version's.
+BITCAST_PROBE = """#version 450
+layout (local_size_x = 16, local_size_y = 16) in;
+layout (binding = 0, rgba32f) uniform readonly image2D input_image;
+layout (binding = 1, rgba32f) uniform readonly image2D raw_image;
+layout (binding = 2, rgba32f) uniform writeonly image2D output_image;
+void main() {
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    vec4 r = imageLoad(raw_image, pos);
+    int bi = floatBitsToInt(r.r);
+    uint bu = floatBitsToUint(r.g);
+    imageStore(output_image, pos,
+               vec4(intBitsToFloat(bi), uintBitsToFloat(bu ^ 0x80000000u),
+                    float(bi >> 20) / 2048.0 + float(bu & 255u), bi < 0 ? 1.0 : 0.0));
+}
+"""
+BITCAST_GRAPH = ("input -> gs -> bitcast -> output\ninput -> bitcast:raw_image\n"
+                 "gs: gaussian { sigma: 2.0 }\n")
+BITCAST_SPECIALS = (0x7FC01234, 0xFFC00001, 0x7F800001, 0x7F800000, 0xFF800000, 0x00000001,
+                    0x807FFFFF, 0x80000000, 0x3F800000, 0xBF000000)
+
+
+def _bitcast_input(seed: int) -> torch.Tensor:
+    """A 4K f32 frame with BITCAST_SPECIALS planted in its red and green
+    channels (one pixel in three of every seventh row, one in two of every
+    fifth)."""
+    x = np.random.default_rng(seed).random((4, HEIGHT, WIDTH), dtype=np.float32)
+    specials = np.array(BITCAST_SPECIALS, np.uint32).view(np.float32)
+    x[0, ::7, ::3] = np.resize(specials, x[0, ::7, ::3].shape)
+    x[1, ::5, ::2] = np.resize(specials[::-1], x[1, ::5, ::2].shape)
+    return torch.from_numpy(x)
 
 
 def _shader_first(config: str) -> str:
@@ -1412,10 +1449,17 @@ def _mc_text(mc, cuda_ops) -> str:
             words = st.taps[0]
             text += (f" (GLSL: {int(words[0])} ops, {int(words[1])} float and {int(words[2])} "
                      f"integer registers, {int(words[3]) + int(words[4])} constants, "
-                     f"{lower.packed_work(words)} ops a pixel at the loops' trip bounds)")
+                     f"{lower.packed_work(words)} ops a pixel at the loops' trip bounds, "
+                     f"{len(st.ins)} inputs, {'wide' if lower.is_wide(words) else 'narrow'} "
+                     f"op word)")
         stages.append(text)
     work, halo = mc.halo_work()
-    return (f"mode {mc.mode}, tile {mc.tile()[:2]}, estimated work a pixel {work:.1f}, halo "
+    th, tw = mc.tile()[:2]
+    files = ""
+    if any(st.op.code == cuda_ops.MC_GLSL for st in mc.stages):
+        files = (f"{int(mc.geometry(th, tw)[8])} pixels a thread, files in "
+                 f"{'device' if mc._wide else 'shared'} memory, ")
+    return (f"mode {mc.mode}, tile {(th, tw)}, {files}estimated work a pixel {work:.1f}, halo "
             f"{halo:.1f} ({halo / len(mc.stages):.1f} a stage), stages [{', '.join(stages)}]")
 
 
@@ -1503,6 +1547,29 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             if (name, fmt) == ("glsl_chain", "rgba32f"):
                 chain_err = err
             del got, want
+
+    # The four bit casts on special values: the kernel bit for bit its
+    # plain version (NaN payloads, infinities, denormals, -0.0).
+    bdir = os.path.join(jdir, "bitcast")
+    os.makedirs(bdir)
+    with open(os.path.join(bdir, "bitcast.comp"), "w") as f:
+        f.write(BITCAST_PROBE)
+    prog = build_program(BITCAST_GRAPH, WIDTH, HEIGHT, "rgba32f", device="cuda", shader_path=bdir)
+    if plan_steps(prog) != [("mc", ["gs", "bitcast"])]:
+        raise AssertionError(f"J bitcast probe: plan {plan_steps(prog)}")
+    mc = prog._strip_plan[1]
+    xb = _bitcast_input(SEED + 19).cuda()
+    got = cuda_ops.graph_strip_mc(xb, 0.5, mc)
+    want = cuda_ops.graph_strip_mc_plain(xb, 0.5, mc)
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    nan_payloads = int((got[0].view(torch.int32) == 0x7FC01234).sum())
+    if differ or not nan_payloads:
+        raise AssertionError(f"J bitcast probe: {differ} words differ from the plain version, "
+                             f"{nan_payloads} NaN payloads kept")
+    print(f"check J graph_strip_mc bitcast probe 4K rgba32f vs its plain version: every word "
+          f"bit-equal ({nan_payloads} NaN payloads 0x7fc01234 kept); {_mc_plan_text(prog, cuda_ops)}")
+    del got, want, xb
 
     # The halo recompute of mc plans that beat per node (the demo, neon
     # edges) and of one that loses to it (bloom_glow, builtin tonemap).

@@ -407,6 +407,38 @@ BITS_AFTER_BLUR_CONFIG = (
     "bt: bits { bits: 3, spin: 5 }\n"
 )
 LOOP_GRAPHS = ("mandelbrot_after_blur", "iterate_after_blur", "bits_after_blur")
+# Point shaders at the last reach of the mc planner, each an op list on
+# the mc tier: the port's hash.comp (film grain from a PCG hash of the
+# coordinates and the frame time's bits: bit casts) after a blur,
+# composite3.comp mixing a blur and a sharpen by a threshold's mask (one
+# point stage of three images), the same by the input's own red channel
+# (the third image the input block itself), and wide.comp after a blur
+# (more than 128 float registers live and 128 float constants: the wide
+# op word, its register files in device memory).
+HASH_AFTER_BLUR_CONFIG = (
+    "input -> gs -> hs -> output\n"
+    "gs: gaussian { sigma: 2.0 }\n"
+    "hs: hash { amount: 0.06 }\n"
+)
+COMPOSITE3_CONFIG = (
+    "input -> a -> cmp:base_image\n"
+    "input -> b -> cmp:overlay_image\n"
+    "input -> m -> cmp:mask_image\n"
+    "cmp -> output\n"
+    "a: gaussian { sigma: 2.0 }\n"
+    "b: sharpen { amount: 0.6 }\n"
+    "m: threshold { value: 0.5 }\n"
+    "cmp: composite3 { opacity: 1.0 }\n"
+)
+COMPOSITE3_RAW_MASK_CONFIG = COMPOSITE3_CONFIG.replace("input -> m -> cmp:mask_image",
+                                                        "input -> cmp:mask_image").replace(
+    "m: threshold { value: 0.5 }\n", "")
+WIDE_AFTER_BLUR_CONFIG = (
+    "input -> gs -> wd -> output\n"
+    "gs: gaussian { sigma: 2.0 }\n"
+    "wd: wide { taps: 80 }\n"
+)
+REACH_GRAPHS = ("hash_after_blur", "composite3", "composite3_raw_mask", "wide_after_blur")
 
 
 def example_config(name: str) -> str:
@@ -416,9 +448,10 @@ def example_config(name: str) -> str:
 
 def point_graphs() -> dict[str, tuple[str, str]]:
     """The graphs whose GLSL point shaders run as op-list stages of the mc
-    tier (MC_GLSL), the two border graphs, and the LOOP_GRAPHS (loops and
-    shifts in an op list): name -> (config, shader path).  Two are
-    examples, read from the checkout when called."""
+    tier (MC_GLSL), the two border graphs, the LOOP_GRAPHS (loops and
+    shifts in an op list) and the REACH_GRAPHS (bit casts, three images,
+    the wide op word): name -> (config, shader path).  Two are examples,
+    read from the checkout when called."""
     return {
         "glsl_chain": (GLSL_CHAIN_CONFIG, SHADER_DIR),
         "glsl_sharpen": (GLSL_SHARPEN_CONFIG, SHADER_DIR),
@@ -430,6 +463,10 @@ def point_graphs() -> dict[str, tuple[str, str]]:
         "mandelbrot_after_blur": (MANDELBROT_AFTER_BLUR_CONFIG, SHADER_DIR),
         "iterate_after_blur": (ITERATE_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
         "bits_after_blur": (BITS_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
+        "hash_after_blur": (HASH_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
+        "composite3": (COMPOSITE3_CONFIG, PORT_SHADER_DIR),
+        "composite3_raw_mask": (COMPOSITE3_RAW_MASK_CONFIG, PORT_SHADER_DIR),
+        "wide_after_blur": (WIDE_AFTER_BLUR_CONFIG, PORT_SHADER_DIR),
     }
 
 

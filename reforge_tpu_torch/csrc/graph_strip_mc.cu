@@ -46,7 +46,10 @@
 //     and a GLSL point shader's op list (glsl/lower.py PointProgram, the
 //     int words of tap list 0), evaluated for several pixels a thread over
 //     register files in shared memory (MC_GLSL, the kernel's glsl form
-//     only; glsl_cells).
+//     only; glsl_cells), of any number of inputs (the third and later
+//     from the launch's table, GlslArgs::in); a list past the narrow op
+//     word's fields, or whose files fit no tile, runs the wide form, one
+//     pixel a thread, its files in device memory.
 //   * Border mode, whole-plan.  "edge" (every builtin, and GLSL shaders
 //     that clamp their reads) or "zero" (a synthesized GLSL conv or
 //     stencil that reads out of bounds as zero, GL's robust access): the
@@ -82,6 +85,9 @@ namespace rf {
 
 constexpr int kMcMaxStages = 24;
 constexpr int kMcStageInts = 22;
+// MC_GLSL stages' inputs past the second, for the whole plan
+// (cuda_ops.MC_GLSL_INPUTS; GlslArgs).
+constexpr int kMcGlslInputs = 24;
 
 enum McKind : int { MC_POINT = 0, MC_STENCIL = 1, MC_CONV = 2 };
 
@@ -157,8 +163,27 @@ struct McArgs {
   // image has height rows (0 and the input's rows for a whole frame).
   // Coordinates are the image's; clamped reads stop at the slab's edge.
   int row0, height;
-  int glsl_pix;    // an op list's pixels a thread: 2 or 4
-  int glsl_flags;  // 1: an op list calls sinf, cosf or tanf; 2: it has loops or shifts
+  int glsl_pix;    // an op list's pixels a thread: 2 or 4 (the wide form: 1)
+  // 1: an op list calls sinf, cosf or tanf; 2: it has loops, shifts, bit
+  // casts or reads a third image; 4: the lists are in the wide op word,
+  // their register files in device memory (GlslArgs::files).
+  int glsl_flags;
+};
+
+// What only the glsl forms that have such ops read, a parameter of its own
+// beside McArgs (whose layout the other forms keep).  in: the MC_GLSL
+// stages' inputs past the second, for the whole plan (a stage's t1 is the
+// first of its own, n1 their count), each the view at the stage's extent
+// placed on the host (cuda_ops.McProgram.glsl_inputs): its float offset
+// in dynamic shared memory, its pitch and its plane, the same for every
+// block.  files: the wide form's register files, file_slots files of
+// file_floats floats, one for each block the card holds at once, each
+// taken by a block for its life through its word of file_locks.
+struct GlslArgs {
+  int in[3 * kMcGlslInputs];
+  float* files;
+  int* file_locks;
+  int file_slots, file_floats;
 };
 
 struct McGeo {
@@ -326,7 +351,7 @@ enum GlslKop : int {
   K_FISNAN, K_FWHERE, K_FCLAMP, K_FNAN2NUM, K_IADD, K_ISUB, K_IMUL, K_IDIV, K_IFLOORDIV, K_IREM,
   K_IFMOD, K_IMAX, K_IMIN, K_IAND, K_IOR, K_IXOR, K_IEQ, K_INE, K_ILT, K_ILE, K_IGT, K_IGE,
   K_INEG, K_IABS, K_ISIGN, K_INOT, K_ILNOT, K_IWHERE, K_ICLAMP, K_F2I, K_F2L, K_F2B, K_I2F, K_L2F,
-  K_B2F, K_L2I, K_I2B, K_ICOPY, K_FMOV, K_IMOV, K_ISHL, K_ISHR, K_LOOP,
+  K_B2F, K_L2I, K_I2B, K_ICOPY, K_FMOV, K_IMOV, K_ISHL, K_ISHR, K_LOOP, K_LOADX, K_FBITS, K_IBITS,
 };
 // The packed program's header ints (glsl/lower.py HEAD_INTS: ops, the
 // files' live registers, the float and integer constants, the four output
@@ -335,6 +360,9 @@ enum GlslKop : int {
 // or 4, the plan's choice (cuda_ops.MC_GLSL_PIXELS, McProgram.tile); a
 // register's plane holds one value a lane, P lanes a thread.
 constexpr int kGlslHead = 10, kGlslConst = 0x80;
+// The wide op word's constant bit (glsl/lower.py WIDE_CONST): four words
+// an op, 16-bit fields.
+constexpr int kGlslWideConst = 0x8000;
 
 // Design (H100).  An op list indexes its registers at run time, and
 // register arrays need constant indices, so the files live in shared
@@ -358,9 +386,14 @@ struct GlslSrc {
   __device__ __forceinline__ V operator[](int k) const { return p[k * step]; }
 };
 
-template <int P>
+// The wide form (kWide: lists past the narrow word's 128 registers or
+// constants of a class, or whose files fit no tile at two pixels a thread)
+// runs one pixel a thread, its constants' field bit the wide one; its
+// files lie in device memory, reached through L1 and L2.
+template <int P, bool kWide = false>
 struct GlslFiles {
   static constexpr int kLanes = kThreads * P;
+  static constexpr int kGlslConst = kWide ? kGlslWideConst : rf::kGlslConst;
   float* f;             // float register 0 at this thread's first lane
   long long* i;         // integer register 0 there
   const float* cf;      // the float constants
@@ -398,19 +431,24 @@ __device__ __forceinline__ void glsl_each_rolled(V* dst, Fn fn) {
 }
 
 // dst = fn(a, b) of two float operands, for the P pixels.
-template <int P, typename Fn>
-__device__ __forceinline__ void glsl_ff(const GlslFiles<P>& R, float* dst, int x, int y, Fn fn) {
+template <int P, typename Files, typename Fn>
+__device__ __forceinline__ void glsl_ff(const Files& R, float* dst, int x, int y, Fn fn) {
   const GlslSrc<float> X = R.fs(x), Y = R.fs(y);
   glsl_each<P>(dst, [&](int k) RF_INLINE { return fn(X[k], Y[k]); });
 }
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
 __device__ __forceinline__ long long wrap32(bool w, long long v) {
   return w ? (long long)(int)v : v;
 }
 
 // The op list for P pixels: in0/in1 the stage's input views, at0 /
-// at1 each pixel's offset in them, (gy, gx) its image pixel.  A loop
+// at1 each pixel's offset in them, (gy, gx) its image pixel, (cr, cc) its
+// place in the block, where LOADX reads an input past the second through
+// its view in more (offset from sm, pitch, plane).  An op is two words
+// with 8-bit fields, or in the wide form four with 16-bit ones
+// (glsl/lower.py PointProgram.packed).  A loop
 // region ends in a LOOP op that jumps back to the region's first op (the
 // next op's words then load from there), so a warp's threads run a loop
 // as many rounds as the slowest of their pixels; no __syncthreads() in
@@ -428,22 +466,36 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
 // search tree some seven branches deep.  (Keeping the last op's results
 // in registers for the next op, forwarded past shared memory, ran
 // glsl-chain 12% slower on the card.)
-template <int P, bool kTrig, bool kExt>
-__device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const GlslFiles<P>& R,
-                                         const View& in0, const View& in1, const int (&at0)[P],
+template <int P, bool kTrig, bool kExt, bool kWide = false>
+__device__ __forceinline__ void glsl_ops(const int* __restrict__ prog,
+                                         const GlslFiles<P, kWide>& R, const View& in0,
+                                         const View& in1, const int (&at0)[P],
                                          const int (&at1)[P], const int (&gy)[P],
-                                         const int (&gx)[P], float time) {
+                                         const int (&gx)[P], float time, const float* sm,
+                                         const int* more, const int (&cr)[P],
+                                         const int (&cc)[P]) {
+  using Word = std::conditional_t<kWide, int4, int2>;
   const int n_ops = prog[0], k_f = prog[3];
-  const int2* ops = reinterpret_cast<const int2*>(prog + kGlslHead + k_f + (k_f & 1) + 2 * prog[4]);
-  int2 next = n_ops > 0 ? ops[0] : int2{0, 0};
+  int at = kGlslHead + k_f + (k_f & 1) + 2 * prog[4];
+  if constexpr (kWide) at = (at + 3) & ~3;  // a wide list's ops: 16-byte reads
+  const Word* ops = reinterpret_cast<const Word*>(prog + at);
+  Word next = n_ops > 0 ? ops[0] : Word{};
   for (int n = 0; n < n_ops; ++n) {
     // The next op's words load before this op's stores (which the compiler
     // may not move them past: both lie in shared memory).
-    const unsigned w0 = next.x, w1 = next.y;
-    if (n + 1 < n_ops) next = ops[n + 1];
-    const int op = w0 & 255, d = (w0 >> 8) & 255, x = (w0 >> 16) & 255, y = w0 >> 24;
-    const int z = w1 & 255, u = (w1 >> 8) & 255;
-    const bool wr = (w1 >> 16) & 1;
+    int op, d, x, y, z, u, target;
+    bool wr;
+    if constexpr (kWide) {
+      const unsigned w0 = next.x, w1 = next.y, w2 = next.z, w3 = next.w;
+      if (n + 1 < n_ops) next = ops[n + 1];
+      op = w0 & 255, wr = (w0 >> 8) & 1, d = w0 >> 16, x = w1 & 0xffff, y = w1 >> 16;
+      z = w2 & 0xffff, u = w2 >> 16, target = w3 & 0xffff;
+    } else {
+      const unsigned w0 = next.x, w1 = next.y;
+      if (n + 1 < n_ops) next = ops[n + 1];
+      op = w0 & 255, d = (w0 >> 8) & 255, x = (w0 >> 16) & 255, y = w0 >> 24;
+      z = w1 & 255, u = (w1 >> 8) & 255, wr = (w1 >> 16) & 1, target = w1 & 0xffff;
+    }
     float* const F = R.f + d * R.kLanes;
     long long* const I = R.i + d * R.kLanes;
     if (op == K_FMUL) {
@@ -459,9 +511,10 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const Gls
       continue;
     }
     if constexpr (kExt) {
-      // The ops of loops and shifts, the last opcodes, only in the forms
-      // for lists that have them (the header's flags): the other forms'
-      // switch stays as it was without them.
+      // The ops of loops, shifts, inputs past the second and bit casts, the
+      // last opcodes, only in the forms for lists that have them (the
+      // header's flags): the other forms' switch stays as it was without
+      // them.
       if (op >= K_FMOV) {
         const GlslSrc<long long> X = R.is(x), Y = R.is(y);
         switch (op) {
@@ -507,11 +560,26 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const Gls
             I[0] = rounds;
             any = __any_sync(__activemask(), any);
             if (any && rounds < Y[0]) {
-              n = (int)(w1 & 0xffff) - 1;
+              n = target - 1;
               next = ops[n + 1];
             }
             break;
           }
+          case K_LOADX: {  // channel y of input x >= 2, at the pixel's place in the block
+            const int* v = more + 3 * (x - 2);
+            const float* src = sm + v[0] + y * v[2];
+            const int pitch = v[1];
+            glsl_each<P>(F, [&](int k) RF_INLINE { return src[cr[k] * pitch + cc[k]]; });
+            break;
+          }
+          // Bit casts move the bits and nothing else (a NaN's payload, -0,
+          // a denormal): f32 as the i32 of the register's low word, and back.
+          case K_FBITS: {
+            const GlslSrc<float> A = R.fs(x);
+            glsl_each<P>(I, [&](int k) RF_INLINE { return (long long)__float_as_int(A[k]); });
+            break;
+          }
+          case K_IBITS: glsl_each<P>(F, [&](int k) RF_INLINE { return __int_as_float((int)X[k]); }); break;
         }
         continue;
       }
@@ -705,15 +773,16 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog, const Gls
 // cells, P of them a thread at once (items threadIdx.x + (k + j P)
 // blockDim.x).  A cell past the block or outside the image runs
 // the list on the view's first pixel and stores nothing.  prog: the packed
-// program in the block's idx copy (an even word); files: the register
-// files' region (8-byte aligned).
-template <int P, bool kTrig, bool kExt, typename Put>
+// program in the block's idx copy (an even word; the wide form's ops on a
+// 16-byte word); files: the register files' region (8-byte aligned, in
+// shared memory; the wide form's in device memory).
+template <int P, bool kTrig, bool kExt, bool kWide, typename Put>
 __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* files,
                                            const View& in0, const View& in1, int rows, int cols,
                                            int by, int bx, int H, int W, int row0, float time,
-                                           Put put) {
+                                           const float* sm, const int* more, Put put) {
   const int n = rows * cols, k_f = prog[3];
-  GlslFiles<P> R;
+  GlslFiles<P, kWide> R;
   R.i = reinterpret_cast<long long*>(files) + threadIdx.x;
   R.f = files + 2 * prog[2] * R.kLanes + threadIdx.x;
   R.cf = reinterpret_cast<const float*>(prog + kGlslHead);
@@ -731,6 +800,10 @@ __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* 
       gy[k] = by + r;
       gx[k] = bx + c;
       ok[k] = in_block && gy[k] >= 0 && gy[k] < H && gx[k] >= 0 && gx[k] < W;
+      if constexpr (kExt) {  // LOADX's place in the block: the first pixel's past it
+        cr[k] = in_block ? r : 0;
+        cc[k] = in_block ? c : 0;
+      }
       at0[k] = in_block ? r * in0.pitch + c : 0;
       at1[k] = in_block ? r * in1.pitch + c : 0;
       gy[k] += row0;  // the image row
@@ -741,7 +814,8 @@ __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* 
         ++r;
       }
     }
-    glsl_ops<P, kTrig, kExt>(prog, R, in0, in1, at0, at1, gy, gx, time);
+    glsl_ops<P, kTrig, kExt, kWide>(prog, R, in0, in1, at0, at1, gy, gx, time, sm, more, cr,
+                                    cc);
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
       const GlslSrc<float> S = R.fs(prog[5 + ch]);
@@ -924,15 +998,33 @@ __device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
 // stencils); kGlsl > 0: it has MC_GLSL stages (point shaders, with the
 // affine ones), evaluated kGlsl (2 or 4) pixels a thread, or reads in
 // zero mode; kTrig: an op list calls sinf, cosf or tanf; kExt: it has
-// loops or shifts (launch_form).
+// loops, shifts, bit casts or reads a third image; kWide: the lists are
+// in the wide op word, one pixel a thread, their files in device memory
+// (launch_form).
 // The builtins' and affine forms keep the edge mode's code alone (a
 // runtime zero flag cost the affine form 1.5% on glsl-blur-sharpen,
 // PERF.md).
-template <typename T, bool kAffine, int kGlsl, bool kTrig, bool kExt>
+// A block's file in device memory (the wide form): the first free slot
+// from one its place in the grid picks, taken with a compare-and-swap.  At
+// most file_slots blocks are resident at once (the occupancy calculator's
+// count), so a slot frees as a block ends; a block that finds none after
+// 2^26 tries traps rather than hang the card.
+__device__ __forceinline__ int take_file(int* locks, int slots) {
+  int s = (int)((blockIdx.y * gridDim.x + blockIdx.x) % (unsigned)slots);
+  for (int tries = 0; atomicCAS(locks + s, 0, 1) != 0; ++tries) {
+    if (tries == (1 << 26)) __trap();
+    s = s + 1 == slots ? 0 : s + 1;
+  }
+  __threadfence();
+  return s;
+}
+
+template <typename T, bool kAffine, int kGlsl, bool kTrig, bool kExt, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int vec, int store, float time, const float* __restrict__ taps_g,
-                      const int* __restrict__ idx_g, const __grid_constant__ McArgs args) {
+                      const int* __restrict__ idx_g, const __grid_constant__ McArgs args,
+                      const __grid_constant__ GlslArgs glsl_args) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float dense[kMcMaxStages][kDense];
   const int y0 = (int)blockIdx.y * TH, x0 = (int)blockIdx.x * TW;
@@ -962,6 +1054,13 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
         if ((pos >> 6) * 3 + (pos & 63) == k) v = taps_g[st.t0 + t];
       }
     dense[s][k] = v;
+  }
+  [[maybe_unused]] int file = 0;  // the wide form's file in device memory, this block's
+  if constexpr (kWide) {
+    __shared__ int taken;
+    if (threadIdx.x == 0) taken = take_file(glsl_args.file_locks, glsl_args.file_slots);
+    __syncthreads();
+    file = taken;
   }
   cp_async_wait_all();
   __syncthreads();
@@ -1087,9 +1186,13 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
       bool glsl = false;
       if constexpr (kGlsl > 0) {
         glsl = st.code == MC_GLSL;
-        if (glsl)
-          glsl_cells<kGlsl, kTrig, kExt>(idx + st.t0, win, in0, in1, rows, cols, by, bx, H, W,
-                                   args.row0, time, put);
+        if (glsl) {
+          float* files = win;
+          if constexpr (kWide) files = glsl_args.files + (size_t)file * glsl_args.file_floats;
+          glsl_cells<kGlsl, kTrig, kExt, kWide>(idx + st.t0, files, in0, in1, rows, cols, by, bx,
+                                                H, W, args.row0, time, sm,
+                                                glsl_args.in + 3 * st.t1, put);
+        }
       }
       if (!glsl) for_each_cell(rows, cols, [&](int r, int cc) RF_INLINE {
         const int gy = by + r, gx = bx + cc;
@@ -1129,66 +1232,78 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
     }
     __syncthreads();
   }
+  if constexpr (kWide) {
+    // The file frees once every write to it is visible past this block.
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicExch(glsl_args.file_locks + file, 0);
+  }
 }
 
-template <typename T, bool kAffine, int kGlsl, bool kTrig = false, bool kExt = false>
+template <typename T, bool kAffine, int kGlsl, bool kTrig = false, bool kExt = false,
+          bool kWide = false>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
-                  const McArgs& args, const float* taps, const int* idx, int store, float time,
-                  int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig, kExt>;
+                  const McArgs& args, const GlslArgs& glsl, const float* taps, const int* idx,
+                  int store, float time, int smem, cudaStream_t stream) {
+  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig, kExt, kWide>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), H, W,
-                                           TH, TW, vec, store, time, taps, idx, args);
+                                           TH, TW, vec, store, time, taps, idx, args, glsl);
   return (int)cudaGetLastError();
 }
 
 // The kernel form of a plan, chosen here only: the glsl form where a stage
 // is MC_GLSL, at the plan's pixels a thread (4, else 2), with the trig ops
-// where an op list calls them and the loop and shift ops where one has
-// them (the flags of the packed header), and for zero mode, which rides on it (the
+// where an op list calls them and the ops of loops, shifts, bit casts and
+// inputs past the second where one has them (the flags of the packed
+// header), and for zero mode, which rides on it (the
 // other forms read the edge mode only); else the affine form where a
-// stage is MC_AFFINE; else the builtins'.
+// stage is MC_AFFINE; else the builtins'.  Lists in the wide op word take
+// the wide form alone, one pixel a thread with every op.
 template <typename T>
 static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, int vec,
-                       const McArgs& args, const float* taps, const int* idx, int store,
-                       float time, int smem, cudaStream_t stream) {
+                       const McArgs& args, const GlslArgs& ga, const float* taps, const int* idx,
+                       int store, float time, int smem, cudaStream_t stream) {
   bool glsl = args.zero != 0, affine = false;
   for (int s = 0; s < args.n_stages; ++s) {
     glsl = glsl || args.st[s].code == MC_GLSL;
     affine = affine || args.st[s].code == MC_AFFINE;
   }
   const bool four = args.glsl_pix == 4, trig = args.glsl_flags & 1, ext = args.glsl_flags & 2;
+  if (glsl && (args.glsl_flags & 4))
+    return launch<T, true, 1, true, true, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx,
+                                                store, time, smem, stream);
   if (glsl && four && trig && ext)
-    return launch<T, true, 4, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+    return launch<T, true, 4, true, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store,
                                           time, smem, stream);
   if (glsl && four && trig)
-    return launch<T, true, 4, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
-                                    time, smem, stream);
+    return launch<T, true, 4, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time,
+                                    smem, stream);
   if (glsl && four && ext)
-    return launch<T, true, 4, false, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+    return launch<T, true, 4, false, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store,
                                            time, smem, stream);
   if (glsl && four)
-    return launch<T, true, 4>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
-                              time, smem, stream);
+    return launch<T, true, 4>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time, smem,
+                              stream);
   if (glsl && trig && ext)
-    return launch<T, true, 2, true, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+    return launch<T, true, 2, true, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store,
                                           time, smem, stream);
   if (glsl && trig)
-    return launch<T, true, 2, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
-                                    time, smem, stream);
+    return launch<T, true, 2, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time,
+                                    smem, stream);
   if (glsl && ext)
-    return launch<T, true, 2, false, true>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
+    return launch<T, true, 2, false, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store,
                                            time, smem, stream);
   if (glsl)
-    return launch<T, true, 2>(x, out, H, W, TH, TW, vec, args, taps, idx, store,
-                              time, smem, stream);
-  if (affine)
-    return launch<T, true, 0>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+    return launch<T, true, 2>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time, smem,
                               stream);
-  return launch<T, false, 0>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem,
+  if (affine)
+    return launch<T, true, 0>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time, smem,
+                              stream);
+  return launch<T, false, 0>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time, smem,
                              stream);
 }
 
@@ -1197,8 +1312,11 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
 // stage); geo the layout's ten ints (scratch_off, taps_off, in_eh,
 // in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_flags:
-// cuda_ops.McProgram.geometry);
-// taps / idx lie on the device.  bf16 selects bf16 storage for input and
+// cuda_ops.McProgram.geometry); glsl_in the host table of n_glsl_in
+// views (three ints each: offset, pitch, plane) of the MC_GLSL stages'
+// inputs past the second; files / locks the wide form's register files
+// in device memory (file_slots files of file_floats floats, the lock
+// words zero), null for the other forms; taps / idx lie on the device.  bf16 selects bf16 storage for input and
 // output (else f32).  vec: the input's rows start on 16-byte boundaries;
 // zero: the plan's border mode is "zero".  x is a slab of H rows whose first
 // row is image row row0 of an image of height rows (0 and H for a frame).
@@ -1206,8 +1324,13 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
                                  const int* geo, const int* stage_i, const float* stage_f,
                                  int n_stages, const float* taps, const int* idx, int n_taps,
                                  int store, float time, int vec, int zero, int row0, int height,
-                                 int smem, void* stream) {
-  if (n_stages < 1 || n_stages > rf::kMcMaxStages) return (int)cudaErrorInvalidValue;
+                                 int smem, const int* glsl_in, int n_glsl_in, void* files,
+                                 int* locks, int file_slots, int file_floats, void* stream) {
+  const bool wide = geo[9] & 4;
+  if (n_stages < 1 || n_stages > rf::kMcMaxStages || n_glsl_in < 0 ||
+      n_glsl_in > rf::kMcGlslInputs || (wide && (files == nullptr || locks == nullptr ||
+                                                 file_slots < 1)))
+    return (int)cudaErrorInvalidValue;
   rf::McArgs args{};
   args.n_stages = n_stages;
   args.scratch_off = geo[0];
@@ -1220,6 +1343,12 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   args.n_win = geo[7];
   args.glsl_pix = geo[8];
   args.glsl_flags = geo[9];
+  rf::GlslArgs ga{};
+  for (int k = 0; k < 3 * n_glsl_in; ++k) ga.in[k] = glsl_in[k];
+  ga.files = static_cast<float*>(files);
+  ga.file_locks = locks;
+  ga.file_slots = file_slots;
+  ga.file_floats = file_floats;
   args.n_taps = n_taps;
   args.zero = zero;
   args.row0 = row0;
@@ -1247,11 +1376,36 @@ extern "C" int rf_graph_strip_mc(int bf16, const void* x, void* out, int H, int 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return rf::launch_form<__nv_bfloat16>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time,
-                                          smem, s);
-  return rf::launch_form<float>(x, out, H, W, TH, TW, vec, args, taps, idx, store, time, smem, s);
+    return rf::launch_form<__nv_bfloat16>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store,
+                                          time, smem, s);
+  return rf::launch_form<float>(x, out, H, W, TH, TW, vec, args, ga, taps, idx, store, time, smem,
+                                s);
 }
 
-// 0: stages per plan; 1: ints per stage (cuda_ops.MC_MAX_STAGES,
-// MC_STAGE_INTS).
-extern "C" int rf_mc_limits(int which) { return which == 0 ? rf::kMcMaxStages : rf::kMcStageInts; }
+// 0: stages per plan; 1: ints per stage; 2: the op lists' inputs past
+// the second (cuda_ops.MC_MAX_STAGES, MC_STAGE_INTS, MC_GLSL_INPUTS).
+extern "C" int rf_mc_limits(int which) {
+  return which == 0 ? rf::kMcMaxStages : which == 1 ? rf::kMcStageInts : rf::kMcGlslInputs;
+}
+
+// Blocks of the wide glsl form (bf16 or f32 storage, smem bytes of dynamic
+// shared memory) the current card holds at once: the occupancy
+// calculator's blocks an SM times its SMs; a CUDA error as its negative.
+namespace rf {
+template <typename T>
+static int wide_resident(int smem) {
+  auto kernel = graph_strip_mc_kernel<T, true, 1, true, true, true>;
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  return err == cudaSuccess ? blocks * sms : -(int)err;
+}
+}  // namespace rf
+
+extern "C" int rf_mc_resident(int bf16, int smem) {
+  return bf16 ? rf::wide_resident<__nv_bfloat16>(smem) : rf::wide_resident<float>(smem);
+}

@@ -32,15 +32,21 @@ interpreter's ``_WHILE_CAP`` rounds.  Running a lane past its own exit
 changes nothing (the body's merges are masked), so the region run a
 pixel at a time is bit-equal to the interpreter's whole-image rounds.
 Integer shifts are ops of their own (ISHL, ISHR, with torch's rule for a
-count outside the width).  A host read of a per-pixel value elsewhere
-refuses the lowering, and so do an op outside the op set, a gather, a
-bit cast, an in-place update, storage buffers, atomics and ``shared``
-arrays, more than two input images and more registers or constants than
-an op word's fields address: each raises ``Refused``, whose reason
+count outside the width), and so are the bit casts (``view`` of f32 as i32
+and back: FBITS, IBITS; the uint forms the interpreter builds from them).
+A shader reads its first two input images through the stage's own views,
+the others through LOADX (the plan's launch holds at most
+``cuda_ops.MC_GLSL_INPUTS`` of those).  A host read of a per-pixel
+value elsewhere refuses the lowering, and so do an op outside the op set,
+a gather, an in-place update, storage buffers, atomics and ``shared``
+arrays, and more registers or constants than an op word's
+wide fields address: each raises ``Refused``, whose reason
 ``lower_point`` returns, and such a node runs per node (or between
 segments), as before.
-Whether a program's register files fit the kernel's shared memory beside
-the rest of its plan is the mc planner's question
+A list that fits the narrow op word (8-bit fields) packs into it; a
+larger one packs into the wide word (``PointProgram.packed``).  Whether a
+program's register files fit the kernel's shared memory beside the rest
+of its plan, or lie in device memory, is the mc planner's question
 (``cuda_ops.McProgram.tile``).
 
 ``point_program_plain`` is the plain version: the ops in order (a taken
@@ -72,17 +78,25 @@ DTYPES = {v: k for k, v in _TYPE_OF.items()}
 # The kernel's two register files, float (f32) and integer (i32, i64 and
 # bool, in 64 bits), each sized to a program's live registers of its
 # class (csrc/graph_strip_mc.cu: planes in shared memory, a lane each).
-# Integer registers of an op list are numbered from I_BASE.  An operand
-# field of an op word has 8 bits: a register's index, or CONST | k, the
-# k-th constant of the operand's class, read from the program's own
-# constant table (MAX_F, MAX_I: the registers a field can name, and the
-# constants of a class).  The ints of the packed program's header
-# (``PointProgram.packed``); each op packs into two words.
+# Integer registers of an op list are numbered from I_BASE (past every
+# float register a wide field names).  An operand field of the narrow op
+# word has 8 bits: a register's index, or CONST | k, the k-th constant of
+# the operand's class, read from the program's own constant table (MAX_F,
+# MAX_I: the registers a field can name, and the constants of a class).
+# The ints of the packed program's header (``PointProgram.packed``); each
+# op packs into two words.
 MAX_F = 128
 MAX_I = 128
 CONST = 0x80
-I_BASE = 128
+I_BASE = 1 << 16
 HEAD_INTS = 10
+# The wide op word (``packed(wide=True)``, header flag 4): four words an
+# op, each operand field 16 bits, WIDE_CONST | k the k-th constant of its
+# class; so up to WIDE_MAX registers of each file and constants of each
+# class.  A wide list's ops start on a multiple of four words (one 16-byte
+# read an op).
+WIDE_CONST = 0x8000
+WIDE_MAX = 0x8000
 
 # The opcodes, one list for the recorder, the plain version and the kernel
 # (csrc/graph_strip_mc.cu GlslKop, in this order).  An op of a name with
@@ -103,12 +117,16 @@ KERNEL_OPS = (
     "INEG", "IABS", "ISIGN", "INOT", "ILNOT",
     "IWHERE", "ICLAMP",
     "F2I", "F2L", "F2B", "I2F", "L2F", "B2F", "L2I", "I2B", "ICOPY",
-    "FMOV", "IMOV", "ISHL", "ISHR", "LOOP",
+    "FMOV", "IMOV", "ISHL", "ISHR", "LOOP", "LOADX", "FBITS", "IBITS",
 )
 K = {name: k for k, name in enumerate(KERNEL_OPS)}
-_LEAVES = ("LOAD", "COORD_X", "COORD_Y", "TIME")
+_LEAVES = ("LOAD", "COORD_X", "COORD_Y", "TIME", "LOADX")
+# LOAD reads image 0 or 1, LOADX image 2 and on: (image, channel) operands.
+_LOADS = {K["LOAD"], K["LOADX"]}
 # Ops whose name takes no type prefix.
-_UNTYPED = _LEAVES + ("LOOP",)
+_UNTYPED = _LEAVES + ("LOOP", "FBITS", "IBITS")
+# Bit casts, by (operand type, result type): f32 bits as i32, i32 bits as f32.
+_BITCASTS = {(F32, I32): "FBITS", (I32, F32): "IBITS"}
 _MOVES = {K["FMOV"], K["IMOV"]}
 _CASTS = {(F32, I32): "F2I", (F32, I64): "F2L", (F32, BOOL): "F2B", (I32, F32): "I2F",
           (I64, F32): "L2F", (BOOL, F32): "B2F", (I64, I32): "L2I", (I32, BOOL): "I2B",
@@ -117,8 +135,9 @@ _CAST_OPS = {K[name] for name in _CASTS.values()}
 # The ops of a list that only the kernel's trig forms evaluate (the
 # header's flags).
 _TRIG_OPS = {K["FSIN"], K["FCOS"], K["FTAN"]}
-# The ops of loops and shifts, the last opcodes: only the kernel's forms
-# for lists that have them (the header's flags) evaluate them.
+# The ops of loops, shifts, images past the second and bit casts, the
+# last opcodes: only the kernel's forms for lists that have them (the
+# header's flags) evaluate them.
 _EXT_OPS = set(range(K["FMOV"], len(KERNEL_OPS)))
 # Ops that compute in their type and give bool.
 _BOOL_OUT = {K[p + n] for p in "FI" for n in ("EQ", "NE", "LT", "LE", "GT", "GE")} | {K["FISNAN"]}
@@ -194,7 +213,7 @@ class PointProgram:
     ``ops`` are ``(op, typ, dst, refs)``: the opcode (an index of
     KERNEL_OPS), the type it computes in (a cast's: its result's), the
     result's register and the operands, each a register or constant ``-1
-    - k`` (a LOAD's: the image and the channel; a LOOP's: the carried
+    - k`` (a LOAD's or LOADX's: the image and the channel; a LOOP's: the carried
     ``_active``, the round cap, the index of the loop body's first op and
     the trip bound, its ``dst`` the round counter).  A loop region is the
     ops from a LOOP's first op to the LOOP: the body, then moves of its
@@ -227,16 +246,26 @@ class PointProgram:
             n[c.typ == F32] += 1
         return slot
 
-    def packed(self) -> np.ndarray:
-        """The program as the kernel reads it (int32), every part on an
+    @property
+    def narrow(self) -> bool:
+        """Whether the list fits the narrow op word: 128 registers of each
+        file, 128 constants of each class."""
+        n_fk = sum(c.typ == F32 for c in self.consts)
+        return (self.n_f <= MAX_F and self.n_i <= MAX_I and n_fk <= CONST
+                and len(self.consts) - n_fk <= CONST)
+
+    def packed(self, wide: Optional[bool] = None) -> np.ndarray:
+        """The program as the kernel reads it (int32), in the narrow op
+        word where it fits (``narrow``) and ``wide`` is not True, else in
+        the wide one (``widen``'s form).  Every part on an
         even word, so that the integer constants and each op read as one
         8-byte load where the list itself starts on an even word: the
         header (ops, the float and integer registers in use, the float and
         integer constants' counts, the four output channels' operands,
         flags: 1 where the list calls sinf, cosf or tanf, whose argument
         reduction keeps an array the kernel's other forms need not carry, 2
-        where it has loops or shifts, which the kernel's forms for them
-        evaluate);
+        where it has loops, shifts, bit casts or reads a third image, which
+        the kernel's forms for them evaluate, 4 for the wide op word);
         the float constants' bits, and a zero where their count is
         odd; the integer constants, the low and high words of their 64-bit
         form; then two words an op: its opcode | dst << 8 | a << 16 | b <<
@@ -245,11 +274,15 @@ class PointProgram:
         of its class (a LOAD's a and b: the image and the channel).  A
         LOOP (a back-edge) is LOOP | counter << 8 | active << 16 | cap << 24
         and the index of its body's first op | (trip bound - 1) << 16."""
+        if wide is None:
+            wide = not self.narrow
+        elif not wide and not self.narrow:
+            raise ValueError("the list's registers or constants pass the narrow op word")
         slot = self._slots()
 
         def at(ref: int) -> int:
             if ref < 0:
-                return CONST | slot[-1 - ref]
+                return (WIDE_CONST if wide else CONST) | slot[-1 - ref]
             return ref - I_BASE if ref >= I_BASE else ref
 
         fk = [k for k, c in enumerate(self.consts) if c.typ == F32]
@@ -257,37 +290,94 @@ class PointProgram:
         trig = any(op in _TRIG_OPS for op, *_ in self.ops)
         ext = any(op in _EXT_OPS for op, *_ in self.ops)
         words = [len(self.ops), self.n_f, self.n_i, len(fk), len(ik),
-                 *(at(o) for o in self.outputs), int(trig) | int(ext) << 1]
+                 *(at(o) for o in self.outputs), int(trig) | int(ext) << 1 | int(wide) << 2]
         words += [_register_bits(F32, self.consts[k].value) for k in fk] + [0] * (len(fk) % 2)
         for k in ik:
             bits = _register_bits(self.consts[k].typ, self.consts[k].value)
             words += [bits & 0xFFFFFFFF, bits >> 32]
+        if wide:
+            words += [0] * (len(words) % 4)
+            for op, typ, dst, refs in self.ops:
+                if op == K["LOOP"]:
+                    active, cap, target, trips = refs
+                    words += [op | at(dst) << 16, at(active) | at(cap) << 16, 0,
+                              target | (min(trips, 1 << 16) - 1) << 16]
+                    continue
+                f = (list(refs) if op in _LOADS else [at(r) for r in refs]) + [0] * (4 - len(refs))
+                words += [op | int(typ == I32) << 8 | at(dst) << 16, f[0] | f[1] << 16,
+                          f[2] | f[3] << 16, 0]
+            return np.asarray([_i32(w) for w in words], np.int32)
         for op, typ, dst, refs in self.ops:
             if op == K["LOOP"]:
                 active, cap, target, trips = refs
                 words += [op | at(dst) << 8 | at(active) << 16 | at(cap) << 24,
                           target | (min(trips, 1 << 16) - 1) << 16]
                 continue
-            f = (list(refs) if op == K["LOAD"] else [at(r) for r in refs]) + [0] * (4 - len(refs))
+            f = (list(refs) if op in _LOADS else [at(r) for r in refs]) + [0] * (4 - len(refs))
             words += [op | at(dst) << 8 | f[0] << 16 | f[1] << 24,
                       f[2] | f[3] << 8 | int(typ == I32) << 16]
         return np.asarray([_i32(w) for w in words], np.int32)
 
 
-def packed_work(words) -> int:
-    """The ops a pixel runs of a packed program (``PointProgram.packed``):
-    each op once, an op of a loop region times the trip bound its
-    back-edge carries (nested regions multiply), so that the mc planner's
-    work model counts a loop by its rounds and not by one trip."""
-    words = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
-    n, k_f, k_i = int(words[0]), int(words[3]), int(words[4])
+def ops_at(words) -> int:
+    """Where a packed program's ops start within it: past the header, the
+    float constants (padded to an even count) and the integer constants'
+    two words each, and in the wide form on a multiple of four words."""
+    k_f, k_i = int(words[3]), int(words[4])
     at = HEAD_INTS + k_f + k_f % 2 + 2 * k_i
-    ops = words[at:at + 2 * n].reshape(-1, 2)
+    return at + at % 4 if int(words[HEAD_INTS - 1]) & 4 else at
+
+
+def is_wide(words) -> bool:
+    """Whether a packed program is in the wide op word (header flag 4)."""
+    return bool(int(words[HEAD_INTS - 1]) & 4)
+
+
+def packed_work(words) -> int:
+    """The ops a pixel runs of a packed program (``PointProgram.packed``,
+    either op word): each op once, an op of a loop region times the trip
+    bound its back-edge carries (nested regions multiply), so that the mc
+    planner's work model counts a loop by its rounds and not by one trip."""
+    words = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    n, width = int(words[0]), 4 if is_wide(words) else 2
+    at = ops_at(words)
+    ops = words[at:at + width * n].reshape(-1, width)
     weight = np.ones(n, np.float64)
     for e in np.flatnonzero((ops[:, 0] & 255) == K["LOOP"]):
-        w1 = int(ops[e, 1])
-        weight[w1 & 0xFFFF:e + 1] *= (w1 >> 16) + 1
+        w = int(ops[e, -1])
+        weight[w & 0xFFFF:e + 1] *= (w >> 16) + 1
     return int(weight.sum())
+
+
+def widen(words) -> np.ndarray:
+    """A narrow packed program (``PointProgram.packed``) in the wide op
+    word: the same header (flag 4 added), constants and ops, each operand
+    field carried over (CONST | k as WIDE_CONST | k).  The mc planner
+    widens a plan's lists where their register files fit no tile at the
+    narrow forms' pixels a thread; the wide form runs one."""
+    words = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    if is_wide(words):
+        return np.asarray([_i32(int(w)) for w in words], np.int32)
+
+    def field(f: int) -> int:
+        return WIDE_CONST | (f & (CONST - 1)) if f & CONST else f
+
+    n, at = int(words[0]), ops_at(words)
+    out = [int(w) for w in words[:at]]
+    out[5:9] = [field(int(w)) for w in words[5:9]]
+    out[HEAD_INTS - 1] |= 4
+    out += [0] * (len(out) % 4)
+    for w0, w1 in words[at:at + 2 * n].reshape(-1, 2):
+        w0, w1 = int(w0), int(w1)
+        op, d, a, b = w0 & 255, (w0 >> 8) & 255, (w0 >> 16) & 255, w0 >> 24
+        if op == K["LOOP"]:
+            out += [op | d << 16, field(a) | field(b) << 16, 0, w1]
+            continue
+        c, e = w1 & 255, (w1 >> 8) & 255
+        if op not in _LOADS:
+            a, b, c, e = field(a), field(b), field(c), field(e)
+        out += [op | ((w1 >> 16) & 1) << 8 | d << 16, a | b << 16, c | e << 16, 0]
+    return np.asarray([_i32(w) for w in out], np.int32)
 
 
 def _i32(u: int) -> int:
@@ -601,7 +691,7 @@ class _Recorder(TorchDispatchMode):
         if packet in _VIEWS:
             v = vals[0]
             if out.dtype != args[0].dtype:
-                raise Refused(f"a bit cast (a view of {args[0].dtype} as {out.dtype})")
+                return self.bitcast(v, args[0].dtype, out)
             if isinstance(v, _Arange):
                 shape = tuple(out.shape)
                 if packet is _aten.view and shape == (1, v.n) and v.n == self.w:
@@ -623,7 +713,7 @@ class _Recorder(TorchDispatchMode):
             if isinstance(v, _Img) and dim == 0:
                 key = (v.k, int(i))
                 if key not in self.loads:
-                    self.loads[key] = self.emit("LOAD", F32, key)
+                    self.loads[key] = self.emit("LOAD" if v.k < 2 else "LOADX", F32, key)
                 return self.loads[key]
             if isinstance(v, _Vec) and dim == 0:
                 return v.items[i]
@@ -650,6 +740,9 @@ class _Recorder(TorchDispatchMode):
                              (self.operand(vals[0], ctype), self.operand(vals[1], ctype)))
         if packet is _aten.isnan:
             return self.emit("ISNAN", F32, (self.operand(vals[0], F32),))
+        if packet is _aten.isinf:  # GLSL isinf: |x| == inf, NaN false as in torch
+            a = self.emit("ABS", F32, (self.operand(vals[0], F32),))
+            return self.emit("EQ", F32, (a, Const(F32, float("inf"))))
         if packet is _aten.logical_not:
             return self.emit("LNOT", BOOL, (self.operand(vals[0], BOOL),))
         if packet is _aten.bitwise_not:
@@ -691,6 +784,19 @@ class _Recorder(TorchDispatchMode):
                             scalar=True)]
             return self.emit("NAN2NUM", F32, (self.operand(vals[0], F32), *consts))
         raise Refused(f"aten.{name} is outside the op set")
+
+    def bitcast(self, v, src_dtype, out):
+        """A view of a per-pixel value as another dtype of its size: f32
+        bits as i32 (FBITS) or i32 bits as f32 (IBITS), or a constant's
+        bits folded on the CPU."""
+        src, typ = _TYPE_OF.get(src_dtype), _TYPE_OF.get(out.dtype)
+        if (src, typ) not in _BITCASTS:
+            raise Refused(f"a bit cast of {src_dtype} as {out.dtype}")
+        if isinstance(v, Const):
+            return Const(typ, torch.tensor(v.value, dtype=src_dtype).view(out.dtype).item())
+        if not isinstance(v, int):
+            raise Refused("a bit cast of a whole image")
+        return self.emit(_BITCASTS[(src, typ)], typ, (self.operand(v, src),))
 
     def binary(self, packet, name, vals, kwargs, typ):
         if kwargs.get("alpha", 1) != 1:
@@ -799,8 +905,6 @@ def _gate(spec, params: dict) -> None:
         raise Refused("not mc_block_ok (per-lane array indexing)")
     if not spec.images_in:
         raise Refused("no input image")
-    if len(spec.images_in) > 2:
-        raise Refused("more than two input images (a point stage reads two)")
 
 
 def lower_point(spec, params: dict, width: int, height: int,
@@ -863,10 +967,10 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
     back-edge's operands are the carried ``_active``, the cap, the index
     of the body's first op and the trip bound."""
     nodes = rec.nodes
-    load, loop_op, leaves = K["LOAD"], K["LOOP"], {K[name] for name in _LEAVES}
+    loop_op, leaves = K["LOOP"], {K[name] for name in _LEAVES}
 
     def operands(i: int) -> tuple:
-        return () if nodes[i][0] == load else nodes[i][2]
+        return () if nodes[i][0] in _LOADS else nodes[i][2]
 
     live = set()
     stack = [o for o in outputs if isinstance(o, int)]
@@ -928,7 +1032,7 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
             active, _counter, cap = args
             refs = (ref(active), ref(cap), next(s for s, e in regions if e == j), rec.trips[i])
         else:
-            refs = args if op == load else tuple(ref(a) for a in args)
+            refs = args if op in _LOADS else tuple(ref(a) for a in args)
         for a in set(operands(i)) | ({rec.into[i]} if i in rec.into else set()):
             if isinstance(a, int) and last[a] == j:
                 free[is_f(a)].add(reg_of[a])
@@ -946,13 +1050,12 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
         ops.append((op, typ, dst, refs))
     out_refs = tuple(ref(o) for o in outputs)
     n_fk = sum(c.typ == F32 for c in consts)
-    if (n[True] > MAX_F or n[False] > MAX_I or n_fk > CONST
-            or len(consts) - n_fk > CONST):
+    if max(n[True], n[False], n_fk, len(consts) - n_fk) > WIDE_MAX:
         raise Refused(f"{n[True]} float registers and {n_fk} constants, {n[False]} integer "
-                      f"registers and {len(consts) - n_fk} constants (an op's fields name "
-                      f"{MAX_F} float and {MAX_I} integer registers, {CONST} constants of each)")
+                      f"registers and {len(consts) - n_fk} constants (a wide op's fields name "
+                      f"{WIDE_MAX} registers of each file, {WIDE_MAX} constants of each class)")
     used = {op for op, *_ in ops} & leaves
-    read = sorted({refs[0] for op, _t, _d, refs in ops if op == load})
+    read = sorted({refs[0] for op, _t, _d, refs in ops if op in _LOADS})
     return PointProgram(
         ops=tuple(ops), consts=tuple(consts), outputs=out_refs, n_f=n[True], n_i=n[False],
         images=tuple(image_names[k] for k in read),
@@ -1053,8 +1156,12 @@ def point_program_plain(prog: PointProgram, ins, gy: torch.Tensor, gx: torch.Ten
             if bool(torch.as_tensor(arg(active)).any()) and int(regs[dst]) < int(arg(cap)):
                 pc = target
             continue
-        if op == K["LOAD"]:
+        if op in _LOADS:
             v = ins[refs[0]][refs[1]]
+        elif op == K["FBITS"]:
+            v = arg(refs[0]).view(torch.int32)
+        elif op == K["IBITS"]:
+            v = arg(refs[0]).view(torch.float32)
         elif op in leaves:
             v = leaves[op]
         elif op in _CAST_OPS:

@@ -461,6 +461,11 @@ class GraphProgram:
         shares one, and "zero" (a GLSL shader that reads out of bounds as
         zero) only where no conv or stencil reads an intermediate; else
         None, and the segments tier gives each conv a child of its own.  A
+        plan whose op lists' register files fit no tile at the narrow
+        forms' pixels a thread takes the wide form (``McProgram.widened``:
+        one pixel a thread, the files in device memory); one that still
+        fits nothing, or passes a limit of the launch (``McProgram.refusal``
+        says which), is refused with a warning.  A
         plan whose estimated halo work a stage passes ``MC_MAX_HALO_WORK``
         is refused (the tier rule against halo recompute)."""
         nodes: list = []
@@ -627,12 +632,14 @@ class GraphProgram:
             if halo_borders != {"zero"} or prog.edge_hazard:
                 return None
             prog.mode = "zero"
+        if prog.tile() is None and prog.widened() is not None:
+            prog = prog.widened()
         if prog.tile() is None:
             if point_of:
                 warnln(f"GLSL point shader node(s) {', '.join(point_of)} cannot join the fused "
                        f"megakernel at {self.width}x{self.height}: {prog.refusal()}; the graph "
                        "takes another tier")
-            return None  # no shared-memory tile holds this plan: run per node
+            return None  # no tile holds this plan, or it passes a limit: run per node
         if prog.halo_work()[1] / len(prog.stages) > MC_MAX_HALO_WORK:
             return None  # halo recompute past the bound: per node wins
         return prog

@@ -165,7 +165,7 @@ def _load_locked() -> None:
         lib.rf_stencil_r1.restype = _I
         lib.rf_graph_strip_mc.argtypes = [
             _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
-            _P,
+            _P, _I, _P, _P, _I, _I, _P,
         ]
         lib.rf_graph_strip_mc.restype = _I
         lib.rf_stencil_reduce.argtypes = [
@@ -186,6 +186,8 @@ def _load_locked() -> None:
         lib.rf_stencil_apply_mc.restype = _I
         lib.rf_mc_limits.argtypes = [_I]
         lib.rf_mc_limits.restype = _I
+        lib.rf_mc_resident.argtypes = [_I, _I]
+        lib.rf_mc_resident.restype = _I
         lib.rf_error_string.argtypes = [_I]
         lib.rf_error_string.restype = ctypes.c_char_p
         lib.rf_strip_limits.argtypes = [_I]
@@ -1129,6 +1131,17 @@ MC_WINDOW_BUFFERS = (2, 1)
 # glsl-chain's op list at 0.61 the time of two, but at a smaller tile
 # glsl-chain rgba16f 1.38x slower (mc_ablation; PERF.md).
 MC_GLSL_PIXELS = (2, 4)
+# The glsl form's wide op word (glsl/lower.py PointProgram.packed, header
+# flag 4): lists past the narrow word's fields, and lists whose register
+# files fit no tile at MC_GLSL_PIXELS[0], run it at one pixel a thread,
+# their files in device memory, one file for each block the card holds at
+# once (at most MC_FILES_DEVICE_LIMIT bytes a block).  Files in shared
+# memory left one block an SM, and ran a 721-op list 1.23x slower than
+# files in device memory, which leave two (PERF.md).
+MC_FILES_DEVICE_LIMIT = 4 << 20
+# MC_GLSL stages' inputs past the second, in the launch's table (csrc
+# graph_strip_mc.cu kMcGlslInputs).
+MC_GLSL_INPUTS = 24
 # Buffer markers of a packed stage (csrc graph_strip_mc.cu McBuf): none,
 # the kernel input in device memory (a conv's per-channel windows), the
 # input block.
@@ -1238,6 +1251,17 @@ class McProgram:
         _check_mode(self.mode)
         if len(self.stages) > MC_MAX_STAGES:
             raise ValueError(f"graph_strip_mc takes at most {MC_MAX_STAGES} stages")
+        # an op list in the wide op word (its header's flag 4)
+        wide = [int(st.taps[0][9]) & 4 for st in self.stages if st.op.code == MC_GLSL]
+        if any(wide) and not all(wide):
+            # one kernel form a plan: every list in the wide word
+            from ..glsl import lower
+
+            self.stages = [dataclasses.replace(st, taps=(lower.widen(st.taps[0]),))
+                           if st.op.code == MC_GLSL else st for st in self.stages]
+        self._wide = any(wide)
+        # an op list starts on an even word, a wide one on a multiple of four
+        align = 4 if self._wide else 2
         ws, idxs, self._lists = [], [], []
         off = 0
         for st in self.stages:
@@ -1251,11 +1275,12 @@ class McProgram:
                 parts = [(np.zeros(len(words), np.float32), words)]
             else:
                 parts = [_term_arrays(wsum(tab).terms) for tab in st.taps]
-            if st.op.code == MC_GLSL and off % 2:
-                # the kernel reads an op list's words in pairs: an even start
-                ws.append(np.zeros(1, np.float32))
-                idxs.append(np.zeros(1, np.int32))
-                off += 1
+            if st.op.code == MC_GLSL and off % align:
+                # the kernel reads an op in one 8-byte (16-byte: wide) load
+                pad = align - off % align
+                ws.append(np.zeros(pad, np.float32))
+                idxs.append(np.zeros(pad, np.int32))
+                off += pad
             lists = []
             for w, idx in parts:
                 lists += [off, len(w)]
@@ -1267,13 +1292,14 @@ class McProgram:
         # an op list calls sinf, cosf or tanf (its header's flags): the
         # kernel's trig forms
         self._trig = any(int(w[9]) & 1 for w in self._glsl)
-        # and loops or shifts (the forms that evaluate them)
+        # and loops, shifts, bit casts or a third image (the forms that
+        # evaluate them)
         self._ext = any(int(w[9]) & 2 for w in self._glsl)
-        if self._glsl and off % 2:
-            # an even count, so that the positions (the op lists) start on
-            # an even word of shared memory after them
-            ws.append(np.zeros(1, np.float32))
-            idxs.append(np.zeros(1, np.int32))
+        if self._glsl and off % align:
+            # a count of the alignment, so that the positions (the op
+            # lists) start on an aligned word of shared memory after them
+            ws.append(np.zeros(align - off % align, np.float32))
+            idxs.append(np.zeros(align - off % align, np.int32))
         self.taps = np.concatenate(ws) if ws else np.zeros(0, np.float32)
         self.term_idx = np.concatenate(idxs) if idxs else np.zeros(0, np.int32)
 
@@ -1299,7 +1325,12 @@ class McProgram:
         the plan has none)."""
         return max((glsl_file_floats(w, pixels) for w in self._glsl), default=0)
 
-    def _layout(self, th: int, tw: int, n_win: int = 2, pixels: int = MC_GLSL_PIXELS[0]):
+    def _pixel_options(self) -> tuple:
+        """The pixels a thread the plan's op lists may run at: the narrow
+        forms' MC_GLSL_PIXELS, or the wide form's one."""
+        return (1,) if self._wide else MC_GLSL_PIXELS
+
+    def _layout(self, th: int, tw: int, n_win: int = 2, pixels: Optional[int] = None):
         """(slot float offsets, bytes, geometry) of the shared-memory layout
         for a (th, tw) tile: the input block (conv_tile.cuh's window
         layout, rows from a multiple of CONV_ALIGN columns), the pool slots
@@ -1310,13 +1341,18 @@ class McProgram:
         The register files of the plan's MC_GLSL stages (the largest,
         ``glsl_file_floats`` at ``pixels`` a thread) overlay the windows
         and the scratch, which no point stage touches: they add bytes only
-        past that span, and a plan with no op list adds none.  In a plan with an op list the
-        taps start on an even word (the lists' 8-byte reads).  The
+        past that span, and a plan with no op list, or whose lists are in
+        the wide op word (files in device memory), adds none.  In a plan with an op
+        list the taps start on an even word (the lists' 8-byte reads; a
+        multiple of four words for the wide word's 16-byte reads).  The
         geometry is the kernel's ten ints: scratch offset, taps offset,
         the input block's extent and whether a stage reads it, the windows'
         offset, size and count, the op lists' pixels a thread and their
-        flags (1: one calls sinf, cosf or tanf; 2: one has loops or
-        shifts)."""
+        flags (1: one calls sinf, cosf or tanf; 2: one has loops, shifts,
+        bit casts or reads a third image; 4: the wide op word, its files
+        in device memory)."""
+        if pixels is None:
+            pixels = self._pixel_options()[0]
         def block(eh, ew):
             return 4 * (th + 2 * eh) * ((tw + 2 * ew) | 1)
 
@@ -1341,11 +1377,14 @@ class McProgram:
             off += c
         win_off = -(-off // CONV_ALIGN) * CONV_ALIGN  # 16-byte aligned for cp.async
         scratch_off = win_off + n_win * win
-        taps_off = max(scratch_off + scratch, win_off + self._files(pixels))
+        files = 0 if self._wide else self._files(pixels)
+        taps_off = max(scratch_off + scratch, win_off + files)
         if self._glsl:
-            taps_off += taps_off % 2
+            align = 4 if self._wide else 2
+            taps_off += -taps_off % align
+        flags = int(self._trig) | int(self._ext) << 1 | int(self._wide) << 2
         geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win,
-                        pixels, int(self._trig) | int(self._ext) << 1], np.int32)
+                        pixels, flags], np.int32)
         return slot_off, 4 * (taps_off + 2 * len(self.taps)), geo
 
     def _work(self, th: int, tw: int) -> float:
@@ -1406,26 +1445,68 @@ class McProgram:
         work = self._work(th, tw)
         return work, work - self._work(1 << 20, 1 << 20)
 
+    def device_file_bytes(self) -> int:
+        """Bytes of device memory a block's register files take in the
+        wide form (the largest list's, at one pixel a thread)."""
+        return 4 * self._files(1)
+
+    def _past_limit(self) -> Optional[str]:
+        """The launch's limit the plan passes, or None: the op lists'
+        inputs past the second (the launch's table, MC_GLSL_INPUTS), or a
+        wide list's files in device memory (MC_FILES_DEVICE_LIMIT a
+        block)."""
+        if self.n_glsl_inputs > MC_GLSL_INPUTS:
+            return (f"its GLSL point stages read {self.n_glsl_inputs} images past their "
+                    f"second, past the launch's table of {MC_GLSL_INPUTS}")
+        if self._wide and self.device_file_bytes() > MC_FILES_DEVICE_LIMIT:
+            return (f"its op lists' register files take {self.device_file_bytes()} bytes a "
+                    f"block of device memory, past {MC_FILES_DEVICE_LIMIT}")
+        return None
+
     def _choice(self):
         """(TH, TW, window buffers, bytes, pixels a thread) of ``tile``, or
         None."""
         if "tile" not in self._cache:
             self._cache["tile"] = None
+            if self._past_limit() is not None:
+                return None
             n_wins = MC_WINDOW_BUFFERS if any(map(self._windowed, self.stages)) else (2,)
-            layouts = {(th, tw, n): self._layout(th, tw, n)[1]
+            pix = self._pixel_options()
+            layouts = {(th, tw, n): self._layout(th, tw, n, pix[0])[1]
                        for th, tw in MC_TILES for n in n_wins}
             for budget in (MC_SMEM_SOFT, MC_SMEM_LIMIT):
                 fits = [k for k in layouts if layouts[k] <= budget]
                 if fits:
                     best = min(fits, key=lambda k: self._work(k[0], k[1]))
-                    choice = (*best, layouts[best], MC_GLSL_PIXELS[0])
-                    for pixels in MC_GLSL_PIXELS[1:] if self._glsl else ():
+                    choice = (*best, layouts[best], pix[0])
+                    for pixels in pix[1:] if self._glsl else ():
                         nbytes = self._layout(*best, pixels)[1]
                         if nbytes <= budget:
                             choice = (*best, nbytes, pixels)
                     self._cache["tile"] = choice
                     break
         return self._cache["tile"]
+
+    def widened(self) -> Optional["McProgram"]:
+        """This plan with its op lists in the wide op word (the wide form,
+        one pixel a thread, files in device memory), or None where it has
+        no narrow list: the planner's fallback where a narrow list's files
+        fit no tile at MC_GLSL_PIXELS[0]."""
+        if not self._glsl or self._wide:
+            return None
+        from ..glsl import lower
+
+        stages = [dataclasses.replace(st, taps=(lower.widen(st.taps[0]),))
+                  if st.op.code == MC_GLSL else st for st in self.stages]
+        return McProgram(stages=stages, n_slots=self.n_slots, rh_in=self.rh_in,
+                         ew_in=self.ew_in, width=self.width, height=self.height, fmt=self.fmt,
+                         mode=self.mode)
+
+    @property
+    def n_glsl_inputs(self) -> int:
+        """The MC_GLSL stages' inputs past the second (the launch's table:
+        at most MC_GLSL_INPUTS)."""
+        return sum(max(0, len(st.ins) - 2) for st in self.stages if st.op.code == MC_GLSL)
 
     def tile(self) -> Optional[tuple[int, int, int]]:
         """(TH, TW, shared-memory bytes): of the MC_TILES whose layout (with
@@ -1435,30 +1516,40 @@ class McProgram:
         halo recompute and load against the tile's size; two buffers first
         where the work ties); then the op lists take the last of
         MC_GLSL_PIXELS whose files fit beside that tile in the same budget.
-        None where none fits (the planner then refuses the plan)."""
+        Wide lists take one pixel a thread, their files in device memory
+        (the layout without them).  None where none fits, or where the plan
+        passes a limit of the launch (``_past_limit``): the planner then
+        refuses the plan."""
         choice = self._choice()
         return None if choice is None else (choice[0], choice[1], choice[3])
 
     def refusal(self) -> Optional[str]:
         """Why ``tile`` finds no tile (None where it finds one): the
-        smallest layout's bytes, and the op lists' register files among
-        them."""
+        launch's limit the plan passes, or the smallest layout's bytes and
+        the op lists' register files among them."""
         if self.tile() is not None:
             return None
-        need = min(self._layout(th, tw, n)[1] for th, tw in MC_TILES for n in MC_WINDOW_BUFFERS)
+        limit = self._past_limit()
+        if limit is not None:
+            return limit
+        pixels = self._pixel_options()[0]
+        need = min(self._layout(th, tw, n, pixels)[1]
+                   for th, tw in MC_TILES for n in MC_WINDOW_BUFFERS)
         reason = (f"the smallest tile's layout takes {need} bytes of shared memory, past "
                   f"{MC_SMEM_LIMIT}")
-        if self._glsl:
+        if self._wide:
+            reason += " (the op lists' register files in device memory, not among them)"
+        elif self._glsl:
             regs = ", ".join(f"{int(w[1])} float and {int(w[2])} integer" for w in self._glsl)
-            reason += (f"; {4 * self._files(MC_GLSL_PIXELS[0])} of them the GLSL op lists' "
-                       f"register files ({regs} registers, {MC_GLSL_PIXELS[0]} pixels a thread)")
+            reason += (f"; {4 * self._files(pixels)} of them the GLSL op lists' "
+                       f"register files ({regs} registers, {pixels} pixels a thread)")
         return reason
 
     def geometry(self, th: int, tw: int) -> np.ndarray:
         """The layout's ten ints for the kernel (``_layout``), with the
         window buffers and pixels a thread ``tile`` chose."""
         choice = self._choice()
-        n_win, pixels = (choice[2], choice[4]) if choice else (2, MC_GLSL_PIXELS[0])
+        n_win, pixels = (choice[2], choice[4]) if choice else (2, self._pixel_options()[0])
         return self._layout(th, tw, n_win, pixels)[2]
 
     def packed(self, th: int, tw: int):
@@ -1466,11 +1557,27 @@ class McProgram:
         kernel: host arrays of MC_STAGE_INTS ints and 4 floats a stage.  A
         buffer is (offset, eh, ew): a slot's float offset, MC_BUF_INPUT_BLOCK
         with the input block's extent, MC_BUF_GLOBAL for a conv of the
-        input (its windows), MC_BUF_NONE."""
+        input (its windows), MC_BUF_NONE.  An MC_GLSL stage's inputs past
+        the second go to the launch's table (``glsl_inputs``) as their views
+        at the stage's extent, its list 1 (t1, n1) the first of them there
+        and their count."""
         key = ("packed", th, tw)
         if key not in self._cache:
             slot_off, _bytes, geo = self._layout(th, tw, *self.geometry(th, tw)[[7, 8]])
             in_block = [MC_BUF_INPUT_BLOCK, int(geo[2]), int(geo[3])]
+
+            def place(ref, eh, ew):
+                """A buffer's view at extent (eh, ew) (csrc ``view``): its
+                float offset in shared memory, pitch and plane, the same
+                in every block (the input block's columns start at
+                ``_window_cols``'s lo whatever the block)."""
+                slot, r_eh, r_ew = ref
+                if slot == MC_INPUT:
+                    r_eh, r_ew = in_block[1:]
+                    base, pt = _window_cols(tw, r_ew)
+                else:
+                    base, pt = slot_off[slot], (tw + 2 * r_ew) | 1
+                return [base + (r_eh - eh) * pt + (r_ew - ew), pt, (th + 2 * r_eh) * pt]
 
             def buf(ref, windowed=False):
                 if ref is None:
@@ -1480,9 +1587,12 @@ class McProgram:
                     return [MC_BUF_GLOBAL, 0, 0] if windowed else in_block
                 return [slot_off[slot], eh, ew]
 
-            rows_i, rows_f = [], []
+            rows_i, rows_f, more = [], [], []
             for st, lists in zip(self.stages, self._lists):
                 ins = list(st.ins) + [None] * (2 - len(st.ins))
+                if st.op.code == MC_GLSL and len(st.ins) > 2:
+                    lists = [*lists[:2], len(more), len(st.ins) - 2]
+                    more += [place(ref, st.eh, st.ew) for ref in st.ins[2:]]
                 rh = rw = st.r
                 if st.kind == MC_CONV:
                     rh, rw = ((len(v) - 1) // 2 for v in st.taps)
@@ -1494,8 +1604,17 @@ class McProgram:
                 rows_f.append((list(st.op.params) + [0.0] * 4)[:4])
             stage_i = np.ascontiguousarray(np.array(rows_i, np.int32).reshape(-1, MC_STAGE_INTS))
             stage_f = np.ascontiguousarray(np.array(rows_f, np.float32).reshape(-1, 4))
+            self._cache[("inputs", th, tw)] = np.ascontiguousarray(
+                np.array(more, np.int32).reshape(-1))
             self._cache[key] = (stage_i, stage_f, int(geo[0]), int(geo[1]))
         return self._cache[key]
+
+    def glsl_inputs(self, th: int, tw: int) -> np.ndarray:
+        """The launch's table of the MC_GLSL stages' inputs past the
+        second: three ints each, a view (offset, pitch, plane) as
+        ``packed`` places it."""
+        self.packed(th, tw)
+        return self._cache[("inputs", th, tw)]
 
     def device_taps(self, device: torch.device):
         key = ("taps", device)
@@ -1552,7 +1671,9 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) ->
     outside the image instead.  A GLSL point shader's stage (MC_GLSL)
     evaluates its op list, several pixels a thread, over register files in
     shared memory; such plans, and those of zero mode, run the kernel's
-    glsl form.  The tile is
+    glsl form.  Lists in the wide op word run its wide form, one pixel a
+    thread, their files in a scratch of device memory this call allocates
+    (a file for each block the card holds at once, ``_mc_resident``).  The tile is
     the one of least estimated work (halo recompute and load) that leaves
     two blocks an SM (``McProgram.tile``).
 
@@ -1570,28 +1691,59 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) ->
     if not _on_cuda(x):
         return graph_strip_mc_plain(x, t, prog, row0)
     lib = load_library()
-    if (lib.rf_mc_limits(0), lib.rf_mc_limits(1)) != (MC_MAX_STAGES, MC_STAGE_INTS):
-        raise RuntimeError("MC_MAX_STAGES/MC_STAGE_INTS disagree with the built kernel")
+    if (lib.rf_mc_limits(0), lib.rf_mc_limits(1), lib.rf_mc_limits(2)) != (
+            MC_MAX_STAGES, MC_STAGE_INTS, MC_GLSL_INPUTS):
+        raise RuntimeError("MC_MAX_STAGES/MC_STAGE_INTS/MC_GLSL_INPUTS disagree with the built "
+                           "kernel")
     tile = prog.tile()
     if tile is None:
         raise ValueError("graph_strip_mc: no tile fits this plan (the planner refuses it)")
     th, tw, smem = tile
     stage_i, stage_f, _scratch_off, _taps_off = prog.packed(th, tw)
     geo = prog.geometry(th, tw)
+    more = prog.glsl_inputs(th, tw)
     taps, term_idx = prog.device_taps(x.device)
+    bf16 = int(dtype == torch.bfloat16)
+    files = locks = None
+    slots = file_floats = 0
+    if prog._wide:
+        # The wide form's register files in device memory: one file for
+        # each block the card holds at once, and a lock word each.
+        file_floats = prog.device_file_bytes() // 4
+        slots = _mc_resident(lib, x, bf16, smem)
+        files = torch.empty(slots * file_floats, dtype=torch.float32, device=x.device)
+        locks = torch.zeros(slots, dtype=torch.int32, device=x.device)
     out = torch.empty_like(x)
     vec = prog.width % CONV_ALIGN == 0 and x.data_ptr() % 16 == 0
     rc = _launch(
         x, lib.rf_graph_strip_mc,
-        int(dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), x.shape[1], prog.width,
+        bf16, x.data_ptr(), out.data_ptr(), x.shape[1], prog.width,
         th, tw, geo.ctypes.data, stage_i.ctypes.data, stage_f.ctypes.data, len(prog.stages),
         taps.data_ptr(), term_idx.data_ptr(), len(prog.taps), STORE_MODES[prog.fmt], float(t),
         int(vec), int(prog.mode == "zero"), int(row0), prog.height, smem,
+        more.ctypes.data, len(more) // 3, files.data_ptr() if files is not None else None,
+        locks.data_ptr() if locks is not None else None, slots, file_floats,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _check_launch(lib, rc, "graph_strip_mc")
     LAUNCHES["graph_strip_mc"] += 1
     return out
+
+
+_MC_RESIDENT: dict[tuple, int] = {}
+
+
+def _mc_resident(lib: ctypes.CDLL, x: torch.Tensor, bf16: int, smem: int) -> int:
+    """Blocks of the wide glsl form the card of ``x`` holds at once with
+    ``smem`` bytes of dynamic shared memory (the occupancy calculator
+    times the SMs): the register files' slots in device memory."""
+    key = (x.get_device(), bf16, smem)
+    if key not in _MC_RESIDENT:
+        n = _launch(x, lib.rf_mc_resident, bf16, smem)
+        if n <= 0:
+            _check_launch(lib, -n or 1, "graph_strip_mc (occupancy)")
+        _MC_RESIDENT[key] = n
+    return _MC_RESIDENT[key]
 
 
 # ---- kernel E: stencil_reduce_mc -------------------------------------------------------

@@ -267,6 +267,8 @@ _MC_GENERAL = "csrc/stencil_mc.cu"
 # thread; the constants' operands, the files' layout and their sizes on
 # the host (const_files).
 _MC_GLSL_CALL = "    glsl_ops<P, kTrig, kExt>(prog, R, in0, in1, at0, at1, gy, gx, time);\n"
+_MC_GLSL_CALL_WIDE = ("    glsl_ops<P, kTrig, kExt, kWide>(prog, R, in0, in1, at0, at1, gy, gx, time, sm, more, cr,\n"
+                      "                                    cc);\n")
 _MC_GLSL_PUT = "if (ok[k]) put(ch, cr[k], cc[k], S[k]);"
 _MC_PIX = "MC_GLSL_PIXELS = (2, 4)\n"
 _MC_PIX_FORM = ("    return launch<T, true, 2>(", "    return launch<T, true, 2, true>(",
@@ -323,7 +325,9 @@ KERNELS = {
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
-        "no_glsl": [[(_MC_GLSL_CALL, ""),
+        "no_glsl": [[(_MC_GLSL_CALL_WIDE, ""),
+                     (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
+                    [(_MC_GLSL_CALL, ""),
                      (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
                     [(_MC_GLSL_CALL.replace(", kExt", ""), ""),
                      (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],

@@ -381,6 +381,34 @@ def test_loop_graphs_on_graph_strip_mc(graph, first, fmt, hw, monkeypatch):
         assert float((d > tol).float().mean()) <= share, float(d.max())
 
 
+@pytest.mark.parametrize("hw", [(37, 71), (200, 300)])
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f"])
+@pytest.mark.parametrize("graph", ["hash_after_blur", "composite3", "composite3_raw_mask",
+                                   "wide_after_blur"])
+def test_reach_graphs_on_graph_strip_mc(graph, fmt, hw):
+    """Bit casts (hash.comp), three images (composite3.comp; with the
+    input itself as the third, read by LOADX from the input block) and the
+    wide op word (wide.comp, its register files in device memory) on the
+    glsl form against the plain version, and the frame against per
+    node."""
+    from reforge_tpu_torch import benchmarks
+
+    h, w = hw
+    config, shader_dir = benchmarks.point_graphs()[graph]
+    prog = benchmarks.build_program(config, w, h, fmt, device="cuda", shader_path=shader_dir)
+    plan = prog._strip_plan
+    assert plan[0] == "mc" and cuda_ops.MC_GLSL in [st.op.code for st in plan[1].stages]
+    assert plan[1]._wide == (graph == "wide_after_blur")
+    x = _image((4, h, w), 31).to(prog.storage_dtype)
+    pairs = [(cuda_ops.graph_strip_mc(x, 0.5, plan[1]),
+              cuda_ops.graph_strip_mc_plain(x, 0.5, plan[1])),
+             (prog._forward(x, 0.5), prog._forward_nostrip(x, 0.5))]
+    torch.cuda.synchronize()
+    tol = 1e-5 if fmt == "rgba32f" else 2e-2
+    for a, b in pairs:
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
 YSHADE = """#version 450
 layout (local_size_x = 16, local_size_y = 16) in;
 layout (binding = 0, rgba32f) uniform readonly  image2D input_image;

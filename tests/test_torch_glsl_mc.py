@@ -12,6 +12,7 @@ and the examples with the shipped shaders) and the zero-border graphs (its
 kernel in its plain version, against the JAX package per node.
 """
 
+import dataclasses
 import glob
 import os
 import re
@@ -46,7 +47,7 @@ SHADERS = sorted(glob.glob(os.path.join(SHADER_DIR, "*")) +
 # The shipped shaders that must lower, and the refusals pinned with the
 # word their reason holds.
 MUST_LOWER = {"invert", "sepia", "tonemap", "blend", "vignette", "passthrough", "mandelbrot",
-              "iterate", "bits"}
+              "iterate", "bits", "hash", "composite3", "wide"}
 REFUSED = {"crt": "gather", "histogram": "atomics", "kuwahara": "halo",
            "gamma_curve": "storage buffers", "gaussian_h": "halo"}
 
@@ -161,7 +162,9 @@ def test_every_shader_lowers_or_is_refused(path):
                 assert REFUSED[stem] in got, (stem, got)
             continue
         assert stem not in REFUSED
-        assert got.n_f <= lower.MAX_F and got.n_i <= lower.MAX_I
+        # the narrow op word, but for wide.comp at its default 48 taps
+        assert got.n_f <= lower.WIDE_MAX and got.n_i <= lower.WIDE_MAX
+        assert got.narrow or (stem == "wide" and params["taps"] == 0)
         # the images it reads, in the spec's order (mandelbrot.comp reads none)
         assert got.images == tuple(n for n in spec.images_in if n in got.images)
         assert got.images == spec.images_in or stem == "mandelbrot"
@@ -355,9 +358,11 @@ def test_loop_trip_bounds():
 def _ops_at(words) -> int:
     """Where a packed program's ops start within it: past the header, the
     float constants (padded to an even count) and the integer constants'
-    two words each."""
+    two words each; in the wide op word (header flag 4) on a multiple of
+    four words."""
     k_f, k_i = int(words[3]), int(words[4])
-    return lower.HEAD_INTS + k_f + k_f % 2 + 2 * k_i
+    at = lower.HEAD_INTS + k_f + k_f % 2 + 2 * k_i
+    return at + at % 4 if int(words[lower.HEAD_INTS - 1]) & 4 else at
 
 
 def test_packed_program_layout():
@@ -435,6 +440,9 @@ def test_kernel_opcodes_match_the_kernel_source():
     assert forms - {("0", "", "")} == {
         (str(p), t, e) for p in cuda_ops.MC_GLSL_PIXELS
         for t, e in (("", ""), (", true", ""), (", false", ", true"), (", true", ", true"))}
+    # and the wide form: one pixel a thread, every op, the wide word's bit
+    assert src.count("return launch<T, true, 1, true, true, true>(") == 1
+    assert f"kGlslWideConst = {lower.WIDE_CONST:#x};" in src
     assert "constexpr int kThreads = 256;" in (
         REPO_DIR / "reforge_tpu_torch" / "csrc" / "conv_tile.cuh").read_text()
 
@@ -507,11 +515,14 @@ def test_glsl_megakernel_cases(name, fmt):
 
 @pytest.mark.parametrize("name", ["glsl_chain", "glsl_sharpen", "tonemap_sharpen",
                                   "blur_sharpen_blend", "bloom_glow", "mandelbrot_after_blur",
-                                  "iterate_after_blur", "bits_after_blur"])
+                                  "iterate_after_blur", "bits_after_blur", "hash_after_blur",
+                                  "composite3", "composite3_raw_mask", "wide_after_blur"])
 def test_point_graphs_plan_mc_with_no_per_node_step(name, monkeypatch):
     """glsl-chain, glsl-sharpen, tonemap.comp before sharpen.comp and
-    blur_sharpen_blend with the shipped shaders, and the loop and shift
-    graphs (mandelbrot.comp, iterate.comp, bits.comp after a blur): the mc
+    blur_sharpen_blend with the shipped shaders, the loop and shift
+    graphs (mandelbrot.comp, iterate.comp, bits.comp after a blur), and
+    the bit-cast, three-image and wide graphs (hash.comp, composite3.comp
+    with a threshold's mask and with the input's, wide.comp): the mc
     tier, a GLSL point stage each, at 48x128 and at 4K (planning only).  bloom_glow's mc plan
     (a GLSL point stage too) passes the tier rule's bound on halo work a
     stage, so the graph runs per node (no segment takes a node of it)."""
@@ -574,7 +585,8 @@ def test_every_glsl_stage_starts_its_ops_on_an_even_word(name, fmt, size, monkey
     """Every MC_GLSL stage of every point_graphs() mc plan (bloom_glow's
     the plan the tier rule refuses): its list starts on an even word of
     the tap lists, the taps' count is even and the taps start on an even
-    word of shared memory, so each op is one aligned 8-byte read; plans
+    word of shared memory, so each op is one aligned 8-byte read (the wide
+    graphs' lists: a multiple of four words, one 16-byte read); plans
     with no op list (the border graphs) keep their tap lists unpadded."""
     config, shader_dir = point_graphs()[name]
     prog = build_program(config, *size, fmt, device="cpu", shader_path=shader_dir)
@@ -591,10 +603,14 @@ def test_every_glsl_stage_starts_its_ops_on_an_even_word(name, fmt, size, monkey
         assert len(mc.taps) == sum(n for lists in mc._lists for n in lists[1::2])
         return
     assert len(mc.taps) % 2 == 0 and taps_off % 2 == 0
+    wide = name == "wide_after_blur"
+    align = 4 if wide else 2  # the wide word's ops: one 16-byte read each
+    assert len(mc.taps) % align == 0 and taps_off % align == 0
     for i, code in enumerate(codes):
         if code == cuda_ops.MC_GLSL:
-            assert mc._lists[i][0] % 2 == 0
-            assert _op_list_word(mc, i) % 2 == 0
+            assert lower.is_wide(mc.stages[i].taps[0]) == wide
+            assert mc._lists[i][0] % align == 0
+            assert _op_list_word(mc, i) % align == 0
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -660,9 +676,10 @@ def test_point_only_graph_plans_no_mc_tier():
 def test_refused_point_shader_keeps_its_old_plan(tmp_path):
     """mandelbrot.comp (a data-dependent loop, refused before loops
     lowered) after a conv now plans the mc tier, one kernel for both
-    nodes, as the reference's mc planner does; a point shader the lowering
-    still refuses (a bit cast, floatBitsToInt) keeps the plan it had:
-    segments, the conv a segment, the shader per node."""
+    nodes, as the reference's mc planner does, and so does a bit cast
+    (floatBitsToInt, refused before FBITS); a point shader the lowering
+    still refuses (packHalf2x16: no f16 conversion in the op set) keeps
+    the plan it had: segments, the conv a segment, the shader per node."""
     config = "input -> gv -> mb -> output\ngv: gaussian_v { sigma: 2.0 }\nmb: mandelbrot {}\n"
     prog = build_program(config, W, H, device="cpu", shader_path=SHADER_DIR)
     assert plan_steps(prog) == [("mc", ["gv", "mb"])]
@@ -677,11 +694,21 @@ def test_refused_point_shader_keeps_its_old_plan(tmp_path):
         "    vec4 c = imageLoad(input_image, pos);\n"
         "    imageStore(output_image, pos, vec4(float(floatBitsToInt(c.r) & 255), c.gba));\n}\n")
     spec = _spec(str(tmp_path / "bitcast.comp"))
-    assert "bit cast" in lower.lower_point(spec, {}, W, H)
+    prog = lower.lower_point(spec, {}, W, H)
+    assert isinstance(prog, lower.PointProgram) and lower.K["FBITS"] in [op[0] for op in prog.ops]
+    plain, want = _interp_and_plain(spec, {}, prog)
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
     config = "input -> gv -> bc -> output\ngv: gaussian_v { sigma: 2.0 }\nbc: bitcast {}\n"
     (tmp_path / "gaussian_v.comp").write_text(
         open(os.path.join(SHADER_DIR, "gaussian_v.comp")).read())
     prog = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
+    assert plan_steps(prog) == [("mc", ["gv", "bc"])]
+    (tmp_path / "half.comp").write_text(
+        (tmp_path / "bitcast.comp").read_text().replace(
+            "float(floatBitsToInt(c.r) & 255)", "float(packHalf2x16(c.rg) & 255u)"))
+    assert "float16" in lower.lower_point(_spec(str(tmp_path / "half.comp")), {}, W, H)
+    prog = build_program(config.replace("bc: bitcast", "bc: half"), W, H, device="cpu",
+                         shader_path=str(tmp_path))
     assert plan_steps(prog) == [("seg mc", ["gv"]), ("node", ["bc"])]
 
 
@@ -815,9 +842,13 @@ def test_tile_model_adds_the_files_only_for_op_lists(name, monkeypatch):
 
 def test_files_that_fit_no_tile_are_refused_with_a_reason(tmp_path, monkeypatch):
     """A point shader with 120 live float registers after a gaussian: its
-    op list lowers, but its register files fit no tile, so the mc planner
-    refuses the plan while planning, warns with the reason, and the graph
-    keeps the plan it has when the shader has no op list (per node)."""
+    op list lowers in the narrow word, but its register files fit no tile
+    at two pixels a thread, so the planner widens it (the wide form, one
+    pixel a thread, the files in device memory, none in the layout).
+    wide.comp at 80 taps (241 float registers) is wide from its lowering;
+    where its files pass MC_FILES_DEVICE_LIMIT the mc planner refuses the
+    plan while planning, warns with the reason, and the graph keeps the
+    plan it has when the shader has no op list (per node)."""
     body = "".join(f"    float v{k} = c.r * {1.0 + k / 128.0};\n" for k in range(118))
     total = " + ".join(f"v{k}" for k in range(118))
     (tmp_path / "wide.comp").write_text(
@@ -830,16 +861,35 @@ def test_files_that_fit_no_tile_are_refused_with_a_reason(tmp_path, monkeypatch)
     config = "input -> gs -> wide -> output\ngs: gaussian { sigma: 2.0 }\nwide: wide {}\n"
     prog = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
     point = prog._glsl_point(next(n for n in prog.graph.ordered_nodes if n.name == "wide"))
-    assert isinstance(point, lower.PointProgram) and point.n_f > 100
+    assert isinstance(point, lower.PointProgram) and point.n_f > 100 and point.narrow
+    mc = prog._plan_strip_mc()
+    glsl = [st.taps[0] for st in mc.stages if st.op.code == cuda_ops.MC_GLSL]
+    assert lower.is_wide(glsl[0]) and mc._wide
+    th, tw, nbytes = mc.tile()
+    geo = mc.geometry(th, tw)
+    assert int(geo[8]) == 1 and int(geo[9]) & 4
+    assert nbytes == mc._layout(th, tw, int(geo[7]))[1] < 4 * mc._files(1)
+    narrow = cuda_ops.McProgram(stages=[st for st in mc.stages if st.op.code != cuda_ops.MC_GLSL]
+                                + [dataclasses.replace(mc.stages[-1], taps=(point.packed(),))],
+                                n_slots=mc.n_slots, rh_in=mc.rh_in, ew_in=mc.ew_in, width=W,
+                                height=H, fmt=mc.fmt)
+    assert narrow.tile() is None and "register files" in narrow.refusal()
+    config = config.replace("wide: wide {}", "wide: wide { taps: 80 }")
+    prog = build_program(config, W, H, device="cpu", shader_path=PORT_SHADER_DIR)
+    assert plan_steps(prog) == [("mc", ["gs", "wide"])] and prog._strip_plan[1]._wide
+    need = prog._strip_plan[1].device_file_bytes()
+    monkeypatch.setattr(cuda_ops, "MC_FILES_DEVICE_LIMIT", need - 4)
+    monkeypatch.setattr(tprogram, "_PROGRAMS", {})
+    prog = build_program(config, W, H, device="cpu", shader_path=PORT_SHADER_DIR)
     tutils.clear_warnings()
     assert prog._plan_strip_mc() is None
     said = [w for w in tutils.recent_warnings() if "wide" in w]
-    assert said and "register files" in said[0] and "118 float" not in said[0], said
+    assert said and "register files" in said[0] and f"{need} bytes a block" in said[0], said
     steps = plan_steps(prog)
     with monkeypatch.context() as m:
         m.setattr(tprogram, "_PROGRAMS", {})
         m.setattr(tprogram.GraphProgram, "_glsl_point", lambda self, node: None)
-        plain = build_program(config, W, H, device="cpu", shader_path=str(tmp_path))
+        plain = build_program(config, W, H, device="cpu", shader_path=PORT_SHADER_DIR)
         assert plan_steps(plain) == steps == [("per-node", ["gs", "wide"])]
 
 
