@@ -153,7 +153,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--profile",
         metavar="DIR",
         help="Write a torch.profiler trace of the run (CPU and CUDA "
-        "activities) to DIR as a Chrome trace (view with Perfetto)",
+        "activities, and the program's rf.* ranges) to DIR as a Chrome "
+        "trace (view with Perfetto)",
     )
     return p
 

@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import utils
+from . import trace, utils
 from .config import FINAL_OUTPUT, Config, parse_file, single_shader_parse
 from .graph import GraphProgram, build_graph, make_program
 from .io import decode_image_to_planar, encode_planar_to_image
@@ -48,6 +48,10 @@ from .parallel.mesh import available_devices
 from .utils import warnln
 
 DEFAULT_CONFIG = "input -> passthrough -> output"
+# One frame in GPU_TIME_EVERY is timed on the card for the "GPU:" readout:
+# a pair of timing events costs the host some 15 us a frame (H100), an
+# untimed event a few, and a status line needs no more.
+GPU_TIME_EVERY = 8
 
 
 @dataclasses.dataclass
@@ -95,9 +99,14 @@ class Engine:
             raise ValueError(f"unsupported device {info.device!r}")
         self.info = info
         self.frame_index = 0
+        # Frames dispatched by this engine; the frame spans' request number.
+        self.frames_rendered = 0
         self.start_time = _time.perf_counter()
         self.last_gpu_times: dict[str, float] = {}
         self._inflight: list = []
+        # Timing-event pairs of timed frames already waited on, for reuse:
+        # a new pair costs the host more than re-recording one.
+        self._spare_events: list = []
         self._input_planar: Optional[torch.Tensor] = None
         self._compile_lock = threading.Lock()
         self._pending: Optional[tuple] = None
@@ -106,10 +115,11 @@ class Engine:
         self._build_threads: list[threading.Thread] = []
         self._resize_target: Optional[tuple[int, int]] = None
 
-        config = self._create_config()
-        if config is None:
-            raise RuntimeError("Failed to parse initial pipeline configuration")
-        program = self._build_program(config)
+        with trace.build_span("build", **{"async": False}):
+            config = self._create_config()
+            if config is None:
+                raise RuntimeError("Failed to parse initial pipeline configuration")
+            program = self._build_program(config)
         if program is None:
             raise RuntimeError("Failed to build initial pipeline graph")
         self.config = config
@@ -127,6 +137,10 @@ class Engine:
     def _create_config(self) -> Optional[Config]:
         """Config source priority: --config file, single-shader, default
         passthrough chain (reference: render.rs:100-118)."""
+        with trace.build_span("build.config"):
+            return self._parse_config()
+
+    def _parse_config(self) -> Optional[Config]:
         info = self.info
         if info.config_path is not None:
             contents = _read_file(info.config_path)
@@ -141,23 +155,35 @@ class Engine:
     def _build_program(self, config: Config) -> Optional[GraphProgram]:
         """Graph build, shape check and strip planning (the kernels' first
         build included on the card), so that no frame plans."""
-        graph = build_graph(config)
-        if graph is None:
-            return None
+        with trace.build_span("build.graph") as sp:
+            graph = build_graph(config)
+            if graph is None:
+                return None
+            sp.attrs["nodes"] = len(graph.ordered_nodes)
         width, height = self._target_size()
         if self.device.type == "cuda":
             cuda_ops.load_library()
         info = self.info
         one_shot = info.one_shot and not info.shard and not info.pipeline_stages
-        program = make_program(
-            graph, width, height, info.fmt, plan_strips=not one_shot, device=self.device,
-        )
-        if program is None:
-            return None
+        with trace.build_span("build.check") as sp:
+            program = make_program(
+                graph, width, height, info.fmt, plan_strips=not one_shot, device=self.device,
+            )
+            if program is None:
+                return None
+            sp.attrs.update(nodes_checked=program.nodes_checked, from_cache=program.from_cache)
         if one_shot:
             program._use_unfused = True
         else:
             program._strip_plan  # noqa: B018  (plans now, not in the first frame)
+        if info.pipeline_stages or info.shard:
+            with trace.build_span("build.shard"):
+                self._shard(program)
+        return program
+
+    def _shard(self, program: GraphProgram) -> None:
+        """The program's multi-device form, as ``info`` asks."""
+        info = self.info
         devices = info.devices or available_devices(self.device.type)
         if info.pipeline_stages:
             if info.shard:
@@ -171,7 +197,6 @@ class Engine:
             except ValueError as e:
                 raise RuntimeError(f"Cannot shard graph: {e}") from e
             program.sharded.compile()  # each slab's planes and taps, before any frame
-        return program
 
     def _kernel_mtimes(self) -> dict[str, int]:
         """mtimes of the file-backed kernels (reference: render.rs:225-249)."""
@@ -203,6 +228,13 @@ class Engine:
         last good program (render.rs:121-136).  With ``async_compile`` the
         rebuild runs on a build thread and its program is adopted on a
         later poll; frames keep coming from the old one meanwhile."""
+        with trace.span("poll", self.frames_rendered) as sp:
+            swapped = self._poll()
+            if sp is not None:
+                sp.attrs["swapped"] = swapped
+        return swapped
+
+    def _poll(self) -> bool:
         swapped = self._adopt_pending()
         # The inotify watcher skips the mtime stats on quiet frames; the
         # mtime comparison stays the authority.  The first poll after a
@@ -247,7 +279,8 @@ class Engine:
         adopts; a generation counter makes the last edit win."""
         if not self.info.async_compile:
             try:
-                program = self._build_program(config)
+                with trace.build_span("build", **{"async": False}):
+                    program = self._build_program(config)
             except Exception as e:  # a kernel that cannot build: keep last good
                 warnln(f"Rebuild failed: {e}")
                 return False
@@ -262,15 +295,16 @@ class Engine:
 
         def work():
             try:
-                if self.device.type == "cuda":
-                    # Anything the build puts on the card goes to a stream
-                    # of its own, never the render thread's.
-                    stream = torch.cuda.Stream(self.device)
-                    with torch.cuda.stream(stream):
+                with trace.build_span("build", **{"async": True}):
+                    if self.device.type == "cuda":
+                        # Anything the build puts on the card goes to a stream
+                        # of its own, never the render thread's.
+                        stream = torch.cuda.Stream(self.device)
+                        with torch.cuda.stream(stream):
+                            program = self._build_program(config)
+                        stream.synchronize()
+                    else:
                         program = self._build_program(config)
-                    stream.synchronize()
-                else:
-                    program = self._build_program(config)
             except Exception as e:  # any failure: keep last good
                 warnln(f"Background rebuild failed: {e}")
                 return
@@ -389,30 +423,73 @@ class Engine:
 
         Launches are asynchronous on a GPU; at most ``num_frames`` frames
         are in flight, the oldest waited on through its CUDA event (the
-        analog of wait_for_frame_fence, render.rs:328-337)."""
+        analog of wait_for_frame_fence, render.rs:328-337).
+        ``last_gpu_times`` (the live loop's "GPU:") is then the device time
+        of the last timed frame waited on (one in ``GPU_TIME_EVERY``); on
+        the CPU, the call's host time; with ``timing="per-node"``, each
+        node's host time after a synchronize."""
         if t is None:
             t = self.time_since_start
-        if self.info.timing == "per-node":
-            out, times = self.program.run_per_node(self._file_input(), t,
-                                                   check_nans=self.info.debug_nans)
-            self.last_gpu_times = times
-        else:
-            start = _time.perf_counter()
+        with trace.span("render", self.frames_rendered):
+            if self.info.timing == "per-node":
+                out, times = self.program.run_per_node(self._file_input(), t,
+                                                       check_nans=self.info.debug_nans)
+                self.last_gpu_times = times
+            elif self.device.type == "cuda":
+                out = self._render_queued(t)
+            else:  # synchronous: the host's time is the frame's
+                start = _time.perf_counter()
+                out = self._dispatch(t)
+                self.last_gpu_times = {"graph": (_time.perf_counter() - start) * 1000.0}
+        self.frames_rendered += 1
+        self.frame_index = (self.frame_index + 1) % max(1, self.info.num_frames)
+        return out
+
+    def _dispatch(self, t: float) -> torch.Tensor:
+        with trace.span("render.dispatch") as sp:
             sharded = self.program.sharded
+            if sp is not None:
+                sp.attrs["tier"] = "sharded" if sharded is not None else self.program.tier
             if sharded is not None:
                 out = sharded(self._file_input(), t)
             else:
                 out = self.program(self._file_input(), t)
-            self.check_nans(out)
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
-                self._inflight.append(done)
-                if len(self._inflight) >= max(1, self.info.num_frames):
-                    self._inflight.pop(0).synchronize()
-            self.last_gpu_times = {"graph": (_time.perf_counter() - start) * 1000.0}
-        self.frame_index = (self.frame_index + 1) % max(1, self.info.num_frames)
+        self.check_nans(out)
         return out
+
+    def _render_queued(self, t: float) -> torch.Tensor:
+        """Dispatch and queue the frame's ``done`` event (a timed frame: its
+        launches between two timing events); with ``num_frames`` in flight,
+        wait on the oldest."""
+        begin = None
+        if self.frames_rendered % GPU_TIME_EVERY == 0:
+            if self._spare_events:
+                begin, done = self._spare_events.pop()
+            else:
+                begin, done = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            begin.record()
+        else:
+            done = torch.cuda.Event()
+        out = self._dispatch(t)
+        done.record()
+        self._inflight.append((begin, done))
+        if len(self._inflight) >= max(1, self.info.num_frames):
+            with trace.span("render.inflight_wait"):
+                oldest = self._inflight.pop(0)
+                oldest[1].synchronize()
+            self._read_gpu_time([oldest])
+        return out
+
+    def _read_gpu_time(self, done_frames: list) -> None:
+        """The "GPU:" readout from the newest timed frame of ``done_frames``
+        (frames waited on already, so no wait of its own): its device time
+        from its launches' first to its last.  Their timing pairs are kept
+        for reuse."""
+        timed = [(b, d) for b, d in done_frames if b is not None]
+        if timed:
+            self.last_gpu_times = {"graph": timed[-1][0].elapsed_time(timed[-1][1])}
+            self._spare_events.extend(timed)
 
     def render_frame_blocking(self, t: Optional[float] = None) -> torch.Tensor:
         out = self.render_frame(t)
@@ -441,7 +518,16 @@ class Engine:
 
     def read_output(self, out: torch.Tensor) -> np.ndarray:
         """Device linear (4, H, W) -> host sRGB (H, W, 4) uint8 (render.rs:406-433)."""
-        return encode_planar_to_image(out).cpu().numpy()
+        with trace.span("preview", self.frames_rendered - 1, step=1):
+            return self._encode_and_read(out)
+
+    def _encode_and_read(self, out: torch.Tensor) -> np.ndarray:
+        with trace.span("preview.encode"):
+            u8 = encode_planar_to_image(out)
+        with trace.span("preview.readback") as sp:
+            if sp is not None:
+                sp.attrs["bytes"] = u8.nbytes
+            return u8.cpu().numpy()
 
     def read_output_scaled(self, out: torch.Tensor, target_px: Optional[int]) -> np.ndarray:
         """``read_output`` box-downsampled on the device, so that only the
@@ -455,10 +541,13 @@ class Engine:
         step = max(1, min(max(h, w) // int(target_px), min(h, w)))
         if step == 1:
             return self.read_output(out)
-        x = out.to(torch.float32)
-        hc, wc = h // step, w // step
-        cells = x[:, :hc * step, :wc * step].reshape(x.shape[0], hc, step, wc, step)
-        return self.read_output(cells.mean(dim=(2, 4)))
+        with trace.span("preview", self.frames_rendered - 1, step=step):
+            with trace.span("preview.downsample"):
+                x = out.to(torch.float32)
+                hc, wc = h // step, w // step
+                cells = x[:, :hc * step, :wc * step].reshape(x.shape[0], hc, step, wc, step)
+                small = cells.mean(dim=(2, 4))
+            return self._encode_and_read(small)
 
     def gpu_times_str(self) -> str:
         return ", ".join(f"{k}: {v:.3f}ms" for k, v in self.last_gpu_times.items())
@@ -466,6 +555,7 @@ class Engine:
     def _drain(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self._read_gpu_time(self._inflight)
         self._inflight.clear()
 
 

@@ -47,6 +47,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import FILE_INPUT, FINAL_OUTPUT
 from ..glsl.affine import ConvSynth, StencilSynth, compose, synthesize_conv
 from ..glsl.lower import PointProgram, lower_point, point_program_plain
@@ -192,9 +193,20 @@ class GraphProgram:
         if not host.planned:
             with host.lock:  # a build thread and the render thread may both ask
                 if not host.planned:
-                    host.plan = self._plan_strip_fusion()
+                    with trace.build_span("build.plan") as sp:
+                        host.plan = self._plan_strip_fusion()
+                        sp.attrs["tier"] = host.plan[0] if host.plan else None
                     host.planned = True
         return host.plan
+
+    @property
+    def tier(self) -> str:
+        """How a frame runs: "single", "mc" or "segments" (the strip
+        plan's tier), "per-node", or "unfused" (one-shot)."""
+        if self._use_unfused:
+            return "unfused"
+        plan = self._strip_plan
+        return plan[0] if plan else "per-node"
 
     @property
     def _strip_program(self) -> Optional[cuda_ops.StripProgram]:
@@ -914,10 +926,12 @@ class GraphProgram:
         ctx = self._ctx(t, x.device)
         for step in self._strip_plan[1]:
             if step[0] == "node":
-                resources.update(self._run_node(step[1], ctx, resources))
+                with trace.span("node", node=step[1].name):
+                    resources.update(self._run_node(step[1], ctx, resources))
                 continue
             _, child, r_in, r_out, nodes = step
-            out = child._strip_fused_forward(resources[r_in], t)
+            with trace.span("segment", nodes=len(nodes)):
+                out = child._strip_fused_forward(resources[r_in], t)
             if out is None:
                 raise GraphTraceError(
                     f"segment {[nd.name for nd in nodes]} has no strip plan at run time")
@@ -972,12 +986,15 @@ class GraphProgram:
     def _forward(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
         x = file_input.to(self.storage_dtype)
         plan = self._strip_plan
-        if plan is not None and plan[0] == "segments":
-            return self._segments_forward(x, t)
-        strip = self._strip_fused_forward(x, t)
-        if strip is not None:
-            return strip
-        return self._forward_layers({FILE_INPUT: x}, self._ctx(t, x.device))
+        with trace.span("forward") as sp:
+            if sp is not None:
+                sp.attrs["tier"] = plan[0] if plan else "per-node"
+            if plan is not None and plan[0] == "segments":
+                return self._segments_forward(x, t)
+            strip = self._strip_fused_forward(x, t)
+            if strip is not None:
+                return strip
+            return self._forward_layers({FILE_INPUT: x}, self._ctx(t, x.device))
 
     def _forward_nostrip(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
         """Per-node path only, with same-input conv bundles."""
@@ -1095,11 +1112,15 @@ class GraphProgram:
             raise ValueError("render_sequence needs n >= 1")
         frames = []
         out = None
-        for i in range(n):
-            out = self._forward(file_input, float(t0) + i * float(dt))
-            if stack:
-                frames.append(out)
-        return torch.stack(frames) if stack else out
+        with trace.span("sequence", n=n):
+            for i in range(n):
+                out = self._forward(file_input, float(t0) + i * float(dt))
+                if stack:
+                    frames.append(out)
+            if not stack:
+                return out
+            with trace.span("sequence.stack"):
+                return torch.stack(frames)
 
     def run_unfused(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
         """Execute node by node, without bundling or waiting on the device."""

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from .base import KernelContext, quantize_rgba8, true_divide
 
 # ---- build and bind ---------------------------------------------------------
@@ -86,21 +87,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def library_target() -> Path:
+    """The library's path, keyed on a hash of the sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"librf_kernels_{digest.hexdigest()[:16]}.so"
+
+
 def build_library() -> Path:
     """Compile every ``csrc/*.cu`` (one nvcc per source, all started
     together) and link them into one shared library, keyed on a hash of
     the sources and flags, unless that library exists already.  The
     compilers' output (ptxas register and spill counts) goes to
     ``build.log`` beside it."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.glob("*.cu*")):
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    key = digest.hexdigest()[:16]
-    target = BUILD_DIR / f"librf_kernels_{key}.so"
+    target = library_target()
     if target.exists():
         return target
+    key = target.stem.removeprefix("librf_kernels_")
+    sources = sorted(CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{key}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
@@ -147,52 +153,59 @@ def load_library() -> ctypes.CDLL:
 def _load_locked() -> None:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        lib.rf_sep_conv_multi.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-        ]
-        lib.rf_sep_conv_multi.restype = _I
-        lib.rf_graph_strip.argtypes = [
-            _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _I, _I, _I, _F, _I, _I, _I, _P,
-        ]
-        lib.rf_graph_strip.restype = _I
-        lib.rf_stencil_apply.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
-        ]
-        lib.rf_stencil_apply.restype = _I
-        lib.rf_stencil_r1.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]
-        lib.rf_stencil_r1.restype = _I
-        lib.rf_graph_strip_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
-            _P, _I, _P, _P, _I, _I, _P,
-        ]
-        lib.rf_graph_strip_mc.restype = _I
-        lib.rf_stencil_reduce.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _I, _P,
-        ]
-        lib.rf_stencil_reduce.restype = _I
-        lib.rf_stencil_reduce_run.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P,
-        ]
-        lib.rf_stencil_reduce_run.restype = _I
-        lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-                                  _P]
-        lib.rf_conv1d.restype = _I
-        lib.rf_stencil_apply_mc.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
-            _I, _I, _P,
-        ]
-        lib.rf_stencil_apply_mc.restype = _I
-        lib.rf_mc_limits.argtypes = [_I]
-        lib.rf_mc_limits.restype = _I
-        lib.rf_mc_resident.argtypes = [_I, _I]
-        lib.rf_mc_resident.restype = _I
-        lib.rf_error_string.argtypes = [_I]
-        lib.rf_error_string.restype = ctypes.c_char_p
-        lib.rf_strip_limits.argtypes = [_I]
-        lib.rf_strip_limits.restype = _I
+        with trace.build_span("build.library") as sp:
+            sp.attrs["built"] = not library_target().exists()
+            lib = ctypes.CDLL(str(build_library()))
+            _bind(lib)
         _lib = lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """Declare every binding's argument and result types."""
+    lib.rf_sep_conv_multi.argtypes = [
+        _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ]
+    lib.rf_sep_conv_multi.restype = _I
+    lib.rf_graph_strip.argtypes = [
+        _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _I, _I, _I, _F, _I, _I, _I, _P,
+    ]
+    lib.rf_graph_strip.restype = _I
+    lib.rf_stencil_apply.argtypes = [
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+    ]
+    lib.rf_stencil_apply.restype = _I
+    lib.rf_stencil_r1.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]
+    lib.rf_stencil_r1.restype = _I
+    lib.rf_graph_strip_mc.argtypes = [
+        _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
+        _P, _I, _P, _P, _I, _I, _P,
+    ]
+    lib.rf_graph_strip_mc.restype = _I
+    lib.rf_stencil_reduce.argtypes = [
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _F, _I, _P,
+    ]
+    lib.rf_stencil_reduce.restype = _I
+    lib.rf_stencil_reduce_run.argtypes = [
+        _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P,
+    ]
+    lib.rf_stencil_reduce_run.restype = _I
+    lib.rf_conv1d.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                              _P]
+    lib.rf_conv1d.restype = _I
+    lib.rf_stencil_apply_mc.argtypes = [
+        _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+        _I, _I, _P,
+    ]
+    lib.rf_stencil_apply_mc.restype = _I
+    lib.rf_mc_limits.argtypes = [_I]
+    lib.rf_mc_limits.restype = _I
+    lib.rf_mc_resident.argtypes = [_I, _I]
+    lib.rf_mc_resident.restype = _I
+    lib.rf_error_string.argtypes = [_I]
+    lib.rf_error_string.restype = ctypes.c_char_p
+    lib.rf_strip_limits.argtypes = [_I]
+    lib.rf_strip_limits.restype = _I
 
 
 def _launch(x: torch.Tensor, fn, *args) -> int:

@@ -637,3 +637,41 @@ def test_stencil_apply_mc_run_forms(rh, rw, density, hw, mode, dtype, monkeypatc
 def _bits(t):
     """The tensor's bit patterns (so that -0 and +0 differ)."""
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def test_the_gpu_readout_is_the_frames_device_time(tmp_path):
+    """The live loop's "GPU:" readout (``Engine.last_gpu_times``) after a
+    few frames lies between the frame's kernel time (CUDA events around ten
+    back-to-back calls of the program, less a tenth for the clock's jitter)
+    and the wall time of a timed frame rendered and waited for."""
+    import time
+
+    from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG
+    from reforge_tpu_torch.engine import GPU_TIME_EVERY, Engine, RenderInfo
+
+    cfg = tmp_path / "flagship.rf"
+    cfg.write_text(FLAGSHIP_CONFIG)
+    h, w = 2160, 3840
+    eng = Engine(RenderInfo(w, h, "cuda", config_path=str(cfg), shader_path=str(tmp_path),
+                            has_input_image=True))
+    eng.load_input(np.random.default_rng(7).integers(0, 256, (h, w, 4), dtype=np.uint8))
+    for _ in range(5):
+        eng.render_frame(0.0)
+    assert set(eng.last_gpu_times) == {"graph"}
+    x = eng._file_input()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        eng.program(x, 0.0)
+    end.record()
+    end.synchronize()
+    kernel_ms = start.elapsed_time(end) / 10
+    while eng.frames_rendered % GPU_TIME_EVERY:
+        eng.render_frame(0.0)
+    begin = time.perf_counter()
+    eng.render_frame_blocking(0.0)
+    wall_ms = (time.perf_counter() - begin) * 1e3
+    gpu_ms = eng.last_gpu_times["graph"]
+    assert 0.9 * kernel_ms <= gpu_ms <= wall_ms, (kernel_ms, gpu_ms, wall_ms)
+    eng.close()
