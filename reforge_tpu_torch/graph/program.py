@@ -22,7 +22,8 @@ Execution modes:
     ``stencil_apply`` and heavy f32 convs as ``sep_conv_fused_mxu_x3``.
   * ``run_unfused`` / ``run_per_node`` -- node by node, the second timing
     each node.
-  * ``render_sequence`` -- a Python loop of ``_forward`` over frame times.
+  * ``render_sequence`` -- a Python loop of ``_forward`` over frame times;
+    stacked, each frame's strip kernel writes its slice of one output.
 
 The planners keep the reference's structural gates and drop the gates
 that modelled the TPU (VMEM tile models, lane-multiple widths, MXU
@@ -76,6 +77,11 @@ MC_MAX_RADIUS = cuda_ops.STENCIL_MAX_RADIUS
 # log scale; no graph between them has been timed.
 MC_MAX_HALO_WORK = 200.0
 _MC_KINDS = {"conv": cuda_ops.MC_CONV, "stencil": cuda_ops.MC_STENCIL, "point": cuda_ops.MC_POINT}
+
+# Frames of stacked sequences (render_sequence(stack=True)), each counted
+# once: written in its slice of the stack by its strip kernel, or copied
+# there.
+SEQUENCE_FRAMES: dict[str, int] = {"in_place": 0, "copied": 0}
 
 
 def _device_name(device) -> str:
@@ -184,6 +190,9 @@ class GraphProgram:
         # The Engine's multi-device form of this program, which takes its
         # frames (parallel/: HaloShardedProgram or PipelineStagedProgram).
         self.sharded = None
+        # Where _forward's strip kernel writes the final output while
+        # render_sequence renders a stacked frame (``.out``), per thread.
+        self._frame_out = threading.local()
 
     # ---- planning -------------------------------------------------------
 
@@ -900,28 +909,32 @@ class GraphProgram:
                 strip = host.strip_blocks.setdefault(key, strip)
         return strip
 
-    def _strip_fused_forward(self, file_input, t, row0_base: Optional[int] = None):
+    def _strip_fused_forward(self, file_input, t, row0_base: Optional[int] = None,
+                             out: Optional[torch.Tensor] = None):
         """Run the whole graph as one graph_strip or graph_strip_mc kernel,
         or return None when the graph has no whole-graph strip plan.
         ``file_input`` is in storage type: the frame, or (``row0_base``) a
         slab of its rows whose first row is image row ``row0_base`` (the
-        halo-sharded executor's, parallel/halo.py)."""
+        halo-sharded executor's, parallel/halo.py).  ``out``: where the
+        kernel writes (the wrappers' ``out``)."""
         plan = self._strip_plan
         if plan is None or plan[0] == "segments":
             return None
         row0 = 0 if row0_base is None else int(row0_base)
         if plan[0] == "mc":
-            return cuda_ops.graph_strip_mc(file_input, t, plan[1], row0)
+            return cuda_ops.graph_strip_mc(file_input, t, plan[1], row0, out=out)
         rows = int(file_input.shape[1])
         strip = self._strip_program_for(file_input.device, row0, rows)
-        return cuda_ops.graph_strip(file_input, t, strip, row0, self.height)
+        return cuda_ops.graph_strip(file_input, t, strip, row0, self.height, out=out)
 
-    def _segments_forward(self, x: torch.Tensor, t) -> torch.Tensor:
+    def _segments_forward(self, x: torch.Tensor, t,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run a ``("segments", steps)`` plan: each segment's child kernel
         on its input in storage type, the other nodes per node.  Values
         between steps are in storage type either way, as per node.  A
         child's plan was fixed when it was taken, so a child with no kernel
-        to run is a fault, not a cue to run per node."""
+        to run is a fault, not a cue to run per node.  ``out``: where the
+        segment that writes the final output writes it."""
         resources: dict[str, Any] = {FILE_INPUT: x}
         ctx = self._ctx(t, x.device)
         for step in self._strip_plan[1]:
@@ -931,11 +944,14 @@ class GraphProgram:
                 continue
             _, child, r_in, r_out, nodes = step
             with trace.span("segment", nodes=len(nodes)):
-                out = child._strip_fused_forward(resources[r_in], t)
-            if out is None:
+                if out is not None and r_out == FINAL_OUTPUT:
+                    value = child._strip_fused_forward(resources[r_in], t, out=out)
+                else:
+                    value = child._strip_fused_forward(resources[r_in], t)
+            if value is None:
                 raise GraphTraceError(
                     f"segment {[nd.name for nd in nodes]} has no strip plan at run time")
-            resources[r_out] = out
+            resources[r_out] = value
         out = resources.get(FINAL_OUTPUT)
         if out is None:
             raise GraphTraceError("no node wrote the final output")
@@ -984,14 +1000,18 @@ class GraphProgram:
         return written
 
     def _forward(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
+        """One frame in storage type.  Inside ``render_sequence``'s stacked
+        loop the strip kernel that writes the final output writes the
+        frame's slice (``_frame_out``) and that slice is returned."""
         x = file_input.to(self.storage_dtype)
         plan = self._strip_plan
+        out = getattr(self._frame_out, "out", None)
         with trace.span("forward") as sp:
             if sp is not None:
                 sp.attrs["tier"] = plan[0] if plan else "per-node"
             if plan is not None and plan[0] == "segments":
-                return self._segments_forward(x, t)
-            strip = self._strip_fused_forward(x, t)
+                return self._segments_forward(x, t, out)
+            strip = self._strip_fused_forward(x, t, out=out)
             if strip is not None:
                 return strip
             return self._forward_layers({FILE_INPUT: x}, self._ctx(t, x.device))
@@ -1107,20 +1127,35 @@ class GraphProgram:
         """Render ``n`` frames; frame i sees ``_rf_time = t0 + i * dt``.
 
         Returns the last frame, or all of them as (n, 4, H, W) with
-        ``stack``.  Launches are queued without waiting on the device."""
+        ``stack``.  Stacked, frame i's strip kernel writes ``frames[i]``
+        itself; a frame whose final output comes from a per-node step, or
+        whose slice the kernels' stores cannot take (``out_aligned``), is
+        copied there (``SEQUENCE_FRAMES`` counts each frame once).
+        Launches are queued without waiting on the device."""
         if n < 1:
             raise ValueError("render_sequence needs n >= 1")
-        frames = []
-        out = None
         with trace.span("sequence", n=n):
-            for i in range(n):
-                out = self._forward(file_input, float(t0) + i * float(dt))
-                if stack:
-                    frames.append(out)
             if not stack:
+                out = None
+                for i in range(n):
+                    out = self._forward(file_input, float(t0) + i * float(dt))
                 return out
-            with trace.span("sequence.stack"):
-                return torch.stack(frames)
+            frames = torch.empty((n, 4, self.height, self.width), dtype=self.storage_dtype,
+                                 device=file_input.device)
+            for i in range(n):
+                slot = frames[i]
+                self._frame_out.out = slot if cuda_ops.out_aligned(slot) else None
+                try:
+                    frame = self._forward(file_input, float(t0) + i * float(dt))
+                finally:
+                    self._frame_out.out = None
+                if frame is slot:
+                    SEQUENCE_FRAMES["in_place"] += 1
+                    continue
+                with trace.span("sequence.stack"):
+                    slot.copy_(frame)
+                SEQUENCE_FRAMES["copied"] += 1
+            return frames
 
     def run_unfused(self, file_input: torch.Tensor, t: float) -> torch.Tensor:
         """Execute node by node, without bundling or waiting on the device."""

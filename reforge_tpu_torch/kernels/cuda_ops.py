@@ -286,6 +286,44 @@ def _check_image(x: torch.Tensor, dtypes: tuple, name: str) -> None:
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
 
 
+def out_aligned(out: torch.Tensor) -> bool:
+    """Whether a whole-graph kernel can store into ``out``: graph_strip
+    (``store_tile``, conv_tile.cuh) and graph_strip_mc (its ``put``) store
+    one element at a time, so they need the element's own alignment, and
+    every slice of a contiguous (n, 4, H, W) tensor has it (a bf16 frame
+    of an odd H * W starts 8-byte aligned)."""
+    return out.data_ptr() % out.element_size() == 0
+
+
+def _check_out(x: torch.Tensor, out: torch.Tensor, name: str) -> None:
+    """``out`` as the output of a kernel of input ``x``: on its device, of
+    its dtype and shape, contiguous, apart from it in memory, and aligned
+    for the kernel's stores.  Raises on any mismatch."""
+    if out.device != x.device:
+        raise ValueError(f"{name}: out is on {out.device}, the input on {x.device}")
+    if out.dtype != x.dtype:
+        raise TypeError(f"{name}: out has dtype {out.dtype}, the input {x.dtype}")
+    if out.shape != x.shape:
+        raise ValueError(f"{name}: out has shape {tuple(out.shape)}, the input "
+                         f"{tuple(x.shape)}")
+    if not out.is_contiguous():
+        raise ValueError(f"{name}: out must be contiguous")
+    (x0, x1), (o0, o1) = _bytes_spanned(x), _bytes_spanned(out)
+    if x0 < o1 and o0 < x1:
+        raise ValueError(f"{name}: out overlaps the input")
+    if not out_aligned(out):
+        raise ValueError(f"{name}: out at {out.data_ptr():#x} is not aligned to its "
+                         f"{out.element_size()}-byte element")
+
+
+def _bytes_spanned(t: torch.Tensor) -> tuple[int, int]:
+    """The addresses from ``t``'s first element to past its last."""
+    if t.numel() == 0:
+        return t.data_ptr(), t.data_ptr()
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
 def _check_mode(mode: str) -> None:
     if mode not in ("edge", "zero"):
         raise ValueError(f"border mode must be 'edge' or 'zero', not {mode!r}")
@@ -762,14 +800,15 @@ def graph_strip_plain(x: torch.Tensor, t: float, strip: StripProgram, row0: int 
 
 
 def graph_strip(x: torch.Tensor, t: float, strip: StripProgram, row0: int = 0,
-                height: Optional[int] = None) -> torch.Tensor:
+                height: Optional[int] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A whole single-tier graph (N edge-clamped convs of the input, then a
     channel-local epilogue) in one kernel; returns the final output in the
     storage type.  ``x`` may be a slab of a row-sharded image of ``height``
     rows whose first row is image row ``row0`` (the counterpart of the TPU
     kernel's ``row0_base``): coordinates are the image's, the convs clamp
     at the slab's edge, and ``strip.aux`` holds the slab's rows.  The
-    defaults are a whole frame.
+    defaults are a whole frame.  With ``out`` (``_check_out``) the kernel
+    writes there, and returns it, in place of a new tensor.
 
     Replaces ``pallas_ops.graph_strip_fused`` (pallas_ops.py:1396).  The TPU
     kernel took the epilogue as a traced Python closure and ran rgba16f
@@ -786,8 +825,11 @@ def graph_strip(x: torch.Tensor, t: float, strip: StripProgram, row0: int = 0,
     1.41 before the redesign; H100 80GB HBM3, 700 W)."""
     dtype = torch.bfloat16 if strip.fmt == "rgba16f" else torch.float32
     _check_image(x, (dtype,), "graph_strip")
+    if out is not None:
+        _check_out(x, out, "graph_strip")
     if not _on_cuda(x):
-        return graph_strip_plain(x, t, strip, row0, height)
+        y = graph_strip_plain(x, t, strip, row0, height)
+        return y if out is None else out.copy_(y)
     lib = load_library()
     if (MAX_SLOTS, MAX_PLANS, MAX_OPS) != tuple(lib.rf_strip_limits(k) for k in range(3)):
         raise RuntimeError("MAX_SLOTS, MAX_PLANS or MAX_OPS disagrees with the built kernel")
@@ -803,7 +845,8 @@ def graph_strip(x: torch.Tensor, t: float, strip: StripProgram, row0: int = 0,
     rh, rw = _radii(strip.plans)
     th, tw, _ = pick_tile(rh, rw, taps.numel())
     align, smem = conv_layout(th, tw, rh, rw, taps.numel())
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     channel_ops = any(op.code >= OP_CH0 for op in strip.ops)
     rc = _launch(
         x, lib.rf_graph_strip,
@@ -1660,13 +1703,15 @@ def graph_strip_mc_plain(x: torch.Tensor, t: float, prog: McProgram,
     return vals[MC_OUTPUT].to(x.dtype)
 
 
-def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) -> torch.Tensor:
+def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A whole multi-stage graph in one kernel; returns the final output in
     the storage type.  ``x`` may be a slab of rows of the program's frame
     (a row-sharded image, extended by its halo) whose first row is image
     row ``row0`` (the counterpart of the TPU kernel's ``row0_base``): the
     point stages' coordinates are the image's, every read clamps (or reads
-    zeros) at the slab's edge.
+    zeros) at the slab's edge.  With ``out`` (``_check_out``) the kernel
+    writes there, and returns it, in place of a new tensor.
 
     Replaces ``pallas_ops.graph_strip_fused_mc`` (pallas_ops.py:2955),
     which streamed channel-full whole-width strips through VMEM with a
@@ -1701,8 +1746,11 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) ->
     if x.dim() != 3 or x.shape[0] != 4 or x.shape[2] != prog.width:
         raise ValueError(f"graph_strip_mc: expected (4, {prog.height}, {prog.width}) or a slab "
                          f"of its rows, got {tuple(x.shape)}")
+    if out is not None:
+        _check_out(x, out, "graph_strip_mc")
     if not _on_cuda(x):
-        return graph_strip_mc_plain(x, t, prog, row0)
+        y = graph_strip_mc_plain(x, t, prog, row0)
+        return y if out is None else out.copy_(y)
     lib = load_library()
     if (lib.rf_mc_limits(0), lib.rf_mc_limits(1), lib.rf_mc_limits(2)) != (
             MC_MAX_STAGES, MC_STAGE_INTS, MC_GLSL_INPUTS):
@@ -1726,7 +1774,8 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0) ->
         slots = _mc_resident(lib, x, bf16, smem)
         files = torch.empty(slots * file_floats, dtype=torch.float32, device=x.device)
         locks = torch.zeros(slots, dtype=torch.int32, device=x.device)
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     vec = prog.width % CONV_ALIGN == 0 and x.data_ptr() % 16 == 0
     rc = _launch(
         x, lib.rf_graph_strip_mc,

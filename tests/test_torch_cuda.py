@@ -675,3 +675,40 @@ def test_the_gpu_readout_is_the_frames_device_time(tmp_path):
     gpu_ms = eng.last_gpu_times["graph"]
     assert 0.9 * kernel_ms <= gpu_ms <= wall_ms, (kernel_ms, gpu_ms, wall_ms)
     eng.close()
+
+
+@pytest.mark.parametrize("hw, fmt", [((128, 256), "rgba32f"), ((2160, 3840), "rgba32f"),
+                                     ((127, 255), "rgba16f")])  # the last: an odd H * W
+@pytest.mark.parametrize("graph", ["flagship", "glsl_chain"])
+def test_a_stacked_chunk_is_written_in_place(graph, hw, fmt):
+    """A chunk of 8 from ``render_sequence(stack=True)``: each frame's strip
+    kernel writes its slice, so the chunk's device work is the 8 launches
+    and nothing else (no ``CatArrayBatchedCopy``, no copy), and the frames
+    are bit-equal to single-frame renders at their times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from reforge_tpu_torch import benchmarks
+    from reforge_tpu_torch.graph import program
+
+    h, w = hw
+    if graph == "flagship":
+        prog, kernel = build_flagship(w, h, fmt, device="cuda"), "graph_strip_kernel"
+    else:
+        prog = benchmarks.build_program(benchmarks.GLSL_GRAPHS[graph], w, h, fmt, device="cuda",
+                                        shader_path=benchmarks.SHADER_DIR)
+        kernel = "graph_strip_mc_kernel"
+    x = _image((4, h, w), 11).to(prog.storage_dtype)
+    prog.render_sequence(x, 0.5, 1 / 30, 8, stack=True)  # plans and builds before the window
+    torch.cuda.synchronize()
+    before = dict(program.SEQUENCE_FRAMES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = prog.render_sequence(x, 0.5, 1 / 30, 8, stack=True)
+        torch.cuda.synchronize()
+    assert program.SEQUENCE_FRAMES == {"in_place": before["in_place"] + 8,
+                                       "copied": before["copied"]}
+    device = [ev.name for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False) and not ev.name.startswith("rf.")]
+    assert len(device) == 8 and all(kernel in name for name in device), device
+    for i in range(8):
+        assert torch.equal(got[i], prog._forward(x, 0.5 + i * (1 / 30))), i

@@ -112,15 +112,28 @@ def test_a_segments_plan_gives_one_child_a_step(tmp_path):
     eng.close()
 
 
-def test_render_sequence_spans(tmp_path):
-    eng, _ = make_engine(tmp_path, FLAGSHIPISH)
+# A segments plan whose final output comes from a per-node step.
+ENDS_IN_A_NODE = "input -> edge -> px -> output\nedge: sobel {}\npx: pixelate { size: 4 }\n"
+
+
+@pytest.mark.parametrize("config, tier", [(FLAGSHIPISH, "single"), (ENDS_IN_A_NODE, "segments")])
+def test_render_sequence_spans(tmp_path, config, tier):
+    """A strip tier writes each frame in its slice of the stack: n forwards
+    and no ``sequence.stack``; a tier ending in a node copies each frame
+    there after its forward, inside ``sequence.stack``."""
+    eng, _ = make_engine(tmp_path, config)
+    assert eng.program.tier == tier
     with profile(activities=[ProfilerActivity.CPU]):
         eng.program.render_sequence(eng._file_input(), 0.0, 0.1, 3, stack=True)
-    (seq,), (stack,) = spans_named("sequence"), spans_named("sequence.stack")
+    (seq,), stacks = spans_named("sequence"), spans_named("sequence.stack")
     forwards = spans_named("forward")
     assert seq.attrs == {"n": 3} and len(forwards) == 3
-    assert all(f.parent is seq and inside(f, seq) for f in forwards + [stack])
-    assert forwards[-1].end_ns <= stack.start_ns
+    assert all(f.parent is seq and inside(f, seq) for f in forwards + stacks)
+    if tier == "single":
+        assert stacks == []
+    else:
+        assert len(stacks) == 3
+        assert all(f.end_ns <= s.start_ns for f, s in zip(forwards, stacks))
     eng.close()
 
 
