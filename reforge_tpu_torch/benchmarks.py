@@ -129,9 +129,11 @@ STYLIZED_GRAPHS = {
 }
 
 # The rest of the builtin library (examples/film_look.rf, old_film.rf,
-# pop_art.rf, psychedelic.rf, neon_edges.rf): per node on every tier but
-# neon edges, which takes the mc tier (the reference runs it as segments,
-# a tier the port does not have).
+# pop_art.rf, psychedelic.rf, neon_edges.rf), as plan_steps gives them:
+# film look, old film, pop art and psychedelic plan per node (the segments
+# tier finds no range of their nodes that fuses); neon edges plans the mc
+# tier, the whole graph in one graph_strip_mc, where the reference runs it
+# as segments.
 FILM_LOOK_CONFIG = """
 // Filmic grade: tonemap, sepia-ish warmth, vignette, grain.
 input -> tone -> warm -> vig -> grain -> output

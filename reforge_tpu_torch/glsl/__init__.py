@@ -17,10 +17,15 @@ Storage buffers (SSBO blocks) reflect into buffer bindings: the kernel
 takes each bound block as a 1-D f32 tensor and returns every block it
 writes.  Buffer, atomic and ``shared``-array shaders reflect a gather
 (halo None), so they run per node.
+
+A run on real tensors is a ``glsl`` span (``trace.span``: ``rf.glsl`` under
+a profiler, nested in the step that runs the node), with the kernel's
+name, its stage and the operations the run issued (``interp.COUNTS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 from typing import Any, Optional
@@ -31,6 +36,7 @@ from . import ast
 from .interp import ATOMIC_FUNCS, DEFAULT_RUNTIME_SSBO_ELEMS, IMAGE_ATOMIC_FUNCS, Interp
 from .lexer import GlslError
 from .parser import parse_shader_source
+from .. import trace
 from ..kernels.base import KernelContext, KernelSpec, ParamDecl, ParamKind
 
 __all__ = ["translate_shader", "GlslError", "reflect_bindings", "reflect_spatial"]
@@ -375,10 +381,16 @@ def translate_shader(
         t = ctx.time
         if not isinstance(t, torch.Tensor):
             t = torch.full((), float(t), dtype=torch.float32, device=device)
-        interp = Interp(shader, ctx.block_height, ctx.width, images, params, time=t,
-                        device=device, buffers_in=buffers, row_offset=ctx.row_offset,
-                        global_height=ctx.height)
-        outputs = interp.run_main()
+        # The shape check's runs on meta tensors are no frame's.
+        span = (trace.span("glsl", shader=name, stage=stage) if device.type != "meta"
+                else contextlib.nullcontext())
+        with span as sp:
+            interp = Interp(shader, ctx.block_height, ctx.width, images, params, time=t,
+                            device=device, buffers_in=buffers, row_offset=ctx.row_offset,
+                            global_height=ctx.height)
+            outputs = interp.run_main()
+            if sp is not None:
+                sp.attrs["ops"] = interp.ops
         for out_name in bindings["images_out"]:
             if out_name not in outputs:
                 # An unwritten output passes through zeros.

@@ -37,6 +37,17 @@ load inside it is seen; atomics leave their buffers as they are.  The
 program's shape check runs this way on ``meta`` tensors (nothing is
 computed), and the halo reflection (``glsl/__init__.py``) on small CPU
 tensors of zeros, whose values nothing reads.
+
+``COUNTS`` counts, over the process, the runs on real tensors (neither
+abstract nor on ``meta``: frames, and the conv synthesis's probes), the
+operations they issued on per-pixel values and their gathers.  An
+operation is one component, varying per pixel, of the result of an
+operator, a comparison, a ``?:`` select, a scalar conversion, a builtin
+function or an image read (a shifted ``imageLoad`` included; a load at
+the pixel itself issues nothing); constructors, user functions' calls and
+control flow's masked writes count nothing of their own.  A sample is one
+``texture()`` call or one ``imageLoad``/``texelFetch`` at a computed
+coordinate.
 """
 
 from __future__ import annotations
@@ -74,6 +85,10 @@ _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 # Elements a runtime-sized SSBO trailing array gets when no buffer is bound
 # (the reference's DEFAULT_RUNTIME_SSBO_ELEMS).
 DEFAULT_RUNTIME_SSBO_ELEMS = 65536
+
+# Runs on real tensors, their operations on per-pixel values and their
+# gathers, over the process (see the module docstring).
+COUNTS: dict[str, int] = {"runs": 0, "ops": 0, "samples": 0}
 
 
 @dataclasses.dataclass
@@ -222,6 +237,11 @@ class Interp:
         self.global_w = width
         self.device = torch.device(device)
         self.abstract = self.device.type == "meta" if abstract is None else abstract
+        # This run's operations and gathers, added to COUNTS when it ends
+        # (runs on real tensors only).
+        self.counted = not self.abstract and self.device.type != "meta"
+        self.ops = 0
+        self.samples = 0
         self.images_in = images_in
         self.params = params
         self.time = time
@@ -487,6 +507,17 @@ class Interp:
         """``x`` as a tensor of GLSL type ``elem`` (0-d when static)."""
         return self._full(x, elem) if is_static(x) else cast(x, elem)
 
+    def _issued(self, v: Val) -> Val:
+        """``v``, the result of one operation: each of its components that
+        varies per pixel counts as one operation issued."""
+        if self.counted:
+            if v.type in MAT_TYPES:
+                comps = [c for col in v.data for c in col]
+            else:
+                comps = v.data if v.is_vector() else (v.data,)
+            self.ops += sum(isinstance(c, torch.Tensor) and c.dim() > 0 for c in comps)
+        return v
+
     # ---- running --------------------------------------------------------
 
     def run_main(self) -> dict[str, Any]:
@@ -507,6 +538,10 @@ class Interp:
             if self.discard_mask is not None:
                 comps = [torch.where(self.discard_mask, 0.0, c) for c in comps]
             outputs[key] = torch.stack(comps, dim=0)
+        if self.counted:
+            COUNTS["runs"] += 1
+            COUNTS["ops"] += self.ops
+            COUNTS["samples"] += self.samples
         return outputs
 
     # ---- statements -----------------------------------------------------
@@ -2258,10 +2293,13 @@ class Interp:
             old = self.eval_expr(e.expr, scope)
             delta = 1 if "++" in e.op else -1
             one = Val(old.type, delta) if not old.is_vector() else None
-            new = self._arith("+", old, Val("int", delta), e.line)
+            new = self._issued(self._arith("+", old, Val("int", delta), e.line))
             self._assign_to(e.expr, new, scope, e.line)
             return old if e.op.endswith("post") else new
         v = self.eval_expr(e.expr, scope)
+        return self._issued(self._unary(e, v))
+
+    def _unary(self, e: ast.Unary, v: Val) -> Val:
         if e.op == "-":
             def neg(c):
                 out = self._neg(c)
@@ -2315,8 +2353,9 @@ class Interp:
             self.mask = outer
         a, b = self._usual_convert(a, b, e.line)
         if a.is_vector():
-            return Val(a.type, [where(cond.data, x, y, a.elem_type) for x, y in zip(a.data, b.data)])
-        return Val(a.type, where(cond.data, a.data, b.data, a.type))
+            return self._issued(Val(a.type, [where(cond.data, x, y, a.elem_type)
+                                             for x, y in zip(a.data, b.data)]))
+        return self._issued(Val(a.type, where(cond.data, a.data, b.data, a.type)))
 
     def _eval_Binary(self, e: ast.Binary, scope) -> Val:
         if e.op in ("&&", "||"):
@@ -2332,18 +2371,18 @@ class Interp:
                 return self.eval_expr(e.right, scope)
             b = self.eval_expr(e.right, scope)
             fn = land if e.op == "&&" else lor
-            return Val("bool", fn(a.data, b.data))
+            return self._issued(Val("bool", fn(a.data, b.data)))
         a = self.eval_expr(e.left, scope)
         b = self.eval_expr(e.right, scope)
         if e.op in ("==", "!=", "<", ">", "<=", ">="):
-            return self._compare(e.op, a, b, e.line)
-        return self._arith(e.op, a, b, e.line)
+            return self._issued(self._compare(e.op, a, b, e.line))
+        return self._issued(self._arith(e.op, a, b, e.line))
 
     def _eval_Assign(self, e: ast.Assign, scope) -> Val:
         value = self.eval_expr(e.value, scope)
         if e.op != "=":
             old = self.eval_expr(e.target, scope)
-            value = self._arith(e.op[:-1], old, value, e.line)
+            value = self._issued(self._arith(e.op[:-1], old, value, e.line))
         self._assign_to(e.target, value, scope, e.line)
         return value
 
@@ -2783,7 +2822,8 @@ class Interp:
         if name in SCALAR_TYPES:
             if len(arg_exprs) != 1:
                 raise GlslError(f"{name}() takes one argument", line)
-            return self.convert(self.eval_expr(arg_exprs[0], scope), name, line)
+            v = self.eval_expr(arg_exprs[0], scope)
+            return v if v.type == name else self._issued(self.convert(v, name, line))
         if name in VEC_TYPES:
             return self._construct_vector(name, arg_exprs, scope, line)
         if name in MAT_TYPES:
@@ -2856,7 +2896,7 @@ class Interp:
         if name in ("texture", "textureLod"):
             # No mip chain exists (storage images, one resolution), so the
             # explicit-LOD variant samples level 0.
-            return self._texture(arg_exprs[:2], scope, line)
+            return self._issued(self._texture(arg_exprs[:2], scope, line))
         if name == "texelFetch":
             return self._image_load(arg_exprs[:2], scope, line)
         if name in ATOMIC_FUNCS:
@@ -2878,7 +2918,7 @@ class Interp:
         fn = BUILTIN_FUNCS.get(name)
         if fn is not None:
             args = [self.eval_expr(a, scope) for a in arg_exprs]
-            return fn(self, args, line)
+            return self._issued(fn(self, args, line))
         user = self.shader.functions.get(name)
         if user is not None:
             return self._call_user(user, arg_exprs, scope, line)
@@ -3044,6 +3084,7 @@ class Interp:
         if not uv.is_vector() or uv.size != 2 or uv.elem_type != "float":
             raise GlslError("texture() coordinate must be vec2", line)
         self.stats["gather"] = True
+        self.samples += self.counted
         comps = self._image_current(name)
         # Pixel centers at (i + 0.5) / size.
         xf = self._as_array(uv.data[0], "float") * float(self.w) - 0.5
@@ -3115,9 +3156,10 @@ class Interp:
             if dx == 0 and dy == 0:
                 return Val("vec4", list(comps))
             self.stats["edge_shift" if clamped else "zero_shift"] = True
-            return Val("vec4", [self._shift(c, dx, dy, clamped) for c in comps])
+            return self._issued(Val("vec4", [self._shift(c, dx, dy, clamped) for c in comps]))
         # General gather: clamped indices, zeros out of bounds.
         self.stats["gather"] = True
+        self.samples += self.counted
         xs = self._as_array(coord.data[0], "int")
         ys = self._as_array(coord.data[1], "int")
         inb = (xs >= 0) & (xs < self.w) & (ys >= 0) & (ys < self.h)
@@ -3127,7 +3169,7 @@ class Interp:
         for c in comps:
             arr = self._as_array(c, "float")
             out.append(torch.where(inb, arr[yc, xc], 0.0))
-        return Val("vec4", out)
+        return self._issued(Val("vec4", out))
 
     def _shift(self, plane: Any, dx: int, dy: int, clamped: bool) -> Any:
         """Read plane at (x+dx, y+dy): clamped indices (edge) or zeros."""
