@@ -403,8 +403,10 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # storage type and form (builtins, affine, and the glsl forms, GLSL_FORM,
 # two or four pixels a thread, without or with the trig ops, without or
 # with the ops of loops, shifts, bit casts and inputs past the second,
-# whose op lists' register files lie in shared memory, and the wide form,
-# one pixel a thread, every op, its files in device memory),
+# whose op lists' register files lie in shared memory, the wide form,
+# one pixel a thread, every op, its files in device memory, and the gather
+# forms, two or four pixels a thread, without the trig and extra ops or
+# with both),
 # conv1d per axis and form (shared memory with and
 # without premultiplied box taps, or global), stencil_apply's radius-1
 # form per kind (wsum, median9), stencil_reduce_mc's run form per radius
@@ -412,15 +414,18 @@ def _mc_ops_per_pixel(prog, cuda_ops) -> float:
 # forms per storage type, W radius (1..3), output channels (1..4) and
 # table (full, or with a mask).
 NO_STACK_FORMS = {"graph_strip_kernel": 12, "sep_conv_multi_kernel": 2,
-                  "graph_strip_mc_kernel": 22, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
+                  "graph_strip_mc_kernel": 30, "conv1d_kernel": 6, "stencil_r1_kernel": 2,
                   "stencil_reduce_run_kernel": 16, "stencil_mc_run_kernel": 48}
 # graph_strip_mc_kernel<T, kAffine = true, kGlsl = 2 or 4, kTrig, kExt,
-# kWide = false>, and the wide form <T, true, 1, true, true, true>, mangled.
-GLSL_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi(?:[24]ELb[01]ELb[01]ELb0|1ELb1ELb1ELb1)EE")
+# kWide = false, kGather>, and the wide form <T, true, 1, true, true, true,
+# false>, mangled.
+GLSL_FORM = re.compile(
+    r"graph_strip_mc_kernelI\w+?Lb1ELi(?:[24]ELb[01]ELb[01]ELb0ELb[01]|1ELb1ELb1ELb1ELb0)EE")
 # Its trig forms (kTrig, for op lists that call sinf, cosf or tanf; the
-# wide form) keep one stack frame: the three's argument reduction for
-# |x| > 105615 (CUDA's math library) indexes seven words at run time.
-TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[124]ELb1ELb[01]ELb[01]EE")
+# wide form; the gather forms with every op) keep one stack frame: the
+# three's argument reduction for |x| > 105615 (CUDA's math library)
+# indexes seven words at run time.
+TRIG_FORM = re.compile(r"graph_strip_mc_kernelI\w+?Lb1ELi[124]ELb1ELb[01]ELb[01]ELb[01]EE")
 TRIG_STACK = "32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 NO_STACK = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
@@ -444,15 +449,16 @@ def _check_no_stack(log: str) -> None:
         for name, line in found.items():
             if line != (TRIG_STACK if TRIG_FORM.search(name) else NO_STACK):
                 raise AssertionError(f"ptxas: {name}: {line}")
-        trig = " (the 10 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
+        trig = " (the 14 trig forms: 32)" if kernel == "graph_strip_mc_kernel" else ""
         print(f"check ptxas: {forms} forms of {kernel}, each 0 bytes stack frame{trig}, no spills")
     glsl = {GLSL_FORM.search(k).group(0)[22:]: f"{regs[k]}, {props[k].split(',')[0]}"
             for k in props if GLSL_FORM.search(k)}
-    if len(glsl) != 18:
+    if len(glsl) != 26:
         raise AssertionError(f"ptxas: {len(glsl)} glsl forms of graph_strip_mc_kernel")
     print(f"check ptxas: graph_strip_mc's glsl forms (f32, bf16; 2 and 4 pixels a thread; "
           f"without and with the trig ops; without and with loops, shifts, bit casts and "
-          f"inputs past the second; the wide form, 1 pixel a thread): {sorted(glsl.items())}")
+          f"inputs past the second; the wide form, 1 pixel a thread; the gather forms): "
+          f"{sorted(glsl.items())}")
 
 
 def _card_state() -> str:

@@ -49,7 +49,9 @@
 //     only; glsl_cells), of any number of inputs (the third and later
 //     from the launch's table, GlslArgs::in); a list past the narrow op
 //     word's fields, or whose files fit no tile, runs the wide form, one
-//     pixel a thread, its files in device memory.
+//     pixel a thread, its files in device memory.  A list that gathers
+//     (GATHER: a channel of the kernel input at a computed point, read
+//     from device memory) runs a gather form of its own.
 //   * Border mode, whole-plan.  "edge" (every builtin, and GLSL shaders
 //     that clamp their reads) or "zero" (a synthesized GLSL conv or
 //     stencil that reads out of bounds as zero, GL's robust access): the
@@ -166,7 +168,8 @@ struct McArgs {
   int glsl_pix;    // an op list's pixels a thread: 2 or 4 (the wide form: 1)
   // 1: an op list calls sinf, cosf or tanf; 2: it has loops, shifts, bit
   // casts or reads a third image; 4: the lists are in the wide op word,
-  // their register files in device memory (GlslArgs::files).
+  // their register files in device memory (GlslArgs::files); 8: a list
+  // gathers from the kernel input.
   int glsl_flags;
 };
 
@@ -352,6 +355,7 @@ enum GlslKop : int {
   K_IFMOD, K_IMAX, K_IMIN, K_IAND, K_IOR, K_IXOR, K_IEQ, K_INE, K_ILT, K_ILE, K_IGT, K_IGE,
   K_INEG, K_IABS, K_ISIGN, K_INOT, K_ILNOT, K_IWHERE, K_ICLAMP, K_F2I, K_F2L, K_F2B, K_I2F, K_L2F,
   K_B2F, K_L2I, K_I2B, K_ICOPY, K_FMOV, K_IMOV, K_ISHL, K_ISHR, K_LOOP, K_LOADX, K_FBITS, K_IBITS,
+  K_GATHER,
 };
 // The packed program's header ints (glsl/lower.py HEAD_INTS: ops, the
 // files' live registers, the float and integer constants, the four output
@@ -363,6 +367,17 @@ constexpr int kGlslHead = 10, kGlslConst = 0x80;
 // The wide op word's constant bit (glsl/lower.py WIDE_CONST): four words
 // an op, 16-bit fields.
 constexpr int kGlslWideConst = 0x8000;
+
+// What a GATHER reads: the kernel input in device memory (the planner lets
+// a stage gather only the plan's input, complete before the launch), H rows
+// of W pixels a channel.  A gathered point may lie hundreds of pixels from
+// the block (crt.frag's barrel warp moves a corner by ~460 at 4K), so it
+// is read through the read-only cache, not from the shared-memory tile.
+template <typename T>
+struct GlslGatherSrc {
+  const T* x;
+  int H, W;
+};
 
 // Design (H100).  An op list indexes its registers at run time, and
 // register arrays need constant indices, so the files live in shared
@@ -446,7 +461,8 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
 // The op list for P pixels: in0/in1 the stage's input views, at0 /
 // at1 each pixel's offset in them, (gy, gx) its image pixel, (cr, cc) its
 // place in the block, where LOADX reads an input past the second through
-// its view in more (offset from sm, pitch, plane).  An op is two words
+// its view in more (offset from sm, pitch, plane); gsrc what a GATHER
+// reads (kGather: the gather forms only).  An op is two words
 // with 8-bit fields, or in the wide form four with 16-bit ones
 // (glsl/lower.py PointProgram.packed).  A loop
 // region ends in a LOOP op that jumps back to the region's first op (the
@@ -466,14 +482,14 @@ __device__ __forceinline__ long long wrap32(bool w, long long v) {
 // search tree some seven branches deep.  (Keeping the last op's results
 // in registers for the next op, forwarded past shared memory, ran
 // glsl-chain 12% slower on the card.)
-template <int P, bool kTrig, bool kExt, bool kWide = false>
+template <int P, bool kTrig, bool kExt, bool kWide, bool kGather, typename T>
 __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog,
                                          const GlslFiles<P, kWide>& R, const View& in0,
                                          const View& in1, const int (&at0)[P],
                                          const int (&at1)[P], const int (&gy)[P],
                                          const int (&gx)[P], float time, const float* sm,
                                          const int* more, const int (&cr)[P],
-                                         const int (&cc)[P]) {
+                                         const int (&cc)[P], const GlslGatherSrc<T>& gsrc) {
   using Word = std::conditional_t<kWide, int4, int2>;
   const int n_ops = prog[0], k_f = prog[3];
   int at = kGlslHead + k_f + (k_f & 1) + 2 * prog[4];
@@ -510,11 +526,27 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog,
       glsl_ff<P>(R, F, x, y, [](float a, float b) RF_INLINE { return __fsub_rn(a, b); });
       continue;
     }
+    if constexpr (kGather) {
+      // Channel y of the kernel input at row z, column u (integer
+      // registers), converted from storage as the tile's load converts it.
+      // The list's own clamps (texture()'s, imageLoad's) keep the point in
+      // the image; the bounds here only keep a list without them from
+      // reading past the input.  Only the gather forms (header flag 8).
+      if (op == K_GATHER) {
+        const GlslSrc<long long> Y = R.is(z), X = R.is(u);
+        const T* src = gsrc.x + (size_t)y * gsrc.H * gsrc.W;
+        glsl_each<P>(F, [&](int k) RF_INLINE {
+          const long long r = Y[k] < 0 ? 0 : Y[k] >= gsrc.H ? gsrc.H - 1 : Y[k];
+          const long long c = X[k] < 0 ? 0 : X[k] >= gsrc.W ? gsrc.W - 1 : X[k];
+          return to_f32(__ldg(src + (size_t)r * gsrc.W + (size_t)c));
+        });
+        continue;
+      }
+    }
     if constexpr (kExt) {
-      // The ops of loops, shifts, inputs past the second and bit casts, the
-      // last opcodes, only in the forms for lists that have them (the
-      // header's flags): the other forms' switch stays as it was without
-      // them.
+      // The ops of loops, shifts, inputs past the second and bit casts, only
+      // in the forms for lists that have them (the header's flags): the
+      // other forms' switch stays as it was without them.
       if (op >= K_FMOV) {
         const GlslSrc<long long> X = R.is(x), Y = R.is(y);
         switch (op) {
@@ -775,12 +807,14 @@ __device__ __forceinline__ void glsl_ops(const int* __restrict__ prog,
 // the list on the view's first pixel and stores nothing.  prog: the packed
 // program in the block's idx copy (an even word; the wide form's ops on a
 // 16-byte word); files: the register files' region (8-byte aligned, in
-// shared memory; the wide form's in device memory).
-template <int P, bool kTrig, bool kExt, bool kWide, typename Put>
+// shared memory; the wide form's in device memory); gsrc: what a GATHER
+// reads.
+template <int P, bool kTrig, bool kExt, bool kWide, bool kGather, typename T, typename Put>
 __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* files,
                                            const View& in0, const View& in1, int rows, int cols,
                                            int by, int bx, int H, int W, int row0, float time,
-                                           const float* sm, const int* more, Put put) {
+                                           const float* sm, const int* more,
+                                           const GlslGatherSrc<T>& gsrc, Put put) {
   const int n = rows * cols, k_f = prog[3];
   GlslFiles<P, kWide> R;
   R.i = reinterpret_cast<long long*>(files) + threadIdx.x;
@@ -814,8 +848,8 @@ __device__ __forceinline__ void glsl_cells(const int* __restrict__ prog, float* 
         ++r;
       }
     }
-    glsl_ops<P, kTrig, kExt, kWide>(prog, R, in0, in1, at0, at1, gy, gx, time, sm, more, cr,
-                                    cc);
+    glsl_ops<P, kTrig, kExt, kWide, kGather>(prog, R, in0, in1, at0, at1, gy, gx, time, sm,
+                                             more, cr, cc, gsrc);
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
       const GlslSrc<float> S = R.fs(prog[5 + ch]);
@@ -999,8 +1033,8 @@ __device__ __forceinline__ void for_each_cell(int rows, int cols, F f) {
 // affine ones), evaluated kGlsl (2 or 4) pixels a thread, or reads in
 // zero mode; kTrig: an op list calls sinf, cosf or tanf; kExt: it has
 // loops, shifts, bit casts or reads a third image; kWide: the lists are
-// in the wide op word, one pixel a thread, their files in device memory
-// (launch_form).
+// in the wide op word, one pixel a thread, their files in device memory;
+// kGather: a list gathers from the kernel input (launch_form).
 // The builtins' and affine forms keep the edge mode's code alone (a
 // runtime zero flag cost the affine form 1.5% on glsl-blur-sharpen,
 // PERF.md).
@@ -1019,7 +1053,8 @@ __device__ __forceinline__ int take_file(int* locks, int slots) {
   return s;
 }
 
-template <typename T, bool kAffine, int kGlsl, bool kTrig, bool kExt, bool kWide>
+template <typename T, bool kAffine, int kGlsl, bool kTrig, bool kExt, bool kWide,
+          bool kGather = false>
 __global__ void __launch_bounds__(kThreads, 2)
 graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int TH, int TW,
                       int vec, int store, float time, const float* __restrict__ taps_g,
@@ -1189,9 +1224,9 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
         if (glsl) {
           float* files = win;
           if constexpr (kWide) files = glsl_args.files + (size_t)file * glsl_args.file_floats;
-          glsl_cells<kGlsl, kTrig, kExt, kWide>(idx + st.t0, files, in0, in1, rows, cols, by, bx,
-                                                H, W, args.row0, time, sm,
-                                                glsl_args.in + 3 * st.t1, put);
+          glsl_cells<kGlsl, kTrig, kExt, kWide, kGather>(
+              idx + st.t0, files, in0, in1, rows, cols, by, bx, H, W, args.row0, time, sm,
+              glsl_args.in + 3 * st.t1, GlslGatherSrc<T>{x, H, W}, put);
         }
       }
       if (!glsl) for_each_cell(rows, cols, [&](int r, int cc) RF_INLINE {
@@ -1241,11 +1276,11 @@ graph_strip_mc_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W
 }
 
 template <typename T, bool kAffine, int kGlsl, bool kTrig = false, bool kExt = false,
-          bool kWide = false>
+          bool kWide = false, bool kGather = false>
 static int launch(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                   const McArgs& args, const GlslArgs& glsl, const float* taps, const int* idx,
                   int store, float time, int smem, cudaStream_t stream) {
-  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig, kExt, kWide>;
+  auto kernel = graph_strip_mc_kernel<T, kAffine, kGlsl, kTrig, kExt, kWide, kGather>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1262,7 +1297,11 @@ static int launch(const void* x, void* out, int H, int W, int TH, int TW, int ve
 // header), and for zero mode, which rides on it (the
 // other forms read the edge mode only); else the affine form where a
 // stage is MC_AFFINE; else the builtins'.  Lists in the wide op word take
-// the wide form alone, one pixel a thread with every op.
+// the wide form alone, one pixel a thread with every op.  Lists that gather
+// take a gather form: at the plan's pixels a thread, with no other extra
+// ops, or with the trig ops and those of loops, shifts, bit casts and
+// inputs past the second together where a list has either (no wide
+// gather form: the planner refuses such a plan).
 template <typename T>
 static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, int vec,
                        const McArgs& args, const GlslArgs& ga, const float* taps, const int* idx,
@@ -1273,6 +1312,20 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
     affine = affine || args.st[s].code == MC_AFFINE;
   }
   const bool four = args.glsl_pix == 4, trig = args.glsl_flags & 1, ext = args.glsl_flags & 2;
+  if (glsl && (args.glsl_flags & 8)) {
+    if (args.glsl_flags & 4) return (int)cudaErrorInvalidValue;
+    if (four && (trig || ext))
+      return launch<T, true, 4, true, true, false, true>(x, out, H, W, TH, TW, vec, args, ga,
+                                                         taps, idx, store, time, smem, stream);
+    if (four)
+      return launch<T, true, 4, false, false, false, true>(x, out, H, W, TH, TW, vec, args, ga,
+                                                           taps, idx, store, time, smem, stream);
+    if (trig || ext)
+      return launch<T, true, 2, true, true, false, true>(x, out, H, W, TH, TW, vec, args, ga,
+                                                         taps, idx, store, time, smem, stream);
+    return launch<T, true, 2, false, false, false, true>(x, out, H, W, TH, TW, vec, args, ga,
+                                                         taps, idx, store, time, smem, stream);
+  }
   if (glsl && (args.glsl_flags & 4))
     return launch<T, true, 1, true, true, true>(x, out, H, W, TH, TW, vec, args, ga, taps, idx,
                                                 store, time, smem, stream);
@@ -1311,7 +1364,8 @@ static int launch_form(const void* x, void* out, int H, int W, int TH, int TW, i
 
 // stage_i / stage_f are host arrays (kMcStageInts ints and 4 floats per
 // stage); geo the layout's ten ints (scratch_off, taps_off, in_eh,
-// in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_flags:
+// in_ew, in_used, win_off, win_floats, n_win, glsl_pix, glsl_flags (1
+// trig, 2 loops and the like, 4 the wide op word, 8 gathers):
 // cuda_ops.McProgram.geometry); glsl_in the host table of n_glsl_in
 // views (three ints each: offset, pitch, plane) of the MC_GLSL stages'
 // inputs past the second; files / locks the wide form's register files

@@ -36,12 +36,17 @@ count outside the width), and so are the bit casts (``view`` of f32 as i32
 and back: FBITS, IBITS; the uint forms the interpreter builds from them).
 A shader reads its first two input images through the stage's own views,
 the others through LOADX (the plan's launch holds at most
-``cuda_ops.MC_GLSL_INPUTS`` of those).  A host read of a per-pixel
-value elsewhere refuses the lowering, and so do an op outside the op set,
-a gather, an in-place update, storage buffers, atomics and ``shared``
-arrays, and more registers or constants than an op word's
-wide fields address: each raises ``Refused``, whose reason
-``lower_point`` returns, and such a node runs per node (or between
+``cuda_ops.MC_GLSL_INPUTS`` of those).  A read of an input image's channel
+at a per-pixel integer point (``texture()``'s corners, a computed
+``imageLoad``: ``aten.index`` with a row and a column register) is a
+GATHER; the interpreter's own clamps and bounds tests are ops before it,
+so the list needs no clamp of its own.  A host read of a per-pixel value
+elsewhere refuses the lowering, and so do an op outside the op set, a
+gather of a computed plane or inside a loop region, a store at a computed
+point (a scatter), per-lane array indexing, an in-place update, storage
+buffers, atomics and ``shared`` arrays, and more registers or constants
+than an op word's wide fields address: each raises ``Refused``, whose
+reason ``lower_point`` returns, and such a node runs per node (or between
 segments), as before.
 A list that fits the narrow op word (8-bit fields) packs into it; a
 larger one packs into the wide word (``PointProgram.packed``).  Whether a
@@ -117,14 +122,17 @@ KERNEL_OPS = (
     "INEG", "IABS", "ISIGN", "INOT", "ILNOT",
     "IWHERE", "ICLAMP",
     "F2I", "F2L", "F2B", "I2F", "L2F", "B2F", "L2I", "I2B", "ICOPY",
-    "FMOV", "IMOV", "ISHL", "ISHR", "LOOP", "LOADX", "FBITS", "IBITS",
+    "FMOV", "IMOV", "ISHL", "ISHR", "LOOP", "LOADX", "FBITS", "IBITS", "GATHER",
 )
 K = {name: k for k, name in enumerate(KERNEL_OPS)}
 _LEAVES = ("LOAD", "COORD_X", "COORD_Y", "TIME", "LOADX")
 # LOAD reads image 0 or 1, LOADX image 2 and on: (image, channel) operands.
 _LOADS = {K["LOAD"], K["LOADX"]}
+# GATHER reads channel c of image k at a per-pixel integer point: (image,
+# channel, row register, column register) operands.
+_GATHER = K["GATHER"]
 # Ops whose name takes no type prefix.
-_UNTYPED = _LEAVES + ("LOOP", "FBITS", "IBITS")
+_UNTYPED = _LEAVES + ("LOOP", "FBITS", "IBITS", "GATHER")
 # Bit casts, by (operand type, result type): f32 bits as i32, i32 bits as f32.
 _BITCASTS = {(F32, I32): "FBITS", (I32, F32): "IBITS"}
 _MOVES = {K["FMOV"], K["IMOV"]}
@@ -135,10 +143,10 @@ _CAST_OPS = {K[name] for name in _CASTS.values()}
 # The ops of a list that only the kernel's trig forms evaluate (the
 # header's flags).
 _TRIG_OPS = {K["FSIN"], K["FCOS"], K["FTAN"]}
-# The ops of loops, shifts, images past the second and bit casts, the
-# last opcodes: only the kernel's forms for lists that have them (the
-# header's flags) evaluate them.
-_EXT_OPS = set(range(K["FMOV"], len(KERNEL_OPS)))
+# The ops of loops, shifts, images past the second and bit casts: only the
+# kernel's forms for lists that have them (the header's flags) evaluate
+# them.  GATHER, the last opcode, has forms of its own (flag 8).
+_EXT_OPS = set(range(K["FMOV"], _GATHER))
 # Ops that compute in their type and give bool.
 _BOOL_OUT = {K[p + n] for p in "FI" for n in ("EQ", "NE", "LT", "LE", "GT", "GE")} | {K["FISNAN"]}
 
@@ -171,6 +179,8 @@ _VIEWS = {_aten.view, _aten._unsafe_view, _aten.expand, _aten.unsqueeze, _aten.s
 _CREATE = {_aten.full, _aten.scalar_tensor, _aten.zeros, _aten.ones, _aten.zeros_like,
            _aten.ones_like, _aten.full_like, _aten.new_zeros, _aten.new_ones, _aten.new_full}
 _HOST_READS = {_aten.is_nonzero, _aten._local_scalar_dense, _aten.item, _aten.equal}
+# The interpreter's stores at computed points (imageStore's scatter).
+_SCATTERS = {_aten.scatter_reduce, _aten.scatter, _aten.index_put}
 
 
 class Refused(Exception):
@@ -215,14 +225,16 @@ class PointProgram:
     result's register and the operands, each a register or constant ``-1
     - k`` (a LOAD's or LOADX's: the image and the channel; a LOOP's: the carried
     ``_active``, the round cap, the index of the loop body's first op and
-    the trip bound, its ``dst`` the round counter).  A loop region is the
+    the trip bound, its ``dst`` the round counter; a GATHER's: the image,
+    the channel, the row's and the column's registers).  A loop region is the
     ops from a LOOP's first op to the LOOP: the body, then moves of its
     results into the carried registers (FMOV, IMOV); LOOP adds one to the
     counter and goes back while any lane's ``_active`` holds and the
     count is below the cap.  Float registers count
     from 0 (``n_f`` of them), integer ones from I_BASE (``n_i``).
     ``outputs`` are the four channels' operands (f32).  ``images`` are the
-    input images read, by name, in the kernel spec's order."""
+    input images read, by name, in the kernel spec's order; ``gathers``
+    those of them read by a GATHER."""
 
     ops: tuple
     consts: tuple
@@ -232,6 +244,7 @@ class PointProgram:
     images: tuple
     reads_coords: bool
     reads_time: bool
+    gathers: tuple = ()
 
     @property
     def n_ops(self) -> int:
@@ -265,13 +278,15 @@ class PointProgram:
         flags: 1 where the list calls sinf, cosf or tanf, whose argument
         reduction keeps an array the kernel's other forms need not carry, 2
         where it has loops, shifts, bit casts or reads a third image, which
-        the kernel's forms for them evaluate, 4 for the wide op word);
+        the kernel's forms for them evaluate, 4 for the wide op word, 8
+        where it has gathers, which only the kernel's gather forms read);
         the float constants' bits, and a zero where their count is
         odd; the integer constants, the low and high words of their 64-bit
         form; then two words an op: its opcode | dst << 8 | a << 16 | b <<
         24 and c | d << 8 | (i32: wraps to 32 bits) << 16.  An operand is
         a register's index in its file, or CONST | k for the k-th constant
-        of its class (a LOAD's a and b: the image and the channel).  A
+        of its class (a LOAD's a and b: the image and the channel; a
+        GATHER's a and b the same, its c and d the row and the column).  A
         LOOP (a back-edge) is LOOP | counter << 8 | active << 16 | cap << 24
         and the index of its body's first op | (trip bound - 1) << 16."""
         if wide is None:
@@ -289,8 +304,10 @@ class PointProgram:
         ik = [k for k, c in enumerate(self.consts) if c.typ != F32]
         trig = any(op in _TRIG_OPS for op, *_ in self.ops)
         ext = any(op in _EXT_OPS for op, *_ in self.ops)
+        gather = any(op == _GATHER for op, *_ in self.ops)
         words = [len(self.ops), self.n_f, self.n_i, len(fk), len(ik),
-                 *(at(o) for o in self.outputs), int(trig) | int(ext) << 1 | int(wide) << 2]
+                 *(at(o) for o in self.outputs),
+                 int(trig) | int(ext) << 1 | int(wide) << 2 | int(gather) << 3]
         words += [_register_bits(F32, self.consts[k].value) for k in fk] + [0] * (len(fk) % 2)
         for k in ik:
             bits = _register_bits(self.consts[k].typ, self.consts[k].value)
@@ -303,7 +320,7 @@ class PointProgram:
                     words += [op | at(dst) << 16, at(active) | at(cap) << 16, 0,
                               target | (min(trips, 1 << 16) - 1) << 16]
                     continue
-                f = (list(refs) if op in _LOADS else [at(r) for r in refs]) + [0] * (4 - len(refs))
+                f = _fields(op, refs, at)
                 words += [op | int(typ == I32) << 8 | at(dst) << 16, f[0] | f[1] << 16,
                           f[2] | f[3] << 16, 0]
             return np.asarray([_i32(w) for w in words], np.int32)
@@ -313,10 +330,32 @@ class PointProgram:
                 words += [op | at(dst) << 8 | at(active) << 16 | at(cap) << 24,
                           target | (min(trips, 1 << 16) - 1) << 16]
                 continue
-            f = (list(refs) if op in _LOADS else [at(r) for r in refs]) + [0] * (4 - len(refs))
+            f = _fields(op, refs, at)
             words += [op | at(dst) << 8 | f[0] << 16 | f[1] << 24,
                       f[2] | f[3] << 8 | int(typ == I32) << 16]
         return np.asarray([_i32(w) for w in words], np.int32)
+
+
+def _fields(op: int, refs, at) -> list:
+    """An op's four operand fields: a LOAD's image and channel as they
+    are, a GATHER's too before its two registers, every other operand
+    through ``at``."""
+    raw = 2 if op in _LOADS or op == _GATHER else 0
+    f = list(refs[:raw]) + [at(r) for r in refs[raw:]]
+    return f + [0] * (4 - len(f))
+
+
+def pixel_reads(words) -> set:
+    """The input images (by their index among the stage's inputs) that a
+    packed program reads at the pixel itself (LOAD, LOADX), not at a
+    computed point."""
+    words = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
+    n, width = int(words[0]), 4 if is_wide(words) else 2
+    at = ops_at(words)
+    ops = words[at:at + width * n].reshape(-1, width)
+    codes = ops[:, 0] & 255
+    image = (ops[:, 1] & 0xFFFF) if width == 4 else (ops[:, 0] >> 16) & 255
+    return {int(k) for k in image[(codes == K["LOAD"]) | (codes == K["LOADX"])]}
 
 
 def ops_at(words) -> int:
@@ -374,7 +413,9 @@ def widen(words) -> np.ndarray:
             out += [op | d << 16, field(a) | field(b) << 16, 0, w1]
             continue
         c, e = w1 & 255, (w1 >> 8) & 255
-        if op not in _LOADS:
+        if op == _GATHER:
+            c, e = field(c), field(e)
+        elif op not in _LOADS:
             a, b, c, e = field(a), field(b), field(c), field(e)
         out += [op | ((w1 >> 16) & 1) << 8 | d << 16, a | b << 16, c | e << 16, 0]
     return np.asarray([_i32(w) for w in out], np.int32)
@@ -457,6 +498,7 @@ class _Recorder(TorchDispatchMode):
         self.loop_of: dict[int, int] = {}
         self.trips: dict[int, int] = {}
         self.bad: dict[int, str] = {}
+        self.in_loop = 0  # loop bodies being recorded
 
     # -- bookkeeping
 
@@ -511,12 +553,16 @@ class _Recorder(TorchDispatchMode):
         the first round, is recorded from the start (the body is recorded a
         second time, the first record dead)."""
         inner, start, counter = self._carry_in(carry)
-        out = body_fn(inner)
-        late = [k for k in out if k not in inner]
-        if late:
-            carry = {**carry, **{k: zeros_tree(out[k]) for k in late}}
-            inner, start, counter = self._carry_in(carry)
+        self.in_loop += 1
+        try:
             out = body_fn(inner)
+            late = [k for k in out if k not in inner]
+            if late:
+                carry = {**carry, **{k: zeros_tree(out[k]) for k in late}}
+                inner, start, counter = self._carry_in(carry)
+                out = body_fn(inner)
+        finally:
+            self.in_loop -= 1
         self._back_edge(inner, out, start, counter)
         return inner
 
@@ -667,6 +713,10 @@ class _Recorder(TorchDispatchMode):
 
     def lower(self, func, packet, args, kwargs, out):
         name = packet.__name__
+        if packet is _aten.index:
+            return self.gather(args, out)
+        if packet in _SCATTERS:
+            raise Refused("a store at a computed point (a scatter; only gathers lower)")
         vals = [self.value(a) for a in args]
         if packet is _aten.stack:
             if (kwargs.get("dim", args[1] if len(args) > 1 else 0)) != 0:
@@ -785,6 +835,34 @@ class _Recorder(TorchDispatchMode):
             return self.emit("NAN2NUM", F32, (self.operand(vals[0], F32), *consts))
         raise Refused(f"aten.{name} is outside the op set")
 
+    def gather(self, args, out):
+        """``plane[iy, ix]``: channel c of input image k (``plane`` a
+        LOAD's or LOADX's node, a ``select`` of a bound image) at integer
+        per-pixel values or constants (a plane the interpreter filled), a
+        GATHER.  Any other index refuses: a row or column ``arange``, a
+        boolean mask, one index."""
+        def integer(v) -> bool:
+            if isinstance(v, Const):
+                return v.typ in (I32, I64)
+            return isinstance(v, int) and out_type(*self.nodes[v][:2]) in (I32, I64)
+
+        plane, index = self.value(args[0]), args[1]
+        if isinstance(plane, _Bad):
+            return plane
+        if len(index) != 2 or not all(isinstance(i, torch.Tensor) for i in index):
+            raise Refused("an index of an image other than a (row, column) pair")
+        point = [self.value(i) for i in index]
+        for v in point:
+            if isinstance(v, _Bad):
+                return v
+        if not isinstance(plane, int) or self.nodes[plane][0] not in _LOADS:
+            raise Refused("a gather of a plane that is not an input image's channel")
+        if self.in_loop:
+            raise Refused("a gather inside a loop region")
+        if not all(map(integer, point)) or out.dtype != torch.float32:
+            raise Refused("a gather at a point that is not an integer")
+        return self.emit("GATHER", F32, (*self.nodes[plane][2], *point))
+
     def bitcast(self, v, src_dtype, out):
         """A view of a per-pixel value as another dtype of its size: f32
         bits as i32 (FBITS) or i32 bits as f32 (IBITS), or a constant's
@@ -884,6 +962,16 @@ def _uses_atomics(shader: ast.Shader) -> bool:
     return found
 
 
+def reads_at_points(spec, params: dict) -> bool:
+    """Whether ``spec`` is a GLSL shader of halo None (it reads images at
+    computed points) with no storage buffers, atomics or ``shared`` arrays,
+    which are of halo None for reasons of their own."""
+    shader = getattr(spec, "glsl", None)
+    return (shader is not None and spec.halo_for(params) is None and not shader.ssbos
+            and not spec.ssbos_in and not spec.ssbos_out and not shader.shared
+            and not _uses_atomics(shader))
+
+
 def _gate(spec, params: dict) -> None:
     """Refused where a kernel spec has no op list before it runs."""
     shader = getattr(spec, "glsl", None)
@@ -896,12 +984,13 @@ def _gate(spec, params: dict) -> None:
     if shader.shared:
         raise Refused("shared arrays")
     halo = spec.halo_for(params)
-    if halo is None:
-        raise Refused("halo None: the shader reads images at computed coordinates (a gather)")
-    if halo > 0:
+    if halo is not None and halo > 0:
         raise Refused(f"halo {halo}: a neighbourhood read (a conv or stencil stage's, not a "
                       "point stage's)")
-    if spec.mc_block_ok is not None and not spec.mc_block_ok(params):
+    # halo None: the shader reads images at computed points, whose reads
+    # the recorder takes as GATHERs or refuses (mc_block_ok is False for
+    # any gather, so it decides only for halo 0)
+    if halo == 0 and spec.mc_block_ok is not None and not spec.mc_block_ok(params):
         raise Refused("not mc_block_ok (per-lane array indexing)")
     if not spec.images_in:
         raise Refused("no input image")
@@ -913,6 +1002,7 @@ def lower_point(spec, params: dict, width: int, height: int,
     at ``width`` x ``height`` writing ``out_desc``, or the reason it has
     none."""
     rec = _Recorder(height, width)
+    stats = {"max_shift": 0, "gather": False, "dyn_gather": False}
     try:
         _gate(spec, params)
         meta = torch.device("meta")
@@ -925,7 +1015,10 @@ def lower_point(spec, params: dict, width: int, height: int,
         rec.bind(t, rec.emit("TIME", F32))
         with rec:
             outputs = Interp(spec.glsl, height, width, images, dict(params), time=t,
-                             device=meta, abstract=False, lower_loop=rec.loop).run_main()
+                             device=meta, abstract=False, lower_loop=rec.loop,
+                             stats=stats).run_main()
+        if stats["dyn_gather"]:
+            raise Refused("per-lane array indexing")
         return _allocate(rec, _output_items(rec, outputs, out_desc), spec.images_in)
     except Refused as e:
         return rec.refused or str(e)
@@ -970,7 +1063,8 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
     loop_op, leaves = K["LOOP"], {K[name] for name in _LEAVES}
 
     def operands(i: int) -> tuple:
-        return () if nodes[i][0] in _LOADS else nodes[i][2]
+        op, _typ, args = nodes[i]
+        return () if op in _LOADS else args[2:] if op == _GATHER else args
 
     live = set()
     stack = [o for o in outputs if isinstance(o, int)]
@@ -1031,6 +1125,8 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
         if op == loop_op:
             active, _counter, cap = args
             refs = (ref(active), ref(cap), next(s for s, e in regions if e == j), rec.trips[i])
+        elif op == _GATHER:
+            refs = (*args[:2], ref(args[2]), ref(args[3]))
         else:
             refs = args if op in _LOADS else tuple(ref(a) for a in args)
         for a in set(operands(i)) | ({rec.into[i]} if i in rec.into else set()):
@@ -1055,11 +1151,13 @@ def _allocate(rec: _Recorder, outputs: tuple, image_names) -> PointProgram:
                       f"registers and {len(consts) - n_fk} constants (a wide op's fields name "
                       f"{WIDE_MAX} registers of each file, {WIDE_MAX} constants of each class)")
     used = {op for op, *_ in ops} & leaves
-    read = sorted({refs[0] for op, _t, _d, refs in ops if op in _LOADS})
+    read = sorted({refs[0] for op, _t, _d, refs in ops if op in _LOADS or op == _GATHER})
+    gathered = sorted({refs[0] for op, _t, _d, refs in ops if op == _GATHER})
     return PointProgram(
         ops=tuple(ops), consts=tuple(consts), outputs=out_refs, n_f=n[True], n_i=n[False],
         images=tuple(image_names[k] for k in read),
         reads_coords=bool(used & {K["COORD_X"], K["COORD_Y"]}), reads_time=K["TIME"] in used,
+        gathers=tuple(image_names[k] for k in gathered),
     )
 
 
@@ -1158,6 +1256,8 @@ def point_program_plain(prog: PointProgram, ins, gy: torch.Tensor, gx: torch.Ten
             continue
         if op in _LOADS:
             v = ins[refs[0]][refs[1]]
+        elif op == _GATHER:
+            v = ins[refs[0]][refs[1]][arg(refs[2]), arg(refs[3])]
         elif op == K["FBITS"]:
             v = arg(refs[0]).view(torch.int32)
         elif op == K["IBITS"]:

@@ -51,7 +51,7 @@ import torch
 from .. import trace
 from ..config import FILE_INPUT, FINAL_OUTPUT
 from ..glsl.affine import ConvSynth, StencilSynth, compose, synthesize_conv
-from ..glsl.lower import PointProgram, lower_point, point_program_plain
+from ..glsl.lower import PointProgram, lower_point, point_program_plain, reads_at_points
 from ..kernels import cuda_ops
 from ..kernels.base import KernelContext, quantize_rgba8
 from ..kernels.ops import X3_MIN_TAPS
@@ -82,6 +82,12 @@ _MC_KINDS = {"conv": cuda_ops.MC_CONV, "stencil": cuda_ops.MC_STENCIL, "point": 
 # once: written in its slice of the stack by its strip kernel, or copied
 # there.
 SEQUENCE_FRAMES: dict[str, int] = {"in_place": 0, "copied": 0}
+# Runs on a frame of GLSL nodes of halo None (shaders that read images at
+# computed points; those with storage buffers, atomics or ``shared``
+# arrays left out), by the path each took: a stage of a graph_strip_mc
+# launch (its op list), or the interpreter per node.  Neither the shape
+# check nor any other run on ``meta`` counts.
+GLSL_GATHER_RUNS: dict[str, int] = {"op_list": 0, "interpreter": 0}
 
 
 def _device_name(device) -> str:
@@ -193,6 +199,8 @@ class GraphProgram:
         # Where _forward's strip kernel writes the final output while
         # render_sequence renders a stacked frame (``.out``), per thread.
         self._frame_out = threading.local()
+        # The GLSL nodes that GLSL_GATHER_RUNS counts (``_gather_nodes``).
+        self._gathering: Optional[frozenset] = None
 
     # ---- planning -------------------------------------------------------
 
@@ -224,6 +232,15 @@ class GraphProgram:
     @_strip_program.setter
     def _strip_program(self, value: Optional[cuda_ops.StripProgram]) -> None:
         self._host.strip_program = value
+
+    def _gather_nodes(self) -> frozenset:
+        """The names of the nodes that GLSL_GATHER_RUNS counts: GLSL
+        shaders of halo None without storage buffers, atomics or ``shared``
+        arrays (``glsl.lower.reads_at_points``)."""
+        if self._gathering is None:
+            self._gathering = frozenset(n.name for n in self.graph.ordered_nodes
+                                        if reads_at_points(n.spec, n.params))
+        return self._gathering
 
     def _program_key(self) -> tuple:
         """The graph signature of the program cache (reference:
@@ -474,7 +491,10 @@ class GraphProgram:
         (``_glsl_synth``), a conv or stencil stage; one of halo 0 an op list
         (``_glsl_point``: ``mc_block_ok`` and a lowering that succeeds), a
         point stage, as the reference evaluates its interpreter on the
-        kernel's blocks.  The plan needs at least one conv or stencil.
+        kernel's blocks; so does one of halo None whose op list lowers (its
+        reads at computed points GATHERs), where it gathers only the plan's
+        input, which lies whole in device memory before the launch.  The
+        plan needs at least one conv or stencil, or a stage that gathers.
         Each resource is computed over the tile plus the extent its
         consumers read around it (a reverse-topological lift, exact); pool
         slots are reused by linear scan.  The border mode is whole-plan
@@ -493,19 +513,25 @@ class GraphProgram:
         synth_of: dict[str, Any] = {}  # GLSL node -> its ConvSynth / StencilSynth
         point_of: dict[str, PointProgram] = {}  # GLSL point node -> its op list
         n_heavy = 0
+        gathers = False
         for layer in self.graph.layers:
             for node in layer:
                 spec = node.spec
                 if len(node.outputs) != 1 or spec.ssbos_in or spec.ssbos_out:
                     return None
                 if spec.source_hash is not None:
-                    # A GLSL node: a point shader's op list, or an affine
-                    # tap-sum (halo >= 1, one input); else no device form,
-                    # and the graph takes another tier.
-                    if spec.halo_for(node.params) == 0:
+                    # A GLSL node: a point shader's op list (halo 0, or None
+                    # with gathers of the input), or an affine tap-sum (halo
+                    # >= 1, one input); else no device form, and the graph
+                    # takes another tier.
+                    if spec.halo_for(node.params) in (0, None):
                         point = self._glsl_point(node)
                         if point is None:
                             return None
+                        by_desc = dict((desc, res) for res, desc in node.inputs)
+                        if any(by_desc.get(name) != FILE_INPUT for name in point.gathers):
+                            return None  # a gather of an image this launch writes
+                        gathers = gathers or bool(point.gathers)
                         point_of[node.name] = point
                         nodes.append(("point", node, None))
                         continue
@@ -544,7 +570,7 @@ class GraphProgram:
             # difference past the tier's bound (sharpen.comp at amount 0.7:
             # 6.6x, 0.023 against 2e-2 in rgba16f at 4K on the card).
             n_heavy -= self._compose_synth_chains(nodes, synth_of)
-        if n_heavy == 0:
+        if n_heavy == 0 and not gathers:
             return None  # point-only graphs have no halo work to share
 
         # Extents: reverse-topological lift, exact (no alignment).
@@ -666,12 +692,15 @@ class GraphProgram:
         return prog
 
     def _glsl_point(self, node) -> Optional[PointProgram]:
-        """The op list of a GLSL point shader with inputs and
-        ``mc_block_ok`` (glsl/lower.py), or None: lowered once per source
-        text, params, frame and output in the process (``_POINT_PROGRAMS``),
-        so a warm reload lowers nothing."""
+        """The op list of a GLSL shader with inputs, of halo 0 and
+        ``mc_block_ok`` or of halo None (glsl/lower.py), or None: lowered
+        once per source text, params, frame and output in the process
+        (``_POINT_PROGRAMS``), so a warm reload lowers nothing."""
         spec, params = node.spec, node.params
-        if not node.inputs or spec.mc_block_ok is None or not spec.mc_block_ok(params):
+        if not node.inputs:
+            return None
+        if spec.halo_for(params) == 0 and (spec.mc_block_ok is None
+                                           or not spec.mc_block_ok(params)):
             return None
         out_desc = node.outputs[0][1]
         key = (spec.source_hash, tuple(sorted(params.items())), self.width, self.height, out_desc)
@@ -922,6 +951,8 @@ class GraphProgram:
             return None
         row0 = 0 if row0_base is None else int(row0_base)
         if plan[0] == "mc":
+            if row0_base is None:  # a whole frame (not one slab of it)
+                GLSL_GATHER_RUNS["op_list"] += len(self._gather_nodes())
             return cuda_ops.graph_strip_mc(file_input, t, plan[1], row0, out=out)
         rows = int(file_input.shape[1])
         strip = self._strip_program_for(file_input.device, row0, rows)
@@ -970,6 +1001,8 @@ class GraphProgram:
                     f"node '{node.name}' reads resource '{res}' before it is written"
                 )
             images[desc] = self.compute_input(value)
+        if node.name in self._gather_nodes() and torch.device(ctx.device).type != "meta":
+            GLSL_GATHER_RUNS["interpreter"] += 1
         outs = node.spec(ctx, images, node.params)
         written = {}
         for res, desc in node.outputs:

@@ -1351,6 +1351,8 @@ class McProgram:
         # and loops, shifts, bit casts or a third image (the forms that
         # evaluate them)
         self._ext = any(int(w[9]) & 2 for w in self._glsl)
+        # and gathers from the kernel input (the gather forms)
+        self._gather = any(int(w[9]) & 8 for w in self._glsl)
         if self._glsl and off % align:
             # a count of the alignment, so that the positions (the op
             # lists) start on an aligned word of shared memory after them
@@ -1362,15 +1364,25 @@ class McProgram:
     def _input_block(self) -> tuple[int, int, bool]:
         """(eh, ew, used) of the four-channel input block: the extents at
         which stages read the graph input in shared memory.  A conv of the
-        input reads its own per-channel windows (``_windows``) instead."""
+        input reads its own per-channel windows (``_windows``) instead, and
+        an op list counts only the inputs it reads at the pixel (LOAD,
+        LOADX), not those it gathers from device memory.  Kept once worked
+        out: every launch's ``geometry`` reads it."""
+        if "input_block" in self._cache:
+            return self._cache["input_block"]
+        from ..glsl import lower
+
         eh = ew = 0
         used = False
         for st in self.stages:
             lift = st.r if st.kind == MC_STENCIL else 0
             refs = list(st.ins[1:] if st.kind == MC_CONV else st.ins) + [st.x]
+            if st.op.code == MC_GLSL:
+                refs = [st.ins[k] for k in sorted(lower.pixel_reads(st.taps[0]))]
             for ref in refs:
                 if ref is not None and ref[0] == MC_INPUT:
                     eh, ew, used = max(eh, st.eh + lift), max(ew, st.ew + lift), True
+        self._cache["input_block"] = (eh, ew, used)
         return eh, ew, used
 
     def _windowed(self, st: McStage) -> bool:
@@ -1406,7 +1418,7 @@ class McProgram:
         offset, size and count, the op lists' pixels a thread and their
         flags (1: one calls sinf, cosf or tanf; 2: one has loops, shifts,
         bit casts or reads a third image; 4: the wide op word, its files
-        in device memory)."""
+        in device memory; 8: one gathers from the kernel input)."""
         if pixels is None:
             pixels = self._pixel_options()[0]
         def block(eh, ew):
@@ -1438,7 +1450,8 @@ class McProgram:
         if self._glsl:
             align = 4 if self._wide else 2
             taps_off += -taps_off % align
-        flags = int(self._trig) | int(self._ext) << 1 | int(self._wide) << 2
+        flags = (int(self._trig) | int(self._ext) << 1 | int(self._wide) << 2
+                 | int(self._gather) << 3)
         geo = np.array([scratch_off, taps_off, in_eh, in_ew, int(in_used), win_off, win, n_win,
                         pixels, flags], np.int32)
         return slot_off, 4 * (taps_off + 2 * len(self.taps)), geo
@@ -1479,8 +1492,9 @@ class McProgram:
     def input_halo(self) -> int:
         """Rows of the graph input that the whole plan reads around a tile
         (at least 1): the halo a row-sharded slab exchanges once before the
-        kernel runs on it (parallel/halo.py)."""
-        return max(self.rh_in, 1)
+        kernel runs on it (parallel/halo.py).  A plan that gathers reads
+        any row: the image's height, so a slab takes the per-node route."""
+        return self.height if self._gather else max(self.rh_in, 1)
 
     @property
     def edge_hazard(self) -> bool:
@@ -1508,15 +1522,17 @@ class McProgram:
 
     def _past_limit(self) -> Optional[str]:
         """The launch's limit the plan passes, or None: the op lists'
-        inputs past the second (the launch's table, MC_GLSL_INPUTS), or a
+        inputs past the second (the launch's table, MC_GLSL_INPUTS), a
         wide list's files in device memory (MC_FILES_DEVICE_LIMIT a
-        block)."""
+        block), or gathers in the wide op word (no such form)."""
         if self.n_glsl_inputs > MC_GLSL_INPUTS:
             return (f"its GLSL point stages read {self.n_glsl_inputs} images past their "
                     f"second, past the launch's table of {MC_GLSL_INPUTS}")
         if self._wide and self.device_file_bytes() > MC_FILES_DEVICE_LIMIT:
             return (f"its op lists' register files take {self.device_file_bytes()} bytes a "
                     f"block of device memory, past {MC_FILES_DEVICE_LIMIT}")
+        if self._wide and self._gather:
+            return "its op lists gather in the wide op word, which no kernel form reads"
         return None
 
     def _choice(self):
@@ -1731,7 +1747,10 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0,
     shared memory; such plans, and those of zero mode, run the kernel's
     glsl form.  Lists in the wide op word run its wide form, one pixel a
     thread, their files in a scratch of device memory this call allocates
-    (a file for each block the card holds at once, ``_mc_resident``).  The tile is
+    (a file for each block the card holds at once, ``_mc_resident``).
+    Lists that gather (a channel of ``x`` at a computed point) run a
+    gather form, which reads ``x`` through the read-only cache; a plan
+    whose stages read ``x`` only so loads no input block.  The tile is
     the one of least estimated work (halo recompute and load) that leaves
     two blocks an SM (``McProgram.tile``).
 

@@ -269,11 +269,15 @@ _MC_GENERAL = "csrc/stencil_mc.cu"
 _MC_GLSL_CALL = "    glsl_ops<P, kTrig, kExt>(prog, R, in0, in1, at0, at1, gy, gx, time);\n"
 _MC_GLSL_CALL_WIDE = ("    glsl_ops<P, kTrig, kExt, kWide>(prog, R, in0, in1, at0, at1, gy, gx, time, sm, more, cr,\n"
                       "                                    cc);\n")
+_MC_GLSL_CALL_GATHER = ("    glsl_ops<P, kTrig, kExt, kWide, kGather>(prog, R, in0, in1, at0, at1, gy, gx, time, sm,\n"
+                        "                                             more, cr, cc, gsrc);\n")
 _MC_GLSL_PUT = "if (ok[k]) put(ch, cr[k], cc[k], S[k]);"
 _MC_PIX = "MC_GLSL_PIXELS = (2, 4)\n"
 _MC_PIX_FORM = ("    return launch<T, true, 2>(", "    return launch<T, true, 2, true>(",
                 "    return launch<T, true, 2, false, true>(",
                 "    return launch<T, true, 2, true, true>(")
+_MC_PIX_GATHER_FORM = ("      return launch<T, true, 2, true, true, false, true>(",
+                       "    return launch<T, true, 2, false, false, false, true>(")
 _MC_CONST_FILES = [
     ("  const long long* ci;  // the integer constants\n",
      "  const long long* ci;  // the integer constants\n  int nf, ni;\n"),
@@ -325,7 +329,9 @@ KERNELS = {
         "load_only": [[(_MC_LOOP, "  if (args.n_stages > 0) return;\n" + _MC_LOOP)]],
         "no_conv": [[(_MC_CONV, _MC_CONV + "      continue;\n")]],
         "no_stencil": [[(_MC_CONV, "    if (st.kind == MC_STENCIL) continue;\n" + _MC_CONV)]],
-        "no_glsl": [[(_MC_GLSL_CALL_WIDE, ""),
+        "no_glsl": [[(_MC_GLSL_CALL_GATHER, ""),
+                     (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
+                    [(_MC_GLSL_CALL_WIDE, ""),
                      (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
                     [(_MC_GLSL_CALL, ""),
                      (_MC_GLSL_PUT, "if (ok[k]) put(ch, cr[k], cc[k], in0.p[ch * in0.plane + at0[k]]);")],
@@ -343,7 +349,10 @@ KERNELS = {
                       [(_MC_INTERIOR, "      if (true) {\n"), (_MC_PUT, _MC_PUT + _MC_PUT_GUARD)]],
         "one_window": [[("MC_WINDOW_BUFFERS = (2, 1)", "MC_WINDOW_BUFFERS = (1,)",
                          "kernels/cuda_ops.py")]],
-        "one_pixel": [[*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM),
+        "one_pixel": [[*((f, f.replace("true, 2", "true, 1"))
+                         for f in _MC_PIX_FORM + _MC_PIX_GATHER_FORM),
+                       (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")],
+                      [*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM),
                        (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")],
                       [*((f, f.replace("true, 2", "true, 1")) for f in _MC_PIX_FORM[:2]),
                        (_MC_PIX, "MC_GLSL_PIXELS = (1,)\n", "kernels/cuda_ops.py")]],

@@ -2,7 +2,8 @@
 examples/crt_tv.rf with a frozen shaders/crt.frag) on the CPU: its plain
 float64 reference against the port through Engine, the plan it takes, the
 reference's float32 geometry against the interpreter's at the full
-3840x2160, and the interpreter's ``glsl`` span and ``COUNTS``."""
+3840x2160, and the interpreter's ``glsl`` span and ``COUNTS`` on the same
+graph with a crt.frag that stays in the interpreter (``PER_NODE_CRT``)."""
 
 import pytest
 import torch
@@ -24,6 +25,13 @@ DIR = harness.config_dir(CONFIG)
 # down, reads 3e-3.  The tolerance sits 10x over the first and 1500x under
 # the second.
 TOL = 2e-6
+# crt.frag with an f16 conversion the op lists lack (packHalf2x16, whose
+# bits it adds to alpha as zero): the same frames, but the node runs per
+# node in the interpreter, as every crt.frag did before texture() lowered
+# to gathers.
+PER_NODE_CRT = ("    out_color = vec4(c.rgb * inside * line * vig, 1.0);",
+                "    out_color = vec4(c.rgb * inside * line * vig,\n"
+                "                     1.0 + 0.0 * float(packHalf2x16(c.rg) & 0u));")
 
 
 @pytest.fixture(autouse=True)
@@ -36,13 +44,13 @@ def _quiet_and_cold(monkeypatch):
     yield
 
 
-def _engine(size, fmt="rgba32f", seed=7):
+def _engine(size, fmt="rgba32f", seed=7, shader_path=None):
     cfg = harness.load_config(CONFIG)
     cfg["height"], cfg["width"] = size
     engine = Engine(RenderInfo(width=size[1], height=size[0], device="cpu",
                                config_path=str(DIR / cfg["graph"]),
-                               shader_path=str(DIR / cfg["shader_path"]), fmt=fmt,
-                               has_input_image=True))
+                               shader_path=shader_path or str(DIR / cfg["shader_path"]),
+                               fmt=fmt, has_input_image=True))
     u8 = harness.make_input(seed, *size, torch.device("cpu"))
     engine.load_input(u8.numpy())
     return engine, cfg, u8
@@ -68,9 +76,27 @@ def test_the_control_fails_the_tolerance(size):
 
 
 def test_the_plan_is_a_segment_on_mc_then_crt_per_node():
+    """crt.frag's texture() lowers to gathers of its segment's input, so
+    crt takes a graph_strip_mc launch of its own after fade and soften's
+    (it gathers soften's output, which keeps it out of their launch); with
+    an op the lists lack, it runs per node as it did before."""
     engine, _, _ = _engine((72, 128))
+    assert plan_steps(engine.program) == [("seg mc", ["fade", "soften"]), ("seg mc", ["crt"])]
+    engine.close()
+
+
+@pytest.fixture
+def per_node_crt(tmp_path):
+    """A shader path whose crt.frag stays in the interpreter (PER_NODE_CRT)."""
+    src = (DIR / "shaders" / "crt.frag").read_text()
+    assert src.count(PER_NODE_CRT[0]) == 1
+    (tmp_path / "crt.frag").write_text(src.replace(*PER_NODE_CRT))
+    engine, _, _ = _engine((72, 128), shader_path=str(tmp_path))
     assert plan_steps(engine.program) == [("seg mc", ["fade", "soften"]), ("node", ["crt"])]
     engine.close()
+    program._PROGRAMS.clear()  # the test's own empty caches, as it found them
+    program._NODE_CHECKS.clear()
+    return str(tmp_path)
 
 
 def test_the_geometry_at_4k_is_the_interpreters_bit_for_bit(monkeypatch):
@@ -113,8 +139,8 @@ def test_the_geometry_at_4k_is_the_interpreters_bit_for_bit(monkeypatch):
     assert 0 < int(inside.sum()) < h * w  # the tube cuts the corners
 
 
-def test_one_glsl_range_a_frame_under_a_profiler_and_none_without():
-    engine, _, _ = _engine((72, 128))
+def test_one_glsl_range_a_frame_under_a_profiler_and_none_without(per_node_crt):
+    engine, _, _ = _engine((72, 128), shader_path=per_node_crt)
     x = engine._file_input()
     engine.program.render_sequence(x, 0.0, 0.1, 2, stack=True)
     assert not trace.SPANS
@@ -131,11 +157,12 @@ def test_one_glsl_range_a_frame_under_a_profiler_and_none_without():
     engine.close()
 
 
-def test_the_counter_gains_a_run_a_frame_and_nothing_from_the_shape_check():
+def test_the_counter_gains_a_run_a_frame_and_nothing_from_the_shape_check(per_node_crt):
     before = dict(interp.COUNTS)
-    engine, _, _ = _engine((72, 128))
+    gathers = dict(program.GLSL_GATHER_RUNS)
+    engine, _, _ = _engine((72, 128), shader_path=per_node_crt)
     assert engine.program.nodes_checked == 3  # the check ran crt.frag on meta
-    assert interp.COUNTS == before
+    assert interp.COUNTS == before and program.GLSL_GATHER_RUNS == gathers
     x = engine._file_input()
     per_frame = []
     for i in range(3):
@@ -146,3 +173,6 @@ def test_the_counter_gains_a_run_a_frame_and_nothing_from_the_shape_check():
     assert per_frame[0]["runs"] == 1 and per_frame[0]["samples"] == 1
     assert per_frame[0]["ops"] > 0
     assert per_frame == [per_frame[0]] * 3
+    # crt, of halo None, counted a frame as the interpreter's
+    assert program.GLSL_GATHER_RUNS == {"op_list": gathers["op_list"],
+                                        "interpreter": gathers["interpreter"] + 3}

@@ -712,3 +712,78 @@ def test_a_stacked_chunk_is_written_in_place(graph, hw, fmt):
     assert len(device) == 8 and all(kernel in name for name in device), device
     for i in range(8):
         assert torch.equal(got[i], prog._forward(x, 0.5 + i * (1 / 30))), i
+
+
+@pytest.mark.parametrize("hw", [(37, 71), (2160, 3840)])
+@pytest.mark.parametrize("fmt", ["rgba32f", "rgba16f", "rgba8"])
+@pytest.mark.parametrize("shader", ["crt", "zoom", "glass"])
+def test_graph_strip_mc_gather_form(shader, fmt, hw):
+    """A shader that gathers its input (texture() at a computed point) as
+    one graph_strip_mc launch of the gather form, against the plan's plain
+    version on the CPU (point_program_plain, bit-equal there to the
+    interpreter) in each storage format.  crt.frag and zoom.comp round as
+    the CPU does; glass.comp's sinf and cosf differ from the CPU's by an
+    ulp and move its refracted samples with them, past 1e-4 at a few
+    pixels of a 4K frame (2e-4), so it is held, as the other storage
+    formats are, by the share of values past a step."""
+    from reforge_tpu_torch import benchmarks
+
+    h, w = hw
+    prog = benchmarks.build_program(f"input -> s -> output\ns: {shader} {{}}\n", w, h, fmt,
+                                    device="cuda", shader_path=benchmarks.SHADER_DIR)
+    assert prog._strip_plan[0] == "mc"
+    mc = prog._strip_plan[1]
+    geo = mc.geometry(*mc.tile()[:2])
+    assert int(geo[9]) & 8 and int(geo[4]) == 0  # the gather form, no input block
+    x = _image((4, h, w), 17)
+    if fmt == "rgba8":
+        x = torch.round(x * 255.0) / 255.0
+    x = x.to(prog.storage_dtype)
+    before = cuda_ops.LAUNCHES["graph_strip_mc"]
+    got = prog._forward(x, 0.5)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == before + 1
+    want = cuda_ops.graph_strip_mc_plain(x.cpu(), 0.5, mc)
+    d = (got.float().cpu() - want.float()).abs()
+    if fmt == "rgba32f" and shader != "glass":
+        assert float(d.max()) <= 1e-6
+    else:
+        step = {"rgba32f": 1e-4, "rgba16f": 2e-2, "rgba8": 1.0 / 255.0 + 1e-6}[fmt]
+        assert float((d > step).float().mean()) <= 1e-3, float(d.max())
+
+
+def test_crt_tv_runs_two_launches_a_frame_written_in_place():
+    """examples/crt_tv.rf at 4K: [seg mc: fade, soften] [seg mc: crt], so
+    a stacked chunk of 8 is 16 graph_strip_mc launches and nothing else on
+    the card (no copy: each frame in its slice), crt counted as an op
+    list's run; the frames against per node (crt.frag in the
+    interpreter)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from reforge_tpu_torch import benchmarks
+    from reforge_tpu_torch.graph import program
+
+    config = (benchmarks.EXAMPLES_DIR / "crt_tv.rf").read_text()
+    prog = benchmarks.build_program(config, 3840, 2160, device="cuda",
+                                    shader_path=benchmarks.SHADER_DIR)
+    assert benchmarks.plan_steps(prog) == [("seg mc", ["fade", "soften"]), ("seg mc", ["crt"])]
+    x = _image((4, 2160, 3840), 19)
+    prog.render_sequence(x, 0.5, 1 / 30, 8, stack=True)
+    torch.cuda.synchronize()
+    frames0, runs0 = dict(program.SEQUENCE_FRAMES), dict(program.GLSL_GATHER_RUNS)
+    launches = cuda_ops.LAUNCHES["graph_strip_mc"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = prog.render_sequence(x, 0.5, 1 / 30, 8, stack=True)
+        torch.cuda.synchronize()
+    assert program.SEQUENCE_FRAMES == {"in_place": frames0["in_place"] + 8,
+                                       "copied": frames0["copied"]}
+    assert program.GLSL_GATHER_RUNS == {"op_list": runs0["op_list"] + 8,
+                                        "interpreter": runs0["interpreter"]}
+    device = [ev.name for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False) and not ev.name.startswith("rf.")]
+    assert cuda_ops.LAUNCHES["graph_strip_mc"] == launches + 16
+    assert device and all("graph_strip_mc_kernel" in n for n in device), device
+    per_node, _ms = prog.run_per_node(x, 0.5 + 3 / 30)
+    d = (got[3] - per_node).abs()
+    assert float((d > 1e-5).float().mean()) <= 1e-3, float(d.max())

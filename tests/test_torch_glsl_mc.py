@@ -47,9 +47,10 @@ SHADERS = sorted(glob.glob(os.path.join(SHADER_DIR, "*")) +
 # The shipped shaders that must lower, and the refusals pinned with the
 # word their reason holds.
 MUST_LOWER = {"invert", "sepia", "tonemap", "blend", "vignette", "passthrough", "mandelbrot",
-              "iterate", "bits", "hash", "composite3", "wide"}
-REFUSED = {"crt": "gather", "histogram": "atomics", "kuwahara": "halo",
-           "gamma_curve": "storage buffers", "gaussian_h": "halo"}
+              "iterate", "bits", "hash", "composite3", "wide", "crt", "zoom", "glass"}
+REFUSED = {"histogram": "atomics", "kuwahara": "per-lane array indexing",
+           "gamma_curve": "storage buffers", "gaussian_h": "halo",
+           "flow_field": "a gather inside a loop region", "ink_drip": "scatter"}
 
 # The op set beyond the shipped shaders: the frame time, uint arithmetic
 # that wraps, int division and remainder, casts, a per-pixel branch, a

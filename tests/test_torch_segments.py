@@ -78,11 +78,13 @@ SEGMENT_GRAPHS = {
     "heads_tails": (HEADS_TAILS, None,
                     [("seg mc", ["tm", "gs"]), ("node", ["px"]), ("seg mc", ["edge", "tm2"])]),
     "lone_stencil": (LONE_STENCIL, None, [("seg mc", ["edge"]), ("node", ["px"])]),
+    # shaders/pixelate.comp gathers the image before it: a segment of its
+    # own, its op list's gather of the segment's input
     "glsl_chain": (GLSL_CHAIN_PX, SHADER_DIR,
-                   [("seg mc", ["gh", "gv", "tm"]), ("node", ["px"])]),
+                   [("seg mc", ["gh", "gv", "tm"]), ("seg mc", ["px"])]),
     "glsl_sharpen": (GLSL_SHARPEN_PX, SHADER_DIR,
-                     [("seg mc", ["sh", "tm"]), ("node", ["px"])]),
-    "lone_glsl_conv": (LONE_GLSL_CONV, SHADER_DIR, [("seg mc", ["gv"]), ("node", ["px"])]),
+                     [("seg mc", ["sh", "tm"]), ("seg mc", ["px"])]),
+    "lone_glsl_conv": (LONE_GLSL_CONV, SHADER_DIR, [("seg mc", ["gv"]), ("seg mc", ["px"])]),
     "py_head": (PY_GRAPH, "py", [("node", ["dbl"]), ("seg mc", ["gs", "edge", "tone"])]),
 }
 
@@ -151,7 +153,9 @@ def _input(fmt, seed=5):
 def test_segment_plan_structure(name, kernel_dirs):
     """Plan structure: the blocker per node, the ranges around it as
     segments whose children plan the single or mc tier, a lone stencil or
-    GLSL node as its own segment; the child reads the resource before it."""
+    GLSL node as its own segment (pixelate.comp too, whose gather of an
+    image the range before it writes keeps it out of that range's launch);
+    the child reads the resource before it."""
     prog, _ = _programs(name, "rgba32f", kernel_dirs)
     assert prog._plan_strip_single() is None and prog._plan_strip_mc() is None
     assert plan_steps(prog) == SEGMENT_GRAPHS[name][2]
