@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU.
+"""Parity check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,7 +41,7 @@ after (eleven main paths, A-K):
      expose_meter's summed luma against float64, card against CPU;
   G. live reload: config and shader edits, keep-last-good on bad ones,
      inline and with async_compile (whose build puts nothing on the card),
-     resize, the preview downscale, and the reload-to-frame latency of
+     resize, the preview downscale, and the adoption of
      four edits (one of them tonemap.comp in glsl-chain: translation,
      reflection and the op list's lowering), warm and cold, with the
      program cache's hits and the
@@ -56,9 +56,8 @@ after (eleven main paths, A-K):
   I. the segments tier and a ``.py`` kernel: every graph the planner
      gives a segments plan at 4K (the shipped examples' plans printed),
      and a .py kernel at the head of gaussian -> sobel -> tonemap, in
-     rgba32f and rgba16f, against per node, timed against per node, with
-     launches, sequenced fps and the device busy share; the .py kernel in
-     single-shader mode through ``cli.main``;
+     rgba32f and rgba16f, against per node, with the launches of a frame;
+     the .py kernel in single-shader mode through ``cli.main``;
   J. GLSL point shaders and zero-border GLSL convs on the mc tier: the
      graphs of ``benchmarks.point_graphs()`` (glsl-chain, glsl-sharpen,
      tonemap.comp before sharpen.comp (its op list on an odd word),
@@ -69,11 +68,10 @@ after (eleven main paths, A-K):
      halo recompute, and that of the demo, neon edges and bloom_glow's
      builtin form), the kernel
      against its plain version, each frame through Engine against the
-     same program per node, then ms a frame on the mc tier against the
-     segments plan without GLSL point stages (and per node), the kernel
-     alone against its bound, and the device's busy share.  bloom_glow
-     and the op probe run per node (the tier rule against halo
-     recompute); their refused mc plans are checked and timed;
+     same program per node, and an op-count sweep of point shaders of 10
+     to 160 ops after a gaussian, each kernel against its plain version.
+     bloom_glow and the op probe run per node (the tier rule against
+     halo recompute); their refused mc plans are checked;
   K. parallel/: graph_strip and graph_strip_mc on a slab extended by the
      plan's halo with a global row offset, against their plain versions;
      HaloShardedProgram on 4 slabs of cuda:0 (the flagship on the single
@@ -82,16 +80,15 @@ after (eleven main paths, A-K):
      r300 on 8 slabs, a radius past a slab) in three formats against the
      unsharded program; PipelineStagedProgram's render_stream and a
      BatchProgram of 8 frames; ``python -m reforge_tpu_torch --shard 1``
-     and ``--shard 4``; on distinct cards where there are two or more;
-     ms a frame unsharded against 4 slabs, and the exchange alone.
+     and ``--shard 4``; on distinct cards where there are two or more.
 
 Paths A-D use an empty shader path, so the builtins they measure are not
 replaced by the shipped shaders of the same names.  ``stencil_apply_mc``
 has no caller in either package: only the kernel checks launch it.
 
-It checks the outputs, prints fps, latency, a device-time profile and
-each kernel's time beside its plain version, its bound and a library
-call, all beside the card's name and power limit.  The line before the
+It checks the outputs and prints the launches, all beside the card's
+name and power limit; it times nothing (``perfbench/`` measures the
+port's performance).  The line before the
 last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without printing a result; so does a machine without CUDA.
@@ -103,7 +100,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -112,18 +108,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 WIDTH, HEIGHT = 3840, 2160
 SEED = 0
-# H100 SXM published peaks (NVIDIA's data sheet): device memory and
-# float32 outside the tensor cores (an FMA counts two operations).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 instructions an SM issues a clock (four schedulers of 32 lanes): the
-# issue-slot rate of the conv1d and mc rows is this times the SMs and the
-# highest SM clock.
-F32_LANES_PER_SM = 128
 
 def _f32_tol(plans) -> float:
     # Kernel (one FMA per tap) and plain version (a multiply then an add
@@ -194,209 +181,6 @@ def _check_fmt(name: str, fmt: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the bytes over the memory rate
-    and the operations over the f32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _issue_bound(nbytes: float, instructions: float, n_sms: int,
-                 max_sm_mhz: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the bytes over the memory rate
-    and the f32 instructions (a rounded multiply, a rounded add, an FMA:
-    one each) over the issue rate, F32_LANES_PER_SM a clock on each SM at
-    the highest SM clock."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = instructions / (F32_LANES_PER_SM * n_sms * max_sm_mhz * 1e6) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _conv1d_instructions(w: np.ndarray, n_out: int) -> int:
-    """f32 instructions a 1-D pass with tap vector ``w`` needs for
-    ``n_out`` outputs under the rounding contract (each product rounded,
-    then each sum, in ascending tap order).  Where the nonzero taps are
-    all equal (a box), an input's rounded product is the same in every
-    output that reads it: one multiply an input and one add a tap and
-    output give the same bits.  Otherwise a multiply and an add a tap and
-    output."""
-    nz = w[w != 0]
-    if len(nz) and bool(np.all(nz == nz[0])):
-        return (len(nz) + 1) * n_out
-    return 2 * len(nz) * n_out
-
-
-def _expf_sass_count() -> int:
-    """SASS instructions an expf (the full-precision one, as the kernels
-    build it) costs where it is evaluated again and again, as in a tap
-    loop: two one-line kernels compiled for sm_90a and read back with
-    cuobjdump -sass, y = expf(a) + b and y = expf(a) + expf(b) (each sum
-    rounded alone), and their difference, NOPs not counted.  The second
-    expf reuses the first one's constants, which a loop keeps in
-    registers."""
-    from reforge_tpu_torch.kernels import cuda_ops
-
-    nvcc = cuda_ops._nvcc()
-    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    body = ("(const float* x, float* y) {{ const float a = x[threadIdx.x], "
-            "b = x[threadIdx.x + 32]; y[threadIdx.x] = __fadd_rn(expf(a), {}); }}\n")
-    src = ('extern "C" __global__ void rf_probe_one' + body.format("b")
-           + 'extern "C" __global__ void rf_probe_two' + body.format("expf(b)"))
-    with tempfile.TemporaryDirectory(prefix="rf_expf_probe_") as d:
-        cu, cubin = Path(d) / "probe.cu", Path(d) / "probe.cubin"
-        cu.write_text(src)
-        subprocess.run([nvcc, *cuda_ops.ARCH_FLAGS, "-O3", "-cubin", "-o", str(cubin), str(cu)],
-                       check=True, capture_output=True)
-        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
-                              text=True).stdout
-    counts: dict[str, int] = {}
-    fn = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split(":", 1)[1].strip()
-            counts[fn] = 0
-        elif fn and line.strip().startswith("/*") and "*/" in line:
-            text = line.split("*/", 1)[1].strip()
-            if text and not text.startswith("/*") and not text.startswith("NOP"):
-                counts[fn] += 1
-    return counts["rf_probe_two"] - counts["rf_probe_one"]
-
-
-def _reduce_bound(n_pixels: int, n_taps: int, expf_sass: int, n_sms: int,
-                  max_sm_mhz: float) -> tuple[float, str, str]:
-    """(ms, what bounds it, its terms) of bilateral's reduction in issue
-    slots (``_issue_bound``): four f32 planes read and three written;
-    per tap and pixel, the range weight -- a difference, a square, a
-    scale, expf at its SASS count, the spatial weight -- then three
-    products and four sums, and three divisions a pixel.  The range weight
-    of tap o at pixel p equals that of tap -o at pixel p + o (the
-    difference changes sign only, the spatial weight is symmetric), so the
-    least work counts it once a pair, (n_taps + 1) / 2 times a pixel with
-    the centre: that count is the bound; the terms show both."""
-    weight = 4 + expf_sass
-    full = n_pixels * (n_taps * (weight + 7) + 3)
-    paired = n_pixels * (n_taps * 7 + (n_taps + 1) // 2 * weight + 3)
-    nbytes = 7 * 4 * n_pixels
-    t_full = _issue_bound(nbytes, full, n_sms, max_sm_mhz)[0]
-    ms, by = _issue_bound(nbytes, paired, n_sms, max_sm_mhz)
-    terms = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; issue slots, expf "
-             f"{expf_sass} SASS: {weight + 7} a tap and pixel {t_full:.4f} ms, the range weight "
-             f"once a pair {paired / n_pixels / n_taps:.2f} a tap and pixel {ms:.4f} ms")
-    return ms, by, terms
-
-
-# f32 instructions of a graph_strip epilogue op on each channel it
-# changes, as the kernel rounds them (an FMA one, an IEEE division or a
-# square root one, min/max one each), and whether it changes only rgb.
-STRIP_EPILOGUE = {
-    "OP_COPY": (0, False), "OP_TAKE1": (0, False),
-    "OP_UNSHARP": (2, True),    # a - b, then an FMA
-    "OP_MIX": (2, False),       # b - a, then an FMA
-    "OP_ACES": (8, True),       # v = a p0, two FMAs and two products, a division, a clamp
-    "OP_REINHARD": (3, True),   # v = a p0, 1 + v, a division
-    "OP_VIGNETTE": (20, True),  # two coordinates, a distance, smoothstep, a fade
-    "OP_FADE_PLANE": (1, True),
-}
-
-
-def _strip_instructions(strip, cuda_ops, n_pixels: int) -> int:
-    """f32 instructions of a graph_strip program at n_pixels pixels: an FMA
-    a tap and channel of each conv's two passes, and the epilogue's ops
-    (STRIP_EPILOGUE; a channel op at 4 a channel)."""
-    taps = sum(len(a) + len(b) for a, b in strip.plans)
-    epilogue = 0
-    for op in strip.ops:
-        name = next((k for k in STRIP_EPILOGUE if getattr(cuda_ops, k) == op.code), None)
-        per, rgb = STRIP_EPILOGUE[name] if name else (4, True)
-        epilogue += per * (3 if rgb else 4)
-    return n_pixels * (4 * taps + epilogue)
-
-
-def _library_sep_conv(x: torch.Tensor, plans):
-    """One replicate pad and one depthwise F.conv2d per pass and plan (the
-    library yardstick of the conv kernels; TF32 is off)."""
-    c = x.shape[0]
-    weights = [
-        (torch.from_numpy(wh).to(x.device).view(1, 1, -1, 1).repeat(c, 1, 1, 1),
-         torch.from_numpy(ww).to(x.device).view(1, 1, 1, -1).repeat(c, 1, 1, 1),
-         (len(wh) - 1) // 2, (len(ww) - 1) // 2)
-        for wh, ww in plans
-    ]
-
-    def run():
-        xf = x.float()[None]
-        outs = []
-        for kh, kw, rh, rw in weights:
-            y = F.conv2d(F.pad(xf, (0, 0, rh, rh), mode="replicate"), kh, groups=c)
-            outs.append(F.conv2d(F.pad(y, (rw, rw, 0, 0), mode="replicate"), kw, groups=c)[0])
-        return outs
-
-    return run
-
-
-def _library_stencil(x: torch.Tensor, table: np.ndarray):
-    c = x.shape[0]
-    r = table.shape[0] // 2
-    k = torch.from_numpy(table).to(x.device).view(1, 1, *table.shape).repeat(c, 1, 1, 1)
-    return lambda: F.conv2d(F.pad(x[None], (r, r, r, r), mode="replicate"), k, groups=c)[0]
-
-
-def _library_conv1d(x: torch.Tensor, w: np.ndarray, along_h: bool):
-    """One replicate pad and one depthwise F.conv2d along one axis (TF32
-    off): the library yardstick of the 1-D kernels."""
-    c, r = x.shape[0], (len(w) - 1) // 2
-    shape = (1, 1, -1, 1) if along_h else (1, 1, 1, -1)
-    k = torch.from_numpy(w).to(x.device).view(*shape).repeat(c, 1, 1, 1)
-    pad = (0, 0, r, r) if along_h else (r, r, 0, 0)
-    return lambda: F.conv2d(F.pad(x[None], pad, mode="replicate"), k, groups=c)[0]
-
-
-def _mc_ops_per_pixel(prog, cuda_ops) -> float:
-    """f32 instructions per pixel (all channels) of an mc plan's stages at
-    the tile itself, halo recompute not counted: a conv FMA one, a wsum
-    term two (its rounded product and sum), each exchange of the median
-    network two (a min and a max), point ops by their arithmetic (a GLSL
-    op list one an op, an affine mix twelve)."""
-    point_ops = {cuda_ops.MC_COPY: 0, cuda_ops.MC_MIX: 12, cuda_ops.MC_ACES: 30,
-                 cuda_ops.MC_REINHARD: 9, cuda_ops.MC_VIGNETTE: 21, cuda_ops.MC_GRAYSCALE: 5,
-                 cuda_ops.MC_SATURATION: 14, cuda_ops.MC_THRESHOLD: 6,
-                 cuda_ops.MC_BLOOM_PRE: 14}
-    total = 0.0
-    for st in prog.stages:
-        if st.kind == cuda_ops.MC_CONV:
-            total += 4 * (len(st.taps[0]) + len(st.taps[1])) + 6
-        elif st.kind == cuda_ops.MC_STENCIL:
-            terms = sum(int(np.count_nonzero(t)) for t in st.taps)
-            if st.op.code == cuda_ops.MC_MEDIAN3:
-                total += 3 * 19 * 2
-            elif st.op.code == cuda_ops.MC_SOBEL:
-                total += 9 * 5 + 2 * terms + 4
-            else:
-                total += 3 * (2 * terms + 2)
-        elif st.op.code == cuda_ops.MC_GLSL:
-            total += int(st.taps[0][0])  # one instruction an op of the list, at the least
-        elif st.op.code == cuda_ops.MC_AFFINE:
-            total += 12
-        else:
-            total += point_ops.get(st.op.code, 0)
-    return total
-
-
 # Forms of the register-blocked kernels ptxas must compile with no stack
 # frame and no spills: graph_strip per storage type, channel-op form and
 # plan count (1..3), sep_conv_multi per input type, graph_strip_mc per
@@ -461,42 +245,6 @@ def _check_no_stack(log: str) -> None:
           f"{sorted(glsl.items())}")
 
 
-def _card_state() -> str:
-    """The card's SM clock, power draw, temperature and active clock
-    throttle reasons, as nvidia-smi reads them now (or what it says)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
-         "clocks_throttle_reasons.active", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    )
-    return (out.stdout or out.stderr).strip().replace("\n", " | ")
-
-
-def _profile(fn, frames: int) -> tuple[list, float]:
-    """[(kernel name, device ms per frame)] by device time, and the busy
-    share of the window (device kernel time over the synchronized wall
-    time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    rows = []
-    for evt in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's self device
-        # time repeats the time of the kernels it launched
-        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
-            rows.append((evt.key, evt.self_device_time_total / 1e3 / frames))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(ms for _, ms in rows) * frames / 1e3 / wall
-    return rows, busy
-
-
 # ---- paths F and G -------------------------------------------------------------
 
 # A shader that stores the luma expose_meter.comp reduces, lane for lane.
@@ -532,11 +280,6 @@ def _bump(path: str, text: str) -> None:
         os.utime(path, ns=(st.st_atime_ns, before + 1_000_000))
 
 
-def _stats(xs: list) -> str:
-    return (f"p50 {statistics.median(xs):.2f} ms (min {min(xs):.2f}, max {max(xs):.2f}, "
-            f"n {len(xs)})")
-
-
 def path_f(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
     """Path F: storage buffers, atomics and lut1d.  The three buffer
     examples and the lut1d graph at 4K through Engine in rgba32f and rgba16f
@@ -570,9 +313,7 @@ def path_f(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
             info = dict(config_path=path, shader_path=shaders, fmt=fmt, has_input_image=True)
             engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", **info))
             engine.load_input(u8)
-            start = time.perf_counter()
             first = engine.render_frame_blocking(0.5)
-            first_ms = (time.perf_counter() - start) * 1e3
             again = engine.render_frame_blocking(0.5)
             if tuple(first.shape) != big or not bool(torch.isfinite(first.float()).all()):
                 raise AssertionError(f"F {graph} {fmt}: bad shape or non-finite values")
@@ -587,9 +328,6 @@ def path_f(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
             if not np.array_equal(shot.render_one_shot(u8, 0.5), engine.read_output(first)):
                 raise AssertionError(f"F {graph} {fmt}: one-shot differs from the frame path")
             engine.close()
-            print(f"F {graph} {fmt} 4K: per node, two renders bit-identical, first frame "
-                  f"{first_ms:.2f} ms; per-node ms (host clock after sync): "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
     counts = dict(cuda_ops.LAUNCHES)
 
     # The meters' raw f32 outputs at 4K.
@@ -632,9 +370,6 @@ def path_f(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
           f"{HEIGHT}, both equal to the CPU's and bit-identical in two runs; expose_meter "
           f"peak exact, summed luma {float(stats[0][1]):.1f} against float64 {want_sum:.1f}: "
           f"card {rel:.3g} relative (<= {METER_SUM_RTOL:g}), the CPU's lane order {cpu_rel:.3g}")
-    for stem, out in (("histogram", "Bins"), ("expose_meter", "Expo"),
-                      ("waveform", "output_image")):
-        print(f"F {stem} alone 4K: {_time_ms(lambda: run(stem, out), 5):.3f} ms [{smi}]")
 
     # Card against the port's CPU path at 512x288.
     small = torch.from_numpy(np.random.default_rng(SEED).random((4, 288, 512), dtype=np.float32))
@@ -669,8 +404,7 @@ def path_g(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
     with async_compile (check_build_alone, at the end of the run, shows
     its build alone puts nothing on the card); resize
     without an input image; read_output_scaled against a host box filter;
-    then the reload-to-frame latency (reload_latency, in a child
-    process).  Returns the launch counts."""
+    then rounds of edits (reload_edits).  Returns the launch counts."""
     from reforge_tpu_torch import utils
     from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG, GLSL_GRAPHS, SHADER_DIR
     from reforge_tpu_torch.engine import Engine, RenderInfo
@@ -773,30 +507,18 @@ def path_g(dev, u8: np.ndarray, tmp: str, smi: str) -> dict:
     codes = int(np.abs(small.astype(np.int16) - eng.read_output(cells).astype(np.int16)).max())
     if small.shape != (540, 960, 4) or codes > 1:
         raise AssertionError(f"G read_output_scaled: {small.shape}, {codes} codes off")
-    full_ms = _time_ms(lambda: eng.read_output(out), 5)
-    scaled_ms = _time_ms(lambda: eng.read_output_scaled(out, 960), 5)
     eng.close()
     print(f"check G resize 4K -> 1920x1080 inline and async; read_output_scaled 960 px: "
-          f"(540, 960, 4), {codes} codes from a float64 host box filter; read_output "
-          f"{full_ms:.2f} ms, read_output_scaled {scaled_ms:.2f} ms [{smi}]")
-
-    # Reload-to-frame latency, in a fresh process as the reference's
-    # benchmarks/reload_latency.py runs: in this one, after the other
-    # paths, the same edits read 25-60% slower on an H100 80GB HBM3
-    # machine (host time of the build).
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--reload-latency", smi],
-                   check=True, timeout=900)
+          f"(540, 960, 4), {codes} codes from a float64 host box filter [{smi}]")
+    reload_edits()
     return dict(cuda_ops.LAUNCHES)
 
 
-def reload_latency(smi: str) -> None:
-    """Path G's reload-to-frame latency (``chip_smoke.py --reload-latency``,
-    a fresh process): from writing an edit to the first frame of the new
-    program, with async_compile at 4K, for a flagship parameter, glsl-blur's
-    gaussian_h.comp source, glsl-chain's tonemap.comp source (an op-list
-    point stage) and the auto_expose graph; 8 cold edits (texts
-    new to the process) and the same 8 again warm; p50s against the
-    reference's 100 ms target."""
+def reload_edits() -> None:
+    """Path G's edits with async_compile at 4K, for a flagship parameter,
+    glsl-blur's gaussian_h.comp source, glsl-chain's tonemap.comp source
+    (an op-list point stage) and the auto_expose graph; 8 cold edits and
+    the same 8 again warm, which must hit the program cache."""
     from reforge_tpu_torch.benchmarks import (
         FLAGSHIP_CONFIG, GLSL_GRAPHS, SHADER_DIR, example_config,
     )
@@ -830,7 +552,6 @@ def reload_latency(smi: str) -> None:
                                                        f"target: {0.90 + 0.01 * k:.2f}")
                                    for k in range(8)]),
         }
-        warm = {}
         for name, (cfg, text, shader_path, target, texts) in edits.items():
             with open(cfg, "w") as f:
                 f.write(text)
@@ -839,29 +560,20 @@ def reload_latency(smi: str) -> None:
                                     async_compile=True))
             eng.load_input(u8)
             eng.render_frame_blocking(0.5)
-            runs = {"cold": [], "warm": []}
             cache = {"cold": [], "warm": []}  # (program cache hit, nodes shape-checked)
-            polls, adopts = [], []
             for phase in ("cold", "warm"):
                 for t in texts:
                     _bump(target, t)
                     t0 = time.perf_counter()
                     swapped = eng.trigger_reloads()
-                    polls.append((time.perf_counter() - t0) * 1e3)
                     while not swapped:
                         if time.perf_counter() - t0 > 120.0:
                             raise AssertionError(f"G {name}: an edit was never adopted")
                         time.sleep(0.0005)
                         swapped = eng.trigger_reloads()
-                    adopts.append((time.perf_counter() - t0) * 1e3)
                     eng.render_frame_blocking(0.5)
-                    runs[phase].append((time.perf_counter() - t0) * 1e3)
                     cache[phase].append((eng.program.from_cache, eng.program.nodes_checked))
             eng.close()
-            warm[name] = statistics.median(runs["warm"])
-            print(f"reload-to-frame 4K {name} (async_compile, fresh process): warm "
-                  f"{_stats(runs['warm'])}; cold {_stats(runs['cold'])}; adopted "
-                  f"{_stats(adopts)}; poll {_stats(polls)} [{smi}]", flush=True)
             for phase, seen in cache.items():
                 print(f"reload {name} {phase}: program cache hits {sum(h for h, _ in seen)} of "
                       f"{len(seen)}; nodes shape-checked per edit {[n for _, n in seen]}",
@@ -869,13 +581,10 @@ def reload_latency(smi: str) -> None:
             # Every warm edit revisits a text of the cold round.
             if not all(hit for hit, _ in cache["warm"]):
                 raise AssertionError(f"G {name}: a warm edit missed the program cache")
-    print("reload-to-frame warm p50 against the reference's 100 ms target: "
-          + ", ".join(f"{k} {v:.2f} ms ({'meets' if v < 100.0 else 'misses'})"
-                      for k, v in warm.items()), flush=True)
 
 
 def check_build_alone(u8: np.ndarray, tmp: str, smi: str) -> None:
-    """Path G's last check, run after every timing and profile (a
+    """Path G's last check, run after every other path (a
     profiler session can change what later ones see): an async_compile
     build with no frame shows no device event under torch.profiler, and
     a frame after it does."""
@@ -916,9 +625,9 @@ def check_build_alone(u8: np.ndarray, tmp: str, smi: str) -> None:
           f"{len(frame_events)} kinds of device event) [{smi}]")
 
 
-def _cli(argv: list, stdout=None) -> tuple[float, str]:
+def _cli(argv: list, stdout=None) -> str:
     """``cli.main(argv)`` with its standard error captured (and its
-    standard output sent to ``stdout`` when given): (wall ms, stderr).
+    standard output sent to ``stdout`` when given): its stderr.
     Fails on a non-zero return."""
     import contextlib
     import io as _io
@@ -927,13 +636,11 @@ def _cli(argv: list, stdout=None) -> tuple[float, str]:
 
     err = _io.StringIO()
     out = stdout if stdout is not None else _io.StringIO()
-    start = time.perf_counter()
     with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
         rc = cli.main(argv)
-    ms = (time.perf_counter() - start) * 1e3
     if rc != 0:
         raise AssertionError(f"H: cli.main({argv}) returned {rc}:\n{err.getvalue()[-2000:]}")
-    return ms, err.getvalue()
+    return err.getvalue()
 
 
 def _read_png(path: str) -> np.ndarray:
@@ -950,8 +657,8 @@ def path_h(tmp: str, smi: str) -> dict:
     the port's encoder, rendered headless with the flagship in rgba32f and
     rgba16f (one-shot per node: the conv bundle through
     sep_conv_fused_multi, sep_conv_fused_mxu in rgba16f), the file equal
-    bit for bit to ``render_one_shot`` of the same pixels; decode, render
-    and encode timed apart.  (2) A 1920x1080 input with ``--width 3840``:
+    bit for bit to ``render_one_shot`` of the same pixels.  (2) A
+    1920x1080 input with ``--width 3840``:
     a 3840x2160 output through the Lanczos resize.  (3) At 512x288 the
     card's file within one code of ``--backend cpu``'s, flagship and demo.
     (4) The live loop on the demo at 4K, 120 frames with no preview
@@ -971,7 +678,6 @@ def path_h(tmp: str, smi: str) -> dict:
         ImageFileDecoder, VideoFrames, encode, native_backend_available, native_backend_reason,
     )
     from reforge_tpu_torch.io.png import HEADER_BYTES, read_header
-    from reforge_tpu_torch.io.resize import resize_lanczos
     from reforge_tpu_torch.kernels import cuda_ops
 
     hdir = os.path.join(tmp, "h")
@@ -987,9 +693,8 @@ def path_h(tmp: str, smi: str) -> dict:
     def write_png(name, h, w):
         u8 = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
         path = os.path.join(hdir, name)
-        start = time.perf_counter()
         encode(path, u8)
-        return path, u8, (time.perf_counter() - start) * 1e3
+        return path, u8
 
     def args(graph, inp, *rest):
         return ["-i", inp, "--config", configs[graph], "--shader-path", empty, *rest]
@@ -1013,57 +718,37 @@ def path_h(tmp: str, smi: str) -> dict:
         print(f"H {what} launches: {json.dumps(launched)}")
 
     # (1) headless flagship at 4K.
-    in4k, u8_4k, enc_in_ms = write_png("in_4k.png", HEIGHT, WIDTH)
-    dec = ImageFileDecoder(in4k)
-    start = time.perf_counter()
-    decoded = dec.decode(WIDTH, HEIGHT)
-    dec_ms = (time.perf_counter() - start) * 1e3
-    if not np.array_equal(decoded, u8_4k):
+    in4k, u8_4k = write_png("in_4k.png", HEIGHT, WIDTH)
+    if not np.array_equal(ImageFileDecoder(in4k).decode(WIDTH, HEIGHT), u8_4k):
         raise AssertionError("H: the 4K PNG does not decode to its pixels")
     cuda_ops.reset_launches()
     for fmt, entry in (("rgba32f", "sep_conv_fused_multi"), ("rgba16f", "sep_conv_fused_mxu")):
         out = os.path.join(hdir, f"out_4k_{fmt}.png")
-        cli_ms, _ = _cli(args("flagship", in4k, "-o", out, "--shader-format", fmt))
+        _cli(args("flagship", in4k, "-o", out, "--shader-format", fmt))
         take(f"(1) one-shot flagship {fmt} 4K", [entry])
         got = _read_png(out)
         engine = Engine(RenderInfo(WIDTH, HEIGHT, "cuda", config_path=configs["flagship"],
                                    shader_path=empty, fmt=fmt, has_input_image=True,
                                    one_shot=True))
-        engine.render_one_shot(u8_4k, 0.0)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
         want = engine.render_one_shot(u8_4k, 0.0)
-        render_ms = (time.perf_counter() - start) * 1e3
         engine.close()
         cuda_ops.reset_launches()
         if not np.array_equal(got, want):
             raise AssertionError(f"H (1) flagship {fmt}: the CLI's file differs from "
                                  f"render_one_shot ({int((got != want).sum())} values)")
-        start = time.perf_counter()
-        encode(os.path.join(hdir, "again.png"), want)
-        out_ms = (time.perf_counter() - start) * 1e3
-        print(f"H (1) flagship {fmt} 3840x2160 PNG -> PNG through cli.main: {cli_ms:.1f} ms "
-              f"wall; decode {dec_ms:.1f} ms, render_one_shot {render_ms:.2f} "
-              f"ms (warm), encode (zlib level 9) {out_ms:.1f} ms; file equal to render_one_shot "
-              f"bit for bit; writing the input took {enc_in_ms:.1f} ms [{smi}]")
 
     # (2) resize: 1920x1080 in, --width 3840.
-    in1080, u8_1080, _ = write_png("in_1080.png", 1080, 1920)
+    in1080, _ = write_png("in_1080.png", 1080, 1920)
     out = os.path.join(hdir, "out_resized.png")
-    cli_ms, _ = _cli(args("flagship", in1080, "-o", out, "--width", "3840"))
+    _cli(args("flagship", in1080, "-o", out, "--width", "3840"))
     take("(2) one-shot flagship with --width 3840", ["sep_conv_fused_multi"])
     with open(out, "rb") as f:
         head = read_header(f.read(HEADER_BYTES), out)
     if (head.width, head.height) != (WIDTH, HEIGHT):
         raise AssertionError(f"H (2): output {head.width}x{head.height}, expected 3840x2160")
-    start = time.perf_counter()
-    resize_lanczos(u8_1080, WIDTH, HEIGHT)
-    lanczos_ms = (time.perf_counter() - start) * 1e3
-    print(f"H (2) 1920x1080 -> 3840x2160 (get_dim from --width 3840): Lanczos {lanczos_ms:.1f} "
-          f"ms on the host; cli.main {cli_ms:.1f} ms wall [{smi}]")
 
     # (3) card against CPU at 512x288, rgba32f.
-    in_small, _, _ = write_png("in_512.png", 288, 512)
+    in_small, _ = write_png("in_512.png", 288, 512)
     for graph in ("flagship", "demo"):
         card, cpu = (os.path.join(hdir, f"{graph}_{d}.png") for d in ("card", "cpu"))
         _cli(args(graph, in_small, "-o", card))
@@ -1075,37 +760,27 @@ def path_h(tmp: str, smi: str) -> dict:
 
     # (4) the live loop on the demo at 4K.
     frames = 120
-    cli_ms, err = _cli(args("demo", in4k, "--preview", "none", "--frames", str(frames)))
+    err = _cli(args("demo", in4k, "--preview", "none", "--frames", str(frames)))
     take(f"(4) live loop demo 4K, {frames} frames", exactly={"graph_strip_mc": frames})
     frame_ms = [float(v) for v in re.findall(r"Frame:\s*([0-9.]+)ms", err)]
     if len(frame_ms) != frames:
         raise AssertionError(f"H (4): {len(frame_ms)} status lines for {frames} frames")
-    steady = frame_ms[20:]
-    print(f"H (4) live loop demo rgba32f 4K, preview none: frame average {statistics.mean(steady):.3f} "
-          f"ms over frames 20-{frames} (p50 {statistics.median(steady):.3f}, max "
-          f"{max(steady):.3f}; host clock between frames, 2 in flight); cli.main "
-          f"{cli_ms:.1f} ms wall [{smi}]")
     kitty = os.path.join(hdir, "kitty.out")
     with open(kitty, "w") as f:
-        cli_ms, err = _cli(args("demo", in4k, "--preview", "kitty", "--frames", "10"), stdout=f)
+        _cli(args("demo", in4k, "--preview", "kitty", "--frames", "10"), stdout=f)
     take("(4) live loop demo 4K, kitty preview, 10 frames", exactly={"graph_strip_mc": 10})
     payload = Path(kitty).read_text()
     shown = re.findall(r"\x1b_Ga=T,f=32,s=(\d+),v=(\d+),o=z", payload)
     if len(shown) != 10 or set(shown) != {("960", "540")}:
         raise AssertionError(f"H (4) kitty: {len(shown)} images of sizes {set(shown)}")
-    frame_ms = [float(v) for v in re.findall(r"Frame:\s*([0-9.]+)ms", err)]
-    print(f"H (4) live loop demo 4K, kitty preview (read_output_scaled to 960x540, zlib "
-          f"payload, {len(payload) / 1e6:.1f} MB for 10 frames): frame average "
-          f"{statistics.mean(frame_ms[2:]):.3f} ms over frames 2-10 [{smi}]")
 
     # (5) batch over a directory of four 1920x1080 PNGs.
     bdir, bout = os.path.join(hdir, "batch"), os.path.join(hdir, "batch_out")
     os.makedirs(bdir)
     batch = []
     for i in range(4):
-        path, u8, _ = write_png(f"batch/f{i}.png", 1080, 1920)
-        batch.append(u8)
-    cli_ms, _ = _cli(args("flagship", bdir, "-o", bout))
+        batch.append(write_png(f"batch/f{i}.png", 1080, 1920)[1])
+    _cli(args("flagship", bdir, "-o", bout))
     take("(5) batch flagship 4 x 1920x1080", exactly={"graph_strip": 4})
     engine = Engine(RenderInfo(1920, 1080, "cuda", config_path=configs["flagship"],
                                shader_path=empty, has_input_image=True))
@@ -1122,24 +797,20 @@ def path_h(tmp: str, smi: str) -> dict:
     _check("H (5) batch f2 (strip tier) vs the one-shot CLI (per node), u8 codes",
            float(d.max()), 1.0)
     cuda_ops.reset_launches()  # the checks' own launches
-    print(f"H (5) batch of 4 1920x1080 PNGs (flagship, graph_strip): cli.main {cli_ms:.1f} ms "
-          f"wall; every file equal to read_output(program(x, 0)) [{smi}]")
 
     # (6) video, where the libav extension builds.
     if native_backend_available():
         anim, trans = os.path.join(hdir, "anim.mp4"), os.path.join(hdir, "trans.mp4")
-        anim_ms, _ = _cli(args("flagship", in1080, "-o", anim, "--duration", "1", "--fps", "24"))
+        _cli(args("flagship", in1080, "-o", anim, "--duration", "1", "--fps", "24"))
         take("(6) animated export flagship 1920x1080, 24 frames", exactly={"graph_strip": 24})
         n = sum(1 for _ in VideoFrames(ImageFileDecoder(anim), 1920, 1080))
         if n != 24:
             raise AssertionError(f"H (6): the animated export holds {n} frames, not 24")
-        trans_ms, _ = _cli(args("flagship", anim, "-o", trans))
+        _cli(args("flagship", anim, "-o", trans))
         take("(6) transcode of it", exactly={"graph_strip": 24})
         n = sum(1 for _ in VideoFrames(ImageFileDecoder(trans), 1920, 1080))
         if n != 24:
             raise AssertionError(f"H (6): the transcode holds {n} frames, not 24")
-        print(f"H (6) animated export 1920x1080 24 frames: {anim_ms:.1f} ms wall; transcode "
-              f"of it: {trans_ms:.1f} ms wall; 24 frames each [{smi}]")
     else:
         print(f"H (6) video: not run, the libav extension is not built on this machine: "
               f"{native_backend_reason()}")
@@ -1191,7 +862,7 @@ def path_i(u8: np.ndarray, tmp: str, smi: str) -> dict:
     per node (the same program's ``_forward_layers``), the launches of a
     frame by kernel (one strip kernel for each segment); a .py kernel in
     single-shader mode through ``cli.main`` against ``--backend cpu``.
-    Returns the launch counts; ``time_path_i`` times the same programs."""
+    Returns the launch counts."""
     from reforge_tpu_torch.benchmarks import (
         CHAIN3_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, GLSL_GRAPHS, LIBRARY_GRAPHS,
         SHADER_DIR, STYLIZED_GRAPHS, build_program, example_config, plan_steps,
@@ -1225,7 +896,6 @@ def path_i(u8: np.ndarray, tmp: str, smi: str) -> dict:
     print(f"I segment graphs (from the planner) and the .py graph: {sorted(graphs)}")
 
     cuda_ops.reset_launches()
-    driven = {}
     for name, (text, shader_path) in graphs.items():
         for fmt in ("rgba32f", "rgba16f"):
             cfg = os.path.join(idir, f"{name.replace('/', '_')}_{fmt}.rf")
@@ -1262,7 +932,7 @@ def path_i(u8: np.ndarray, tmp: str, smi: str) -> dict:
                    1e-5 if fmt == "rgba32f" else 2e-2)
             print(f"I {name} {fmt} 4K: steps {steps}; launches a frame {json.dumps(per_frame)} "
                   f"[{smi}]")
-            driven[(name, fmt)] = (engine, prog, x)
+            engine.close()
             del frame, seq, per_node
     counts = dict(cuda_ops.LAUNCHES)
 
@@ -1280,50 +950,7 @@ def path_i(u8: np.ndarray, tmp: str, smi: str) -> dict:
     codes = int(np.abs(card - cpu).max())
     _check("I dbl.py single-shader mode, cli.main on the card vs --backend cpu 512x288 (u8 codes)",
            codes, 1.0)
-    return counts, driven
-
-
-def time_path_i(driven: dict, smi: str) -> None:
-    """Path I's timings, after every other path's: ms a frame on segments
-    and per node (CUDA events), and each segment's kernel against its nodes
-    per node on the frame input; sequenced fps (render_sequence, chunks of
-    24); a lone builtin stencil of each kind as a segment against its
-    per-node kernel; then the device busy share of each graph on segments
-    (torch.profiler)."""
-    from reforge_tpu_torch.benchmarks import bench_program_sequenced, build_program
-
-    def segment_ms(prog, x):
-        """[(node names, kernel ms, per-node ms)] of each segment."""
-        x = x.to(prog.storage_dtype)
-        return [([n.name for n in step[4]],
-                 _time_ms(lambda c=step[1]: c._strip_fused_forward(x, 0.5), 20),
-                 _time_ms(lambda c=step[1]: c._forward_nostrip(x, 0.5), 20))
-                for step in prog._strip_plan[1] if step[0] == "seg"]
-
-    for (name, fmt), (_engine, prog, x) in driven.items():
-        seg_ms = _time_ms(lambda: prog._forward(x, 0.5), 10)
-        pn_ms = _time_ms(lambda: prog._forward_nostrip(x, 0.5), 5)
-        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-        parts = "; ".join(f"{nodes} {k:.3f} vs {p:.3f}" for nodes, k, p in segment_ms(prog, x))
-        print(f"I {name} {fmt} 4K: segments {seg_ms:.3f} ms a frame, per node {pn_ms:.3f} "
-              f"({'segments' if seg_ms < pn_ms else 'per node'} faster, "
-              f"{pn_ms / seg_ms:.2f}x); each segment's kernel vs its nodes per node (ms): "
-              f"{parts}; sequenced {seq['ms_per_frame']:.3f} ms a frame "
-              f"({seq['fps']:.2f} fps) [{smi}]", flush=True)
-    x = next(iter(driven.values()))[2]
-    for fmt in ("rgba32f", "rgba16f"):
-        for stencil in ("median3", "sobel", "sharpen", "emboss"):
-            config = f"input -> s -> px -> output\ns: {stencil} {{}}\npx: pixelate {{ size: 4 }}\n"
-            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda")
-            [(_nodes, k_ms, p_ms)] = segment_ms(prog, x)
-            print(f"I lone {stencil} {fmt} 4K: mc segment {k_ms:.3f} ms, per node {p_ms:.3f} "
-                  f"[{smi}]", flush=True)
-    for (name, fmt), (engine, prog, x) in driven.items():
-        rows, busy = _profile(lambda: prog._forward(x, 0.5), 6)
-        engine.close()
-        top = "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in rows[:5])
-        print(f"profile I {name} {fmt} segments: device busy {busy:.1%}; device ms a frame "
-              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]", flush=True)
+    return counts
 
 
 # ---- path J ---------------------------------------------------------------------
@@ -1480,7 +1107,7 @@ def _mc_of(prog):
     return plan[1]
 
 
-def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
+def path_j(u8: np.ndarray, tmp: str, smi: str) -> dict:
     """Path J: GLSL point shaders (op-list stages, MC_GLSL) and zero-border
     GLSL convs on the mc tier at 4K, the loop and shift graphs among them
     (benchmarks.LOOP_GRAPHS: op lists with loop regions and shift ops).
@@ -1491,11 +1118,10 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
     the card.  Then, counted, each graph of point_graphs() through
     Engine in the three formats: one frame on its tier against the same
     program per node, a sequence of 4, the launches of a frame.  Returns
-    the launch counts, the driven programs (``time_path_j`` times them: the
-    rgba32f and rgba16f ones, and the loop graphs' rgba8 too) and
-    glsl-chain's kernel error in rgba32f."""
+    the launch counts (the op-count sweep's kernels are checked first,
+    with the others)."""
     from reforge_tpu_torch.benchmarks import (
-        DEMO_CONFIG, LIBRARY_GRAPHS, LOOP_GRAPHS, build_program, plan_steps, point_graphs,
+        DEMO_CONFIG, LIBRARY_GRAPHS, build_program, plan_steps, point_graphs,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
     from reforge_tpu_torch.kernels import cuda_ops
@@ -1532,7 +1158,6 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
     # the input, so its checks hold bit for bit where the conv follows it).
     tiers = {"mixed_border": "segments", "bloom_glow": None, "op_probe": None,
              **{name: None for name in first}}
-    chain_err = None
     for name, (config, shader_dir) in graphs.items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
             prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_dir)
@@ -1550,8 +1175,6 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             err = _check_fmt(f"J graph_strip_mc {name} {fmt} 4K ({mc.mode}) vs its plain version",
                              fmt, got, want, rgba8_steps=steps8.get(name, 2),
                              share=shares.get(name, 0.0))
-            if (name, fmt) == ("glsl_chain", "rgba32f"):
-                chain_err = err
             del got, want
 
     # The four bit casts on special values: the kernel bit for bit its
@@ -1585,8 +1208,29 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             prog = build_program(config, WIDTH, HEIGHT, device="cuda", shader_path=empty)
             print(f"J plan {name} rgba32f 4K: {_mc_plan_text(prog, cuda_ops)}")
 
+    # The op-count sweep: a point stage after a conv adds no halo
+    # recompute, so each list keeps the mc plan.
+    xs = torch.from_numpy(np.random.default_rng(SEED + 17).random(big, dtype=np.float32)).cuda()
+    for reps in OP_SWEEP_REPS:
+        sdir = os.path.join(jdir, f"sweep_{reps}")
+        os.makedirs(sdir)
+        with open(os.path.join(sdir, "sweep.comp"), "w") as f:
+            f.write(_op_sweep_shader(reps))
+        prog = build_program(OP_SWEEP_GRAPH, WIDTH, HEIGHT, "rgba32f", device="cuda",
+                             shader_path=sdir)
+        if plan_steps(prog) != [("mc", ["gs", "sweep"])]:
+            raise AssertionError(f"J op sweep {reps}: plan {plan_steps(prog)}")
+        mc = prog._strip_plan[1]
+        n_ops = int(next(st.taps[0][0] for st in mc.stages if st.op.code == cuda_ops.MC_GLSL))
+        got = cuda_ops.graph_strip_mc(xs, 0.5, mc)
+        want = cuda_ops.graph_strip_mc_plain(xs, 0.5, mc)
+        torch.cuda.synchronize()
+        _check_fmt(f"J graph_strip_mc op sweep, {n_ops} ops, 4K rgba32f vs its plain version",
+                   "rgba32f", got, want)
+        del got, want
+    del xs
+
     cuda_ops.reset_launches()
-    driven = {}
     glsl_form = 0  # graph_strip_mc's launches on its glsl form (an op list, or zero mode)
     for name, (config, shader_dir) in point_graphs().items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
@@ -1617,14 +1261,11 @@ def path_j(u8: np.ndarray, tmp: str, smi: str) -> tuple[dict, dict, float]:
             mc = _mc_of(prog)
             if mc.mode == "zero" or cuda_ops.MC_GLSL in [st.op.code for st in mc.stages]:
                 glsl_form += cuda_ops.LAUNCHES["graph_strip_mc"] - before_mc
-            if fmt != "rgba8" or name in LOOP_GRAPHS:
-                driven[(name, fmt)] = (engine, prog, xf)
-            else:
-                engine.close()
+            engine.close()
             del frame, seq, per_node
     print(f"J graph_strip_mc launches on its glsl form: {glsl_form} of "
           f"{cuda_ops.LAUNCHES['graph_strip_mc']}")
-    return dict(cuda_ops.LAUNCHES), driven, chain_err
+    return dict(cuda_ops.LAUNCHES)
 
 
 # Path J's op-count sweep: a point shader of 4 + 6 reps ops (four loads,
@@ -1642,150 +1283,6 @@ def _op_sweep_shader(reps: int) -> str:
             "void main() {\n    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);\n"
             "    vec4 c = imageLoad(input_image, pos);\n    vec3 v = c.rgb;\n" + steps
             + "    imageStore(output_image, pos, vec4(v, c.a));\n}\n")
-
-
-def time_op_sweep(tmp: str, smi: str, n_sms: int, max_sm_mhz: float) -> list:
-    """Path J's op-count sweep at 4K in rgba32f: OP_SWEEP_GRAPH with a
-    shader of each OP_SWEEP_REPS (a point stage after a conv adds no halo
-    recompute, so the mc plan is kept), graph_strip_mc against its plain
-    version, then its ms (CUDA events), the ms an op over the shortest
-    list's, and the issue bound.  Returns [(ops, ms)]."""
-    from reforge_tpu_torch.benchmarks import build_program, plan_steps
-    from reforge_tpu_torch.kernels import cuda_ops
-
-    x = torch.from_numpy(np.random.default_rng(SEED + 17).random(
-        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
-    rows = []
-    for reps in OP_SWEEP_REPS:
-        sdir = os.path.join(tmp, "j", f"sweep_{reps}")
-        os.makedirs(sdir)
-        with open(os.path.join(sdir, "sweep.comp"), "w") as f:
-            f.write(_op_sweep_shader(reps))
-        prog = build_program(OP_SWEEP_GRAPH, WIDTH, HEIGHT, "rgba32f", device="cuda",
-                             shader_path=sdir)
-        if plan_steps(prog) != [("mc", ["gs", "sweep"])]:
-            raise AssertionError(f"J op sweep {reps}: plan {plan_steps(prog)}")
-        mc = prog._strip_plan[1]
-        n_ops = int(next(st.taps[0][0] for st in mc.stages if st.op.code == cuda_ops.MC_GLSL))
-        got = cuda_ops.graph_strip_mc(x, 0.5, mc)
-        want = cuda_ops.graph_strip_mc_plain(x, 0.5, mc)
-        torch.cuda.synchronize()
-        _check_fmt(f"J graph_strip_mc op sweep, {n_ops} ops, 4K rgba32f vs its plain version",
-                   "rgba32f", got, want)
-        del got, want
-        ms = _time_ms(lambda: cuda_ops.graph_strip_mc(x, 0.5, mc), 20)
-        bound_ms, bound_by = _issue_bound(2 * 4 * HEIGHT * WIDTH * 4,
-                                          HEIGHT * WIDTH * _mc_ops_per_pixel(mc, cuda_ops),
-                                          n_sms, max_sm_mhz)
-        over = (f"{(ms - rows[0][1]) / (n_ops - rows[0][0]):.5f} ms/op over the "
-                f"{rows[0][0]}-op list" if rows else f"{ms / n_ops:.5f} ms/op of the whole kernel")
-        print(f"J glsl ops {n_ops}: {ms:.4f} ms, {over} (gaussian sigma 2 before it, tile "
-              f"{mc.tile()[:2]}; bound {bound_ms:.4f} ms, {bound_by}) [{smi}]", flush=True)
-        rows.append((n_ops, ms))
-    return rows
-
-
-def _segments_without_point_stages(prog):
-    """A program of ``prog``'s graph planned as before GLSL point stages
-    (the mc planner without its GLSL point class), on a host build of its
-    own."""
-    from reforge_tpu_torch.graph import GraphProgram
-
-    seg = GraphProgram(prog.graph, prog.width, prog.height, prog.fmt, device=prog.device)
-    saved = GraphProgram._glsl_point
-    GraphProgram._glsl_point = lambda self, node: None
-    try:
-        seg._strip_plan
-    finally:
-        GraphProgram._glsl_point = saved
-    return seg
-
-
-def time_path_j(driven: dict, smi: str, n_sms: int, max_sm_mhz: float) -> dict:
-    """Path J's timings, after path I's: ms a frame (CUDA events) on the mc
-    tier against the segments plan without GLSL point stages (the point
-    graphs, the loop graphs in three formats: the parent's route, the
-    shader per node; the two border graphs ran per node before
-    zero-border plans) and per node; the kernel alone against its plain version and
-    its bound; bloom_glow with the builtin tonemap; then the device busy
-    share on each tier (``profile_path_j``, a child process).  Returns
-    glsl-chain's rgba32f kernel row (ms, plain ms, bound ms, bound by)."""
-    from reforge_tpu_torch.benchmarks import (
-        bench_program_sequenced, build_program, plan_steps, point_graphs,
-    )
-    from reforge_tpu_torch.kernels import cuda_ops
-
-    n_px = 4 * HEIGHT * WIDTH
-    row = None
-    for (name, fmt), (engine, prog, x) in driven.items():
-        mc = _mc_of(prog)
-        xs = x.to(prog.storage_dtype)
-        tier_ms = _time_ms(lambda: prog._forward(x, 0.5), 20)
-        pn_ms = _time_ms(lambda: prog._forward_nostrip(x, 0.5), 5)
-        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-        line = (f"J {name} {fmt} 4K: {_tier(prog)} {tier_ms:.3f} ms a frame, per node "
-                f"{pn_ms:.3f}")
-        if name not in ("zero_border", "mixed_border"):
-            seg = _segments_without_point_stages(prog)
-            seg_ms = _time_ms(lambda: seg._forward(x, 0.5), 20)
-            line += f", segments without point stages {seg_ms:.3f} ({plan_steps(seg)})"
-        k_ms = _time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 20)
-        p_ms = _time_ms(lambda: cuda_ops.graph_strip_mc_plain(xs, 0.5, mc), 3)
-        bound_ms, bound_by = _issue_bound(2 * n_px * xs.element_size(),
-                                          HEIGHT * WIDTH * _mc_ops_per_pixel(mc, cuda_ops),
-                                          n_sms, max_sm_mhz)
-        print(f"{line}; sequenced {seq['ms_per_frame']:.3f} ms a frame ({seq['fps']:.2f} fps); "
-              f"graph_strip_mc alone {k_ms:.3f} ms (tile {mc.tile()[:2]}), plain {p_ms:.3f}, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
-        if (name, fmt) == ("glsl_chain", "rgba32f"):
-            row = (k_ms, p_ms, bound_ms, bound_by)
-    # bloom_glow's mc plan with the builtin tonemap (an empty shader path):
-    # the cost of its bloom conv (radius 30, a pre-mapped input) at the
-    # 16x16 tile its slots leave, without the op list.
-    with tempfile.TemporaryDirectory(prefix="rf_chip_smoke_empty_") as empty:
-        for fmt in ("rgba32f", "rgba16f"):
-            _engine, _prog, x = driven[("bloom_glow", fmt)]
-            prog = build_program(point_graphs()["bloom_glow"][0], WIDTH, HEIGHT, fmt,
-                                 device="cuda", shader_path=empty)
-            mc, xs = _mc_of(prog), x.to(prog.storage_dtype)
-            print(f"J bloom_glow {fmt} 4K with the builtin tonemap: {_tier(prog)}, the refused "
-                  f"plan's graph_strip_mc "
-                  f"{_time_ms(lambda: cuda_ops.graph_strip_mc(xs, 0.5, mc), 10):.3f}"
-                  f" ms (tile {mc.tile()[:2]}), per node "
-                  f"{_time_ms(lambda: prog._forward_nostrip(x, 0.5), 5):.3f} [{smi}]", flush=True)
-    for engine, _prog, _x in driven.values():
-        engine.close()
-    # The busy shares, in a fresh process: a profiler session late in this
-    # one, after path I's, saw part of a frame's device events (path J's
-    # glsl-chain 0.55 of its 1.33 device ms on an H100 80GB HBM3).
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-path-j", smi],
-                   check=True, timeout=600)
-    return row
-
-
-def profile_path_j(smi: str) -> None:
-    """Path J's device busy shares (``chip_smoke.py --profile-path-j``, a
-    fresh process): each graph of point_graphs() on its tier and the
-    point graphs on the segments plan without GLSL point stages, rgba32f
-    and rgba16f, torch.profiler over 12 frames (6 for the segments
-    plan)."""
-    from reforge_tpu_torch.benchmarks import build_program, point_graphs
-
-    x = torch.from_numpy(np.random.default_rng(SEED + 13).random(
-        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
-    for name, (config, shader_dir) in point_graphs().items():
-        for fmt in ("rgba32f", "rgba16f"):
-            prog = build_program(config, WIDTH, HEIGHT, fmt, device="cuda", shader_path=shader_dir)
-            rows, busy = _profile(lambda: prog._forward(x, 0.5), 12)
-            top = "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in rows[:4])
-            text = (f"profile J {name} {fmt} {_tier(prog)}: device busy {busy:.1%}; device ms a "
-                    f"frame {sum(ms for _, ms in rows):.3f}: {top}")
-            if name not in ("zero_border", "mixed_border"):
-                seg = _segments_without_point_stages(prog)
-                rows_s, busy_s = _profile(lambda: seg._forward(x, 0.5), 6)
-                text += (f"; segments without point stages: busy {busy_s:.1%}, device ms a frame "
-                         f"{sum(ms for _, ms in rows_s):.3f}")
-            print(f"{text} [{smi}]", flush=True)
 
 
 # ---- path K: parallel/ --------------------------------------------------------------
@@ -1829,7 +1326,7 @@ def _k_sharded(graphs: dict, x: torch.Tensor, devices_for, label: str, smi: str)
     """Each graph of ``graphs`` in three formats through HaloShardedProgram on
     ``devices_for(slabs)``, against the unsharded program on cuda:0:
     bit-equal, or within the format's bound (rgba8 one code).  Returns the
-    rgba32f programs of the flagship and the demo for the timings."""
+    rgba32f programs of the flagship and the demo."""
     from reforge_tpu_torch.benchmarks import build_program
     from reforge_tpu_torch.kernels import cuda_ops
     from reforge_tpu_torch.parallel import HaloShardedProgram, make_row_mesh
@@ -1862,7 +1359,7 @@ def _k_sharded(graphs: dict, x: torch.Tensor, devices_for, label: str, smi: str)
     return kept
 
 
-def path_k(tmp: str, smi: str) -> tuple[dict, dict]:
+def path_k(tmp: str, smi: str) -> dict:
     """Path K: parallel/ on the card.  Kernel checks first (not counted):
     graph_strip (the flagship, its hoisted plane built for the slab) and
     graph_strip_mc (the demo; a GLSL point shader, the glsl form) on slab 1
@@ -1874,8 +1371,7 @@ def path_k(tmp: str, smi: str) -> tuple[dict, dict]:
     the program per node; (3) BatchProgram over 8 frames on 4 shares of
     cuda:0; (4) ``python -m reforge_tpu_torch --shard 1`` and ``--shard
     4``; then, where there are two cards or more, (1)-(3) on distinct
-    cards.  Returns the launch counts and the programs ``time_path_k``
-    times."""
+    cards.  Returns the launch counts."""
     from reforge_tpu_torch.benchmarks import FLAGSHIP_CONFIG, build_program
     from reforge_tpu_torch.io import encode
     from reforge_tpu_torch.kernels import cuda_ops
@@ -1974,61 +1470,15 @@ def path_k(tmp: str, smi: str) -> tuple[dict, dict]:
         devs = [f"cuda:{i}" for i in range(min(4, cards))]
         print(f"K cross-card branch: ran on {devs}; peer access 0 -> 1: "
               f"{torch.cuda.can_device_access_peer(0, 1)}")
-        kept.update({f"{k} on {len(devs)} cards": v for k, v in
-                     _k_sharded(graphs, x, lambda n: devs, ",".join(devs), smi).items()})
+        _k_sharded(graphs, x, lambda n: devs, ",".join(devs), smi)
         pipeline_and_batch(devs[:2], devs, ",".join(devs))
     else:
         print(f"K cross-card branch: did not run ({cards} card)")
-    return dict(cuda_ops.LAUNCHES), kept
-
-
-def _time_cards_ms(fn, devices, reps: int) -> float:
-    """ms a call of ``fn`` on the host clock, every card of ``devices``
-    synchronized before and after ``reps`` calls (CUDA events time one
-    card's stream only)."""
-    def sync():
-        for d in set(devices):
-            torch.cuda.synchronize(d)
-
-    for _ in range(2):
-        fn()
-    sync()
-    start = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    sync()
-    return (time.perf_counter() - start) * 1e3 / reps
-
-
-def time_path_k(kept: dict, smi: str) -> None:
-    """ms a 4K frame (rgba32f) of the flagship and the demo: unsharded, on
-    4 slabs of one card (CUDA events) and on distinct cards where path K ran
-    them (the host clock, every card synchronized), the slabs' exchange
-    alone, and the output slabs without the final gather."""
-    from reforge_tpu_torch.parallel import halo_pad
-
-    x = torch.from_numpy(np.random.default_rng(SEED + 17).random(
-        (4, HEIGHT, WIDTH), dtype=np.float32)).cuda()
-    for name, (prog, sharded) in kept.items():
-        slabs = sharded.shard_input(x)
-        _route, rh, mode = sharded._slab_route(1)
-        cards = {str(d) for d in sharded.devices}
-        timer = _time_ms if len(cards) == 1 else (
-            lambda fn, reps: _time_cards_ms(fn, sharded.devices, reps))
-        unsharded_ms = timer(lambda: prog._forward(x, 0.5), 20)
-        frame_ms = timer(lambda: sharded(slabs, 0.5), 20)
-        slabs_ms = timer(lambda: sharded.forward_slabs(slabs, 0.5), 20)
-        split_ms = timer(lambda: sharded.shard_input(x), 20)
-        exchange_ms = timer(lambda: [halo_pad(slabs, rh, i, mode) for i in range(sharded.n)], 20)
-        devices = ",".join(str(d) for d in sharded.devices)
-        print(f"K {name} rgba32f 4K: unsharded {unsharded_ms:.3f} ms a frame; {sharded.n} slabs "
-              f"on {devices} {frame_ms:.3f} (output slabs without the gather {slabs_ms:.3f}); "
-              f"exchange of {rh} rows a side {exchange_ms:.3f}; splitting the frame "
-              f"{split_ms:.3f} [{smi}]", flush=True)
+    return dict(cuda_ops.LAUNCHES)
 
 
 def path_k_alone() -> int:
-    """``python3 chip_smoke.py --path-k``: path K and its timings alone
+    """``python3 chip_smoke.py --path-k``: path K alone
     (the cross-card branch runs where there are two cards or more)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2045,9 +1495,7 @@ def path_k_alone() -> int:
     print(f"cards: {' | '.join(smi)}; peer access: {peers}")
     cuda_ops.load_library()
     with tempfile.TemporaryDirectory(prefix="rf_chip_smoke_k_") as tmp:
-        counts, kept = path_k(tmp, smi[0])
-        print(f"main path K launches: {json.dumps(counts)}")
-        time_path_k(kept, smi[0])
+        print(f"main path K launches: {json.dumps(path_k(tmp, smi[0]))}")
     return 0
 
 
@@ -2059,8 +1507,8 @@ def main() -> int:
     from reforge_tpu_torch.benchmarks import (
         CHAIN3_CONFIG, CW_CHECK_CONFIG, DEMO_CONFIG, EDGES_CONFIG, FLAGSHIP_CONFIG, GLSL_EXAMPLES,
         GLSL_GRAPHS, LIBRARY_GRAPHS, MC_CHECK_CONFIG, MC_TEST_GRAPHS, MIX_SECOND_FIRST_CONFIG,
-        PLAN_LIMIT_CONFIG, SHADER_DIR, STYLIZED_GRAPHS, bench_program, bench_program_sequenced,
-        build_flagship, build_program, example_config,
+        PLAN_LIMIT_CONFIG, SHADER_DIR, STYLIZED_GRAPHS, build_flagship, build_program,
+        example_config,
     )
     from reforge_tpu_torch.engine import Engine, RenderInfo
     from reforge_tpu_torch.glsl import affine
@@ -2074,26 +1522,16 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    # The SFU term of a bound counts at the card's highest SM clock.
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    max_sm_mhz = float(clocks.split(",")[0])
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"SM clock max, now (MHz): {clocks}; SMs {n_sms}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     # The GLSL conv-synthesis cache of this run (removed when the script
-    # ends), so the affine probe runs and its time shows.
+    # ends), so the affine probe runs.
     synth_cache = tempfile.TemporaryDirectory(prefix="rf_chip_smoke_synth_")
 
     # ---- 2. build -----------------------------------------------------------
-    start = time.perf_counter()
     cuda_ops.load_library()
-    print(f"build: {time.perf_counter() - start:.2f} s (nvcc per source in parallel, sm_90a)")
     log = cuda_ops.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
@@ -2364,7 +1802,6 @@ def main() -> int:
                 _check_fmt(f"{kname} {cname} {fmt} {h}x{w} vs per node on the card", fmt, got,
                            per_node)
 
-    strips = {}
     for fmt in ("rgba32f", "rgba16f", "rgba8"):
         for h, w in ((HEIGHT, WIDTH), (37, 71), (333, 520)):
             prog = build_flagship(w, h, fmt, device=dev)
@@ -2385,12 +1822,10 @@ def main() -> int:
             err = _check_fmt(f"graph_strip {fmt} {h}x{w} (op slots in, out: {slots}, "
                              f"{reused} reused)", fmt, got, want)
             if h == HEIGHT:
-                strips[fmt] = (prog, x)
                 if fmt == "rgba32f":
                     errs["graph_strip"] = err
 
     graphs = {"demo": DEMO_CONFIG, "edges": EDGES_CONFIG, "chain3": CHAIN3_CONFIG}
-    mc_progs = {}
 
     def mc_case(name, config, fmt, h, w, x, shader_path=None):
         prog = build_program(config, w, h, fmt, device=dev, shader_path=shader_path)
@@ -2413,7 +1848,6 @@ def main() -> int:
     for name, config in graphs.items():
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
             prog, xin, err = mc_case(name, config, fmt, HEIGHT, WIDTH, x4k)
-            mc_progs[(name, fmt)] = (prog, xin)
             if name == "demo" and fmt == "rgba32f":
                 errs["graph_strip_mc"] = err
     # The GLSL graphs of path E: gaussian_h.comp -> gaussian_v.comp (one
@@ -2425,19 +1859,10 @@ def main() -> int:
     # empty).
     affine.CACHE_DIR = Path(synth_cache.name)
     affine._SYNTH_CACHE.clear()
-    start = time.perf_counter()
-    build_program(GLSL_GRAPHS["glsl_blur"], WIDTH, HEIGHT, device=dev, shader_path=SHADER_DIR)
-    print(f"E2 glsl_blur graph build at 4K, affine probe included: "
-          f"{time.perf_counter() - start:.3f} s; again (cached): ", end="")
-    start = time.perf_counter()
-    build_program(GLSL_GRAPHS["glsl_blur"], WIDTH, HEIGHT, device=dev, shader_path=SHADER_DIR)
-    print(f"{time.perf_counter() - start:.3f} s")
     for name in ("glsl_blur", "glsl_blur_sharpen"):
         for fmt in ("rgba32f", "rgba16f", "rgba8"):
             for h, w, x in ((HEIGHT, WIDTH, x4k), (37, 71, ragged)):
                 prog, xin, _err = mc_case(name, GLSL_GRAPHS[name], fmt, h, w, x, SHADER_DIR)
-                if h == HEIGHT and fmt != "rgba8":
-                    mc_progs[(name, fmt)] = (prog, xin)
     # Every mc test graph on a ragged frame (border blocks only) and on one
     # with interior blocks; the mix wired second input first also against
     # the per-node tier on the card.
@@ -2539,8 +1964,6 @@ def main() -> int:
         engine.close()
         shot = {k: mid[k] - before[k] for k in before}
         tier = {k: after[k] - mid[k] for k in before}
-        print(f"{graph} {fmt} per-node ms (host clock after sync): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
         return one_shot, frame, seq, per_node, engine, shot, tier
 
     def check_outputs(graph, fmt, one_shot, frame, seq, per_node, engine, tier="strip tier",
@@ -2690,9 +2113,8 @@ def main() -> int:
     # their one-shot runs the interpreter per node and launches nothing);
     # E4 the reference's glsl_chain and glsl_sharpen on the mc tier as well
     # (tonemap.comp an op-list point stage, one graph_strip_mc a frame); E5
-    # the image-only examples in
-    # rgba32f, one frame each on the tier the planner picks, and their
-    # per-node times.
+    # the image-only examples in rgba32f, one frame each on the tier the
+    # planner picks.
     if not os.path.isfile(os.path.join("shaders", "passthrough.comp")):
         raise AssertionError("path E runs from the repository root (shaders/passthrough.comp)")
     cuda_ops.reset_launches()
@@ -2707,24 +2129,16 @@ def main() -> int:
         engine.close()
     outputs = {(g, fmt): drive(g, fmt, SHADER_DIR) for g in GLSL_GRAPHS
                for fmt in ("rgba32f", "rgba16f")}
-    e5 = {}
     for name in GLSL_EXAMPLES:
         engine = Engine(info(name, "rgba32f", False, SHADER_DIR))
         engine.load_input(u8)
         before = dict(cuda_ops.LAUNCHES)
-        start = time.perf_counter()
         frame = engine.render_frame_blocking(0.5)
-        frame_ms = (time.perf_counter() - start) * 1e3
         launched = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
-        _out, times = engine.program.run_per_node(engine._file_input(), 0.5)
         engine.close()
         if tuple(frame.shape) != big or not bool(torch.isfinite(frame.float()).all()):
             raise AssertionError(f"E5 {name}: bad shape or non-finite values")
-        tier = _tier(engine.program)
-        e5[name] = (tier, frame_ms, times)
-        print(f"E5 {name} rgba32f 4K: {tier}, first frame {frame_ms:.2f} ms, launches "
-              f"{json.dumps(launched)}; per-node ms (host clock after sync): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{smi}]")
+        print(f"E5 {name} rgba32f 4K: {_tier(engine.program)}, launches {json.dumps(launched)}")
     counts_e = dict(cuda_ops.LAUNCHES)
     print(f"main path E (GLSL: default config, glsl_blur, glsl_blur_sharpen, glsl_chain, "
           f"glsl_sharpen, {len(GLSL_EXAMPLES)} examples) launches: {json.dumps(counts_e)}")
@@ -2859,220 +2273,7 @@ def main() -> int:
         print(f"check {what}: max abs error {float(d.max()):.3g} ({steps} storage steps), "
               f"values that differ {float((d > 0).float().mean()):.3g}")
 
-    # ---- 5. timings -----------------------------------------------------------
-    # The kernel table first, while the card is cool (the frame timings
-    # below keep it busy for a minute); the card's clock, power and
-    # temperature before and after each group of timings.
-    print(f"card state before the kernel timings: {_card_state()}")
-    n_px = 4 * HEIGHT * WIDTH
-    prog32, x32 = strips["rgba32f"]
-    strip_instr = _strip_instructions(prog32._strip_program, cuda_ops, HEIGHT * WIDTH)
-    demo_prog, demo_x = mc_progs[("demo", "rgba32f")]
-    demo_mc = demo_prog._strip_plan[1]
-    timed = {
-        "sep_conv_fused": (lambda: cuda_ops.sep_conv_fused(x4k, w4, w4),
-                           lambda: cuda_ops.sep_conv_plain(x4k, [(w4, w4)]),
-                           _library_sep_conv(x4k, [(w4, w4)]),
-                           _bound(2 * 4 * n_px, 2 * 50 * n_px)),
-        "sep_conv_fused_multi": (
-            lambda: cuda_ops.sep_conv_fused_multi(x4k, [(w2, w2), (w4, w4)]),
-            lambda: cuda_ops.sep_conv_plain(x4k, [(w2, w2), (w4, w4)]),
-            _library_sep_conv(x4k, [(w2, w2), (w4, w4)]),
-            _bound(3 * 4 * n_px, 2 * 76 * n_px)),
-        "sep_conv_fused_mxu": (lambda: cuda_ops.sep_conv_fused_mxu(x4k_bf, w4, w4),
-                               lambda: cuda_ops.sep_conv_plain(x4k_bf, [(w4, w4)]),
-                               _library_sep_conv(x4k_bf, [(w4, w4)]),
-                               _bound(6 * n_px, 2 * 50 * n_px)),
-        "graph_strip": (lambda: cuda_ops.graph_strip(x32, 0.5, prog32._strip_program),
-                        lambda: cuda_ops.graph_strip_plain(x32, 0.5, prog32._strip_program),
-                        None,
-                        _issue_bound(2 * 4 * n_px + 4 * HEIGHT * WIDTH, strip_instr, n_sms,
-                                     max_sm_mhz)),
-        "sep_conv_fused_mxu_x3": (lambda: cuda_ops.sep_conv_fused_mxu_x3(x4k, w8, w8),
-                                  lambda: cuda_ops.sep_conv_plain(x4k, [(w8, w8)]),
-                                  _library_sep_conv(x4k, [(w8, w8)]),
-                                  _bound(2 * 4 * n_px, 2 * 98 * n_px)),
-        "stencil_apply": (
-            lambda: cuda_ops.stencil_apply(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
-            lambda: cuda_ops.stencil_apply_plain(x4k, 1, 1, cuda_ops.wsum(library.SHARPEN_TAPS)),
-            _library_stencil(x4k, library.SHARPEN_TAPS),
-            # five rounded products and four rounded sums a pixel
-            _issue_bound(2 * 4 * n_px, 9 * n_px, n_sms, max_sm_mhz)),
-        "graph_strip_mc": (lambda: cuda_ops.graph_strip_mc(demo_x, 0.5, demo_mc),
-                           lambda: cuda_ops.graph_strip_mc_plain(demo_x, 0.5, demo_mc),
-                           None,
-                           _issue_bound(2 * 4 * n_px,
-                                        HEIGHT * WIDTH * _mc_ops_per_pixel(demo_mc, cuda_ops),
-                                        n_sms, max_sm_mhz)),
-    }
-    # conv1d: frost's box at radius 160 (the kernel table's rows), radius
-    # 400, and a gaussian at radius 160 (taps that differ: two instructions
-    # a tap and output in the bound).
-    conv1d_timed = {"": box_weights(160), " r=400": box_weights(400),
-                    " gaussian r=160": gaussian_weights(160 / 3.0, 160)}
-    for suffix, wr in conv1d_timed.items():
-        for along_h in (True, False):
-            kname = "conv1d_h" if along_h else "conv1d_w"
-            entry = cuda_ops.conv1d_h if along_h else cuda_ops.conv1d_w
-            timed[kname + suffix] = (
-                lambda e=entry, w=wr: e(x4k, w),
-                lambda w=wr, d=-2 if along_h else -1: cuda_ops.correlate1d(x4k, w, d),
-                _library_conv1d(x4k, wr, along_h),
-                _issue_bound(2 * 4 * n_px, _conv1d_instructions(wr, n_px), n_sms, max_sm_mhz))
-    r4, op4 = reduce_ops["r4"]
-    expf_sass = _expf_sass_count()
-    reduce_bound_ms, reduce_bound_by, reduce_terms = _reduce_bound(
-        HEIGHT * WIDTH, len(op4.taps), expf_sass, n_sms, max_sm_mhz)
-    print(f"stencil_reduce_mc bound terms at 4K r={r4} ({len(op4.taps)} taps): {reduce_terms}")
-    timed["stencil_reduce_mc"] = (lambda: cuda_ops.stencil_reduce_mc(stack4k, r4, r4, op4),
-                                  lambda: cuda_ops.stencil_reduce_mc_plain(stack4k, r4, r4, op4),
-                                  None, (reduce_bound_ms, reduce_bound_by))
-    # stencil_apply_mc: 4 -> 4 channels at radius 2 (400 terms) in f32 (the
-    # kernel table's row) and bf16, and the table with half its terms zero.
-    # Bound: four planes read and four written, or a rounded multiply and
-    # a rounded add per term present and pixel, in issue slots.  Library:
-    # one replicate pad and one dense F.conv2d with the (4, 4, 5, 5) table
-    # in the input's type.
-    labels = {}
-    for suffix, xs, table in (("", x4k, "4->4 r2"), (" bf16", x4k_bf, "4->4 r2"),
-                              (" half the terms", x4k, "4->4 r2 half")):
-        op9 = lin_ops[table]
-        k9 = torch.from_numpy(op9.weights).to(dev, xs.dtype)
-        timed["stencil_apply_mc" + suffix] = (
-            lambda v=xs, op=op9: cuda_ops.stencil_apply_mc(v, op),
-            lambda v=xs, op=op9: cuda_ops.stencil_apply_mc_plain(v, op),
-            lambda v=xs, k=k9: F.conv2d(F.pad(v[None], (2, 2, 2, 2), mode="replicate"), k)[0],
-            _issue_bound(2 * 4 * n_px * xs.element_size() // 4,
-                         2 * op9.n_terms * HEIGHT * WIDTH, n_sms, max_sm_mhz))
-        labels["stencil_apply_mc" + suffix] = (
-            f" ({xs.dtype}, {table}, {op9.n_terms} terms, {lin_forms[table]} form)")
-    op9 = lin_ops["4->4 r2"]
-    k9 = torch.from_numpy(op9.weights).to(dev)
-    lib9 = F.conv2d(F.pad(x4k[None], (2, 2, 2, 2), mode="replicate"), k9)[0]
-    print(f"library stencil (replicate pad + dense conv2d, TF32 off) vs plain, 4->4 r2: "
-          f"{_max_err(lib9, cuda_ops.stencil_apply_mc_plain(x4k, op9)):.3g}")
-    del lib9
-    ms = {}
-    for name, (kernel, plain, lib_call, (bound_ms, bound_by)) in timed.items():
-        k_ms = _time_ms(kernel, 20)
-        p_ms = _time_ms(plain, 5)
-        l_ms = _time_ms(lib_call, 20) if lib_call is not None else None
-        ms[name] = (k_ms, p_ms, bound_ms, bound_by, l_ms)
-        lib_txt = f"{l_ms:.3f}" if l_ms is not None else "no single call"
-        print(f"{name}{labels.get(name, '')} 4K: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms "
-              f"({bound_by}), library {lib_txt} [{smi}]")
-    lib_err = max(_max_err(g, w) for g, w in zip(_library_sep_conv(x4k, [(w8, w8)])(),
-                                                  cuda_ops.sep_conv_plain(x4k, [(w8, w8)])))
-    print(f"library conv (replicate pad + depthwise conv2d, TF32 off) vs plain, r=24: {lib_err:.3g}")
-    extra = {
-        "graph_strip rgba16f": (lambda: cuda_ops.graph_strip(strips["rgba16f"][1], 0.5,
-                                                             strips["rgba16f"][0]._strip_program)),
-        "stencil_apply median9 4ch (r1 form)": lambda: cuda_ops.stencil_apply(
-            x4k, 1, 1, cuda_ops.MEDIAN9),
-        "stencil_apply sobel_x 1ch (r1 form)": lambda: cuda_ops.stencil_apply(
-            luma4k, 1, 1, cuda_ops.wsum(library.SOBEL_X_TAPS)),
-        "stencil_reduce_mc bilateral r=3 (watercolor, run form)": (
-            lambda: cuda_ops.stencil_reduce_mc(stack4k, 3, 3, reduce_ops["r3"][1])),
-    }
-    for (graph, fmt), (prog, x) in mc_progs.items():
-        if fmt != "rgba8":
-            extra[f"graph_strip_mc {graph} {fmt}"] = (
-                lambda p=prog, v=x: cuda_ops.graph_strip_mc(v, 0.5, p._strip_plan[1]))
-    for name, fn in extra.items():
-        print(f"{name} 4K: kernel {_time_ms(fn, 20):.3f} ms [{smi}]")
-    print(f"card state after the kernel timings: {_card_state()}")
-    for fmt in ("rgba32f", "rgba16f"):
-        prog, x = strips[fmt]
-        seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
-        disp = bench_program(prog, x, frames=48)
-        print(f"flagship {fmt} strip tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
-              f"{disp['fps']:.2f} fps [{smi}]")
-    for graph in graphs:
-        for fmt in ("rgba32f", "rgba16f"):
-            prog, x = mc_progs[(graph, fmt)]
-            seq = bench_program_sequenced(prog, x, frames=96, chunk=24)
-            disp = bench_program(prog, x, frames=48)
-            pn = build_program(graphs[graph], WIDTH, HEIGHT, fmt, device=dev, plan_strips=False)
-            pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 10)
-            print(f"{graph} {fmt} mc tier 4K: sequenced {seq['fps']:.2f} fps, per-dispatch "
-                  f"{disp['fps']:.2f} fps; per-node tier {pn_ms:.3f} ms a frame [{smi}]")
-    # Path E: the GLSL graphs on the mc tier against their per-node tier
-    # (the interpreter); path J times E4's against the segments plan.
-    for graph, config in GLSL_GRAPHS.items():
-        for fmt in ("rgba32f", "rgba16f"):
-            prog = build_program(config, WIDTH, HEIGHT, fmt, device=dev, shader_path=SHADER_DIR)
-            x = x4k.to(prog.storage_dtype)
-            seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-            tier = _tier(prog)
-            line = (f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
-                    f"({seq['fps']:.2f} fps)")
-            if prog._strip_plan:
-                pn = build_program(config, WIDTH, HEIGHT, fmt, device=dev, plan_strips=False,
-                                   shader_path=SHADER_DIR)
-                line += f"; per-node tier {_time_ms(lambda: pn._forward(x, 0.5), 5):.3f} ms a frame"
-            print(f"{line} [{smi}]")
-    for (graph, fmt), (prog, x, _out, _counts) in built.items():
-        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-        disp = bench_program(prog, x, frames=24)
-        print(f"{graph} {fmt} per-node 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
-              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
-              f"({disp['fps']:.2f} fps) [{smi}]")
-    frame_ms_d = {}
-    for (graph, fmt), (prog, x, _out, _counts) in built_d.items():
-        seq = bench_program_sequenced(prog, x, frames=48, chunk=24)
-        disp = bench_program(prog, x, frames=24)
-        frame_ms_d[(graph, fmt)] = seq["ms_per_frame"]
-        tier = _tier(prog)
-        print(f"{graph} {fmt} {tier} 4K: sequenced {seq['ms_per_frame']:.3f} ms a frame "
-              f"({seq['fps']:.2f} fps), per-dispatch {disp['ms_per_frame']:.3f} ms "
-              f"({disp['fps']:.2f} fps) [{smi}]")
-    # Neon edges: the port's tier rule (mc whenever a plan fits) meets the
-    # first graph the reference runs as segments; against per node.
-    for fmt in ("rgba32f", "rgba16f"):
-        prog, x, _out, _counts = built_d[("neon_edges", fmt)]
-        pn = build_program(LIBRARY_GRAPHS["neon_edges"], WIDTH, HEIGHT, fmt, device=dev,
-                           plan_strips=False)
-        mc_ms = _time_ms(lambda: prog._forward(x, 0.5), 20)
-        pn_ms = _time_ms(lambda: pn._forward(x, 0.5), 20)
-        print(f"neon_edges {fmt} 4K: mc tier {mc_ms:.3f} ms a frame (tile "
-              f"{prog._strip_plan[1].tile()[:2]}), per-node tier {pn_ms:.3f} ms a frame [{smi}]")
-    for graph in ("flagship", "demo", "newsprint", "frost"):
-        for fmt in ("rgba32f", "rgba16f"):
-            engine = Engine(info(graph, fmt, True))
-            lat = []
-            for _ in range(5):
-                start = time.perf_counter()
-                engine.render_one_shot(u8, 0.5)
-                lat.append((time.perf_counter() - start) * 1000.0)
-            print(f"{graph} {fmt} one-shot 4K latency (u8 in, u8 on the host out): median "
-                  f"{statistics.median(lat):.2f} ms of {len(lat)} [{smi}]")
-
-    print(f"card state after the frame timings: {_card_state()}")
-
-    # Where the device time goes: the mc tier over 24 frames and the
-    # per-node tier over 3, rgba32f.
-    for graph in graphs:
-        prog, x = mc_progs[(graph, "rgba32f")]
-        pn = build_program(graphs[graph], WIDTH, HEIGHT, "rgba32f", device=dev, plan_strips=False)
-        for tier, fn, frames in (("mc", lambda: prog._forward(x, 0.5), 24),
-                                 ("per-node", lambda: pn._forward(x, 0.5), 3)):
-            rows, busy = _profile(fn, frames)
-            top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:6])
-            print(f"profile {graph} rgba32f {tier}: device busy {busy:.1%}; ms a frame: {top} [{smi}]")
-    slowest = max(LIBRARY_GRAPHS, key=lambda g: frame_ms_d[(g, "rgba32f")])
-    for graph in ("watercolor", "newsprint", "frost", slowest):
-        prog, x, _out, _counts = (built_d if graph in graphs_d else built)[(graph, "rgba32f")]
-        rows, busy = _profile(lambda: prog._forward(x, 0.5), 3)
-        top = "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in rows[:10])
-        print(f"profile {graph} rgba32f per-node: device busy {busy:.1%}; device ms a frame "
-              f"{sum(ms for _, ms in rows):.3f}: {top} [{smi}]")
-
-
-    # Path F: storage buffers, atomics and lut1d; path G: live reload.  They
-    # run after the timings of paths A-E: run before them, they left the
-    # one-shot latencies (pageable host copies) 1-3 ms higher on an H100
-    # 80GB HBM3 machine.
+    # Path F: storage buffers, atomics and lut1d; path G: live reload.
     counts_f = path_f(dev, u8, tmp, smi)
     print(f"main path F (equalize, auto_expose, waveform_scope, lut1d; plain PyTorch) "
           f"launches: {json.dumps(counts_f)}")
@@ -3084,30 +2285,20 @@ def main() -> int:
     counts_h = path_h(tmp, smi)
     print(f"main path H (the CLI: one-shot flagship, resize, card vs CPU, live loop, batch, "
           f"video) launches: {json.dumps(counts_h)}")
-    counts_i, driven_i = path_i(u8, tmp, smi)
+    counts_i = path_i(u8, tmp, smi)
     print(f"main path I (segments and a .py kernel) launches: {json.dumps(counts_i)}")
     if counts_i["graph_strip_mc"] == 0:
         raise AssertionError("main path I never launched graph_strip_mc")
-    counts_j, driven_j, chain_err = path_j(u8, tmp, smi)
+    counts_j = path_j(u8, tmp, smi)
     print(f"main path J (GLSL point shaders and zero-border convs on the mc tier) launches: "
           f"{json.dumps(counts_j)}")
     if counts_j["graph_strip_mc"] == 0:
         raise AssertionError("main path J never launched graph_strip_mc")
-    time_path_i(driven_i, smi)
-    del driven_i
-    chain_row = time_path_j(driven_j, smi, n_sms, max_sm_mhz)
-    del driven_j
-    time_op_sweep(tmp, smi, n_sms, max_sm_mhz)
-    counts_k, kept_k = path_k(tmp, smi)
+    counts_k = path_k(tmp, smi)
     print(f"main path K (parallel/: row slabs, pipeline stages, batch shares, --shard) launches: "
           f"{json.dumps(counts_k)}")
     if counts_k["graph_strip"] == 0 or counts_k["graph_strip_mc"] == 0:
         raise AssertionError("main path K never launched graph_strip or graph_strip_mc")
-    time_path_k(kept_k, smi)
-    del kept_k
-    print(f"graph_strip_mc glsl-chain rgba32f 4K: kernel {chain_row[0]:.3f} ms, plain "
-          f"{chain_row[1]:.3f} ms, bound {chain_row[2]:.4f} ms ({chain_row[3]}), max abs error "
-          f"{chain_err:.3g} [{smi}]")
 
     sources = {
         "graph_strip": "reforge_tpu_torch/csrc/graph_strip.cu",
@@ -3145,8 +2336,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": sources.get(name, "reforge_tpu_torch/csrc/sep_conv.cu"),
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms[name][0], "plain_ms": ms[name][1],
-            "bound_ms": ms[name][2], "bound_by": ms[name][3], "library_ms": ms[name][4],
+            "max_abs_err": errs[name],
         }
         for name in replaces
     ]
@@ -3161,12 +2351,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--reload-latency"]:  # path G's child process
-        reload_latency(sys.argv[2])
-        sys.exit(0)
-    if sys.argv[1:2] == ["--profile-path-j"]:  # path J's child process
-        profile_path_j(sys.argv[2])
-        sys.exit(0)
     if sys.argv[1:2] == ["--path-k"]:  # path K alone, e.g. on four cards
         sys.exit(path_k_alone())
     sys.exit(main())

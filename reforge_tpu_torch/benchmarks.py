@@ -1,4 +1,4 @@
-"""Benchmark graph definitions and measurement helpers (the port of
+"""Benchmark graph definitions and helpers (the port of
 ``reforge_tpu/benchmarks.py``).
 
 Graphs:
@@ -32,14 +32,10 @@ Graphs:
     tier, and the port's nblur.comp (zeros out of bounds) before a builtin
     tonemap (the mc tier in zero mode) and before a builtin gaussian
     (mixed borders: segments).
-
-Timings end in ``torch.cuda.synchronize()`` on a GPU: launches are
-asynchronous, and the synchronize proves every frame finished.
 """
 
 from __future__ import annotations
 
-import time as _time
 from pathlib import Path
 
 import numpy as np
@@ -508,50 +504,6 @@ def plan_steps(program: GraphProgram) -> list[tuple[str, list[str]]]:
 def build_flagship(width: int, height: int, fmt: str = "rgba32f", device="cuda",
                    plan_strips: bool = True) -> GraphProgram:
     return build_program(FLAGSHIP_CONFIG, width, height, fmt, device, plan_strips)
-
-
-def _sync(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-
-
-def bench_program(program, file_input: torch.Tensor, frames: int = 60, warmup: int = 5) -> dict:
-    """Steady-state frames/sec, one ``program(...)`` dispatch per frame."""
-    for i in range(warmup):
-        program(file_input, float(i) * 0.01)
-    _sync(file_input)
-    start = _time.perf_counter()
-    for i in range(frames):
-        program(file_input, 1.0 + i * 0.016)
-    _sync(file_input)
-    elapsed = _time.perf_counter() - start
-    return {
-        "frames": frames,
-        "seconds": elapsed,
-        "fps": frames / elapsed,
-        "ms_per_frame": elapsed / frames * 1000.0,
-    }
-
-
-def bench_program_sequenced(program, file_input: torch.Tensor, frames: int = 120,
-                            chunk: int = 24, warmup_chunks: int = 2) -> dict:
-    """Steady-state frames/sec through ``render_sequence`` in chunks of
-    ``chunk`` frames (the multi-frame export path)."""
-    frames = max(frames // chunk, 1) * chunk
-    for i in range(warmup_chunks):
-        program.render_sequence(file_input, float(i), 0.016, chunk)
-    _sync(file_input)
-    start = _time.perf_counter()
-    for c in range(frames // chunk):
-        program.render_sequence(file_input, 1.0 + c * chunk * 0.016, 0.016, chunk)
-    _sync(file_input)
-    elapsed = _time.perf_counter() - start
-    return {
-        "frames": frames,
-        "seconds": elapsed,
-        "fps": frames / elapsed,
-        "ms_per_frame": elapsed / frames * 1000.0,
-    }
 
 
 def make_test_image(height: int, width: int, seed: int = 0, device="cuda") -> torch.Tensor:

@@ -46,7 +46,7 @@
 // There (H100 80GB HBM3, 700 W) the box takes 0.534 ms on conv1d_h and
 // 0.514 on conv1d_w, the tap loop 0.37 and 0.38 of it (1.15-1.19x its
 // bound); the gaussian 0.875 and 0.828, the tap loop 1.07-1.15x its
-// bound (mc_ablation; PERF.md).
+// bound (parts of the kernel cut out, on the card; PERF.md §6).
 //
 // Grid: (ceil(W / TW), ceil(H / TH), C).  Blocks: 256 threads, but the H
 // pass's shared-memory form runs 2 TH (TH / kRun1 runs of 32 columns).

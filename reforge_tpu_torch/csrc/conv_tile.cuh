@@ -29,7 +29,7 @@
 //   * The W pass's runs go out through a staging tile in shared memory,
 //     so warps store whole rows: full 32-byte sectors, coalesced.
 // Tensor cores are not used: at these tap counts the f32 FMAs' own bound
-// (operations over the f32 rate, as chip_smoke.py counts it: 0.05 ms for
+// (operations over the f32 rate, an FMA two: 0.05 ms for
 // a radius-12 conv of a 4K frame on an H100) is under the device-memory
 // time, and a TF32 or bf16x3 band product would change the rounding the
 // port holds the reference to (f32 accumulation, one rounding an FMA).

@@ -42,8 +42,7 @@
 // divisions' slow-path calls; half the time), then the convs, against
 // 265 MB of device memory for the flagship at 4K.  The flagship at 4K on
 // an H100 80GB HBM3 (700 W): 0.665 ms in rgba32f, 0.701 in rgba16f,
-// against its 0.089 ms bound (1.41 before this design; PERF.md,
-// chip_smoke.py phase 5).
+// against its 0.089 ms bound (1.41 before this design; PERF.md §6).
 //
 // Grid: (C, ceil(W / TW), ceil(H / TH)).
 

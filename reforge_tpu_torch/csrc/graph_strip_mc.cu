@@ -73,10 +73,10 @@
 // Bound on the card: issue slots.  The demo's conv (blur sigma 8, 49 taps
 // a pass) issues 2.75 FMAs an output and tap at its 16x64 tile (the H pass
 // covers the 48 halo columns).  At 3840x2160 on an H100 80GB HBM3 at
-// 700 W the demo takes 0.900 ms (1.856 before this design; mc_ablation
-// --parent): conv FMAs 0.28, the conv's window loads, phases and stores
-// 0.33, sharpen 0.10, the input block 0.10 (mc_ablation --kernel mc;
-// PERF.md).
+// 700 W the demo takes 0.900 ms (1.856 before this design; an A/B on the
+// card): conv FMAs 0.28, the conv's window loads, phases and stores
+// 0.33, sharpen 0.10, the input block 0.10 (parts cut out on the card;
+// PERF.md §6).
 //
 // Grid: (ceil(W / TW), ceil(H / TH)).
 

@@ -21,8 +21,7 @@
 // shared-memory loads and the staged stores, each near the device-memory
 // time.  At 4K on an H100 80GB HBM3 (700 W): sep_conv_fused radius 12
 // 0.212 ms against its 0.079 ms bound (0.61 before this stage), _multi
-// radii 6 + 12 0.314, _mxu 0.228, _mxu_x3 radius 24 0.448 (PERF.md,
-// chip_smoke.py phase 5).
+// radii 6 + 12 0.314, _mxu 0.228, _mxu_x3 radius 24 0.448 (PERF.md §6).
 //
 // Grid: (ceil(W / TW), ceil(H / TH), C).  Outputs are N f32 planes
 // stacked as (N, C, H, W).

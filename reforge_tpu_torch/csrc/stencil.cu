@@ -156,8 +156,8 @@ __device__ __forceinline__ float r1_eval(const float* r0, const float* r1, const
 // Block (bx, by) makes output tile (by, bx) of channels blockIdx.z,
 // blockIdx.z + gridDim.z, ...  At least three blocks an SM, the row loop
 // rolled: left alone, ptxas gave median9's form 138 registers, one block
-// an SM, 40% slower; a floor of four made it spill (mc_ablation --kernel
-// stencil, bounds_1 and bounds_4).
+// an SM, 40% slower; a floor of four made it spill (both timed on the
+// card).
 template <int kKind>
 __global__ void __launch_bounds__(kThreads, 3)
 stencil_r1_kernel(const float* __restrict__ x, float* __restrict__ out, int C, int H, int W,

@@ -49,7 +49,7 @@
 //
 // Bound on the card: issue slots.  A tap and pixel needs a difference, a
 // square, a scale, expf (8 SASS instructions around its MUFU.EX2 in a
-// loop on sm_90a, chip_smoke._expf_sass_count), the spatial weight, three
+// loop on sm_90a, read with cuobjdump -sass), the spatial weight, three
 // products and four sums: 19 instructions, against 28 bytes of device
 // memory per pixel for all taps together.  The range weight of tap o at
 // pixel p equals that of tap -o at pixel p + o (the difference only
@@ -58,8 +58,8 @@
 // with its shared loads, cuobjdump -sass), the shared form about 32 (its
 // loop's loads and
 // indexing); a window copied before the tile's work and not beside it
-// cost the run form a sixth of its time (mc_ablation --kernel reduce,
-// no_load).  PERF.md has the times.
+// cost the run form a sixth of its time (the window load cut out, on
+// the card).  PERF.md §6 has the times.
 //
 // Tap positions arrive as two int arrays, dy then dx, each in 0..2R (the
 // shared and global forms), or as a weight table of (2R+1)^2 and a mask

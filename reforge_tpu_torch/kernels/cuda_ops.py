@@ -1177,7 +1177,7 @@ MC_SMEM_LIMIT = SMEM_LIMIT - 4096
 # channel's copy in flight beside this one's passes) or one (a larger tile
 # in the same footprint); McProgram.tile weighs both.  At the same tile two
 # ran glsl-blur rgba16f 0.9% and glsl-blur-sharpen rgba16f 3.4% faster
-# than one (mc_ablation one_window; PERF.md).
+# than one (an A/B on the card; PERF.md §6).
 MC_WINDOW_BUFFERS = (2, 1)
 # The glsl form's op list (csrc graph_strip_mc.cu glsl_cells): the pixels a
 # thread it is compiled for, so that a register file's plane holds 256 x
@@ -1185,7 +1185,7 @@ MC_WINDOW_BUFFERS = (2, 1)
 # takes the first where its tile is chosen, and a later one where its
 # files fit beside that same tile (McProgram.tile).  Four pixels ran
 # glsl-chain's op list at 0.61 the time of two, but at a smaller tile
-# glsl-chain rgba16f 1.38x slower (mc_ablation; PERF.md).
+# glsl-chain rgba16f 1.38x slower (an A/B on the card; PERF.md §6).
 MC_GLSL_PIXELS = (2, 4)
 # The glsl form's wide op word (glsl/lower.py PointProgram.packed, header
 # flag 4): lists past the narrow word's fields, and lists whose register
@@ -1758,8 +1758,8 @@ def graph_strip_mc(x: torch.Tensor, t: float, prog: McProgram, row0: int = 0,
     halo columns of the H pass and the halo rows and columns of each
     stage's extent multiply (the demo's blur sigma 8 at its 16x64 tile:
     2.75 FMAs an output and tap).  Times (demo 3840x2160 rgba32f: 0.900
-    ms, 1.856 before this design; H100 80GB HBM3 at 700 W; ``mc_ablation
-    --parent``) and the ablation are in PERF.md."""
+    ms, 1.856 before this design; H100 80GB HBM3 at 700 W; an A/B on the
+    card) are in PERF.md §6."""
     dtype = torch.bfloat16 if prog.fmt == "rgba16f" else torch.float32
     _check_image(x, (dtype,), "graph_strip_mc")
     if x.dim() != 3 or x.shape[0] != 4 or x.shape[2] != prog.width:
@@ -2137,7 +2137,7 @@ def conv1d_h(x: torch.Tensor, weights, mode: str = "edge") -> torch.Tensor:
     0.08 ms for the bytes.  There the box takes 0.534 ms (2.09 before
     this design), a gaussian 0.875, the box at radius 400 2.11, whose
     window takes a 125 KB tile: one block an SM (H100 80GB HBM3, 700 W;
-    ``mc_ablation --parent``)."""
+    an A/B on the card, PERF.md §6)."""
     return _conv1d(x, weights, mode, True)
 
 
@@ -2151,7 +2151,7 @@ def conv1d_w(x: torch.Tensor, weights, mode: str = "edge") -> torch.Tensor:
     computes 16 consecutive outputs of one row, a warp 16 rows and two
     runs.  Box taps and bound as ``conv1d_h``: the box 0.514 ms at 4K
     radius 160 (before this design 2.20), a gaussian 0.828, the box at
-    radius 400 1.15 (H100 80GB HBM3, 700 W; ``mc_ablation --parent``)."""
+    radius 400 1.15 (H100 80GB HBM3, 700 W; an A/B on the card, PERF.md §6)."""
     return _conv1d(x, weights, mode, False)
 
 
